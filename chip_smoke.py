@@ -5,14 +5,25 @@
 
 Phases, each of which raises on failure (exit code != 0):
   1. env      torch / CUDA / nvcc versions, the card's name and power limit
-  2. build    nvcc builds shadernn_tpu_torch/csrc/*.cu from the checkout
-  3. kernel   the conv-chain kernel through both entry points against its
-              plain PyTorch version on the card, at the main path's shapes
-              and at edge geometries
+  2. build    nvcc builds shadernn_tpu_torch/csrc/*.cu from the checkout,
+              one process per source
+  3. kernel   each kernel against its plain PyTorch version on the card, at
+              the main paths' shapes and at edge geometries: the conv-chain
+              kernel through both entry points; the inverted-residual block
+              kernel at every block geometry of MobileNetV2 224 (b8), the
+              trained model's t=1 block and a ragged 13x9 block, bf16 and
+              fp32; the single-conv kernel at the trained model's folded
+              stem, k5 c1->16 and k3 c128->128 with asymmetric pads
   4. main     ESPCN 2x at 540p, trained weights, batch 8, through
               Engine.from_json at BF16 and at FP32, 5 steps each; every
-              step must launch the kernel once; the output is checked
-              against the port's plain (TORCH backend) forward on the card
+              step must launch the chain kernel once. MobileNetV2 224
+              (seeded weights), batch 8, through Engine.from_graph at BF16
+              and FP32, 5 steps each: every step launches the block kernel
+              11 times and no other kernel. The trained MobileNetV2 (10
+              classes) through Engine.from_json at b64: 13 blocks and one
+              single conv per step, top-1 >= 0.9 on 256 images of its task.
+              Outputs are checked against the port's plain (TORCH backend)
+              forward on the card (MobileNetV2 on probabilities and logits)
   5. timing   kernel, plain version, a cuDNN yardstick and the bound
 Prints the `kernels` JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Imports no JAX and nothing of
@@ -89,11 +100,15 @@ def main() -> int:
 
     from shadernn_tpu_torch import Engine, EngineOptions, Precision
     from shadernn_tpu_torch.config import BackendKind
+    from shadernn_tpu_torch.graph import fusion
     from shadernn_tpu_torch.graph.parser import parse_model_file
-    from shadernn_tpu_torch.kernels import _build, chain
-    from shadernn_tpu_torch.models.zoo import ESPCN_TRAINED
+    from shadernn_tpu_torch.kernels import _build, chain, conv, invres
+    from shadernn_tpu_torch.models.mobilenetv2 import build_mobilenetv2
+    from shadernn_tpu_torch.models.zoo import ESPCN_TRAINED, MOBILENETV2_TRAINED
+    from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
     from shadernn_tpu_torch.ops.conv import full_precision
     from shadernn_tpu_torch.ops.shape_ops import depth_to_space
+    from shadernn_tpu_torch.tools.train_resnet18 import synth_cls
 
     dev = torch.device("cuda", 0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -125,6 +140,19 @@ def main() -> int:
     def on_dev(ops):
         return [{k: v.to(dev) for k, v in d.items()} for d in ops]
 
+    def held(label, entry, got, want, dt):
+        """Kernel output against its plain version: max-abs-diff within
+        TOL * max(1, max|plain|), finite, same shape and dtype."""
+        assert got.shape == want.shape and got.dtype == want.dtype, (got.shape, want.shape)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = max(1.0, want.float().abs().max().item())
+        tol = (TOL_BF16 if dt == bf16 else TOL_FP32) * scale
+        ok = err <= tol and torch.isfinite(got.float()).all().item()
+        log(f"[kernel] {label:<34} {entry:<24} max_abs_diff {err:.3e} tol {tol:.1e} "
+            f"{'ok' if ok else 'FAIL'}")
+        assert ok, f"{label}: kernel disagrees with its plain version"
+        return err
+
     def random_chain(cfg, cin):
         nodes, c = [], cin
         for k, o, act in cfg:
@@ -141,16 +169,7 @@ def main() -> int:
         x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
         got = getattr(chain, entry)(x, ops, specs, tail=tail, compute_dtype=dt)
         torch.cuda.synchronize()
-        want = chain.conv_chain_reference(x, ops, specs, tail, dt)
-        assert got.shape == want.shape and got.dtype == want.dtype, (got.shape, want.shape)
-        err = (got.float() - want.float()).abs().max().item()
-        scale = max(1.0, want.float().abs().max().item())
-        tol = (TOL_BF16 if dt == bf16 else TOL_FP32) * scale
-        ok = err <= tol and torch.isfinite(got.float()).all().item()
-        log(f"[kernel] {label:<34} {entry:<24} max_abs_diff {err:.3e} tol {tol:.1e} "
-            f"{'ok' if ok else 'FAIL'}")
-        assert ok, f"{label}: kernel disagrees with its plain version"
-        return err
+        return held(label, entry, got, chain.conv_chain_reference(x, ops, specs, tail, dt), dt)
 
     errs = {}
     tanh = ("tanh", 0.3)
@@ -170,17 +189,112 @@ def main() -> int:
     case("ragged espcn 37x101 b3", espcn_nodes, 1, f32, "none", (3, 37, 101, 1),
          "fused_conv_chain")
 
+    # Inverted-residual blocks: every block of MobileNetV2 224 (b8) as the
+    # planner builds it (seeded weights, BatchNorm folded), one per distinct
+    # geometry; the trained model's t=1 block; a ragged block.
+    def planned_blocks(graph, batch):
+        """[(label, InvResSpec, float32 operands on the card)] for every
+        block the engine's planner would fuse, in graph order."""
+        fusion.optimize(graph)
+        graph.infer_shapes(batch_size=batch)
+        out = []
+        for node in graph.toposort():
+            if node.op != "SeparableConv2D":
+                continue
+            m = invres.match_invres_block(graph, node)
+            if m is None:
+                continue
+            head = m[0] if m[0] is not None else m[1]
+            ops, spec = invres.build_invres(m, graph.nodes[head.inputs[0]].out_spec, f32)
+            out.append((head.name, spec, {k: v.to(dev) for k, v in ops.items()}))
+        return out
+
+    def geometry(spec):
+        return (f"{spec.h}x{spec.w} {spec.cin}->{spec.e}->{spec.cout}"
+                + (" res" if spec.residual else "") + ("" if spec.has_expand else " t=1"))
+
+    mnv2_blocks = planned_blocks(build_mobilenetv2(), 8)
+    assert len(mnv2_blocks) == 11, [b[0] for b in mnv2_blocks]
+    trained_graph = parse_model_file(MOBILENETV2_TRAINED)
+    trained_blocks = planned_blocks(trained_graph, 8)
+    t1 = [b for b in trained_blocks if not b[1].has_expand]
+    assert len(trained_blocks) == 13 and len(t1) == 1
+    ragged_spec = invres.InvResSpec(13, 9, 24, 144, 24, True, True, "relu6", "relu6", "linear")
+    rops = {"w1": rng.standard_normal((24, 144)) / 5, "s1": 1 + 0.1 * rng.standard_normal(144),
+            "o1": 0.1 * rng.standard_normal(144), "wd": rng.standard_normal((9, 144)) / 3,
+            "sd": 1 + 0.1 * rng.standard_normal(144), "od": 0.1 * rng.standard_normal(144),
+            "w2": rng.standard_normal((144, 24)) / 12, "s2": 1 + 0.1 * rng.standard_normal(24),
+            "o2": 0.1 * rng.standard_normal(24)}
+    rops = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in rops.items()}
+    geoms = {}
+    for _head, spec, ops in mnv2_blocks:
+        geoms.setdefault(geometry(spec), (spec, ops, 8))
+    block_cases = list(geoms.items()) + [
+        (geometry(t1[0][1]) + " (trained)", (t1[0][1], t1[0][2], 8)),
+        (geometry(ragged_spec) + " (ragged)", (ragged_spec, rops, 3)),
+    ]
+    assert len(geoms) == 6, sorted(geoms)
+    block_err = 0.0
+    for label, (spec, ops, nb) in block_cases:
+        for dt in (bf16, f32):
+            x = torch.from_numpy(rng.standard_normal(
+                (nb, spec.h, spec.w, spec.cin)).astype(np.float32)).to(dev, dt)
+            ops_dt = {k: (v.to(dt) if k in ("w1", "w2") else v) for k, v in ops.items()}
+            got = invres.fused_invres_block(x, ops_dt, spec)
+            torch.cuda.synchronize()
+            block_err = max(block_err, held(
+                f"{label} b{nb} {'bf16' if dt == bf16 else 'fp32'}", "fused_invres_block",
+                got, invres.invres_block_reference(x, ops_dt, spec), dt))
+
+    # Single convs: the trained model's folded stem (12->16, k2, pads from
+    # fold_stride2_convs) at its main-path batch 64 and at 8, and two edges.
+    stem = trained_graph.nodes["stem_conv"]
+    assert int(stem.attr("kernel_size")) == 2 and trained_graph.nodes[stem.inputs[0]].op == "SpaceToDepth"
+    stem_pads = padding_offsets(stem.attr("padding"), 2)
+    stem_ops = tuple(t.to(dev) for t in conv.conv_operands(stem, f32))
+    conv_cases = [("stem 16x16 12->16 k2", 64, 16, 16, stem_ops, stem_pads, str(stem.attr("activation"))),
+                  ("stem 16x16 12->16 k2", 8, 16, 16, stem_ops, stem_pads, str(stem.attr("activation")))]
+    for label, nb, h, w, c, k, o, pads, act in (
+        ("k5 c1->16 64x96", 2, 64, 96, 1, 5, 16, (2, 2, 2, 2), "relu"),
+        ("k3 c128->128 asym pads 30x41", 2, 30, 41, 128, 3, 128, (3, 0, 1, 2), "tanh"),
+    ):
+        wts = torch.from_numpy((rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c))
+                               .astype(np.float32)).to(dev)
+        sc = torch.from_numpy((1 + 0.1 * rng.standard_normal(o)).astype(np.float32)).to(dev)
+        of = torch.from_numpy((0.1 * rng.standard_normal(o)).astype(np.float32)).to(dev)
+        conv_cases.append((label, nb, h, w, (wts, sc, of), pads, act))
+    conv_err = 0.0
+    for label, nb, h, w, (wts, sc, of), pads, act in conv_cases:
+        for dt in (bf16, f32):
+            x = torch.from_numpy(rng.random((nb, h, w, wts.shape[2]), dtype=np.float32)).to(dev)
+            got = conv.fused_conv2d_haloed(x, wts, sc, of, pads, act, 0.3, dt)
+            torch.cuda.synchronize()
+            conv_err = max(conv_err, held(
+                f"{label} b{nb} {'bf16' if dt == bf16 else 'fp32'}", "fused_conv2d_haloed",
+                got, conv.conv2d_haloed_reference(x, wts, sc, of, pads, act, 0.3, dt), dt))
+
     # 4. main path -----------------------------------------------------------
+    # Each path runs with every kernel's count set to 0 just before it and
+    # read just after.
+    counters = (chain.launches, conv.launches, invres.launches)
+
+    def reset_counts():
+        for counts in counters:
+            for k in counts:
+                counts[k] = 0
+
+    def read_counts():
+        return {k: v for counts in counters for k, v in counts.items()}
+
     frames = rng.random((8, 540, 960, 1), dtype=np.float32)
     main_stats = {}
     for prec, entry in ((Precision.BF16, "fused_conv_chain_packed"),
                         (Precision.FP32, "fused_conv_chain")):
         opts = EngineOptions(precision=prec, batch_size=8)
         eng = Engine.from_json(ESPCN_TRAINED, opts, input_hw=(540, 960))
-        for k in chain.launches:
-            chain.launches[k] = 0
+        reset_counts()
         outs = [eng.run_single(frames) for _ in range(STEPS)]
-        counts = dict(chain.launches)
+        counts = read_counts()
         y = outs[-1]
         assert tuple(y.shape) == (8, 1080, 1920, 1), y.shape
         assert torch.isfinite(y).all().item() and y.abs().max().item() <= 1.0
@@ -204,21 +318,125 @@ def main() -> int:
                              "engine_p50_ms": bench["p50_ms"]}
         del eng, outs, y, plain
 
+    def device_busy(eng, frames, steps=5):
+        """Device time per engine step from torch.profiler (the sum of the
+        kernels' self device time over `steps` steps, inputs already on the
+        card) and the top kernels by it; (0.0, []) where the profiler sees
+        no device time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        dev_inputs = {"input": torch.from_numpy(frames).to(dev)}
+        eng.model(dev_inputs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                eng.model(dev_inputs)
+            torch.cuda.synchronize()
+        per = {}
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
+            if t > 0:
+                per[ev.key] = per.get(ev.key, 0.0) + t / 1e3 / steps
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+        return sum(per.values()), top
+
+    # MobileNetV2 224, seeded weights, batch 8: 11 blocks per step.
+    images = rng.random((8, 224, 224, 3), dtype=np.float32)
+    mnv2_stats = {}
+    for prec in (Precision.BF16, Precision.FP32):
+        tol = ENGINE_TOL[prec.value]
+
+        def engine(linear_head, backend=BackendKind.AUTO):
+            g = build_mobilenetv2()
+            if linear_head:
+                g.nodes["fc"].attrs["activation"] = "linear"
+            return Engine.from_graph(g, EngineOptions(precision=prec, batch_size=8,
+                                                      backend=backend))
+
+        eng = engine(False)
+        assert len(eng.model.forward.block_plan) == 11, eng.model.forward.block_plan
+        reset_counts()
+        outs = [eng.run_single(images) for _ in range(STEPS)]
+        counts = read_counts()
+        y = outs[-1]
+        assert tuple(y.shape) == (8, 1000) and torch.isfinite(y).all().item(), y.shape
+        assert torch.allclose(y.sum(-1), torch.ones(8, device=dev), atol=0.05)
+        assert counts["fused_invres_block"] == 11 * STEPS, counts
+        assert sum(counts.values()) == 11 * STEPS, counts
+        err = (y - engine(False, BackendKind.TORCH).run_single(images)).abs().max().item()
+        logits = engine(True).run_single(images)
+        logits_plain = engine(True, BackendKind.TORCH).run_single(images)
+        top = logits_plain.abs().max().item()
+        scale = max(1.0, top)
+        err_logits = (logits - logits_plain).abs().max().item()
+        bench = eng.benchmark({"input": images}, loops=20)
+        log(f"[main] mobilenetv2 224 b8 {prec.value} blocks {len(eng.model.forward.block_plan)} "
+            f"launches {counts} vs TORCH forward: probabilities max_abs_diff {err:.3e} "
+            f"tol {tol}; logits max_abs_diff {err_logits:.3e} tol {tol * scale:.3g} "
+            f"(max|logit| {top:.3e}, relative {err_logits / top:.3e}) "
+            f"device step p50 {bench['p50_ms']:.3f} ms")
+        busy_ms, top_kernels = device_busy(eng, images)
+        idle = f"{1 - busy_ms / bench['p50_ms']:.3f}" if busy_ms else "not measured"
+        log(f"[main] mobilenetv2 224 b8 {prec.value} torch.profiler: device busy "
+            f"{busy_ms:.3f} ms per step, idle share {idle} of the p50 step; top kernels "
+            + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top_kernels))
+        assert err <= tol, f"{prec.value}: MobileNetV2 probabilities disagree with TORCH"
+        assert err_logits <= tol * scale, f"{prec.value}: MobileNetV2 logits disagree with TORCH"
+        # The seeded logits are small (about 1e-2): hold them relatively too.
+        assert err_logits <= tol * top, f"{prec.value}: MobileNetV2 logits off by {err_logits / top:.2%}"
+        mnv2_stats[prec.value] = {"launches": counts["fused_invres_block"],
+                                  "engine_p50_ms": bench["p50_ms"],
+                                  "device_busy_ms": busy_ms}
+        del eng, outs, y, logits, logits_plain
+
+    # The trained MobileNetV2 (10 classes, 32x32) at b64: 13 blocks and the
+    # folded stem on the single-conv kernel per step; top-1 on its task.
+    cls_x, cls_y = synth_cls(np.random.default_rng(424242), 256)
+    trained_stats = {}
+    for prec in (Precision.BF16, Precision.FP32):
+        eng = Engine.from_json(MOBILENETV2_TRAINED, EngineOptions(precision=prec, batch_size=64))
+        fwd = eng.model.forward
+        assert len(fwd.block_plan) == 13 and fwd.single_conv_plan == ["stem_conv"], (
+            fwd.block_plan, fwd.single_conv_plan)
+        reset_counts()
+        preds = [eng.run_single(cls_x[i:i + 64]) for i in range(0, 256, 64)]
+        counts = read_counts()
+        steps = len(preds)
+        probs = torch.cat(preds)
+        assert torch.isfinite(probs).all().item() and tuple(probs.shape) == (256, 10)
+        top1 = float((probs.argmax(-1).cpu().numpy() == cls_y).mean())
+        assert counts["fused_invres_block"] == 13 * steps, counts
+        assert counts["fused_conv2d_haloed"] == steps, counts
+        assert sum(counts.values()) == 14 * steps, counts
+        bench = eng.benchmark({"input": cls_x[:64]}, loops=20)
+        log(f"[main] mobilenetv2 cls10 trained b64 {prec.value} launches {counts} in "
+            f"{steps} steps top-1 {top1:.4f} (gate 0.9) device step p50 "
+            f"{bench['p50_ms']:.3f} ms")
+        assert top1 >= 0.9, f"{prec.value}: trained MobileNetV2 top-1 {top1} < 0.9"
+        trained_stats[prec.value] = {"launches": counts["fused_conv2d_haloed"],
+                                     "invres_launches": counts["fused_invres_block"],
+                                     "top1": top1, "engine_p50_ms": bench["p50_ms"]}
+        del eng, preds, probs
+
     # 5. timings -------------------------------------------------------------
-    def time_ms(fn, reps=20, warm=3):
+    def time_ms(fn, reps=20, warm=3, rounds=3):
+        """Median over `rounds` of the mean time of `reps` back-to-back
+        calls between two CUDA events: the queue stays full, so a call's
+        host overhead hides behind the device work before it."""
         for _ in range(warm):
             fn()
         torch.cuda.synchronize()
         evs = []
-        for _ in range(reps):
+        for _ in range(rounds):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            fn()
+            for _ in range(reps):
+                fn()
             b.record()
             evs.append((a, b))
         torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in evs)
+        return statistics.median(a.elapsed_time(b) / reps for a, b in evs)
 
     macs_px = sum(int(np.prod(n.params["weight"].shape)) for n in espcn_nodes)
     rows = {}
@@ -261,6 +479,120 @@ def main() -> int:
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {flops / 1e9:.2f} GFLOP, "
                 f"{nbytes / 1e6:.2f} MB, {peak_key} peaks) | {card}")
 
+    cl = torch.channels_last
+
+    def bound(flops, nbytes, dt):
+        t_ops = flops / (peak_bf16 if dt == bf16 else peak_f32) * 1e3
+        t_bytes = nbytes / peak_bw * 1e3
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+    def block_library(spec, ops, dt):
+        """cuDNN yardstick of one block: 1x1, depthwise and 1x1 F.conv2d on
+        channels_last tensors with the epilogues and the residual, in the
+        compute dtype. Timed only; the port never calls it."""
+        e, a = spec.e, spec.alpha
+        vec = {k: v.to(dt).reshape(1, -1, 1, 1) for k, v in ops.items() if v.dim() == 1}
+        wd = ops["wd"].to(dt).t().reshape(e, 1, 3, 3).contiguous(memory_format=cl)
+        w2 = ops["w2"].to(dt).t().reshape(spec.cout, e, 1, 1).contiguous(memory_format=cl)
+        w1 = (ops["w1"].to(dt).t().reshape(e, spec.cin, 1, 1).contiguous(memory_format=cl)
+              if spec.has_expand else None)
+
+        def run(xl):
+            with full_precision():
+                h = xl
+                if w1 is not None:
+                    h = apply_activation(F.conv2d(h, w1) * vec["s1"] + vec["o1"], spec.act_expand, a)
+                h = apply_activation(F.conv2d(h, wd, padding=1, groups=e) * vec["sd"] + vec["od"],
+                                     spec.act_dw, a)
+                y = F.conv2d(h, w2) * vec["s2"] + vec["o2"]
+                if spec.residual:
+                    y = y + xl
+                return apply_activation(y, spec.act_out, a)
+        return run
+
+    def block_work(spec, nb, dt):
+        isz = 2 if dt == bf16 else 4
+        mac_w = (spec.cin * spec.e if spec.has_expand else 0) + spec.e * spec.cout
+        flops = 2.0 * nb * spec.h * spec.w * (mac_w + 9 * spec.e)
+        vec = (2 * spec.e if spec.has_expand else 0) + 2 * spec.e + 2 * spec.cout
+        nbytes = nb * spec.h * spec.w * (spec.cin + spec.cout) * isz + mac_w * isz + (9 * spec.e + vec) * 4
+        return flops, nbytes
+
+    def block_inputs(spec, ops, nb, dt):
+        x = torch.from_numpy(rng.standard_normal((nb, spec.h, spec.w, spec.cin))
+                             .astype(np.float32)).to(dev, dt)
+        return x, {k: (v.to(dt) if k in ("w1", "w2") else v) for k, v in ops.items()}
+
+    block_rows = {}
+    for dt in (bf16, f32):
+        pname = "bf16" if dt == bf16 else "fp32"
+        for label, (spec, ops, nb) in block_cases[:6]:
+            x, ops_dt = block_inputs(spec, ops, nb, dt)
+            lib = block_library(spec, ops_dt, dt)
+            xl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
+            k_ms = time_ms(lambda: invres.fused_invres_block(x, ops_dt, spec))
+            p_ms = time_ms(lambda: invres.invres_block_reference(x, ops_dt, spec))
+            l_ms = time_ms(lambda: lib(xl))
+            flops, nbytes = block_work(spec, nb, dt)
+            b_ms, b_by = bound(flops, nbytes, dt)
+            log(f"[timing] fused_invres_block {pname} {label} b{nb}: kernel {k_ms:.4f} ms "
+                f"plain {p_ms:.4f} ms cudnn {l_ms:.4f} ms bound {b_ms:.5f} ms ({b_by}; "
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) | {card}")
+        # The 11 launches of one MobileNetV2 224 b8 step, back to back.
+        step = [(spec, *block_inputs(spec, ops, 8, dt)) for _name, spec, ops in mnv2_blocks]
+        libs = [(block_library(spec, ops_dt, dt), x.permute(0, 3, 1, 2))
+                for spec, x, ops_dt in step]
+        k_ms = time_ms(lambda: [invres.fused_invres_block(x, o, sp) for sp, x, o in step])
+        p_ms = time_ms(lambda: [invres.invres_block_reference(x, o, sp) for sp, x, o in step])
+        l_ms = time_ms(lambda: [fn(xl) for fn, xl in libs])
+        work = [block_work(spec, 8, dt) for spec, _x, _o in step]
+        # The step's bound is the sum of the blocks' bounds; it is "bound by"
+        # the resource that bounds the larger share of that sum.
+        share = {"operations": 0.0, "bytes": 0.0}
+        for f, b in work:
+            t, by = bound(f, b, dt)
+            share[by] += t
+        b_ms = sum(share.values())
+        b_by = max(share, key=share.get)
+        block_rows[pname] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                                 bound_by=b_by)
+        log(f"[timing] fused_invres_block {pname} MobileNetV2 224 b8, sum of the 11 launches "
+            f"of one step: kernel {k_ms:.4f} ms plain {p_ms:.4f} ms cudnn {l_ms:.4f} ms "
+            f"bound {b_ms:.5f} ms (operations-bound blocks {share['operations']:.5f} ms, "
+            f"bytes-bound {share['bytes']:.5f} ms; {sum(f for f, _ in work) / 1e9:.3f} "
+            f"GFLOP, {sum(b for _, b in work) / 1e6:.3f} MB, {peak_key} peaks) | {card}")
+
+    # The single conv at the trained model's stem, its main-path batch 64.
+    conv_rows = {}
+    wts, sc, of = stem_ops
+    kh, kw, c, o = wts.shape
+    stem_act = str(stem.attr("activation"))
+    for dt in (bf16, f32):
+        pname = "bf16" if dt == bf16 else "fp32"
+        x = torch.from_numpy(rng.random((64, 16, 16, c), dtype=np.float32)).to(dev, dt)
+        xl = x.permute(0, 3, 1, 2)
+        w_lib = wts.to(dt).permute(3, 2, 0, 1).contiguous(memory_format=cl)
+        pt, pb, pl, pr = stem_pads
+
+        def library():
+            with full_precision():
+                y = F.conv2d(F.pad(xl, (pl, pr, pt, pb)), w_lib)
+            return apply_activation(y * sc.to(dt).reshape(1, -1, 1, 1)
+                                    + of.to(dt).reshape(1, -1, 1, 1), stem_act)
+
+        k_ms = time_ms(lambda: conv.fused_conv2d_haloed(x, wts, sc, of, stem_pads, stem_act, 0.3, dt))
+        p_ms = time_ms(lambda: conv.conv2d_haloed_reference(x, wts, sc, of, stem_pads, stem_act, 0.3, dt))
+        l_ms = time_ms(library)
+        ho, wo = 16 + pt + pb - kh + 1, 16 + pl + pr - kw + 1
+        isz = 2 if dt == bf16 else 4
+        flops = 2.0 * 64 * ho * wo * kh * kw * c * o
+        nbytes = x.numel() * isz + 64 * ho * wo * o * isz + wts.numel() * isz + 2 * o * 4
+        b_ms, b_by = bound(flops, nbytes, dt)
+        conv_rows[pname] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"[timing] fused_conv2d_haloed {pname} stem 16x16 12->16 k2 b64: kernel {k_ms:.4f} ms "
+            f"plain {p_ms:.4f} ms cudnn {l_ms:.4f} ms bound {b_ms:.5f} ms ({b_by}; "
+            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB) | {card}")
+
     kernels = []
     for entry, replaces, prec in (
         ("fused_conv_chain_packed", "shadernn_tpu/kernels/chain_packed_pallas.py:121", "bf16"),
@@ -280,6 +612,40 @@ def main() -> int:
             "shape": f"{prec} 8x540x960x1",
             "engine_step_p50_ms": main_stats[entry]["engine_p50_ms"],
         })
+    r = block_rows["bf16"]
+    kernels.append({
+        "name": "invres.fused_invres_block",
+        "route": "cuda",
+        "source": "shadernn_tpu_torch/csrc/invres_block.cu",
+        "replaces": "shadernn_tpu/kernels/block_pallas.py:151",
+        "launches": mnv2_stats["bf16"]["launches"],
+        "max_abs_err": block_err,
+        "max_abs_diff": block_err,
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": "bf16 MobileNetV2 224 b8: the 11 blocks of one step",
+        "fp32": block_rows["fp32"],
+        "engine_step_p50_ms": mnv2_stats["bf16"]["engine_p50_ms"],
+        "engine_step_p50_ms_fp32": mnv2_stats["fp32"]["engine_p50_ms"],
+        "engine_device_busy_ms": mnv2_stats["bf16"]["device_busy_ms"],
+        "engine_device_busy_ms_fp32": mnv2_stats["fp32"]["device_busy_ms"],
+    })
+    r = conv_rows["bf16"]
+    kernels.append({
+        "name": "conv.fused_conv2d_haloed",
+        "route": "cuda",
+        "source": "shadernn_tpu_torch/csrc/conv_single.cu",
+        "replaces": "shadernn_tpu/kernels/conv_pallas.py:283",
+        "launches": trained_stats["bf16"]["launches"],
+        "max_abs_err": conv_err,
+        "max_abs_diff": conv_err,
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": "bf16 64x16x16x12 -> 64x16x16x16, k2 (the trained MobileNetV2's folded stem)",
+        "fp32": conv_rows["fp32"],
+        "trained_top1": {k: v["top1"] for k, v in trained_stats.items()},
+        "engine_step_p50_ms": trained_stats["bf16"]["engine_p50_ms"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,21 @@
 """Graph -> forward function on one device (counterpart of
 shadernn_tpu/engine/compile.py).
 
-The forward walks the sorted graph eagerly. Runs of stride-1 convs that
-the AUTO policy gives the kernel are planned, statically, as ONE chain on
-the hand-written CUDA kernel (kernels/chain.py), with a Subpixel(2) tail
-("d2s2", bfloat16) and a trailing elementwise Activation folded in, as the
-JAX package plans them for its Pallas chain kernels. Every other node runs
-its plain PyTorch op.
+The forward walks the sorted graph eagerly. Three plans are made
+statically, as the JAX package makes them for its Pallas kernels:
+
+- runs of stride-1 convs that the AUTO policy gives the kernel become ONE
+  chain on the conv-chain CUDA kernel (kernels/chain.py), with a
+  Subpixel(2) tail ("d2s2", bfloat16) and a trailing elementwise
+  Activation folded in;
+- such a conv that no chain takes (a run of one, or a run the chain
+  kernel's gate declines) runs alone on the single-conv kernel
+  (kernels/conv.py);
+- [1x1 expand] -> 3x3 depthwise -> 1x1 project [-> Add] around each
+  SeparableConv2D on AUTO or KERNEL becomes ONE inverted-residual block
+  on the block kernel (kernels/invres.py).
+
+Every other node runs its plain PyTorch op.
 """
 
 from __future__ import annotations
@@ -116,9 +125,12 @@ _FOLDABLE = tuple(a for a in ACTIVATIONS if a not in ("softmax", "linear")) + (
 )
 
 
-def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]) -> dict:
-    """head name -> (run, tail, tail_node, act_node, specs)."""
+def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]):
+    """(chains, singles): head name -> (run, tail, tail_node, act_node,
+    specs), and the names of the convs that run alone on the single-conv
+    kernel."""
     from shadernn_tpu_torch.kernels.chain import build_chain_specs
+    from shadernn_tpu_torch.kernels.conv import single_conv_supported
 
     act_dtype = options.precision.activation_dtype
 
@@ -131,11 +143,23 @@ def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]) -> dic
         )
 
     chains: dict = {}
-    if options.dump_outputs:  # intermediates must be observable
-        return chains
+    singles: List[str] = []
+
+    def alone(run: List[Node], why: str) -> None:
+        for n in run:
+            if single_conv_supported(n, graph.nodes[n.inputs[0]].out_spec.c):
+                log.info("conv %s runs alone on the single-conv kernel (%s)", n.name, why)
+                singles.append(n.name)
+            else:
+                log.info("conv %s runs on TORCH: outside the single-conv kernel's gate "
+                         "(activation, int8 weights or shared memory)", n.name)
+
     visited = set()
     for node in order:
         if node.name in visited or not eligible(node):
+            continue
+        if options.dump_outputs:  # intermediates must be observable: no chains
+            alone([node], "outputs dumped")
             continue
         run = [node]
         visited.add(node.name)
@@ -149,7 +173,7 @@ def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]) -> dic
             run.append(nxt)
             visited.add(nxt.name)
         if len(run) < 2:
-            log.info("conv %s runs on TORCH: no single-conv kernel yet", node.name)
+            alone(run, "a chain of one")
             continue
         # Tails: o=1 heads write (N,H,W,1) ("c1"); o=4 heads feeding a
         # sole-consumer Subpixel(2) absorb the depth_to_space ("d2s2",
@@ -196,23 +220,65 @@ def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]) -> dic
             act_override=act_override, tail=tail,
         )
         if specs is None:
+            # As the JAX package falls back: the convs one by one, then the
+            # Subpixel and the Activation as their own ops.
             log.warning(
                 "chain at %s declined by the kernel's gate (stride, k > 9, "
-                "o > 32, activation or shared memory); its convs run on TORCH",
+                "o > 32, activation or shared memory); its convs run one by one",
                 node.name,
             )
+            alone(run, f"chain at {node.name} declined")
             continue
         chains[node.name] = (run, tail, tail_node, act_node, specs)
-    return chains
+    return chains, singles
+
+
+def _plan_blocks(graph: Graph, options: EngineOptions, order: List[Node], taken: set) -> dict:
+    """head name -> ((expand, dw, project, add), InvResSpec) for each
+    inverted-residual block the kernel takes; `taken` holds the names that
+    chains (and earlier blocks) already run and grows with each block's
+    members other than its head."""
+    from shadernn_tpu_torch.kernels.invres import build_invres, match_invres_block
+
+    blocks: dict = {}
+    if options.dump_outputs:  # intermediates must be observable
+        return blocks
+    for node in order:
+        if node.op != "SeparableConv2D" or options.backend_for(node.name) not in (
+            BackendKind.AUTO, BackendKind.KERNEL,
+        ):
+            continue
+        m = match_invres_block(graph, node)
+        if m is None:
+            continue
+        expand, dw, _project, _add = m
+        head = expand if expand is not None else dw
+        members = [n for n in m if n is not None]
+        if any(n.name in taken for n in members):
+            continue
+        built = build_invres(m, graph.nodes[head.inputs[0]].out_spec,
+                             options.precision.activation_dtype)
+        if built is None:
+            log.info("block at %s declined by the kernel's gate (activation, int8 "
+                     "weights, Cout > 320 or shared memory); its ops run on TORCH",
+                     head.name)
+            continue
+        blocks[head.name] = (m, built[1])
+        taken.update(n.name for n in members if n is not head)
+    return blocks
 
 
 def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dict], dict]:
     """The forward over (params, inputs) -> {output name: tensor}; with
     options.dump_outputs also every layer's output under "__dumps__".
-    `forward.chain_plan` maps each chain head to the nodes it fuses."""
+    `forward.chain_plan` and `forward.block_plan` map each chain or block
+    head to the nodes it fuses; `forward.single_conv_plan` lists the convs
+    that run alone on the single-conv kernel."""
     from shadernn_tpu_torch.kernels.chain import (
         chain_operands, fused_conv_chain, fused_conv_chain_packed,
     )
+    from shadernn_tpu_torch.kernels.conv import conv_operands, conv_run_kernel
+    from shadernn_tpu_torch.kernels.invres import build_invres, fused_invres_block
 
     order = graph.toposort()
     act_dtype = options.precision.activation_dtype
@@ -221,11 +287,27 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
         if options.output_dtype in ("activation", None)
         else getattr(torch, options.output_dtype)
     )
-    chains = _plan_chains(graph, options, order)
+    chains, singles = _plan_chains(graph, options, order)
     skip = set()
     for run, _tail, tail_node, act_node, _specs in chains.values():
         skip.update(n.name for n in run[1:])
         skip.update(n.name for n in (tail_node, act_node) if n is not None)
+    blocks = _plan_blocks(graph, options, order, skip | set(chains))
+    for head, (members, _spec) in blocks.items():
+        skip.update(n.name for n in members if n is not None and n.name != head)
+    singles = [n for n in singles if n not in skip and n not in blocks]
+    prepared: Dict[str, tuple] = {}
+
+    def operands(head: str, views, make):
+        """The kernel operands of a planned chain, block or single conv
+        (weights cast, epilogues folded), prepared once for each set of
+        parameter tensors: `CompiledModel.load_params` installs new
+        tensors, which prepares them anew."""
+        key = tuple(t for v in views if v is not None for t in v.params.values())
+        hit = prepared.get(head)
+        if hit is None or len(hit[0]) != len(key) or any(a is not b for a, b in zip(hit[0], key)):
+            hit = prepared[head] = (key, make())
+        return hit[1]
 
     def forward(params: Params, inputs: Dict[str, torch.Tensor]) -> dict:
         env: Dict[str, torch.Tensor] = {}
@@ -238,24 +320,40 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
         for node in order:
             if node.name in skip or node.op == "InputLayer":
                 continue
+            if node.name in blocks:
+                members, spec = blocks[node.name]
+                views = [_NodeView(n, params.get(n.name, {})) if n is not None else None
+                         for n in members]
+                ops = operands(node.name, views, lambda: build_invres(
+                    views, graph.nodes[node.inputs[0]].out_spec, act_dtype)[0])
+                out = members[3] if members[3] is not None else members[2]
+                env[out.name] = fused_invres_block(
+                    value(node.inputs[0]).contiguous(), ops, spec)
+                continue
             if node.name in chains:
                 run, tail, tail_node, act_node, specs = chains[node.name]
                 views = [_NodeView(n, params.get(n.name, {})) for n in run]
                 src = graph.nodes[node.inputs[0]]
                 # An InputLayer feeds the raw frame: the kernel casts on load.
                 vin = inputs[src.name] if src.op == "InputLayer" else value(src.name)
+                vin = vin.contiguous()
                 entry = (
                     fused_conv_chain_packed
                     if options.chain_format in ("auto", "packed") and tail in ("c1", "d2s2")
                     else fused_conv_chain
                 )
-                res = entry(vin, chain_operands(views, act_dtype), specs,
-                            tail=tail, compute_dtype=act_dtype)
+                res = entry(vin, operands(node.name, views, lambda: chain_operands(views, act_dtype)),
+                            specs, tail=tail, compute_dtype=act_dtype)
                 for n in (run[-1], tail_node, act_node):
                     if n is not None:
                         env[n.name] = res
                 continue
             view = _NodeView(node, params.get(node.name, {}))
+            if node.name in singles:
+                env[node.name] = conv_run_kernel(
+                    view, value(node.inputs[0]).contiguous(), act_dtype,
+                    operands(node.name, [view], lambda: conv_operands(view, act_dtype)))
+                continue
             ctx = RunCtx(precision=options.precision,
                          backend=resolve_backend(node, graph, options))
             env[node.name] = get_op(node.op).run(view, [value(i) for i in node.inputs], ctx)
@@ -272,6 +370,11 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
         + ([act_node.name] if act_node else [])
         for head, (run, _tail, tail_node, act_node, _specs) in chains.items()
     }
+    forward.block_plan = {
+        head: [n.name for n in members if n is not None]
+        for head, (members, _spec) in blocks.items()
+    }
+    forward.single_conv_plan = list(singles)
     return forward
 
 

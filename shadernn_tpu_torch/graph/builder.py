@@ -102,6 +102,72 @@ class GraphBuilder:
             )
         )
 
+    def depthwise(
+        self,
+        x: str,
+        kernel_size: int,
+        stride: int = 1,
+        padding="same",
+        multiplier: int = 1,
+        activation: str = "linear",
+        use_bias: bool = True,
+        weight: Optional[np.ndarray] = None,
+        name: Optional[str] = None,
+    ) -> str:
+        name = self._name("dwconv", name)
+        cin = self.channels(x)
+        params = {
+            "weight": weight
+            if weight is not None
+            else self._rand(kernel_size, kernel_size, 1, cin * multiplier)
+        }
+        if use_bias:
+            params["bias"] = np.zeros(cin * multiplier, np.float32)
+        return self._add(
+            Node(
+                name,
+                "SeparableConv2D",
+                [x],
+                {
+                    "kernel_size": kernel_size,
+                    "stride": stride,
+                    "padding": padding,
+                    "multiplier": multiplier,
+                    "activation": activation,
+                    "use_bias": use_bias,
+                },
+                params,
+            )
+        )
+
+    def maxpool(self, x: str, pool: int, stride: Optional[int] = None, padding="valid", name=None) -> str:
+        return self._add(
+            Node(self._name("maxpool", name), "MaxPooling2D", [x],
+                 {"kernel_size": pool, "stride": stride or pool, "padding": padding}))
+
+    def avgpool(self, x: str, pool: int, stride: Optional[int] = None, padding="valid", name=None) -> str:
+        return self._add(
+            Node(self._name("avgpool", name), "AveragePooling2D", [x],
+                 {"kernel_size": pool, "stride": stride or pool, "padding": padding}))
+
+    def adaptive_avgpool(self, x: str, output_size: int = 1, name=None) -> str:
+        return self._add(
+            Node(self._name("adpool", name), "AdaptiveAvgPool2d", [x],
+                 {"output_height": output_size, "output_width": output_size}))
+
+    def batchnorm(self, x: str, gamma=None, beta=None, mean=None, variance=None,
+                  epsilon: float = 1e-3, activation: str = "linear", name=None) -> str:
+        c = self.channels(x)
+        params = {
+            "gamma": np.ones(c, np.float32) if gamma is None else np.asarray(gamma, np.float32),
+            "beta": np.zeros(c, np.float32) if beta is None else np.asarray(beta, np.float32),
+            "mean": np.zeros(c, np.float32) if mean is None else np.asarray(mean, np.float32),
+            "variance": np.ones(c, np.float32) if variance is None else np.asarray(variance, np.float32),
+        }
+        return self._add(
+            Node(self._name("bn", name), "BatchNormalization", [x],
+                 {"epsilon": epsilon, "activation": activation}, params))
+
     def add(self, xs: Sequence[str], activation: str = "linear", name=None) -> str:
         return self._add(
             Node(self._name("add", name), "Add", list(xs), {"activation": activation}))
@@ -119,6 +185,22 @@ class GraphBuilder:
 
     def subpixel(self, x: str, scale: int = 2, name=None) -> str:
         return self._add(Node(self._name("subpixel", name), "Subpixel", [x], {"scale": scale}))
+
+    def flatten(self, x: str, name=None) -> str:
+        return self._add(Node(self._name("flatten", name), "Flatten", [x], {}))
+
+    def dense(self, x: str, units: int, activation: str = "linear", use_bias: bool = True,
+              weight=None, bias=None, name=None) -> str:
+        name = self._name("dense", name)
+        if weight is None:
+            in_features = int(np.prod(self.spec(x).shape[1:]))
+            weight = self._rand(in_features, units)
+        params = {"weight": weight}
+        if use_bias:
+            params["bias"] = np.zeros(units, np.float32) if bias is None else bias
+        return self._add(
+            Node(name, "Dense", [x],
+                 {"units": units, "activation": activation, "use_bias": use_bias}, params))
 
     # -- finish ------------------------------------------------------------
     def build(self, outputs: Optional[Sequence[str]] = None, batch_size: int = 1) -> Graph:

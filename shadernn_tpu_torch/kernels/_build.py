@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-`nvcc` compiles `shadernn_tpu_torch/csrc/*.cu` for sm_90a into
+`nvcc` compiles each `shadernn_tpu_torch/csrc/*.cu` for sm_90a, one
+process per source, all started together, and links them into
 `build/kernels/libsnn_torch_kernels.so` at the repository root, at first
-use, and the library is loaded with ctypes (plain C interface, no PyTorch
+use; the library is loaded with ctypes (plain C interface, no PyTorch
 headers: a build takes seconds). Nothing is built when the package is
 imported; a build failure raises.
 """
@@ -20,10 +21,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libsnn_torch_kernels.so")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -53,15 +52,29 @@ def build(force: bool = False) -> Tuple[str, str]:
     ):
         return LIB_PATH, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)[:-3]}.{tag}.o") for src in srcs]
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(srcs, objs))
+    ]
+    done = []
+    for cmd, proc in procs:  # wait for every compiler before raising
+        out, err = proc.communicate()
+        done.append((cmd, proc.returncode, out, err))
+    for cmd, rc, _out, err in done:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
+    logs = [out + err for _cmd, _rc, out, err in done]
+    tmp = f"{LIB_PATH}.{tag}"
+    cmd = [_nvcc(), *ARCH, "-shared", "-o", tmp, *objs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
     os.replace(tmp, LIB_PATH)
-    return LIB_PATH, proc.stdout + proc.stderr
+    return LIB_PATH, "".join(logs) + proc.stdout + proc.stderr
 
 
 def kernel_lib() -> ctypes.CDLL:
@@ -78,7 +91,18 @@ def kernel_lib() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_float), I, I, I, I, I, I, I, I, P,
             ]
             lib.snn_conv_chain.restype = I
-            lib.snn_error_string.argtypes = [I]
-            lib.snn_error_string.restype = ctypes.c_char_p
+            lib.snn_conv_single.argtypes = [
+                P, I, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I,
+                ctypes.c_float, I, P,
+            ]
+            lib.snn_conv_single.restype = I
+            lib.snn_invres_block.argtypes = [
+                P, I, P, ctypes.POINTER(P), I, I, I, I, I, I, I, I,
+                ctypes.POINTER(I), ctypes.c_float, I, I, I, P,
+            ]
+            lib.snn_invres_block.restype = I
+            for name in ("snn_error_string", "snn_conv_single_error", "snn_invres_error"):
+                getattr(lib, name).argtypes = [I]
+                getattr(lib, name).restype = ctypes.c_char_p
             _lib = lib
         return _lib

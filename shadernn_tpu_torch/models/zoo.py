@@ -1,4 +1,4 @@
-"""Model zoo registry of the port (ESPCN only in this slice)."""
+"""Model zoo registry of the port (ESPCN and MobileNetV2 in this slice)."""
 
 from __future__ import annotations
 
@@ -7,8 +7,12 @@ from typing import Callable, Dict
 
 from shadernn_tpu_torch.graph.ir import Graph
 from shadernn_tpu_torch.models.espcn import build_espcn
+from shadernn_tpu_torch.models.mobilenetv2 import build_mobilenetv2
 
-_BUILDERS: Dict[str, Callable[..., Graph]] = {"espcn": build_espcn}
+_BUILDERS: Dict[str, Callable[..., Graph]] = {
+    "espcn": build_espcn,
+    "mobilenetv2": build_mobilenetv2,
+}
 
 # Trained artifacts live with the JAX package; the port reads the files
 # only (no import).
@@ -17,6 +21,9 @@ ARTIFACTS = os.path.join(
     "shadernn_tpu", "models", "artifacts",
 )
 ESPCN_TRAINED = os.path.join(ARTIFACTS, "espcn_2x_trained_layers.json")
+# MobileNetV2 trained on the 10-class synthetic task of
+# tools/train_resnet18.synth_cls (32x32x3 input).
+MOBILENETV2_TRAINED = os.path.join(ARTIFACTS, "mobilenetv2_cls10_trained_layers.json")
 
 
 def build_model(name: str, **kwargs) -> Graph:

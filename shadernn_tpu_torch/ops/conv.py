@@ -1,5 +1,5 @@
-"""Conv2D on NHWC tensors with HWIO weights (counterpart of
-shadernn_tpu/ops/conv.py, Conv2D only).
+"""Conv2D and SeparableConv2D (depthwise) on NHWC tensors with HWIO weights
+(counterpart of shadernn_tpu/ops/conv.py; Conv2DTranspose comes later).
 
 The TORCH backend runs `F.conv2d` on NCHW views, the analog of the XLA
 convolution the JAX package uses. Every convolution accumulates in float32
@@ -41,13 +41,16 @@ def full_precision():
     )
 
 
-def conv2d_nhwc_f32(x: torch.Tensor, w_hwio: torch.Tensor, pads, stride: int = 1):
+def conv2d_nhwc_f32(x: torch.Tensor, w_hwio: torch.Tensor, pads, stride: int = 1,
+                    groups: int = 1):
     """float32 convolution of NHWC `x` with HWIO `w_hwio`; explicit
-    (top, bottom, left, right) zero pads. Returns NHWC float32."""
+    (top, bottom, left, right) zero pads. Returns NHWC float32. With
+    groups=C (depthwise) `w_hwio` is (k, k, 1, C*m) and output channel o
+    reads input channel o // m, as XLA's feature_group_count does."""
     t, b, l, r = pads
     xin = F.pad(x.float().permute(0, 3, 1, 2), (l, r, t, b))
     with full_precision():
-        y = F.conv2d(xin, w_hwio.float().permute(3, 2, 0, 1), stride=stride)
+        y = F.conv2d(xin, w_hwio.float().permute(3, 2, 0, 1), stride=stride, groups=groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -142,4 +145,31 @@ class Conv2D(OpDef):
         x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
         w = get_weight(node, x.dtype).to(x.device)
         y = conv2d_nhwc_f32(x, w, _conv_pads(node), int(node.attr("stride", 1)))
+        return _epilogue(node, y.to(x.dtype))
+
+
+@register("SeparableConv2D", "DepthwiseConv2D")
+class SeparableConv2D(OpDef):
+    """Depthwise convolution with channel multiplier (HWIO weight with I=1,
+    O=C*multiplier), stride 1 or 2, fused epilogue. The weight is cast to
+    the activation dtype, the sum is float32 and the result is rounded to
+    the activation dtype before the epilogue, as the JAX op does."""
+
+    def infer(self, node: Node, in_specs: Sequence[TensorSpec]) -> TensorSpec:
+        s = in_specs[0]
+        k, st = int(node.attr("kernel_size")), int(node.attr("stride", 1))
+        t_pad, b_pad, _, _ = _conv_pads(node)
+        if k % 2 != 0:
+            tr = 1 + (t_pad + b_pad - k) / st
+        else:
+            tr = 1 + (t_pad + b_pad - 1 - k) / st
+        t = Transform(scale_w=1 / st, scale_h=1 / st, translate_w=tr, translate_h=tr)
+        h, w = transform_output_dims(t, in_specs)
+        return s.with_shape((s.n, h, w, s.c * int(node.attr("multiplier", 1))))
+
+    def run(self, node: Node, xs: List, ctx: RunCtx):
+        x = xs[0]
+        w = get_weight(node, x.dtype).to(x.device)  # (k, k, 1, C*mult)
+        y = conv2d_nhwc_f32(x, w, _conv_pads(node), int(node.attr("stride", 1)),
+                            groups=x.shape[-1])
         return _epilogue(node, y.to(x.dtype))

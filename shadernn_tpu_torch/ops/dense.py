@@ -1,0 +1,48 @@
+"""Dense (fully connected) layer (counterpart of shadernn_tpu/ops/dense.py,
+float path). Weight layout (in_features, units), as in the reference's
+JSON `weights.kernel` stream.
+
+The TORCH body flattens inputs above 2-D, takes `x @ W` with a float32
+sum over the activation-dtype values (torch.matmul keeps float32 exact on
+the card unless TF32 is switched on globally), rounds to the activation
+dtype, adds the bias and applies the activation (softmax for the
+classifiers). The KERNEL backend belongs to the fused-matmul kernel, which
+the port does not have yet; it raises rather than run TORCH silently.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from shadernn_tpu_torch.config import BackendKind
+from shadernn_tpu_torch.graph.ir import Node, TensorSpec
+from shadernn_tpu_torch.ops.common import apply_activation
+from shadernn_tpu_torch.ops.conv import get_weight
+from shadernn_tpu_torch.ops.registry import OpDef, RunCtx, register
+
+
+@register("Dense", "FullyConnected", "InnerProduct")
+class Dense(OpDef):
+    def infer(self, node: Node, in_specs: Sequence[TensorSpec]) -> TensorSpec:
+        s = in_specs[0]
+        return s.with_shape((s.n, int(node.attr("units"))))
+
+    def run(self, node: Node, xs: List, ctx: RunCtx):
+        if ctx.backend == BackendKind.KERNEL:
+            raise NotImplementedError(
+                f"Dense {node.name!r} on the KERNEL backend needs the fused "
+                "matmul kernel (shadernn_tpu/kernels/matmul_pallas.py "
+                "fused_matmul, ROADMAP B6), which is not ported yet"
+            )
+        x = xs[0]
+        if x.dim() > 2:
+            x = x.reshape(x.shape[0], -1)
+        w = get_weight(node, x.dtype).to(x.device)  # (in, units)
+        y = (x.float() @ w.float()).to(x.dtype)
+        if "bias" in node.params and node.attr("use_bias", True):
+            y = y + torch.as_tensor(node.params["bias"]).to(y.dtype)
+        return apply_activation(
+            y, node.attr("activation", "linear"), float(node.attr("leaky_alpha", 0.3))
+        )

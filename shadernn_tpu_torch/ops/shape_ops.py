@@ -1,4 +1,4 @@
-"""Shape/layout ops: Pad (ZeroPadding2D), Subpixel, SpaceToDepth
+"""Shape/layout ops: Flatten, Pad (ZeroPadding2D), Subpixel, SpaceToDepth
 (counterparts of shadernn_tpu/ops/shape_ops.py).
 
 Subpixel keeps TF depth_to_space channel order,
@@ -11,11 +11,25 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch.nn.functional as F
 
 from shadernn_tpu_torch.graph.ir import Node, TensorSpec
 from shadernn_tpu_torch.ops.common import padding_offsets
 from shadernn_tpu_torch.ops.registry import OpDef, RunCtx, register
+
+
+@register("Flatten")
+class Flatten(OpDef):
+    """NHWC -> (N, H*W*C), the Keras Flatten order (NHWC is the native
+    layout, so a reshape)."""
+
+    def infer(self, node: Node, in_specs: Sequence[TensorSpec]) -> TensorSpec:
+        s = in_specs[0]
+        return s.with_shape((s.n, int(np.prod(s.shape[1:]))))
+
+    def run(self, node: Node, xs: List, ctx: RunCtx):
+        return xs[0].reshape(xs[0].shape[0], -1)
 
 
 @register("ZeroPadding2D", "Pad", "Padding")

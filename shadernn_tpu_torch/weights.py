@@ -1,7 +1,7 @@
 """Carry parameters across from the JAX package (or any numpy source).
 
-`params_from_numpy` takes the dict that
-`shadernn_tpu.engine.compile.extract_params(graph)` returns — node name ->
+`params_from_numpy` takes the dict that the JAX package's
+`extract_params(graph)` (its engine/compile.py) returns — node name ->
 {param name: numpy array}, conv weights HWIO — and returns the port's
 tensors on `device`, ready for `CompiledModel.load_params`. The port keeps
 HWIO at this boundary; only the convolutions convert it.

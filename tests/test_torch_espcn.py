@@ -85,6 +85,8 @@ def test_torch_backend_and_dump_outputs_match_jax(rng):
     p = P.Engine.from_json(ESPCN_TRAINED, options(P, "fp32", dump_outputs=True, device="cpu"),
                            input_hw=(20, 28)).model
     assert p.forward.chain_plan == {}
+    # As in the JAX package, the convs run one by one on the single-conv kernel.
+    assert p.forward.single_conv_plan == ["conv_1", "conv_2", "conv_3"]
     want = j({"input": x})["__dumps__"]
     got = p({"input": torch.from_numpy(x)})["__dumps__"]
     assert sorted(got) == sorted(want)

@@ -65,7 +65,7 @@ def test_build_espcn_matches_jax(seed):
 
 
 def test_list_models():
-    assert P.list_models() == ["espcn"]
+    assert P.list_models() == ["espcn", "mobilenetv2"]
     with pytest.raises(KeyError):
         P.build_model("resnet18")
 
