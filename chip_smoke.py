@@ -10,21 +10,26 @@ Phases, each of which raises on failure (exit code != 0):
   3. kernel   each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and at edge geometries: the conv-chain
               kernel through both entry points; the inverted-residual block
-              kernel at every block geometry of MobileNetV2 224 (b8), the
-              trained model's t=1 block and a ragged 13x9 block, bf16 and
-              fp32; the single-conv kernel at the trained model's folded
-              stem, k5 c1->16 and k3 c128->128 with asymmetric pads
+              kernel at every block geometry of MobileNetV2 224 (b8), every
+              block geometry of the trained model at its batch (b64) and a
+              ragged 13x9 block, bf16 and fp32; the single-conv kernel at the
+              trained model's folded stem, k5 c1->16 and k3 c128->128 with
+              asymmetric pads
   4. main     ESPCN 2x at 540p, trained weights, batch 8, through
               Engine.from_json at BF16 and at FP32, 5 steps each; every
               step must launch the chain kernel once. MobileNetV2 224
-              (seeded weights), batch 8, through Engine.from_graph at BF16
-              and FP32, 5 steps each: every step launches the block kernel
-              11 times and no other kernel. The trained MobileNetV2 (10
+              (seeded weights and BatchNorm statistics), batch 8, through
+              Engine.from_graph at BF16 and FP32, 5 steps each: every step
+              launches the block kernel 11 times and no other kernel; a
+              block with a planted fault must fail the logits check. The
+              trained MobileNetV2 (10
               classes) through Engine.from_json at b64: 13 blocks and one
               single conv per step, top-1 >= 0.9 on 256 images of its task.
               Outputs are checked against the port's plain (TORCH backend)
               forward on the card (MobileNetV2 on probabilities and logits)
-  5. timing   kernel, plain version, a cuDNN yardstick and the bound
+  5. timing   kernel, plain version and a cuDNN yardstick, each from CUDA
+              events around back-to-back calls and as device time from
+              torch.profiler; the bound
 Prints the `kernels` JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Imports no JAX and nothing of
 the JAX package. Exits non-zero without printing a result when no CUDA
@@ -189,9 +194,27 @@ def main() -> int:
     case("ragged espcn 37x101 b3", espcn_nodes, 1, f32, "none", (3, 37, 101, 1),
          "fused_conv_chain")
 
-    # Inverted-residual blocks: every block of MobileNetV2 224 (b8) as the
-    # planner builds it (seeded weights, BatchNorm folded), one per distinct
-    # geometry; the trained model's t=1 block; a ragged block.
+    def mobilenetv2_224(seed=11):
+        """MobileNetV2 224 with seeded weights and BatchNorm statistics drawn
+        from `seed`, as tests/test_torch_mobilenetv2.py draws them: under
+        the builder's identity BatchNorm the signal fades to logits of about
+        1e-2; under these they are O(1)."""
+        g = build_mobilenetv2()
+        bn_rng = np.random.default_rng(seed)
+        for n in g.nodes.values():
+            if n.op == "BatchNormalization":
+                c = n.params["gamma"].shape[0]
+                n.params.update(
+                    gamma=(1.5 + 0.2 * bn_rng.standard_normal(c)).astype(np.float32),
+                    beta=(0.2 * bn_rng.standard_normal(c)).astype(np.float32),
+                    mean=(0.1 * bn_rng.standard_normal(c)).astype(np.float32),
+                    variance=(1 + 0.1 * np.abs(bn_rng.standard_normal(c))).astype(np.float32))
+        return g
+
+    # Inverted-residual blocks as the planner builds them (BatchNorm
+    # folded), one case per distinct geometry at the batch of the path that
+    # runs it: every block of MobileNetV2 224 (b8), every block of the
+    # trained model (b64); and a ragged block.
     def planned_blocks(graph, batch):
         """[(label, InvResSpec, float32 operands on the card)] for every
         block the engine's planner would fuse, in graph order."""
@@ -213,12 +236,11 @@ def main() -> int:
         return (f"{spec.h}x{spec.w} {spec.cin}->{spec.e}->{spec.cout}"
                 + (" res" if spec.residual else "") + ("" if spec.has_expand else " t=1"))
 
-    mnv2_blocks = planned_blocks(build_mobilenetv2(), 8)
+    mnv2_blocks = planned_blocks(mobilenetv2_224(), 8)
     assert len(mnv2_blocks) == 11, [b[0] for b in mnv2_blocks]
     trained_graph = parse_model_file(MOBILENETV2_TRAINED)
-    trained_blocks = planned_blocks(trained_graph, 8)
-    t1 = [b for b in trained_blocks if not b[1].has_expand]
-    assert len(trained_blocks) == 13 and len(t1) == 1
+    trained_blocks = planned_blocks(trained_graph, 64)
+    assert len(trained_blocks) == 13 and sum(not b[1].has_expand for b in trained_blocks) == 1
     ragged_spec = invres.InvResSpec(13, 9, 24, 144, 24, True, True, "relu6", "relu6", "linear")
     rops = {"w1": rng.standard_normal((24, 144)) / 5, "s1": 1 + 0.1 * rng.standard_normal(144),
             "o1": 0.1 * rng.standard_normal(144), "wd": rng.standard_normal((9, 144)) / 3,
@@ -229,11 +251,17 @@ def main() -> int:
     geoms = {}
     for _head, spec, ops in mnv2_blocks:
         geoms.setdefault(geometry(spec), (spec, ops, 8))
-    block_cases = list(geoms.items()) + [
-        (geometry(t1[0][1]) + " (trained)", (t1[0][1], t1[0][2], 8)),
+    assert len(geoms) == 6, sorted(geoms)
+    trained_geoms = {}
+    for _head, spec, ops in trained_blocks:
+        trained_geoms.setdefault(geometry(spec) + " (trained)", (spec, ops, 64))
+    block_cases = list(geoms.items()) + list(trained_geoms.items()) + [
         (geometry(ragged_spec) + " (ragged)", (ragged_spec, rops, 3)),
     ]
-    assert len(geoms) == 6, sorted(geoms)
+    launch_cfgs = {invres.pick_launch(spec, nb, torch.cuda.get_device_properties(dev)
+                                      .multi_processor_count) for _l, (spec, _o, nb) in block_cases}
+    log(f"[kernel] block cases: {len(block_cases)} geometries, launch configurations "
+        f"(tile_h, tile_w, split) {sorted(launch_cfgs)}")
     block_err = 0.0
     for label, (spec, ops, nb) in block_cases:
         for dt in (bf16, f32):
@@ -318,38 +346,49 @@ def main() -> int:
                              "engine_p50_ms": bench["p50_ms"]}
         del eng, outs, y, plain
 
-    def device_busy(eng, frames, steps=5):
-        """Device time per engine step from torch.profiler (the sum of the
-        kernels' self device time over `steps` steps, inputs already on the
-        card) and the top kernels by it; (0.0, []) where the profiler sees
-        no device time."""
+    def device_profile(fn, reps=10):
+        """Device time per call of fn from torch.profiler: the durations of
+        the device's own events (kernels, copies, fills) over `reps` calls
+        after one warm call, divided by reps; and the top events by it.
+        Only device events are summed: a CPU op's device time repeats its
+        kernels'. (0.0, []) where the profiler sees no device time."""
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        dev_inputs = {"input": torch.from_numpy(frames).to(dev)}
-        eng.model(dev_inputs)
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                eng.model(dev_inputs)
+            for _ in range(reps):
+                fn()
             torch.cuda.synchronize()
         per = {}
         for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
             t = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
             if t > 0:
-                per[ev.key] = per.get(ev.key, 0.0) + t / 1e3 / steps
+                per[ev.key] = per.get(ev.key, 0.0) + t / 1e3 / reps
         top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
         return sum(per.values()), top
 
-    # MobileNetV2 224, seeded weights, batch 8: 11 blocks per step.
+    def device_busy(eng, frames, steps=5):
+        """Device time per engine step (inputs already on the card) and the
+        top device events by it."""
+        dev_inputs = {"input": torch.from_numpy(frames).to(dev)}
+        return device_profile(lambda: eng.model(dev_inputs), steps)
+
+    # MobileNetV2 224, seeded weights and BatchNorm, batch 8: 11 blocks per step.
     images = rng.random((8, 224, 224, 3), dtype=np.float32)
     mnv2_stats = {}
     for prec in (Precision.BF16, Precision.FP32):
         tol = ENGINE_TOL[prec.value]
 
-        def engine(linear_head, backend=BackendKind.AUTO):
-            g = build_mobilenetv2()
+        def engine(linear_head, backend=BackendKind.AUTO, zeroed=None):
+            g = mobilenetv2_224()
             if linear_head:
                 g.nodes["fc"].attrs["activation"] = "linear"
+            if zeroed is not None:  # a planted fault
+                g.nodes[zeroed].params["weight"] = np.zeros_like(g.nodes[zeroed].params["weight"])
             return Engine.from_graph(g, EngineOptions(precision=prec, batch_size=8,
                                                       backend=backend))
 
@@ -369,11 +408,19 @@ def main() -> int:
         top = logits_plain.abs().max().item()
         scale = max(1.0, top)
         err_logits = (logits - logits_plain).abs().max().item()
+        # A planted fault in one block on the kernel (the first residual
+        # block's project conv zeroed, so that the block passes on its input
+        # plus a bias) must move the logits past the tolerance.
+        plan = eng.model.forward.block_plan
+        faulty = next(m for m in plan.values() if m[-1].endswith("_add"))
+        zeroed = next(name for name in faulty if name.endswith("_project"))
+        err_fault = (engine(True, zeroed=zeroed).run_single(images) - logits_plain).abs().max().item()
         bench = eng.benchmark({"input": images}, loops=20)
         log(f"[main] mobilenetv2 224 b8 {prec.value} blocks {len(eng.model.forward.block_plan)} "
             f"launches {counts} vs TORCH forward: probabilities max_abs_diff {err:.3e} "
             f"tol {tol}; logits max_abs_diff {err_logits:.3e} tol {tol * scale:.3g} "
-            f"(max|logit| {top:.3e}, relative {err_logits / top:.3e}) "
+            f"(max|logit| {top:.3e}, relative {err_logits / top:.3e}); planted fault "
+            f"({zeroed} zeroed) moves the logits by {err_fault:.3e} "
             f"device step p50 {bench['p50_ms']:.3f} ms")
         busy_ms, top_kernels = device_busy(eng, images)
         idle = f"{1 - busy_ms / bench['p50_ms']:.3f}" if busy_ms else "not measured"
@@ -382,11 +429,13 @@ def main() -> int:
             + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top_kernels))
         assert err <= tol, f"{prec.value}: MobileNetV2 probabilities disagree with TORCH"
         assert err_logits <= tol * scale, f"{prec.value}: MobileNetV2 logits disagree with TORCH"
-        # The seeded logits are small (about 1e-2): hold them relatively too.
-        assert err_logits <= tol * top, f"{prec.value}: MobileNetV2 logits off by {err_logits / top:.2%}"
+        assert top >= 1.0, f"{prec.value}: logits of {top:.3e} would hold nothing"
+        assert err_fault > tol * scale, f"{prec.value}: the logits check misses a zeroed block"
         mnv2_stats[prec.value] = {"launches": counts["fused_invres_block"],
                                   "engine_p50_ms": bench["p50_ms"],
-                                  "device_busy_ms": busy_ms}
+                                  "device_busy_ms": busy_ms,
+                                  "logits_max_abs_diff": err_logits,
+                                  "planted_fault_logits_diff": err_fault}
         del eng, outs, y, logits, logits_plain
 
     # The trained MobileNetV2 (10 classes, 32x32) at b64: 13 blocks and the
@@ -438,6 +487,23 @@ def main() -> int:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) / reps for a, b in evs)
 
+    def timed(fns):
+        """{name: (event ms, device ms)} for each of kernel / plain / library:
+        CUDA events around back-to-back calls (a small kernel's host time
+        per call can exceed its device time) and the profiler's device
+        time per call (the device's work alone)."""
+        return {k: (time_ms(fn), device_profile(fn)[0]) for k, fn in fns.items()}
+
+    def timing_keys(t):
+        return dict(ms=t["kernel"][0], plain_ms=t["plain"][0], library_ms=t["library"][0],
+                    device_ms=t["kernel"][1], plain_device_ms=t["plain"][1],
+                    library_device_ms=t["library"][1])
+
+    def timing_text(t):
+        return (f"kernel {t['kernel'][0]:.4f} ms (device {t['kernel'][1]:.4f}) "
+                f"plain {t['plain'][0]:.4f} ms (device {t['plain'][1]:.4f}) "
+                f"cudnn {t['library'][0]:.4f} ms (device {t['library'][1]:.4f})")
+
     macs_px = sum(int(np.prod(n.params["weight"].shape)) for n in espcn_nodes)
     rows = {}
     for dt, entry, tail in ((bf16, "fused_conv_chain_packed", "d2s2"),
@@ -461,21 +527,22 @@ def main() -> int:
                 y = y.permute(0, 2, 3, 1)
                 return torch.tanh(depth_to_space(y, 2)) if tail == "d2s2" else y.contiguous()
 
-            k_ms = time_ms(lambda: getattr(chain, entry)(x, ops, specs, tail=tail, compute_dtype=dt))
-            p_ms = time_ms(lambda: chain.conv_chain_reference(x, ops, specs, tail, dt))
-            l_ms = time_ms(library)
+            t = timed({
+                "kernel": lambda: getattr(chain, entry)(x, ops, specs, tail=tail, compute_dtype=dt),
+                "plain": lambda: chain.conv_chain_reference(x, ops, specs, tail, dt),
+                "library": library,
+            })
             flops = 2.0 * nb * 540 * 960 * macs_px
             out_bytes = nb * 540 * 960 * 4 * (2 if dt == bf16 else 4)
             nbytes = x.numel() * 4 + out_bytes + sum(
                 p["w"].numel() * p["w"].element_size() + 8 * p["scale"].numel() for p in ops)
             t_ops = flops / (peak_bf16 if dt == bf16 else peak_f32) * 1e3
             t_bytes = nbytes / peak_bw * 1e3
-            rows[(entry, nb)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                                     bound_ms=max(t_ops, t_bytes),
+            rows[(entry, nb)] = dict(**timing_keys(t), bound_ms=max(t_ops, t_bytes),
                                      bound_by="operations" if t_ops >= t_bytes else "bytes")
             r = rows[(entry, nb)]
             log(f"[timing] {entry:<24} {'bf16 d2s2' if dt == bf16 else 'fp32 none'} 540x960 "
-                f"b{nb}: kernel {k_ms:.4f} ms plain {p_ms:.4f} ms cudnn {l_ms:.4f} ms "
+                f"b{nb}: {timing_text(t)} "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {flops / 1e9:.2f} GFLOP, "
                 f"{nbytes / 1e6:.2f} MB, {peak_key} peaks) | {card}")
 
@@ -530,34 +597,33 @@ def main() -> int:
             x, ops_dt = block_inputs(spec, ops, nb, dt)
             lib = block_library(spec, ops_dt, dt)
             xl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
-            k_ms = time_ms(lambda: invres.fused_invres_block(x, ops_dt, spec))
-            p_ms = time_ms(lambda: invres.invres_block_reference(x, ops_dt, spec))
-            l_ms = time_ms(lambda: lib(xl))
+            t = timed({"kernel": lambda: invres.fused_invres_block(x, ops_dt, spec),
+                       "plain": lambda: invres.invres_block_reference(x, ops_dt, spec),
+                       "library": lambda: lib(xl)})
             flops, nbytes = block_work(spec, nb, dt)
             b_ms, b_by = bound(flops, nbytes, dt)
-            log(f"[timing] fused_invres_block {pname} {label} b{nb}: kernel {k_ms:.4f} ms "
-                f"plain {p_ms:.4f} ms cudnn {l_ms:.4f} ms bound {b_ms:.5f} ms ({b_by}; "
+            log(f"[timing] fused_invres_block {pname} {label} b{nb}: {timing_text(t)} "
+                f"bound {b_ms:.5f} ms ({b_by}; "
                 f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) | {card}")
         # The 11 launches of one MobileNetV2 224 b8 step, back to back.
         step = [(spec, *block_inputs(spec, ops, 8, dt)) for _name, spec, ops in mnv2_blocks]
         libs = [(block_library(spec, ops_dt, dt), x.permute(0, 3, 1, 2))
                 for spec, x, ops_dt in step]
-        k_ms = time_ms(lambda: [invres.fused_invres_block(x, o, sp) for sp, x, o in step])
-        p_ms = time_ms(lambda: [invres.invres_block_reference(x, o, sp) for sp, x, o in step])
-        l_ms = time_ms(lambda: [fn(xl) for fn, xl in libs])
+        t = timed({"kernel": lambda: [invres.fused_invres_block(x, o, sp) for sp, x, o in step],
+                   "plain": lambda: [invres.invres_block_reference(x, o, sp) for sp, x, o in step],
+                   "library": lambda: [fn(xl) for fn, xl in libs]})
         work = [block_work(spec, 8, dt) for spec, _x, _o in step]
         # The step's bound is the sum of the blocks' bounds; it is "bound by"
         # the resource that bounds the larger share of that sum.
         share = {"operations": 0.0, "bytes": 0.0}
         for f, b in work:
-            t, by = bound(f, b, dt)
-            share[by] += t
+            t_b, by = bound(f, b, dt)
+            share[by] += t_b
         b_ms = sum(share.values())
         b_by = max(share, key=share.get)
-        block_rows[pname] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                                 bound_by=b_by)
+        block_rows[pname] = dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by)
         log(f"[timing] fused_invres_block {pname} MobileNetV2 224 b8, sum of the 11 launches "
-            f"of one step: kernel {k_ms:.4f} ms plain {p_ms:.4f} ms cudnn {l_ms:.4f} ms "
+            f"of one step: {timing_text(t)} "
             f"bound {b_ms:.5f} ms (operations-bound blocks {share['operations']:.5f} ms, "
             f"bytes-bound {share['bytes']:.5f} ms; {sum(f for f, _ in work) / 1e9:.3f} "
             f"GFLOP, {sum(b for _, b in work) / 1e6:.3f} MB, {peak_key} peaks) | {card}")
@@ -580,17 +646,20 @@ def main() -> int:
             return apply_activation(y * sc.to(dt).reshape(1, -1, 1, 1)
                                     + of.to(dt).reshape(1, -1, 1, 1), stem_act)
 
-        k_ms = time_ms(lambda: conv.fused_conv2d_haloed(x, wts, sc, of, stem_pads, stem_act, 0.3, dt))
-        p_ms = time_ms(lambda: conv.conv2d_haloed_reference(x, wts, sc, of, stem_pads, stem_act, 0.3, dt))
-        l_ms = time_ms(library)
+        t = timed({
+            "kernel": lambda: conv.fused_conv2d_haloed(x, wts, sc, of, stem_pads, stem_act, 0.3, dt),
+            "plain": lambda: conv.conv2d_haloed_reference(x, wts, sc, of, stem_pads, stem_act,
+                                                          0.3, dt),
+            "library": library,
+        })
         ho, wo = 16 + pt + pb - kh + 1, 16 + pl + pr - kw + 1
         isz = 2 if dt == bf16 else 4
         flops = 2.0 * 64 * ho * wo * kh * kw * c * o
         nbytes = x.numel() * isz + 64 * ho * wo * o * isz + wts.numel() * isz + 2 * o * 4
         b_ms, b_by = bound(flops, nbytes, dt)
-        conv_rows[pname] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
-        log(f"[timing] fused_conv2d_haloed {pname} stem 16x16 12->16 k2 b64: kernel {k_ms:.4f} ms "
-            f"plain {p_ms:.4f} ms cudnn {l_ms:.4f} ms bound {b_ms:.5f} ms ({b_by}; "
+        conv_rows[pname] = dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by)
+        log(f"[timing] fused_conv2d_haloed {pname} stem 16x16 12->16 k2 b64: {timing_text(t)} "
+            f"bound {b_ms:.5f} ms ({b_by}; "
             f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB) | {card}")
 
     kernels = []
@@ -607,8 +676,7 @@ def main() -> int:
             "launches": main_stats[entry]["launches"],
             "max_abs_err": errs[(prec, 8)],
             "max_abs_diff": errs[(prec, 8)],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **r,
             "shape": f"{prec} 8x540x960x1",
             "engine_step_p50_ms": main_stats[entry]["engine_p50_ms"],
         })
@@ -621,14 +689,16 @@ def main() -> int:
         "launches": mnv2_stats["bf16"]["launches"],
         "max_abs_err": block_err,
         "max_abs_diff": block_err,
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        **r,
         "shape": "bf16 MobileNetV2 224 b8: the 11 blocks of one step",
         "fp32": block_rows["fp32"],
         "engine_step_p50_ms": mnv2_stats["bf16"]["engine_p50_ms"],
         "engine_step_p50_ms_fp32": mnv2_stats["fp32"]["engine_p50_ms"],
         "engine_device_busy_ms": mnv2_stats["bf16"]["device_busy_ms"],
         "engine_device_busy_ms_fp32": mnv2_stats["fp32"]["device_busy_ms"],
+        "engine_logits": {k: {"max_abs_diff": v["logits_max_abs_diff"],
+                              "planted_fault_diff": v["planted_fault_logits_diff"]}
+                          for k, v in mnv2_stats.items()},
     })
     r = conv_rows["bf16"]
     kernels.append({
@@ -639,8 +709,7 @@ def main() -> int:
         "launches": trained_stats["bf16"]["launches"],
         "max_abs_err": conv_err,
         "max_abs_diff": conv_err,
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        **r,
         "shape": "bf16 64x16x16x12 -> 64x16x16x16, k2 (the trained MobileNetV2's folded stem)",
         "fp32": conv_rows["fp32"],
         "trained_top1": {k: v["top1"] for k, v in trained_stats.items()},

@@ -44,13 +44,8 @@
 // the TPU kernel's whole-E dot.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "snn_common.cuh"
 
-#include <type_traits>
-
-#define SNN_MAX_SMEM 232448  // 227 KB, what one block may use on Hopper
 #define SNN_EC 32            // expanded channels per chunk (one per lane)
 #define SNN_MP 8             // pixels per warp (tile <= 64 pixels, 8 warps)
 #define SNN_KC 10            // output channels per lane (Cout <= 320)
@@ -70,27 +65,6 @@ struct InvResDesc {
   int cin4;    // staged input row stride: cin rounded up to 4, zero-padded
   int xs_off, es_off, ds_off, w1_off, wd_off, w2_off, red_off;  // smem floats
 };
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Codes as in kernels/chain.py ACT_CODES.
-__device__ __forceinline__ float apply_act(float v, int act, float alpha) {
-  switch (act) {
-    case 1: return fmaxf(v, 0.f);
-    case 2: return fminf(fmaxf(v, 0.f), 6.f);
-    case 3: return v >= 0.f ? v : alpha * v;
-    case 4: return tanhf(v);
-    case 5: return 1.f / (1.f + expf(-v));
-    case 6: return v / (1.f + expf(-v));
-    case 7: return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
-    default: return v;
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(SNN_THREADS)

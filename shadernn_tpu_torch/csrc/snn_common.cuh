@@ -1,0 +1,53 @@
+// Device helpers shared by the port's kernels (conv_chain.cu,
+// conv_single.cu, invres_block.cu): the shared-memory limit, bf16
+// rounding and loads, and the activation codes of the f32 epilogues.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#define SNN_MAX_SMEM 232448  // 227 KB, what one block may use on Hopper
+
+namespace {
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Codes as in kernels/chain.py ACT_CODES.
+__device__ __forceinline__ float apply_act(float v, int act, float alpha) {
+  switch (act) {
+    case 1: return fmaxf(v, 0.f);
+    case 2: return fminf(fmaxf(v, 0.f), 6.f);
+    case 3: return v >= 0.f ? v : alpha * v;
+    case 4: return tanhf(v);
+    case 5: return 1.f / (1.f + expf(-v));
+    case 6: return v / (1.f + expf(-v));
+    case 7: return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
+    default: return v;
+  }
+}
+
+// CH consecutive f32 weights into registers, as float4s where CH allows.
+template <int CH>
+__device__ __forceinline__ void load_w(const float* p, float (&w)[CH]) {
+  if constexpr (CH % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < CH; j += 4) {
+      float4 q = *reinterpret_cast<const float4*>(p + j);
+      w[j] = q.x; w[j + 1] = q.y; w[j + 2] = q.z; w[j + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < CH; ++j) w[j] = p[j];
+  }
+}
+
+}  // namespace

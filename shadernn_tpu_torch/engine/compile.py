@@ -278,7 +278,9 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
         chain_operands, fused_conv_chain, fused_conv_chain_packed,
     )
     from shadernn_tpu_torch.kernels.conv import conv_operands, conv_run_kernel
-    from shadernn_tpu_torch.kernels.invres import build_invres, fused_invres_block
+    from shadernn_tpu_torch.kernels.invres import (
+        build_invres, fused_invres_block, prepare_operands,
+    )
 
     order = graph.toposort()
     act_dtype = options.precision.activation_dtype
@@ -324,8 +326,8 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
                 members, spec = blocks[node.name]
                 views = [_NodeView(n, params.get(n.name, {})) if n is not None else None
                          for n in members]
-                ops = operands(node.name, views, lambda: build_invres(
-                    views, graph.nodes[node.inputs[0]].out_spec, act_dtype)[0])
+                ops = operands(node.name, views, lambda: prepare_operands(build_invres(
+                    views, graph.nodes[node.inputs[0]].out_spec, act_dtype)[0], spec, act_dtype))
                 out = members[3] if members[3] is not None else members[2]
                 env[out.name] = fused_invres_block(
                     value(node.inputs[0]).contiguous(), ops, spec)

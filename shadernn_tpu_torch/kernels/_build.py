@@ -28,9 +28,9 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _sources():
+def _sources(suffixes=(".cu",)):
     return sorted(
-        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu")
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(suffixes)
     )
 
 
@@ -42,13 +42,15 @@ def _nvcc() -> str:
 
 
 def build(force: bool = False) -> Tuple[str, str]:
-    """Compile the kernels if the library is missing or older than a source.
-    Returns (library path, compiler log; empty when nothing was built)."""
+    """Compile the kernels if the library is missing or older than a source
+    or a shared header. Returns (library path, compiler log; empty when
+    nothing was built)."""
     srcs = _sources()
     if (
         not force
         and os.path.exists(LIB_PATH)
-        and os.path.getmtime(LIB_PATH) >= max(os.path.getmtime(s) for s in srcs)
+        and os.path.getmtime(LIB_PATH)
+        >= max(os.path.getmtime(s) for s in _sources((".cu", ".cuh")))
     ):
         return LIB_PATH, ""
     os.makedirs(BUILD_DIR, exist_ok=True)

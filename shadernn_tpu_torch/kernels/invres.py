@@ -17,13 +17,16 @@ rounded to the compute dtype, out-of-image taps exact zeros, the residual
 x added in float32 before the output activation.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
-tensor (tests) it runs `invres_block_reference`.
+tensor (tests) it runs `invres_block_reference`. `prepare_operands`
+checks and lays out a block's operands once (the engine does so once per
+parameter set), so that a launch only checks its input.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -214,6 +217,7 @@ def invres_block_reference(x: torch.Tensor, ops: Dict[str, torch.Tensor],
     return apply_activation(y, spec.act_out, a).to(dt).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
 def pick_launch(spec: InvResSpec, n: int, sms: int) -> Tuple[int, int, int]:
     """(tile_h, tile_w, split): a tile of 8x8 output pixels per CTA, or
     smaller (down to 4x4) while the grid has fewer CTAs than the card has
@@ -233,45 +237,77 @@ def pick_launch(spec: InvResSpec, n: int, sms: int) -> Tuple[int, int, int]:
     return th, tw, split
 
 
-def _launch(x: torch.Tensor, ops: Dict[str, torch.Tensor], spec: InvResSpec) -> torch.Tensor:
-    from shadernn_tpu_torch.kernels._build import kernel_lib
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"block input must be float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 4 or tuple(x.shape[1:]) != (spec.h, spec.w, spec.cin):
-        raise ValueError(f"block input {tuple(x.shape)} != (N, {spec.h}, {spec.w}, {spec.cin})")
-    if not x.is_contiguous():
-        raise ValueError("block input must be contiguous")
+
+_ORDER = ("w1", "s1", "o1", "wd", "sd", "od", "w2", "s2", "o2")
+
+
+class InvResOperands(dict):
+    """A block's operands checked against its spec and laid out for the
+    kernel (w1, w2 in the compute dtype, the rest float32, contiguous, on
+    one device), with the kernel's pointer and activation arrays."""
+
+    spec: InvResSpec
+    dtype: torch.dtype
+    device: torch.device
+    ptrs: ctypes.Array
+    acts: ctypes.Array
+
+
+def prepare_operands(ops: Dict[str, torch.Tensor], spec: InvResSpec,
+                     dtype: torch.dtype) -> InvResOperands:
+    """`ops` (as build_invres gives them) checked and laid out for the
+    kernel at compute dtype `dtype`; raises where the kernel cannot take
+    them."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"block compute dtype must be float32 or bfloat16, got {dtype}")
     if not kernel_takes(spec):
         raise ValueError(f"the block kernel does not take {spec}")
     shapes = {"wd": (9, spec.e), "sd": (spec.e,), "od": (spec.e,),
               "w2": (spec.e, spec.cout), "s2": (spec.cout,), "o2": (spec.cout,)}
     if spec.has_expand:
         shapes.update(w1=(spec.cin, spec.e), s1=(spec.e,), o1=(spec.e,))
-    flat = {}
+    out = InvResOperands()
     for key, shape in shapes.items():
         t = ops[key]
         if tuple(t.shape) != shape:
             raise ValueError(f"operand {key} has shape {tuple(t.shape)}, want {shape}")
-        if t.device != x.device:
-            raise ValueError(f"operand {key} on {t.device}, input on {x.device}")
-        # w1, w2 in the compute dtype (the dtype of x), the rest float32
-        flat[key] = (t.to(x.dtype) if key in ("w1", "w2") else t.float()).contiguous()
-    order = ("w1", "s1", "o1", "wd", "sd", "od", "w2", "s2", "o2")
-    ptrs = (ctypes.c_void_p * 9)(*[flat.get(k, flat["wd"]).data_ptr() for k in order])
-    acts = (ctypes.c_int * 3)(*[ACT_CODES[str(a).lower()]
-                                for a in (spec.act_expand, spec.act_dw, spec.act_out)])
+        out[key] = (t.to(dtype) if key in ("w1", "w2") else t.float()).contiguous()
+    devices = {t.device for t in out.values()}
+    if len(devices) != 1:
+        raise ValueError(f"block operands on several devices: {sorted(map(str, devices))}")
+    out.spec, out.dtype, out.device = spec, dtype, devices.pop()
+    # Without expand the kernel reads no w1/s1/o1: any valid pointer will do.
+    out.ptrs = (ctypes.c_void_p * 9)(*[out.get(k, out["wd"]).data_ptr() for k in _ORDER])
+    out.acts = (ctypes.c_int * 3)(*[ACT_CODES[str(a).lower()]
+                                    for a in (spec.act_expand, spec.act_dw, spec.act_out)])
+    return out
+
+
+def _launch(x: torch.Tensor, ops: Dict[str, torch.Tensor], spec: InvResSpec) -> torch.Tensor:
+    from shadernn_tpu_torch.kernels._build import kernel_lib
+
+    if not (isinstance(ops, InvResOperands) and ops.spec == spec and ops.dtype == x.dtype):
+        ops = prepare_operands(ops, spec, x.dtype)
+    if ops.device != x.device:
+        raise ValueError(f"block operands on {ops.device}, input on {x.device}")
+    if x.dim() != 4 or tuple(x.shape[1:]) != (spec.h, spec.w, spec.cin):
+        raise ValueError(f"block input {tuple(x.shape)} != (N, {spec.h}, {spec.w}, {spec.cin})")
+    if not x.is_contiguous():
+        raise ValueError("block input must be contiguous")
     n = x.shape[0]
     y = torch.empty((n, spec.h, spec.w, spec.cout), dtype=x.dtype, device=x.device)
     if n == 0:
         return y
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    th, tw, split = pick_launch(spec, n, sms)
+    th, tw, split = pick_launch(spec, n, _sm_count(x.device.index))
     lib = kernel_lib()
     rc = lib.snn_invres_block(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(), ptrs, n, spec.h,
+        x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(), ops.ptrs, n, spec.h,
         spec.w, spec.cin, spec.e, spec.cout, int(spec.has_expand), int(spec.residual),
-        acts, float(spec.alpha), th, tw, split, torch.cuda.current_stream(x.device).cuda_stream,
+        ops.acts, float(spec.alpha), th, tw, split, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"invres_block launch failed ({rc}): {lib.snn_invres_error(rc).decode()}")
@@ -283,7 +319,9 @@ def fused_invres_block(x: torch.Tensor, ops: Dict[str, torch.Tensor],
                        spec: InvResSpec) -> torch.Tensor:
     """Counterpart of block_pallas.fused_invres_block: NHWC (N,H,W,Cin) in
     the compute dtype -> (N,H,W,Cout). The CUDA kernel for a CUDA tensor
-    (no fallback), `invres_block_reference` for a CPU tensor."""
+    (no fallback), `invres_block_reference` for a CPU tensor. `ops` as
+    build_invres gives them, or as prepare_operands laid them out for the
+    dtype of x (then they are not checked again)."""
     if x.device.type == "cuda":
         return _launch(x, ops, spec)
     if x.device.type == "cpu":

@@ -8,6 +8,8 @@ version on the card by chip_smoke.py.
 Tolerance: the conftest thresholds (0.01 fp32, 0.1 bf16) times
 max(1, max|reference|)."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -166,3 +168,35 @@ def test_entry_point_rejects_other_devices(rng):
     with pytest.raises(ValueError):
         invres.fused_invres_block(torch.zeros((1, 4, 4, 8), device="meta"),
                                   {k: torch.from_numpy(v) for k, v in ops.items()}, spec)
+
+
+@pytest.mark.parametrize("prec", list(TOL))
+def test_prepared_operands_give_the_same_block(rng, prec):
+    """prepare_operands lays the operands out once (w1, w2 in the compute
+    dtype, the rest float32, contiguous); the entry point gives the same
+    result from them as from build_invres's dict."""
+    tdt, _ = DTYPES[prec]
+    x, ops = random_block(rng, 2, 9, 13, 16, 40, 16, True)
+    spec = invres.InvResSpec(9, 13, 16, 40, 16, True, True, "relu6", "relu6", "linear")
+    tops = {k: torch.from_numpy(v) for k, v in ops.items()}
+    prepared = invres.prepare_operands(tops, spec, tdt)
+    assert prepared.spec == spec and prepared.dtype == tdt and prepared.device.type == "cpu"
+    for k, t in prepared.items():
+        assert t.dtype == (tdt if k in ("w1", "w2") else torch.float32), k
+        assert t.is_contiguous(), k
+    assert len(prepared.ptrs) == 9 and list(prepared.acts) == [2, 2, 0]
+    xt = torch.from_numpy(x).to(tdt)
+    assert torch.equal(invres.fused_invres_block(xt, prepared, spec),
+                       invres.fused_invres_block(xt, tops, spec))
+
+
+def test_prepare_operands_rejects_what_the_kernel_cannot_take(rng):
+    _, ops = random_block(rng, 1, 4, 4, 8, 16, 8, True)
+    tops = {k: torch.from_numpy(v) for k, v in ops.items()}
+    spec = invres.InvResSpec(4, 4, 8, 16, 8, True, False, "relu6", "relu6", "linear")
+    with pytest.raises(ValueError, match="operand w2"):
+        invres.prepare_operands(dict(tops, w2=tops["w2"][:, :4]), spec, torch.float32)
+    with pytest.raises(ValueError, match="does not take"):
+        invres.prepare_operands(tops, dataclasses.replace(spec, act_out="softmax"), torch.float32)
+    with pytest.raises(TypeError):
+        invres.prepare_operands(tops, spec, torch.float16)
