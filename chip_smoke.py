@@ -13,8 +13,12 @@ Phases, each of which raises on failure (exit code != 0):
               kernel at every block geometry of MobileNetV2 224 (b8), every
               block geometry of the trained model at its batch (b64) and a
               ragged 13x9 block, bf16 and fp32; the single-conv kernel at the
-              trained model's folded stem, k5 c1->16 and k3 c128->128 with
-              asymmetric pads
+              trained model's folded stem, k5 c1->16, k3 c128->128 with
+              asymmetric pads and the ResNet18 shapes; the implicit-GEMM conv
+              kernel at the ResNet-wide shapes, 540p frames, even k with
+              asymmetric pads, stride 2 and int8 weights; the fused-matmul
+              kernel at the classifier heads (softmax rows must sum to 1),
+              a ragged shape and int8 weights
   4. main     ESPCN 2x at 540p, trained weights, batch 8, through
               Engine.from_json at BF16 and at FP32, 5 steps each; every
               step must launch the chain kernel once. MobileNetV2 224
@@ -25,10 +29,18 @@ Phases, each of which raises on failure (exit code != 0):
               trained MobileNetV2 (10
               classes) through Engine.from_json at b64: 13 blocks and one
               single conv per step, top-1 >= 0.9 on 256 images of its task.
+              With every node forced to KERNEL: ResNet18 at the zoo width
+              (seeded weights and BatchNorm statistics, b8) and the trained
+              ResNet18 (b64, top-1 >= 0.95 at FP32, BF16 within 0.03 of it),
+              each step launching the fused matmul once and the chain and
+              single-conv kernels as planned; a two-input conv graph at 540p
+              b8, each step launching the implicit-GEMM conv kernel once; a
+              zeroed classifier and a dropped conv tap must fail the checks.
               Outputs are checked against the port's plain (TORCH backend)
-              forward on the card (MobileNetV2 on probabilities and logits)
-  5. timing   kernel, plain version and a cuDNN yardstick, each from CUDA
-              events around back-to-back calls and as device time from
+              forward on the card (the classifiers on probabilities and
+              logits)
+  5. timing   kernel, plain version and a library yardstick (cuDNN, cuBLAS),
+              each from CUDA events around back-to-back calls and as device time from
               torch.profiler; the bound
 Prints the `kernels` JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Imports no JAX and nothing of
@@ -106,10 +118,14 @@ def main() -> int:
     from shadernn_tpu_torch import Engine, EngineOptions, Precision
     from shadernn_tpu_torch.config import BackendKind
     from shadernn_tpu_torch.graph import fusion
+    from shadernn_tpu_torch.graph.ir import Graph, Node
     from shadernn_tpu_torch.graph.parser import parse_model_file
-    from shadernn_tpu_torch.kernels import _build, chain, conv, invres
+    from shadernn_tpu_torch.kernels import _build, chain, conv, conv_igemm, invres, matmul
     from shadernn_tpu_torch.models.mobilenetv2 import build_mobilenetv2
-    from shadernn_tpu_torch.models.zoo import ESPCN_TRAINED, MOBILENETV2_TRAINED
+    from shadernn_tpu_torch.models.resnet18 import build_resnet18_cifar10
+    from shadernn_tpu_torch.models.zoo import (
+        ESPCN_TRAINED, MOBILENETV2_TRAINED, RESNET18_TRAINED,
+    )
     from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
     from shadernn_tpu_torch.ops.conv import full_precision
     from shadernn_tpu_torch.ops.shape_ops import depth_to_space
@@ -194,22 +210,24 @@ def main() -> int:
     case("ragged espcn 37x101 b3", espcn_nodes, 1, f32, "none", (3, 37, 101, 1),
          "fused_conv_chain")
 
-    def mobilenetv2_224(seed=11):
-        """MobileNetV2 224 with seeded weights and BatchNorm statistics drawn
-        from `seed`, as tests/test_torch_mobilenetv2.py draws them: under
-        the builder's identity BatchNorm the signal fades to logits of about
-        1e-2; under these they are O(1)."""
-        g = build_mobilenetv2()
+    def seeded_batchnorm(g, gamma, seed=11):
+        """BatchNorm statistics drawn from `seed` around `gamma`, as the
+        tests draw them: under the builders' identity BatchNorm the logits
+        are too small to hold anything; under these they are O(1)."""
         bn_rng = np.random.default_rng(seed)
         for n in g.nodes.values():
             if n.op == "BatchNormalization":
                 c = n.params["gamma"].shape[0]
                 n.params.update(
-                    gamma=(1.5 + 0.2 * bn_rng.standard_normal(c)).astype(np.float32),
+                    gamma=(gamma + 0.2 * bn_rng.standard_normal(c)).astype(np.float32),
                     beta=(0.2 * bn_rng.standard_normal(c)).astype(np.float32),
                     mean=(0.1 * bn_rng.standard_normal(c)).astype(np.float32),
                     variance=(1 + 0.1 * np.abs(bn_rng.standard_normal(c))).astype(np.float32))
         return g
+
+    def mobilenetv2_224():
+        """MobileNetV2 224 with seeded weights and BatchNorm statistics."""
+        return seeded_batchnorm(build_mobilenetv2(), 1.5)
 
     # Inverted-residual blocks as the planner builds them (BatchNorm
     # folded), one case per distinct geometry at the batch of the path that
@@ -285,6 +303,9 @@ def main() -> int:
     for label, nb, h, w, c, k, o, pads, act in (
         ("k5 c1->16 64x96", 2, 64, 96, 1, 5, 16, (2, 2, 2, 2), "relu"),
         ("k3 c128->128 asym pads 30x41", 2, 30, 41, 128, 3, 128, (3, 0, 1, 2), "tanh"),
+        # What forced-KERNEL ResNet18 at the zoo width launches (stages 0 and 1).
+        ("resnet k3 c64->64 32x32", 8, 32, 32, 64, 3, 64, (1, 1, 1, 1), "relu"),
+        ("resnet k3 c128->128 16x16", 8, 16, 16, 128, 3, 128, (1, 1, 1, 1), "relu"),
     ):
         wts = torch.from_numpy((rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c))
                                .astype(np.float32)).to(dev)
@@ -301,10 +322,82 @@ def main() -> int:
                 f"{label} b{nb} {'bf16' if dt == bf16 else 'fp32'}", "fused_conv2d_haloed",
                 got, conv.conv2d_haloed_reference(x, wts, sc, of, pads, act, 0.3, dt), dt))
 
+    def tensor(a, dt=f32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+    def int8_tensor(shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+
+    # The implicit-GEMM conv: the ResNet-wide shapes, 540p frames (k5 and
+    # the two-input graph's conv, its main-path shape), even k with
+    # asymmetric pads, stride 2, int8 weights.
+    TWO_INPUT = (8, 540, 960, 8, 3, 16)  # n, h, w, c (3 + 5), k, o
+    igemm_err = 0.0
+    for label, nb, h, w, c, k, o, stride, pads, act, w_int8 in (
+        ("k3 c64->64 32x32", 8, 32, 32, 64, 3, 64, 1, (1, 1, 1, 1), "relu", False),
+        ("k3 c128->128 16x16", 8, 16, 16, 128, 3, 128, 1, (1, 1, 1, 1), "relu", False),
+        ("k1 c64->128 16x16", 8, 16, 16, 64, 1, 128, 1, (0, 0, 0, 0), "linear", False),
+        ("k5 c3->16 540x960", 2, 540, 960, 3, 5, 16, 1, (2, 2, 2, 2), "tanh", False),
+        ("k4 c7->20 asym pads 30x41", 2, 30, 41, 7, 4, 20, 1, (1, 2, 1, 2), "leaky_relu", False),
+        ("two-input k3 c8->16 540x960", *TWO_INPUT, 1, (1, 1, 1, 1), "relu", False),
+        ("stride 2 k3 c24->40 33x35", 4, 33, 35, 24, 3, 40, 2, (1, 1, 1, 1), "relu6", False),
+        ("int8 w k3 c16->32 20x22", 2, 20, 22, 16, 3, 32, 1, (1, 1, 1, 1), "relu", True),
+    ):
+        for dt in (bf16, f32):
+            x = tensor(rng.standard_normal((nb, h, w, c)), dt)
+            if w_int8:
+                wts = int8_tensor((k, k, c, o))
+                sc = tensor(0.02 / np.sqrt(k * k * c) * (1 + 0.1 * rng.standard_normal(o)))
+            else:
+                wts = tensor(rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c), dt)
+                sc = tensor(1 + 0.1 * rng.standard_normal(o))
+            of = tensor(0.1 * rng.standard_normal(o))
+            got = conv_igemm.conv2d_kernel_nhwc(x, wts, sc, of, stride=stride, pads=pads,
+                                                activation=act)
+            torch.cuda.synchronize()
+            igemm_err = max(igemm_err, held(
+                f"{label} b{nb} {'bf16' if dt == bf16 else 'fp32'}", "conv2d_kernel_nhwc",
+                got, conv_igemm.conv2d_igemm_reference(x, wts, sc, of, stride, pads, act), dt))
+
+    # The fused matmul: the classifier heads (ResNet18 at the zoo width and
+    # trained, MobileNetV2's), a ragged shape, int8 weights. A softmax row
+    # must sum to 1: within 1e-5 in fp32; in bf16 each probability is
+    # rounded once (relative 2^-9), so the sum is held to 2^-8.
+    matmul_err = 0.0
+    for label, m, k, n, act, w_int8 in (
+        ("resnet18 fc 8x512x10", 8, 512, 10, "softmax", False),
+        ("trained fc 64x128x10", 64, 128, 10, "softmax", False),
+        ("mobilenetv2 fc 8x1280x1000", 8, 1280, 1000, "softmax", False),
+        ("ragged 37x100x23", 37, 100, 23, "sigmoid", False),
+        ("int8 w 33x70x130", 33, 70, 130, "relu", True),
+    ):
+        for dt in (bf16, f32):
+            x = tensor(rng.standard_normal((m, k)), dt)
+            if w_int8:
+                wts = int8_tensor((k, n))
+                sc = tensor(0.02 / np.sqrt(k) * (1 + 0.1 * rng.standard_normal(n)))
+            else:
+                wts = tensor(rng.standard_normal((k, n)) / np.sqrt(k), dt)
+                sc = tensor(1 + 0.1 * rng.standard_normal(n))
+            of = tensor(0.1 * rng.standard_normal(n))
+            got = matmul.fused_matmul(x, wts, sc, of, activation=act)
+            torch.cuda.synchronize()
+            pname = "bf16" if dt == bf16 else "fp32"
+            matmul_err = max(matmul_err, held(
+                f"{label} {act} {pname}", "fused_matmul", got,
+                matmul.fused_matmul_reference(x, wts, sc, of, act), dt))
+            if act == "softmax":
+                off = (got.float().sum(-1) - 1).abs().max().item()
+                lim = 2.0 ** -8 if dt == bf16 else 1e-5
+                log(f"[kernel] {label} {pname}: softmax rows sum to 1 within {off:.2e} "
+                    f"(limit {lim:.1e})")
+                assert off <= lim, f"{label}: softmax rows do not sum to 1"
+
     # 4. main path -----------------------------------------------------------
     # Each path runs with every kernel's count set to 0 just before it and
     # read just after.
-    counters = (chain.launches, conv.launches, invres.launches)
+    counters = (chain.launches, conv.launches, invres.launches, conv_igemm.launches,
+                matmul.launches)
 
     def reset_counts():
         for counts in counters:
@@ -371,10 +464,10 @@ def main() -> int:
         top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
         return sum(per.values()), top
 
-    def device_busy(eng, frames, steps=5):
+    def device_busy(eng, inputs, steps=5):
         """Device time per engine step (inputs already on the card) and the
         top device events by it."""
-        dev_inputs = {"input": torch.from_numpy(frames).to(dev)}
+        dev_inputs = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
         return device_profile(lambda: eng.model(dev_inputs), steps)
 
     # MobileNetV2 224, seeded weights and BatchNorm, batch 8: 11 blocks per step.
@@ -422,7 +515,7 @@ def main() -> int:
             f"(max|logit| {top:.3e}, relative {err_logits / top:.3e}); planted fault "
             f"({zeroed} zeroed) moves the logits by {err_fault:.3e} "
             f"device step p50 {bench['p50_ms']:.3f} ms")
-        busy_ms, top_kernels = device_busy(eng, images)
+        busy_ms, top_kernels = device_busy(eng, {"input": images})
         idle = f"{1 - busy_ms / bench['p50_ms']:.3f}" if busy_ms else "not measured"
         log(f"[main] mobilenetv2 224 b8 {prec.value} torch.profiler: device busy "
             f"{busy_ms:.3f} ms per step, idle share {idle} of the p50 step; top kernels "
@@ -466,6 +559,180 @@ def main() -> int:
                                      "invres_launches": counts["fused_invres_block"],
                                      "top1": top1, "engine_p50_ms": bench["p50_ms"]}
         del eng, preds, probs
+
+    # Every node forced to KERNEL: the launches of a step are what the
+    # forward's plans say, kernel by kernel.
+    def held_to_plans(fwd, counts, steps):
+        got = dict(counts)
+        got["chains"] = got.pop("fused_conv_chain") + got.pop("fused_conv_chain_packed")
+        want = {"chains": len(fwd.chain_plan),
+                "fused_conv2d_haloed": len(fwd.single_conv_plan),
+                "fused_invres_block": len(fwd.block_plan),
+                "conv2d_kernel_nhwc": len(fwd.kernel_conv_plan),
+                "fused_matmul": len(fwd.kernel_dense_plan)}
+        assert got == {k: v * steps for k, v in want.items()}, (got, want, steps)
+        return want
+
+    def busy_text(eng, inputs, p50):
+        busy_ms, top_kernels = device_busy(eng, inputs)
+        idle = f"{1 - busy_ms / p50:.3f}" if busy_ms else "not measured"
+        return busy_ms, (f"torch.profiler: device busy {busy_ms:.3f} ms per step, idle share "
+                         f"{idle} of the p50 step; top kernels "
+                         + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top_kernels))
+
+    forced = BackendKind.KERNEL
+    # ResNet18 at the zoo width (64/128/256/512, 32x32x3, 10 classes), seeded
+    # weights and BatchNorm statistics, batch 8.
+    images32 = rng.random((8, 32, 32, 3), dtype=np.float32)
+    resnet_stats = {}
+    for prec in (Precision.BF16, Precision.FP32):
+        tol = ENGINE_TOL[prec.value]
+
+        def engine(linear_head, backend=forced, zero_fc=False):
+            g = seeded_batchnorm(build_resnet18_cifar10(), 1.2)
+            if linear_head:
+                g.nodes["fc"].attrs["activation"] = "linear"
+            if zero_fc:  # a planted fault
+                g.nodes["fc"].params["weight"] = np.zeros_like(g.nodes["fc"].params["weight"])
+            return Engine.from_graph(g, EngineOptions(precision=prec, batch_size=8,
+                                                      backend=backend))
+
+        eng = engine(False)
+        fwd = eng.model.forward
+        assert fwd.kernel_dense_plan == ["fc"] and fwd.kernel_conv_plan == [], (
+            fwd.kernel_dense_plan, fwd.kernel_conv_plan)
+        assert fwd.chain_plan == {} and len(fwd.single_conv_plan) == 8, (
+            fwd.chain_plan, fwd.single_conv_plan)
+        reset_counts()
+        outs = [eng.run_single(images32) for _ in range(STEPS)]
+        counts = read_counts()
+        per_step = held_to_plans(fwd, counts, STEPS)
+        y = outs[-1]
+        assert tuple(y.shape) == (8, 10) and torch.isfinite(y).all().item(), y.shape
+        row_off = (y.sum(-1) - 1).abs().max().item()
+        assert row_off <= (2.0 ** -8 if prec == Precision.BF16 else 1e-5), row_off
+        err = (y - engine(False, BackendKind.TORCH).run_single(images32)).abs().max().item()
+        logits = engine(True).run_single(images32)
+        logits_plain = engine(True, BackendKind.TORCH).run_single(images32)
+        top = logits_plain.abs().max().item()
+        scale = max(1.0, top)
+        err_logits = (logits - logits_plain).abs().max().item()
+        # A planted fault on the kernel path (fc's weight zeroed, so that the
+        # fused matmul gives the bias alone) must move the logits past the
+        # tolerance.
+        err_fault = (engine(True, zero_fc=True).run_single(images32)
+                     - logits_plain).abs().max().item()
+        bench = eng.benchmark({"input": images32}, loops=20)
+        log(f"[main] resnet18 zoo width b8 {prec.value} KERNEL launches per step {per_step} "
+            f"({STEPS} steps) vs TORCH forward: probabilities max_abs_diff {err:.3e} tol {tol}, "
+            f"rows sum to 1 within {row_off:.1e}; logits max_abs_diff {err_logits:.3e} tol "
+            f"{tol * scale:.3g} (max|logit| {top:.3e}); planted fault (fc zeroed) moves the "
+            f"logits by {err_fault:.3e}; device step p50 {bench['p50_ms']:.3f} ms")
+        busy_ms, text = busy_text(eng, {"input": images32}, bench["p50_ms"])
+        log(f"[main] resnet18 zoo width b8 {prec.value} {text}")
+        assert err <= tol, f"{prec.value}: ResNet18 probabilities disagree with TORCH"
+        assert err_logits <= tol * scale, f"{prec.value}: ResNet18 logits disagree with TORCH"
+        assert top >= 1.0, f"{prec.value}: logits of {top:.3e} would hold nothing"
+        assert err_fault > tol * scale, f"{prec.value}: the logits check misses a zeroed fc"
+        resnet_stats[prec.value] = {"launches": counts["fused_matmul"], "per_step": per_step,
+                                    "engine_p50_ms": bench["p50_ms"], "device_busy_ms": busy_ms,
+                                    "logits_max_abs_diff": err_logits,
+                                    "planted_fault_logits_diff": err_fault}
+        del eng, outs, y, logits, logits_plain
+
+    # The trained ResNet18 (base 16, 10 classes, 32x32) at b64, scored on the
+    # task it was trained on: top-1 >= 0.95 at FP32, BF16 within 0.03 of it.
+    resnet_trained = {}
+    for prec in (Precision.FP32, Precision.BF16):
+        eng = Engine.from_json(RESNET18_TRAINED, EngineOptions(precision=prec, batch_size=64,
+                                                               backend=forced))
+        fwd = eng.model.forward
+        on_kernel = {n for m in fwd.chain_plan.values() for n in m} | set(fwd.single_conv_plan)
+        stride1 = {n.name for n in eng.graph.nodes.values()
+                   if n.op == "Conv2D" and int(n.attr("stride", 1)) == 1}
+        assert fwd.kernel_dense_plan == ["fc"] and on_kernel == stride1, (fwd.chain_plan,
+                                                                         fwd.single_conv_plan)
+        reset_counts()
+        preds = [eng.run_single(cls_x[i:i + 64]) for i in range(0, 256, 64)]
+        counts = read_counts()
+        per_step = held_to_plans(fwd, counts, len(preds))
+        probs = torch.cat(preds)
+        assert torch.isfinite(probs).all().item() and tuple(probs.shape) == (256, 10)
+        top1 = float((probs.argmax(-1).cpu().numpy() == cls_y).mean())
+        plain = Engine.from_json(RESNET18_TRAINED, EngineOptions(
+            precision=prec, batch_size=64, backend=BackendKind.TORCH)).run_single(cls_x[:64])
+        err = (preds[0] - plain).abs().max().item()
+        tol = ENGINE_TOL[prec.value]
+        bench = eng.benchmark({"input": cls_x[:64]}, loops=20)
+        log(f"[main] resnet18 cls10 trained b64 {prec.value} KERNEL launches per step "
+            f"{per_step} ({len(preds)} steps) top-1 {top1:.4f} vs TORCH forward "
+            f"probabilities max_abs_diff {err:.3e} tol {tol} device step p50 "
+            f"{bench['p50_ms']:.3f} ms")
+        assert err <= tol, f"{prec.value}: trained ResNet18 disagrees with TORCH"
+        resnet_trained[prec.value] = {"launches": counts["fused_matmul"], "top1": top1,
+                                      "per_step": per_step, "engine_p50_ms": bench["p50_ms"]}
+        del eng, preds, probs
+    assert resnet_trained["fp32"]["top1"] >= 0.95, resnet_trained
+    assert resnet_trained["bf16"]["top1"] >= resnet_trained["fp32"]["top1"] - 0.03, resnet_trained
+
+    # A two-input conv graph at 540p, batch 8 (the reference's
+    # use_multi_inputs): no chain takes it, so forced to KERNEL it runs on the
+    # implicit-GEMM conv kernel, one launch per step.
+    def two_input_graph(drop_tap=False):
+        nb, h, w, c, k, o = TWO_INPUT
+        g = Graph("two_input")
+        g.add(Node("a", "InputLayer", [], {"height": h, "width": w, "channels": 3}))
+        g.add(Node("b", "InputLayer", [], {"height": h, "width": w, "channels": c - 3,
+                                           "index": 1}))
+        w_rng = np.random.default_rng(7767517)
+        wt = (w_rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c)).astype(np.float32)
+        bias = (0.1 * w_rng.standard_normal(o)).astype(np.float32)
+        if drop_tap:  # a planted fault: the centre tap contributes nothing
+            wt[k // 2, k // 2] = 0
+        g.add(Node("conv", "Conv2D", ["a", "b"],
+                   {"kernel_size": k, "stride": 1, "padding": "same", "out_channels": o,
+                    "use_multi_inputs": True, "use_bias": True, "activation": "relu"},
+                   {"weight": wt, "bias": bias}))
+        g.finalize()
+        return g
+
+    nb, h, w, c, k, o = TWO_INPUT
+    pair = {"a": rng.random((nb, h, w, 3), dtype=np.float32),
+            "b": rng.random((nb, h, w, c - 3), dtype=np.float32)}
+    two_stats = {}
+    for prec in (Precision.BF16, Precision.FP32):
+        tol = ENGINE_TOL[prec.value]
+
+        def engine(backend=forced, drop_tap=False):
+            return Engine.from_graph(two_input_graph(drop_tap), EngineOptions(
+                precision=prec, batch_size=nb, backend=backend))
+
+        eng = engine()
+        fwd = eng.model.forward
+        assert fwd.kernel_conv_plan == ["conv"] and fwd.chain_plan == {}, fwd.kernel_conv_plan
+        reset_counts()
+        for _ in range(STEPS):
+            y = eng.run(pair)["conv"]
+        counts = read_counts()
+        per_step = held_to_plans(fwd, counts, STEPS)
+        assert tuple(y.shape) == (nb, h, w, o) and torch.isfinite(y).all().item(), y.shape
+        plain = engine(BackendKind.TORCH).run(pair)["conv"]
+        scale = max(1.0, plain.abs().max().item())
+        err = (y - plain).abs().max().item()
+        err_fault = (engine(drop_tap=True).run(pair)["conv"] - plain).abs().max().item()
+        bench = eng.benchmark(pair, loops=20)
+        log(f"[main] two-input conv 540x960 b8 {prec.value} KERNEL launches per step "
+            f"{per_step} ({STEPS} steps) vs TORCH forward max_abs_diff {err:.3e} tol "
+            f"{tol * scale:.3g}; planted fault (centre tap dropped) moves the output by "
+            f"{err_fault:.3e}; device step p50 {bench['p50_ms']:.3f} ms")
+        busy_ms, text = busy_text(eng, pair, bench["p50_ms"])
+        log(f"[main] two-input conv 540x960 b8 {prec.value} {text}")
+        assert err <= tol * scale, f"{prec.value}: the two-input conv disagrees with TORCH"
+        assert err_fault > tol * scale, f"{prec.value}: the check misses a dropped tap"
+        two_stats[prec.value] = {"launches": counts["conv2d_kernel_nhwc"],
+                                 "engine_p50_ms": bench["p50_ms"], "device_busy_ms": busy_ms,
+                                 "max_abs_diff": err, "planted_fault_diff": err_fault}
+        del eng, y, plain
 
     # 5. timings -------------------------------------------------------------
     def time_ms(fn, reps=20, warm=3, rounds=3):
@@ -628,39 +895,112 @@ def main() -> int:
             f"bytes-bound {share['bytes']:.5f} ms; {sum(f for f, _ in work) / 1e9:.3f} "
             f"GFLOP, {sum(b for _, b in work) / 1e6:.3f} MB, {peak_key} peaks) | {card}")
 
-    # The single conv at the trained model's stem, its main-path batch 64.
-    conv_rows = {}
-    wts, sc, of = stem_ops
-    kh, kw, c, o = wts.shape
-    stem_act = str(stem.attr("activation"))
+    def conv_yardstick(x, wts, sc, of, pads, act, dt):
+        """cuDNN yardstick of one stride-1 conv: F.conv2d on channels_last
+        tensors and the epilogue in the compute dtype. Timed only; the port
+        never calls it."""
+        pt, pb, pl, pr = pads
+        xl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
+        w_lib = wts.to(dt).permute(3, 2, 0, 1).contiguous(memory_format=cl)
+        sc_lib, of_lib = (v.to(dt).reshape(1, -1, 1, 1) for v in (sc, of))
+        even = pt == pb and pl == pr
+
+        def run():
+            with full_precision():
+                y = (F.conv2d(xl, w_lib, padding=(pt, pl)) if even
+                     else F.conv2d(F.pad(xl, (pl, pr, pt, pb)), w_lib))
+            return apply_activation(y * sc_lib + of_lib, act)
+        return run
+
+    def time_conv(entry, label, kernel, plain, nb, h, w, wts, sc, of, pads, act, dt):
+        """One [timing] line of a stride-1 conv kernel at x (nb,h,w,c);
+        `kernel` and `plain` take (x, wts, sc, of, pads, act)."""
+        kh, kw, c, o = wts.shape
+        pname = "bf16" if dt == bf16 else "fp32"
+        x = tensor(rng.standard_normal((nb, h, w, c)), dt)
+        wts = wts.to(dt)
+        t = timed({"kernel": lambda: kernel(x, wts, sc, of, pads, act),
+                   "plain": lambda: plain(x, wts, sc, of, pads, act),
+                   "library": conv_yardstick(x, wts, sc, of, pads, act, dt)})
+        ho, wo = h + pads[0] + pads[1] - kh + 1, w + pads[2] + pads[3] - kw + 1
+        isz = 2 if dt == bf16 else 4
+        flops = 2.0 * nb * ho * wo * kh * kw * c * o
+        nbytes = (x.numel() + nb * ho * wo * o + wts.numel()) * isz + 2 * o * 4
+        b_ms, b_by = bound(flops, nbytes, dt)
+        log(f"[timing] {entry} {pname} {label} b{nb}: {timing_text(t)} bound {b_ms:.5f} ms "
+            f"({b_by}; {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB) | {card}")
+        return dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by)
+
+    def random_conv(c, k, o):
+        return (tensor(rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c)),
+                tensor(1 + 0.1 * rng.standard_normal(o)), tensor(0.1 * rng.standard_normal(o)))
+
+    # Both per-layer conv kernels at the wide ResNet18 shapes (b8): the
+    # single-conv kernel launches them on the ResNet18 path, the
+    # implicit-GEMM form is meant for them. Then each at its own main-path
+    # shape: the trained MobileNetV2's stem (b64), the two-input conv (b8).
+    def single(x, wts, sc, of, pads, act):
+        return conv.fused_conv2d_haloed(x, wts, sc, of, pads, act, 0.3, x.dtype)
+
+    def single_plain(x, wts, sc, of, pads, act):
+        return conv.conv2d_haloed_reference(x, wts, sc, of, pads, act, 0.3, x.dtype)
+
+    def igemm(x, wts, sc, of, pads, act):
+        return conv_igemm.conv2d_kernel_nhwc(x, wts, sc, of, stride=1, pads=pads, activation=act)
+
+    def igemm_plain(x, wts, sc, of, pads, act):
+        return conv_igemm.conv2d_igemm_reference(x, wts, sc, of, 1, pads, act)
+
+    conv_rows, igemm_rows = {}, {}
+    same3 = (1, 1, 1, 1)
     for dt in (bf16, f32):
         pname = "bf16" if dt == bf16 else "fp32"
-        x = torch.from_numpy(rng.random((64, 16, 16, c), dtype=np.float32)).to(dev, dt)
-        xl = x.permute(0, 3, 1, 2)
-        w_lib = wts.to(dt).permute(3, 2, 0, 1).contiguous(memory_format=cl)
-        pt, pb, pl, pr = stem_pads
+        for label, hw, c in (("k3 c64->64 32x32", 32, 64), ("k3 c128->128 16x16", 16, 128)):
+            ops = random_conv(c, 3, c)
+            conv_rows[(label, pname)] = time_conv(
+                "fused_conv2d_haloed", label, single, single_plain, 8, hw, hw, *ops, same3,
+                "relu", dt)
+            igemm_rows[(label, pname)] = time_conv(
+                "conv2d_kernel_nhwc", label, igemm, igemm_plain, 8, hw, hw, *ops, same3,
+                "relu", dt)
+        conv_rows[pname] = time_conv(
+            "fused_conv2d_haloed", "stem 16x16 12->16 k2", single, single_plain, 64, 16, 16,
+            *stem_ops, stem_pads, str(stem.attr("activation")), dt)
+        nb, h, w, c, k, o = TWO_INPUT
+        igemm_rows[pname] = time_conv(
+            "conv2d_kernel_nhwc", "two-input k3 c8->16 540x960", igemm, igemm_plain, nb, h, w,
+            *random_conv(c, k, o), same3, "relu", dt)
 
-        def library():
-            with full_precision():
-                y = F.conv2d(F.pad(xl, (pl, pr, pt, pb)), w_lib)
-            return apply_activation(y * sc.to(dt).reshape(1, -1, 1, 1)
-                                    + of.to(dt).reshape(1, -1, 1, 1), stem_act)
+    def library_text(t, name):
+        return timing_text(t).replace("cudnn", name)
 
-        t = timed({
-            "kernel": lambda: conv.fused_conv2d_haloed(x, wts, sc, of, stem_pads, stem_act, 0.3, dt),
-            "plain": lambda: conv.conv2d_haloed_reference(x, wts, sc, of, stem_pads, stem_act,
-                                                          0.3, dt),
-            "library": library,
-        })
-        ho, wo = 16 + pt + pb - kh + 1, 16 + pl + pr - kw + 1
-        isz = 2 if dt == bf16 else 4
-        flops = 2.0 * 64 * ho * wo * kh * kw * c * o
-        nbytes = x.numel() * isz + 64 * ho * wo * o * isz + wts.numel() * isz + 2 * o * 4
-        b_ms, b_by = bound(flops, nbytes, dt)
-        conv_rows[pname] = dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by)
-        log(f"[timing] fused_conv2d_haloed {pname} stem 16x16 12->16 k2 b64: {timing_text(t)} "
-            f"bound {b_ms:.5f} ms ({b_by}; "
-            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB) | {card}")
+    # The fused matmul at the classifier heads of the main paths (and
+    # MobileNetV2's, the widest softmax); library: one addmm with the scale
+    # folded into W, then the softmax.
+    matmul_rows = {}
+    for label, m, k, n in (("resnet18 fc 8x512x10", 8, 512, 10),
+                           ("trained fc 64x128x10", 64, 128, 10),
+                           ("mobilenetv2 fc 8x1280x1000", 8, 1280, 1000)):
+        for dt in (bf16, f32):
+            pname = "bf16" if dt == bf16 else "fp32"
+            x = tensor(rng.standard_normal((m, k)), dt)
+            wts = tensor(rng.standard_normal((k, n)) / np.sqrt(k), dt)
+            sc = tensor(1 + 0.1 * rng.standard_normal(n))
+            of = tensor(0.1 * rng.standard_normal(n))
+            w_lib, of_lib = (wts.float() * sc).to(dt), of.to(dt)
+            t = timed({
+                "kernel": lambda: matmul.fused_matmul(x, wts, sc, of, activation="softmax"),
+                "plain": lambda: matmul.fused_matmul_reference(x, wts, sc, of, "softmax"),
+                "library": lambda: torch.softmax(torch.addmm(of_lib, x, w_lib), dim=-1),
+            })
+            isz = 2 if dt == bf16 else 4
+            flops = 2.0 * m * k * n
+            nbytes = (m * k + k * n + m * n) * isz + 2 * n * 4
+            b_ms, b_by = bound(flops, nbytes, dt)
+            matmul_rows[(label, pname)] = dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by)
+            log(f"[timing] fused_matmul {pname} {label} softmax: {library_text(t, 'addmm+softmax')} "
+                f"bound {b_ms:.6f} ms ({b_by}; {flops / 1e6:.3f} MFLOP, {nbytes / 1e3:.1f} KB) "
+                f"| {card}")
 
     kernels = []
     for entry, replaces, prec in (
@@ -712,8 +1052,60 @@ def main() -> int:
         **r,
         "shape": "bf16 64x16x16x12 -> 64x16x16x16, k2 (the trained MobileNetV2's folded stem)",
         "fp32": conv_rows["fp32"],
+        "other_shapes": {" ".join(key): row for key, row in conv_rows.items()
+                         if isinstance(key, tuple)},
+        "resnet18_launches_per_step": resnet_stats["bf16"]["per_step"]["fused_conv2d_haloed"],
         "trained_top1": {k: v["top1"] for k, v in trained_stats.items()},
         "engine_step_p50_ms": trained_stats["bf16"]["engine_p50_ms"],
+    })
+    r = igemm_rows["bf16"]
+    kernels.append({
+        "name": "conv_igemm.conv2d_kernel_nhwc",
+        "route": "cuda",
+        "source": "shadernn_tpu_torch/csrc/conv_igemm.cu",
+        "replaces": "shadernn_tpu/kernels/conv_pallas.py:58",
+        "launches": two_stats["bf16"]["launches"],
+        "max_abs_err": igemm_err,
+        "max_abs_diff": igemm_err,
+        **r,
+        "shape": "bf16 8x540x960x(3+5) -> 8x540x960x16, k3 (the two-input conv graph)",
+        "fp32": igemm_rows["fp32"],
+        "other_shapes": {" ".join(key): row for key, row in igemm_rows.items()
+                         if isinstance(key, tuple)},
+        "engine_step_p50_ms": two_stats["bf16"]["engine_p50_ms"],
+        "engine_step_p50_ms_fp32": two_stats["fp32"]["engine_p50_ms"],
+        "engine_device_busy_ms": two_stats["bf16"]["device_busy_ms"],
+        "engine_device_busy_ms_fp32": two_stats["fp32"]["device_busy_ms"],
+        "engine_check": {k: {"max_abs_diff": v["max_abs_diff"],
+                             "planted_fault_diff": v["planted_fault_diff"]}
+                         for k, v in two_stats.items()},
+    })
+    r = matmul_rows[("resnet18 fc 8x512x10", "bf16")]
+    kernels.append({
+        "name": "matmul.fused_matmul",
+        "route": "cuda",
+        "source": "shadernn_tpu_torch/csrc/matmul_fused.cu",
+        "replaces": "shadernn_tpu/kernels/matmul_pallas.py:32",
+        "launches": resnet_stats["bf16"]["launches"],
+        "max_abs_err": matmul_err,
+        "max_abs_diff": matmul_err,
+        **r,
+        "shape": "bf16 8x512 @ 512x10, softmax (ResNet18's fc at the zoo width)",
+        "fp32": matmul_rows[("resnet18 fc 8x512x10", "fp32")],
+        "other_shapes": {f"{label} {pname}": row for (label, pname), row in matmul_rows.items()
+                         if not label.startswith("resnet18")},
+        "launches_trained": {k: v["launches"] for k, v in resnet_trained.items()},
+        "resnet18_launches_per_step": resnet_stats["bf16"]["per_step"],
+        "resnet18_trained_launches_per_step": resnet_trained["bf16"]["per_step"],
+        "trained_top1": {k: v["top1"] for k, v in resnet_trained.items()},
+        "engine_step_p50_ms": resnet_stats["bf16"]["engine_p50_ms"],
+        "engine_step_p50_ms_fp32": resnet_stats["fp32"]["engine_p50_ms"],
+        "engine_device_busy_ms": resnet_stats["bf16"]["device_busy_ms"],
+        "engine_device_busy_ms_fp32": resnet_stats["fp32"]["device_busy_ms"],
+        "engine_step_p50_ms_trained": {k: v["engine_p50_ms"] for k, v in resnet_trained.items()},
+        "engine_logits": {k: {"max_abs_diff": v["logits_max_abs_diff"],
+                              "planted_fault_diff": v["planted_fault_logits_diff"]}
+                          for k, v in resnet_stats.items()},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,6 +1,7 @@
 // Device helpers shared by the port's kernels (conv_chain.cu,
-// conv_single.cu, invres_block.cu): the shared-memory limit, bf16
-// rounding and loads, and the activation codes of the f32 epilogues.
+// conv_single.cu, invres_block.cu, conv_igemm.cu, matmul_fused.cu): the
+// shared-memory limit, bf16 rounding, loads and stores, and the activation
+// codes of the f32 epilogues.
 
 #pragma once
 
@@ -20,6 +21,12 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+// int8 weights: every value is exact in bf16, and so in f32.
+__device__ __forceinline__ float to_float(int8_t v) { return (float)v; }
+
+// One rounding to the output dtype.
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // Codes as in kernels/chain.py ACT_CODES.
 __device__ __forceinline__ float apply_act(float v, int act, float alpha) {

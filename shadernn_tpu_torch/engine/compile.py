@@ -1,7 +1,7 @@
 """Graph -> forward function on one device (counterpart of
 shadernn_tpu/engine/compile.py).
 
-The forward walks the sorted graph eagerly. Three plans are made
+The forward walks the sorted graph eagerly. Five plans are made
 statically, as the JAX package makes them for its Pallas kernels:
 
 - runs of stride-1 convs that the AUTO policy gives the kernel become ONE
@@ -13,9 +13,17 @@ statically, as the JAX package makes them for its Pallas kernels:
   (kernels/conv.py);
 - [1x1 expand] -> 3x3 depthwise -> 1x1 project [-> Add] around each
   SeparableConv2D on AUTO or KERNEL becomes ONE inverted-residual block
-  on the block kernel (kernels/invres.py).
+  on the block kernel (kernels/invres.py);
+- a Conv2D given to KERNEL that none of these took (a multi-input conv,
+  which no chain takes; under AUTO there is none) runs on the per-layer
+  implicit-GEMM kernel (kernels/conv_igemm.py);
+- a Dense given to KERNEL runs on the fused-matmul kernel
+  (kernels/matmul.py).
 
-Every other node runs its plain PyTorch op.
+Every other node runs its plain PyTorch op. A Conv2D or Dense that was
+given to KERNEL and that no kernel's gate admits runs on TORCH too, with
+a log line that names the gate: the decision is made here, never at
+launch time.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ from shadernn_tpu_torch.config import BackendKind, EngineOptions
 from shadernn_tpu_torch.graph.ir import Graph, Node
 from shadernn_tpu_torch.ops import get_op
 from shadernn_tpu_torch.ops.common import ACTIVATIONS
-from shadernn_tpu_torch.ops.conv import kernel_chain_supported
+from shadernn_tpu_torch.ops.conv import folded_operands, kernel_chain_supported
 from shadernn_tpu_torch.ops.registry import RunCtx
 from shadernn_tpu_torch.utils import get_logger
 from shadernn_tpu_torch.weights import params_from_numpy
@@ -151,7 +159,7 @@ def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]):
                 log.info("conv %s runs alone on the single-conv kernel (%s)", n.name, why)
                 singles.append(n.name)
             else:
-                log.info("conv %s runs on TORCH: outside the single-conv kernel's gate "
+                log.info("conv %s declined by the single-conv kernel's gate "
                          "(activation, int8 weights or shared memory)", n.name)
 
     visited = set()
@@ -268,19 +276,59 @@ def _plan_blocks(graph: Graph, options: EngineOptions, order: List[Node], taken:
     return blocks
 
 
+def _plan_layer_kernels(graph: Graph, options: EngineOptions, order: List[Node], taken: set):
+    """(convs, denses, on_torch): the names of the Conv2D nodes given to
+    KERNEL that run on the implicit-GEMM kernel, of the Dense nodes that run
+    on the fused-matmul kernel, and of the KERNEL nodes of both kinds that
+    no kernel's gate admits. `taken` holds what chains, blocks and single
+    convs already run."""
+    from shadernn_tpu_torch.kernels.conv_igemm import igemm_conv_supported
+    from shadernn_tpu_torch.kernels.matmul import dense_supported
+
+    convs: List[str] = []
+    denses: List[str] = []
+    on_torch = set()
+    for node in order:
+        if (
+            node.op not in ("Conv2D", "Dense")
+            or node.name in taken
+            or resolve_backend(node, graph, options) != BackendKind.KERNEL
+        ):
+            continue
+        if node.op == "Conv2D":
+            cin = sum(graph.nodes[i].out_spec.c for i in node.inputs)
+            kind, plan, ok = "conv", convs, igemm_conv_supported(node, cin)
+            gate = ("implicit-GEMM kernel's gate (stride 1, c <= 128, o <= 128, "
+                    "k*k*c <= 4096, an elementwise activation, float weights)")
+        else:
+            kind, plan, ok = "dense", denses, dense_supported(node)
+            gate = "fused-matmul kernel's gate (float weights, an activation of its epilogue)"
+        if ok:
+            plan.append(node.name)
+        else:
+            log.info("%s %s given to KERNEL runs on TORCH: outside the %s",
+                     kind, node.name, gate)
+            on_torch.add(node.name)
+    return convs, denses, on_torch
+
+
 def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dict], dict]:
     """The forward over (params, inputs) -> {output name: tensor}; with
     options.dump_outputs also every layer's output under "__dumps__".
     `forward.chain_plan` and `forward.block_plan` map each chain or block
-    head to the nodes it fuses; `forward.single_conv_plan` lists the convs
-    that run alone on the single-conv kernel."""
+    head to the nodes it fuses; `forward.single_conv_plan`,
+    `forward.kernel_conv_plan` and `forward.kernel_dense_plan` list the
+    nodes that run alone on the single-conv, implicit-GEMM and fused-matmul
+    kernels."""
     from shadernn_tpu_torch.kernels.chain import (
         chain_operands, fused_conv_chain, fused_conv_chain_packed,
     )
     from shadernn_tpu_torch.kernels.conv import conv_operands, conv_run_kernel
+    from shadernn_tpu_torch.kernels.conv_igemm import conv_run_igemm
     from shadernn_tpu_torch.kernels.invres import (
         build_invres, fused_invres_block, prepare_operands,
     )
+    from shadernn_tpu_torch.kernels.matmul import dense_run_kernel
 
     order = graph.toposort()
     act_dtype = options.precision.activation_dtype
@@ -298,11 +346,13 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
     for head, (members, _spec) in blocks.items():
         skip.update(n.name for n in members if n is not None and n.name != head)
     singles = [n for n in singles if n not in skip and n not in blocks]
+    kernel_convs, kernel_denses, on_torch = _plan_layer_kernels(
+        graph, options, order, skip | set(chains) | set(blocks) | set(singles))
     prepared: Dict[str, tuple] = {}
 
     def operands(head: str, views, make):
-        """The kernel operands of a planned chain, block or single conv
-        (weights cast, epilogues folded), prepared once for each set of
+        """The kernel operands of a planned chain, block, conv or dense
+        layer (weights cast, epilogues folded), prepared once for each set of
         parameter tensors: `CompiledModel.load_params` installs new
         tensors, which prepares them anew."""
         key = tuple(t for v in views if v is not None for t in v.params.values())
@@ -356,8 +406,20 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
                     view, value(node.inputs[0]).contiguous(), act_dtype,
                     operands(node.name, [view], lambda: conv_operands(view, act_dtype)))
                 continue
-            ctx = RunCtx(precision=options.precision,
-                         backend=resolve_backend(node, graph, options))
+            if node.name in kernel_convs:
+                xs = [value(i) for i in node.inputs]
+                env[node.name] = conv_run_igemm(
+                    view, xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1),
+                    operands(node.name, [view], lambda: folded_operands(view, act_dtype)))
+                continue
+            if node.name in kernel_denses:
+                env[node.name] = dense_run_kernel(
+                    view, value(node.inputs[0]),
+                    operands(node.name, [view], lambda: folded_operands(view, act_dtype)))
+                continue
+            backend = (BackendKind.TORCH if node.name in on_torch
+                       else resolve_backend(node, graph, options))
+            ctx = RunCtx(precision=options.precision, backend=backend)
             env[node.name] = get_op(node.op).run(view, [value(i) for i in node.inputs], ctx)
         outs = {o: value(o).to(out_dtype) for o in graph.output_names}
         if options.dump_outputs:
@@ -377,6 +439,8 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
         for head, (members, _spec) in blocks.items()
     }
     forward.single_conv_plan = list(singles)
+    forward.kernel_conv_plan = list(kernel_convs)
+    forward.kernel_dense_plan = list(kernel_denses)
     return forward
 
 

@@ -103,7 +103,17 @@ def kernel_lib() -> ctypes.CDLL:
                 ctypes.POINTER(I), ctypes.c_float, I, I, I, P,
             ]
             lib.snn_invres_block.restype = I
-            for name in ("snn_error_string", "snn_conv_single_error", "snn_invres_error"):
+            lib.snn_conv_igemm.argtypes = [
+                P, I, P, I, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
+                ctypes.c_float, P,
+            ]
+            lib.snn_conv_igemm.restype = I
+            lib.snn_matmul_fused.argtypes = [
+                P, I, P, I, P, P, P, P, I, I, I, I, ctypes.c_float, I, P,
+            ]
+            lib.snn_matmul_fused.restype = I
+            for name in ("snn_error_string", "snn_conv_single_error", "snn_invres_error",
+                         "snn_conv_igemm_error", "snn_matmul_error"):
                 getattr(lib, name).argtypes = [I]
                 getattr(lib, name).restype = ctypes.c_char_p
             _lib = lib

@@ -28,7 +28,7 @@ import torch
 from shadernn_tpu_torch.kernels.chain import ACT_CODES, MAX_SMEM_BYTES
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
 from shadernn_tpu_torch.ops.conv import (
-    conv2d_nhwc_f32, epilogue_scale_offset, kernel_chain_supported,
+    conv2d_nhwc_f32, folded_operands as conv_operands, kernel_chain_supported,
 )
 
 # Kernel launches since import (a caller may reset them).
@@ -142,13 +142,6 @@ def single_conv_supported(node, in_channels: int) -> bool:
         and str(node.attr("activation", "linear")).lower() in ACT_CODES
         and smem_bytes(k, k, int(node.attr("out_channels"))) <= MAX_SMEM_BYTES
     )
-
-
-def conv_operands(node, compute_dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
-    """(weight in the compute dtype, float32 scale, float32 offset) of a
-    Conv2D node, bias and BatchNorm folded into the epilogue."""
-    scale, offset = epilogue_scale_offset(node)
-    return torch.as_tensor(node.params["weight"]).to(compute_dtype), scale, offset
 
 
 def conv_run_kernel(node, x: torch.Tensor, compute_dtype: torch.dtype,

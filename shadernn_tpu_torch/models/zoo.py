@@ -1,4 +1,4 @@
-"""Model zoo registry of the port (ESPCN and MobileNetV2 in this slice)."""
+"""Model zoo registry of the port (ESPCN, MobileNetV2 and ResNet18 so far)."""
 
 from __future__ import annotations
 
@@ -8,10 +8,12 @@ from typing import Callable, Dict
 from shadernn_tpu_torch.graph.ir import Graph
 from shadernn_tpu_torch.models.espcn import build_espcn
 from shadernn_tpu_torch.models.mobilenetv2 import build_mobilenetv2
+from shadernn_tpu_torch.models.resnet18 import build_resnet18_cifar10
 
 _BUILDERS: Dict[str, Callable[..., Graph]] = {
     "espcn": build_espcn,
     "mobilenetv2": build_mobilenetv2,
+    "resnet18": build_resnet18_cifar10,
 }
 
 # Trained artifacts live with the JAX package; the port reads the files
@@ -24,6 +26,8 @@ ESPCN_TRAINED = os.path.join(ARTIFACTS, "espcn_2x_trained_layers.json")
 # MobileNetV2 trained on the 10-class synthetic task of
 # tools/train_resnet18.synth_cls (32x32x3 input).
 MOBILENETV2_TRAINED = os.path.join(ARTIFACTS, "mobilenetv2_cls10_trained_layers.json")
+# ResNet18 at base_filters=16 trained on the same task.
+RESNET18_TRAINED = os.path.join(ARTIFACTS, "resnet18_cls10_trained_layers.json")
 
 
 def build_model(name: str, **kwargs) -> Graph:

@@ -2,7 +2,9 @@
 (counterpart of shadernn_tpu/ops/conv.py; Conv2DTranspose comes later).
 
 The TORCH backend runs `F.conv2d` on NCHW views, the analog of the XLA
-convolution the JAX package uses. Every convolution accumulates in float32
+convolution the JAX package uses; under KERNEL a Conv2D inside the
+implicit-GEMM kernel's gate runs on that kernel (kernels/conv_igemm.py),
+as the JAX op does under PALLAS. Every convolution accumulates in float32
 on the compute-dtype values, as `lax.conv_general_dilated(...,
 preferred_element_type=float32)` does, with TF32 off: cuDNN would
 otherwise round float32 operands to TF32 (about three decimal digits),
@@ -18,6 +20,7 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 
+from shadernn_tpu_torch.config import BackendKind
 from shadernn_tpu_torch.graph.ir import Node, TensorSpec, Transform, transform_output_dims
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
 from shadernn_tpu_torch.ops.registry import OpDef, RunCtx, register
@@ -103,6 +106,28 @@ def epilogue_scale_offset(node: Node):
     return scale, offset
 
 
+def folded_operands(node: Node, compute_dtype: torch.dtype):
+    """(weight in the compute dtype, float32 scale, float32 offset) of a
+    Conv2D or Dense node, as the kernels take them: bias and BatchNorm
+    folded into the epilogue."""
+    scale, offset = epilogue_scale_offset(node)
+    return torch.as_tensor(node.params["weight"]).to(compute_dtype), scale, offset
+
+
+def kernel_conv_supported(node: Node, in_channels: int) -> bool:
+    """May this conv run on the per-layer implicit-GEMM kernel? (The JAX
+    package's `pallas_conv_supported` gate, with the same limits; stride 2
+    stays out so that both packages plan alike, though the CUDA kernel
+    computes it.)"""
+    k = int(node.attr("kernel_size"))
+    return (
+        int(node.attr("stride", 1)) == 1
+        and in_channels <= 128
+        and int(node.attr("out_channels")) <= 128
+        and k * k * in_channels <= 4096
+    )
+
+
 def kernel_chain_supported(node: Node, in_channels: int) -> bool:
     """May this conv join a kernel conv chain? (The JAX package's
     `pallas_chain_supported` gate, with the same limits.)"""
@@ -143,6 +168,13 @@ class Conv2D(OpDef):
     def run(self, node: Node, xs: List, ctx: RunCtx):
         # Multi-input conv: extra inputs are channel-concatenated first.
         x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
+        if ctx.backend == BackendKind.KERNEL:
+            from shadernn_tpu_torch.kernels.conv_igemm import (
+                conv_run_igemm, igemm_conv_supported,
+            )
+
+            if igemm_conv_supported(node, x.shape[-1]):
+                return conv_run_igemm(node, x)
         w = get_weight(node, x.dtype).to(x.device)
         y = conv2d_nhwc_f32(x, w, _conv_pads(node), int(node.attr("stride", 1)))
         return _epilogue(node, y.to(x.dtype))

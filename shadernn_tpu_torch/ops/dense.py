@@ -6,8 +6,9 @@ The TORCH body flattens inputs above 2-D, takes `x @ W` with a float32
 sum over the activation-dtype values (torch.matmul keeps float32 exact on
 the card unless TF32 is switched on globally), rounds to the activation
 dtype, adds the bias and applies the activation (softmax for the
-classifiers). The KERNEL backend belongs to the fused-matmul kernel, which
-the port does not have yet; it raises rather than run TORCH silently.
+classifiers). Under KERNEL a layer inside the fused-matmul kernel's gate
+runs on that kernel (kernels/matmul.py), bias folded into its float32
+epilogue, as the JAX op does under PALLAS.
 """
 
 from __future__ import annotations
@@ -30,13 +31,12 @@ class Dense(OpDef):
         return s.with_shape((s.n, int(node.attr("units"))))
 
     def run(self, node: Node, xs: List, ctx: RunCtx):
-        if ctx.backend == BackendKind.KERNEL:
-            raise NotImplementedError(
-                f"Dense {node.name!r} on the KERNEL backend needs the fused "
-                "matmul kernel (shadernn_tpu/kernels/matmul_pallas.py "
-                "fused_matmul, ROADMAP B6), which is not ported yet"
-            )
         x = xs[0]
+        if ctx.backend == BackendKind.KERNEL:
+            from shadernn_tpu_torch.kernels.matmul import dense_run_kernel, dense_supported
+
+            if dense_supported(node):
+                return dense_run_kernel(node, x)
         if x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
         w = get_weight(node, x.dtype).to(x.device)  # (in, units)

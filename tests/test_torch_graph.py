@@ -65,9 +65,9 @@ def test_build_espcn_matches_jax(seed):
 
 
 def test_list_models():
-    assert P.list_models() == ["espcn", "mobilenetv2"]
+    assert P.list_models() == ["espcn", "mobilenetv2", "resnet18"]
     with pytest.raises(KeyError):
-        P.build_model("resnet18")
+        P.build_model("unet")
 
 
 @pytest.mark.parametrize("input_hw", [None, (36, 64)])

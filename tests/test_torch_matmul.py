@@ -1,0 +1,149 @@
+"""The port's fused-matmul module (shadernn_tpu_torch.kernels.matmul)
+against the JAX package's `fused_matmul` in Pallas interpret mode, and the
+Dense op's KERNEL branch. On the CPU the port's entry point runs the
+kernel's plain version; the CUDA kernel itself is held against that plain
+version on the card by chip_smoke.py.
+
+The JAX kernel is the reference for the elementwise activations only: its
+softmax counts the padded columns of its 128-wide tile (pinned below), so
+the port's softmax is held against torch.softmax of the logits.
+
+Tolerance: the conftest thresholds (0.01 fp32, 0.1 bf16) times
+max(1, max|reference|)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from shadernn_tpu.kernels.matmul_pallas import fused_matmul as j_fused_matmul
+
+import shadernn_tpu_torch as P
+from shadernn_tpu_torch.graph.ir import Node as PNode
+from shadernn_tpu_torch.kernels import matmul
+from shadernn_tpu_torch.ops import get_op as p_op
+from shadernn_tpu_torch.ops.registry import RunCtx as PCtx
+
+TOL = {"fp32": 0.01, "bf16": 0.1}  # tests/conftest.py thresholds
+DTYPES = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
+
+
+# (m, k, n, activation, int8 weights)
+CASES = [
+    (37, 100, 23, "sigmoid", False),   # ragged on every axis
+    (8, 512, 10, "linear", False),     # ResNet18's fc, logits
+    (5, 130, 129, "relu", False),      # one column past the JAX tile
+    (4, 600, 12, "leaky_relu", False),  # two K tiles of the JAX kernel
+    (9, 64, 40, "relu", True),
+    (3, 100, 7, "tanh", True),
+]
+
+
+def operands(rng, m, k, n, int8):
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    if int8:
+        w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+        scale = (0.02 / np.sqrt(k) * (1 + 0.1 * rng.standard_normal(n))).astype(np.float32)
+    else:
+        w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+        scale = (rng.random(n) + 0.5).astype(np.float32)
+    return x, w, scale, rng.standard_normal(n).astype(np.float32)
+
+
+@pytest.mark.parametrize("prec", list(TOL))
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}x{c[1]}x{c[2]}_{c[3]}" + ("_int8" if c[4] else ""))
+def test_reference_matches_jax_kernel(rng, case, prec):
+    m, k, n, act, int8 = case
+    x, w, scale, offset = operands(rng, m, k, n, int8)
+    tdt, jdt = DTYPES[prec]
+    want = np.asarray(j_fused_matmul(
+        jnp.asarray(x, jdt), jnp.asarray(w) if int8 else jnp.asarray(w, jdt),
+        jnp.asarray(scale), jnp.asarray(offset), activation=act, interpret=True), np.float32)
+    before = dict(matmul.launches)
+    got = matmul.fused_matmul(
+        torch.from_numpy(x).to(tdt), torch.from_numpy(w) if int8 else torch.from_numpy(w).to(tdt),
+        torch.from_numpy(scale), torch.from_numpy(offset), activation=act)
+    assert matmul.launches == before  # CPU tensors never launch the kernel
+    assert got.dtype == tdt and tuple(got.shape) == want.shape == (m, n)
+    tol = TOL[prec] * max(1.0, float(np.abs(want).max()))
+    assert np.max(np.abs(got.float().numpy() - want)) <= tol
+
+
+def test_softmax_is_over_the_true_columns_unlike_the_jax_kernel(rng):
+    """The JAX kernel pads N = 10 to its 128-column tile and takes the
+    softmax of the padded tile, so the 118 padded columns enter as exp(0)
+    and its rows do not sum to 1 (the argmax is unchanged, which is why the
+    accuracy tests pass). The port's softmax is over the 10 true columns."""
+    x, w, scale, offset = operands(rng, 8, 128, 10, False)
+    jax_out = np.asarray(j_fused_matmul(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale), jnp.asarray(offset),
+        activation="softmax", interpret=True))
+    logits = (torch.from_numpy(x) @ torch.from_numpy(w)) * torch.from_numpy(scale) \
+        + torch.from_numpy(offset)
+    want = torch.softmax(logits, dim=-1).numpy()
+    got = matmul.fused_matmul(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(scale),
+                              torch.from_numpy(offset), activation="softmax").numpy()
+    assert np.all(jax_out.sum(-1) < 0.9)
+    assert np.max(np.abs(jax_out - want)) > 0.1
+    np.testing.assert_array_equal(jax_out.argmax(-1), want.argmax(-1))
+    np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+@pytest.mark.parametrize("prec", list(TOL))
+def test_softmax_over_many_columns(rng, prec):
+    """1000 columns (MobileNetV2's head): eight 128-column tiles in the JAX
+    kernel, one softmax per row here."""
+    x, w, scale, offset = operands(rng, 8, 96, 1000, False)
+    tdt = DTYPES[prec][0]
+    got = matmul.fused_matmul(torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt),
+                              torch.from_numpy(scale), torch.from_numpy(offset),
+                              activation="softmax")
+    logits = (torch.from_numpy(x).to(tdt).float() @ torch.from_numpy(w).to(tdt).float()) \
+        * torch.from_numpy(scale) + torch.from_numpy(offset)
+    assert got.dtype == tdt
+    assert torch.allclose(got.float().sum(-1), torch.ones(8), atol=1e-5 if prec == "fp32" else 1e-2)
+    assert (got.float() - torch.softmax(logits, -1)).abs().max().item() <= TOL[prec] * 1e-2
+
+
+def test_gate_and_entry_point():
+    assert matmul.matmul_supported("softmax") and matmul.matmul_supported("gelu")
+    assert matmul.matmul_supported(None) and not matmul.matmul_supported("hard_swish")
+    node = PNode("fc", "Dense", ["x"], dict(units=3, activation="relu"),
+                 {"weight": torch.zeros(4, 3)})
+    assert matmul.dense_supported(node)
+    node.params["weight_q"] = torch.zeros(4, 3, dtype=torch.int8)
+    assert not matmul.dense_supported(node)
+    s = torch.ones(3)
+    with pytest.raises(ValueError):
+        matmul.fused_matmul(torch.zeros((2, 4), device="meta"), torch.zeros(4, 3), s, s)
+
+
+@pytest.mark.parametrize("prec", list(TOL))
+@pytest.mark.parametrize("act", ["softmax", "relu"])
+def test_dense_on_the_kernel_backend_matches_torch(rng, act, prec):
+    """Dense.run honours KERNEL: it flattens, folds the bias into the
+    float32 epilogue and calls fused_matmul; the result matches the TORCH
+    body, which adds the bias after rounding."""
+    tdt = DTYPES[prec][0]
+    params = {"weight": torch.from_numpy((rng.standard_normal((24, 7)) / 4).astype(np.float32)),
+              "bias": torch.from_numpy(rng.standard_normal(7).astype(np.float32))}
+    node = PNode("fc", "Dense", ["x"], dict(units=7, activation=act, use_bias=True), params)
+    x = torch.from_numpy(rng.standard_normal((3, 2, 2, 6)).astype(np.float32)).to(tdt)
+    calls = []
+    real = matmul.fused_matmul
+
+    def counted(*a, **kw):
+        calls.append(kw["activation"])
+        return real(*a, **kw)
+
+    matmul.fused_matmul = counted
+    try:
+        got = p_op("Dense").run(node, [x], PCtx(backend=P.BackendKind.KERNEL))
+        want = p_op("Dense").run(node, [x], PCtx(backend=P.BackendKind.TORCH))
+    finally:
+        matmul.fused_matmul = real
+    assert calls == [act]
+    assert got.dtype == want.dtype == tdt and tuple(got.shape) == (3, 7)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[prec] * max(
+        1.0, want.float().abs().max().item())

@@ -107,10 +107,17 @@ def test_op_matches_jax(rng, case, prec):
     assert p_op(op).infer(pn, [P.TensorSpec(shape)]).shape == j_op(op).infer(jn, [spec]).shape
 
 
-def test_dense_on_the_kernel_backend_raises():
-    node = PNode("fc", "Dense", ["x"], dict(units=3), {"weight": torch.zeros(4, 3)})
-    with pytest.raises(NotImplementedError, match="fused_matmul"):
-        p_op("Dense").run(node, [torch.zeros(2, 4)], PCtx(backend=P.BackendKind.KERNEL))
+def test_dense_on_the_kernel_backend_raises(rng):
+    """It raised while the fused-matmul kernel was missing (hence the
+    name); now the KERNEL Dense runs (the kernel's plain version on the CPU)
+    and matches TORCH. tests/test_torch_matmul.py holds the branch further."""
+    params = {"weight": torch.from_numpy(rng.standard_normal((4, 3)).astype(np.float32)),
+              "bias": torch.from_numpy(rng.standard_normal(3).astype(np.float32))}
+    x = torch.from_numpy(rng.standard_normal((2, 4)).astype(np.float32))
+    for act in ("softmax", "relu"):
+        node = PNode("fc", "Dense", ["x"], dict(units=3, activation=act), params)
+        got = p_op("Dense").run(node, [x], PCtx(backend=P.BackendKind.KERNEL))
+        close(got, p_op("Dense").run(node, [x], PCtx(backend=P.BackendKind.TORCH)), "fp32")
 
 
 # -- builder and plan --------------------------------------------------------
