@@ -9,12 +9,15 @@ Phases, each of which raises on failure (exit code != 0):
               one process per source
   3. kernel   each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and at edge geometries: the conv-chain
-              kernel through both entry points; the inverted-residual block
+              kernel through both entry points, and at every chain of the
+              trained ResNet18's plan (b64); the inverted-residual block
               kernel at every block geometry of MobileNetV2 224 (b8), every
               block geometry of the trained model at its batch (b64) and a
               ragged 13x9 block, bf16 and fp32; the single-conv kernel at the
               trained model's folded stem, k5 c1->16, k3 c128->128 with
-              asymmetric pads and the ResNet18 shapes; the implicit-GEMM conv
+              asymmetric pads, and every distinct geometry of the single-conv
+              plans of both ResNet18 paths at their batch (b8, b64) with the
+              models' folded weights; the implicit-GEMM conv
               kernel at the ResNet-wide shapes, 540p frames, even k with
               asymmetric pads, stride 2 and int8 weights; the fused-matmul
               kernel at the classifier heads (softmax rows must sum to 1),
@@ -35,7 +38,8 @@ Phases, each of which raises on failure (exit code != 0):
               each step launching the fused matmul once and the chain and
               single-conv kernels as planned; a two-input conv graph at 540p
               b8, each step launching the implicit-GEMM conv kernel once; a
-              zeroed classifier and a dropped conv tap must fail the checks.
+              zeroed classifier, a zeroed single conv of the trained ResNet18
+              and a dropped conv tap must fail the checks.
               Outputs are checked against the port's plain (TORCH backend)
               forward on the card (the classifiers on probabilities and
               logits)
@@ -127,7 +131,7 @@ def main() -> int:
         ESPCN_TRAINED, MOBILENETV2_TRAINED, RESNET18_TRAINED,
     )
     from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
-    from shadernn_tpu_torch.ops.conv import full_precision
+    from shadernn_tpu_torch.ops.conv import folded_operands, full_precision
     from shadernn_tpu_torch.ops.shape_ops import depth_to_space
     from shadernn_tpu_torch.tools.train_resnet18 import synth_cls
 
@@ -297,7 +301,7 @@ def main() -> int:
     stem = trained_graph.nodes["stem_conv"]
     assert int(stem.attr("kernel_size")) == 2 and trained_graph.nodes[stem.inputs[0]].op == "SpaceToDepth"
     stem_pads = padding_offsets(stem.attr("padding"), 2)
-    stem_ops = tuple(t.to(dev) for t in conv.conv_operands(stem, f32))
+    stem_ops = tuple(t.to(dev) for t in folded_operands(stem, f32))
     conv_cases = [("stem 16x16 12->16 k2", 64, 16, 16, stem_ops, stem_pads, str(stem.attr("activation"))),
                   ("stem 16x16 12->16 k2", 8, 16, 16, stem_ops, stem_pads, str(stem.attr("activation")))]
     for label, nb, h, w, c, k, o, pads, act in (
@@ -312,6 +316,47 @@ def main() -> int:
         sc = torch.from_numpy((1 + 0.1 * rng.standard_normal(o)).astype(np.float32)).to(dev)
         of = torch.from_numpy((0.1 * rng.standard_normal(o)).astype(np.float32)).to(dev)
         conv_cases.append((label, nb, h, w, (wts, sc, of), pads, act))
+
+    # What the forced-KERNEL ResNet18 paths launch, read from the plans the
+    # engine makes: every chain, and one single conv per distinct geometry,
+    # with the model's own folded weights at the path's batch.
+    def planned_resnet(graph, batch, tag):
+        eng = Engine.from_graph(graph, EngineOptions(precision=Precision.FP32, batch_size=batch,
+                                                     backend=BackendKind.KERNEL))
+        g, fwd = eng.graph, eng.model.forward
+        singles = {}
+        for name_ in fwd.single_conv_plan:
+            node = g.nodes[name_]
+            s = g.nodes[node.inputs[0]].out_spec
+            k, o = int(node.attr("kernel_size")), int(node.attr("out_channels"))
+            act = str(node.attr("activation", "linear"))
+            pads = padding_offsets(node.attr("padding", "same"), k)
+            singles.setdefault(
+                f"{tag} k{k} c{s.c}->{o} {s.h}x{s.w} {act}",
+                (batch, s.h, s.w, tuple(t.to(dev) for t in folded_operands(node, f32)), pads, act))
+        chains = []
+        for head, members in fwd.chain_plan.items():
+            nodes = [g.nodes[m] for m in members]
+            assert all(n.op == "Conv2D" for n in nodes), members
+            s = g.nodes[nodes[0].inputs[0]].out_spec
+            chains.append((f"{tag} chain {head} {'->'.join(str(n.attr('out_channels')) for n in nodes)}"
+                           f" {s.h}x{s.w} b{batch}", nodes, s.c, (batch, s.h, s.w, s.c)))
+        return singles, chains
+
+    zoo_singles, zoo_chains = planned_resnet(
+        seeded_batchnorm(build_resnet18_cifar10(), 1.2), 8, "resnet18")
+    cls_singles, cls_chains = planned_resnet(parse_model_file(RESNET18_TRAINED), 64, "resnet18 cls10")
+    # Zoo width: stem, 64->64 at 32x32 (relu and linear), 128->128 at 16x16
+    # (both); trained: stem and 32/64/128 channels at 16x16, 8x8, 4x4 (both).
+    assert len(zoo_singles) == 5 and zoo_chains == [], (sorted(zoo_singles), zoo_chains)
+    assert len(cls_singles) == 7 and len(cls_chains) == 2, (sorted(cls_singles), cls_chains)
+    for label, (nb, h, w, ops, pads, act) in (*zoo_singles.items(), *cls_singles.items()):
+        conv_cases.append((label, nb, h, w, ops, pads, act))
+    chain_resnet_err = 0.0
+    for label, nodes, cin, shape in cls_chains:  # tail "none": the engine's entry
+        for dt in (bf16, f32):
+            chain_resnet_err = max(chain_resnet_err, case(
+                label, nodes, cin, dt, "none", shape, "fused_conv_chain"))
     conv_err = 0.0
     for label, nb, h, w, (wts, sc, of), pads, act in conv_cases:
         for dt in (bf16, f32):
@@ -644,6 +689,17 @@ def main() -> int:
     # task it was trained on: top-1 >= 0.95 at FP32, BF16 within 0.03 of it.
     resnet_trained = {}
     for prec in (Precision.FP32, Precision.BF16):
+
+        def logits_engine(backend=forced, zeroed=None):
+            """The trained model with fc set to linear (and a conv's weight
+            zeroed: a planted fault)."""
+            g = parse_model_file(RESNET18_TRAINED)
+            g.nodes["fc"].attrs["activation"] = "linear"
+            if zeroed is not None:
+                g.nodes[zeroed].params["weight"] = np.zeros_like(g.nodes[zeroed].params["weight"])
+            return Engine.from_graph(g, EngineOptions(precision=prec, batch_size=64,
+                                                      backend=backend))
+
         eng = Engine.from_json(RESNET18_TRAINED, EngineOptions(precision=prec, batch_size=64,
                                                                backend=forced))
         fwd = eng.model.forward
@@ -663,15 +719,33 @@ def main() -> int:
             precision=prec, batch_size=64, backend=BackendKind.TORCH)).run_single(cls_x[:64])
         err = (preds[0] - plain).abs().max().item()
         tol = ENGINE_TOL[prec.value]
+        # The logits too, and a planted fault on a single conv of the kernel
+        # path (the 128->128 conv at 4x4, whose pixel tiles are ragged, with
+        # its weight zeroed) that the logits check must catch.
+        logits = logits_engine().run_single(cls_x[:64])
+        logits_plain = logits_engine(BackendKind.TORCH).run_single(cls_x[:64])
+        top = logits_plain.abs().max().item()
+        scale = max(1.0, top)
+        err_logits = (logits - logits_plain).abs().max().item()
+        zeroed = "s3b0_conv2"
+        assert zeroed in fwd.single_conv_plan, fwd.single_conv_plan
+        err_fault = (logits_engine(zeroed=zeroed).run_single(cls_x[:64])
+                     - logits_plain).abs().max().item()
         bench = eng.benchmark({"input": cls_x[:64]}, loops=20)
         log(f"[main] resnet18 cls10 trained b64 {prec.value} KERNEL launches per step "
             f"{per_step} ({len(preds)} steps) top-1 {top1:.4f} vs TORCH forward "
-            f"probabilities max_abs_diff {err:.3e} tol {tol} device step p50 "
+            f"probabilities max_abs_diff {err:.3e} tol {tol}; logits max_abs_diff "
+            f"{err_logits:.3e} tol {tol * scale:.3g} (max|logit| {top:.3e}); planted fault "
+            f"({zeroed} zeroed) moves the logits by {err_fault:.3e}; device step p50 "
             f"{bench['p50_ms']:.3f} ms")
         assert err <= tol, f"{prec.value}: trained ResNet18 disagrees with TORCH"
+        assert err_logits <= tol * scale, f"{prec.value}: trained ResNet18 logits disagree with TORCH"
+        assert err_fault > tol * scale, f"{prec.value}: the logits check misses a zeroed conv"
         resnet_trained[prec.value] = {"launches": counts["fused_matmul"], "top1": top1,
-                                      "per_step": per_step, "engine_p50_ms": bench["p50_ms"]}
-        del eng, preds, probs
+                                      "per_step": per_step, "engine_p50_ms": bench["p50_ms"],
+                                      "logits_max_abs_diff": err_logits,
+                                      "planted_fault_logits_diff": err_fault}
+        del eng, preds, probs, logits, logits_plain
     assert resnet_trained["fp32"]["top1"] >= 0.95, resnet_trained
     assert resnet_trained["bf16"]["top1"] >= resnet_trained["fp32"]["top1"] - 0.03, resnet_trained
 
@@ -1018,6 +1092,7 @@ def main() -> int:
             "max_abs_diff": errs[(prec, 8)],
             **r,
             "shape": f"{prec} 8x540x960x1",
+            "resnet18_trained_chains_max_abs_diff": chain_resnet_err,
             "engine_step_p50_ms": main_stats[entry]["engine_p50_ms"],
         })
     r = block_rows["bf16"]
@@ -1103,6 +1178,9 @@ def main() -> int:
         "engine_device_busy_ms": resnet_stats["bf16"]["device_busy_ms"],
         "engine_device_busy_ms_fp32": resnet_stats["fp32"]["device_busy_ms"],
         "engine_step_p50_ms_trained": {k: v["engine_p50_ms"] for k, v in resnet_trained.items()},
+        "engine_logits_trained": {k: {"max_abs_diff": v["logits_max_abs_diff"],
+                                      "planted_fault_diff": v["planted_fault_logits_diff"]}
+                                  for k, v in resnet_trained.items()},
         "engine_logits": {k: {"max_abs_diff": v["logits_max_abs_diff"],
                               "planted_fault_diff": v["planted_fault_logits_diff"]}
                           for k, v in resnet_stats.items()},

@@ -154,18 +154,12 @@ int launch(const void* x, const void* w, const float* scale, const float* offset
 
 template <typename TX, typename TW>
 int dispatch(const void* x, const void* w, const float* scale, const float* offset,
-             void* y, const IgemmDesc& d, cudaStream_t s) {
+             void* y, const IgemmDesc& d, int sms, cudaStream_t s) {
   // The narrowest channel block (16 * TN, at most 128) that holds every
-  // output channel; halved while the grid would leave SMs without a CTA
-  // (a 16x16 plane at batch 8 is 32 pixel tiles for 132 SMs): the patch
-  // gather is repeated per channel block, which idle SMs do for nothing.
-  static int sms = 0;
-  if (sms == 0) {  // asked once; 1 (no narrowing) if the card does not say
-    int dev = 0, n = 0;
-    const bool ok = cudaGetDevice(&dev) == cudaSuccess &&
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess;
-    sms = ok && n > 0 ? n : 1;
-  }
+  // output channel; halved while the grid would leave some of the card's
+  // `sms` SMs without a CTA (a 16x16 plane at batch 8 is 32 pixel tiles for
+  // 132 SMs): the patch gather is repeated per channel block, which idle
+  // SMs do for nothing. Speed only: the block does not change the result.
   const long long tiles = (d.pixels + SNN_IG_BM - 1) / SNN_IG_BM;
   int tn = d.o <= 16 ? 1 : d.o <= 32 ? 2 : d.o <= 64 ? 4 : 8;
   while (tn > 1 && tiles * ((d.o + 16 * tn - 1) / (16 * tn)) < sms) tn /= 2;
@@ -184,11 +178,12 @@ extern "C" {
 // Returns 0 on success, a negative code for arguments the kernel does not
 // take (see snn_conv_igemm_error), or the cudaError_t of the launch.
 // x, y: device NHWC in f32 or bf16 (x_bf16); w: device HWIO (kh*kw*c*o) in
-// x's dtype, or int8 when w_int8; scale, offset: device f32 (o).
+// x's dtype, or int8 when w_int8; scale, offset: device f32 (o); sms: the
+// SM count of x's device (1 or less: no narrowing of the channel block).
 int snn_conv_igemm(const void* x, int x_bf16, const void* w, int w_int8,
                    const float* scale, const float* offset, void* y, int n, int h,
                    int wd, int c, int kh, int kw, int o, int stride, int pt, int pb,
-                   int pl, int pr, int act, float alpha, void* stream) {
+                   int pl, int pr, int act, float alpha, int sms, void* stream) {
   if (n < 1 || h < 1 || wd < 1 || c < 1 || o < 1 || kh < 1 || kw < 1 || stride < 1) return -1;
   if (pt < 0 || pb < 0 || pl < 0 || pr < 0) return -1;
   if (h + pt + pb < kh || wd + pl + pr < kw) return -1;
@@ -201,11 +196,11 @@ int snn_conv_igemm(const void* x, int x_bf16, const void* w, int w_int8,
   d.pixels = (long long)n * d.ho * d.wo;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
-    return w_int8 ? dispatch<__nv_bfloat16, int8_t>(x, w, scale, offset, y, d, s)
-                  : dispatch<__nv_bfloat16, __nv_bfloat16>(x, w, scale, offset, y, d, s);
+    return w_int8 ? dispatch<__nv_bfloat16, int8_t>(x, w, scale, offset, y, d, sms, s)
+                  : dispatch<__nv_bfloat16, __nv_bfloat16>(x, w, scale, offset, y, d, sms, s);
   }
-  return w_int8 ? dispatch<float, int8_t>(x, w, scale, offset, y, d, s)
-                : dispatch<float, float>(x, w, scale, offset, y, d, s);
+  return w_int8 ? dispatch<float, int8_t>(x, w, scale, offset, y, d, sms, s)
+                : dispatch<float, float>(x, w, scale, offset, y, d, sms, s);
 }
 
 const char* snn_conv_igemm_error(int code) {

@@ -14,11 +14,12 @@ statically, as the JAX package makes them for its Pallas kernels:
 - [1x1 expand] -> 3x3 depthwise -> 1x1 project [-> Add] around each
   SeparableConv2D on AUTO or KERNEL becomes ONE inverted-residual block
   on the block kernel (kernels/invres.py);
-- a Conv2D given to KERNEL that none of these took (a multi-input conv,
-  which no chain takes; under AUTO there is none) runs on the per-layer
-  implicit-GEMM kernel (kernels/conv_igemm.py);
+- a Conv2D whose backend resolves to KERNEL and that none of these took
+  (a multi-input conv, which no chain takes, or a conv that the
+  single-conv kernel's gate declines) runs on the per-layer implicit-GEMM
+  kernel (kernels/conv_igemm.py), through the KERNEL branch of its op;
 - a Dense given to KERNEL runs on the fused-matmul kernel
-  (kernels/matmul.py).
+  (kernels/matmul.py), through the KERNEL branch of its op.
 
 Every other node runs its plain PyTorch op. A Conv2D or Dense that was
 given to KERNEL and that no kernel's gate admits runs on TORCH too, with
@@ -159,8 +160,12 @@ def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]):
                 log.info("conv %s runs alone on the single-conv kernel (%s)", n.name, why)
                 singles.append(n.name)
             else:
-                log.info("conv %s declined by the single-conv kernel's gate "
-                         "(activation, int8 weights or shared memory)", n.name)
+                # Its backend resolved to KERNEL (forced, or by the AUTO
+                # policy), so _plan_layer_kernels sees it next and logs where
+                # it runs: the implicit-GEMM kernel or TORCH.
+                log.info("conv %s declined by the single-conv kernel's gate (activation, "
+                         "int8 weights or shared memory); the per-layer kernel plan "
+                         "decides where it runs", n.name)
 
     visited = set()
     for node in order:
@@ -282,8 +287,7 @@ def _plan_layer_kernels(graph: Graph, options: EngineOptions, order: List[Node],
     on the fused-matmul kernel, and of the KERNEL nodes of both kinds that
     no kernel's gate admits. `taken` holds what chains, blocks and single
     convs already run."""
-    from shadernn_tpu_torch.kernels.conv_igemm import igemm_conv_supported
-    from shadernn_tpu_torch.kernels.matmul import dense_supported
+    from shadernn_tpu_torch.kernels import conv_igemm, matmul
 
     convs: List[str] = []
     denses: List[str] = []
@@ -297,13 +301,14 @@ def _plan_layer_kernels(graph: Graph, options: EngineOptions, order: List[Node],
             continue
         if node.op == "Conv2D":
             cin = sum(graph.nodes[i].out_spec.c for i in node.inputs)
-            kind, plan, ok = "conv", convs, igemm_conv_supported(node, cin)
-            gate = ("implicit-GEMM kernel's gate (stride 1, c <= 128, o <= 128, "
-                    "k*k*c <= 4096, an elementwise activation, float weights)")
+            kind, plan, gate = "conv", convs, conv_igemm.GATE
+            ok = conv_igemm.igemm_conv_supported(node, cin)
         else:
-            kind, plan, ok = "dense", denses, dense_supported(node)
-            gate = "fused-matmul kernel's gate (float weights, an activation of its epilogue)"
+            kind, plan, gate = "dense", denses, matmul.GATE
+            ok = matmul.dense_supported(node)
         if ok:
+            log.info("%s %s runs on the %s kernel", kind, node.name,
+                     "implicit-GEMM" if kind == "conv" else "fused-matmul")
             plan.append(node.name)
         else:
             log.info("%s %s given to KERNEL runs on TORCH: outside the %s",
@@ -323,12 +328,10 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
     from shadernn_tpu_torch.kernels.chain import (
         chain_operands, fused_conv_chain, fused_conv_chain_packed,
     )
-    from shadernn_tpu_torch.kernels.conv import conv_operands, conv_run_kernel
-    from shadernn_tpu_torch.kernels.conv_igemm import conv_run_igemm
+    from shadernn_tpu_torch.kernels.conv import conv_run_kernel
     from shadernn_tpu_torch.kernels.invres import (
         build_invres, fused_invres_block, prepare_operands,
     )
-    from shadernn_tpu_torch.kernels.matmul import dense_run_kernel
 
     order = graph.toposort()
     act_dtype = options.precision.activation_dtype
@@ -348,6 +351,7 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
     singles = [n for n in singles if n not in skip and n not in blocks]
     kernel_convs, kernel_denses, on_torch = _plan_layer_kernels(
         graph, options, order, skip | set(chains) | set(blocks) | set(singles))
+    layer_kernels = set(kernel_convs) | set(kernel_denses)
     prepared: Dict[str, tuple] = {}
 
     def operands(head: str, views, make):
@@ -404,22 +408,18 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
             if node.name in singles:
                 env[node.name] = conv_run_kernel(
                     view, value(node.inputs[0]).contiguous(), act_dtype,
-                    operands(node.name, [view], lambda: conv_operands(view, act_dtype)))
-                continue
-            if node.name in kernel_convs:
-                xs = [value(i) for i in node.inputs]
-                env[node.name] = conv_run_igemm(
-                    view, xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1),
                     operands(node.name, [view], lambda: folded_operands(view, act_dtype)))
                 continue
-            if node.name in kernel_denses:
-                env[node.name] = dense_run_kernel(
-                    view, value(node.inputs[0]),
-                    operands(node.name, [view], lambda: folded_operands(view, act_dtype)))
-                continue
-            backend = (BackendKind.TORCH if node.name in on_torch
-                       else resolve_backend(node, graph, options))
-            ctx = RunCtx(precision=options.precision, backend=backend)
+            # The op bodies own the per-layer kernels' branch: a planned node
+            # gets KERNEL and its prepared operands, a declined one TORCH.
+            if node.name in layer_kernels:
+                ctx = RunCtx(precision=options.precision, backend=BackendKind.KERNEL,
+                             operands=operands(node.name, [view],
+                                               lambda: folded_operands(view, act_dtype)))
+            else:
+                backend = (BackendKind.TORCH if node.name in on_torch
+                           else resolve_backend(node, graph, options))
+                ctx = RunCtx(precision=options.precision, backend=backend)
             env[node.name] = get_op(node.op).run(view, [value(i) for i in node.inputs], ctx)
         outs = {o: value(o).to(out_dtype) for o in graph.output_names}
         if options.dump_outputs:

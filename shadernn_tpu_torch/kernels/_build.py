@@ -11,6 +11,7 @@ imported; a build failure raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -79,6 +80,14 @@ def build(force: bool = False) -> Tuple[str, str]:
     return LIB_PATH, "".join(logs) + proc.stdout + proc.stderr
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device `index`: the wrappers size their grids by it."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def kernel_lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use), with its C functions
     typed."""
@@ -105,7 +114,7 @@ def kernel_lib() -> ctypes.CDLL:
             lib.snn_invres_block.restype = I
             lib.snn_conv_igemm.argtypes = [
                 P, I, P, I, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
-                ctypes.c_float, P,
+                ctypes.c_float, I, P,
             ]
             lib.snn_conv_igemm.restype = I
             lib.snn_matmul_fused.argtypes = [

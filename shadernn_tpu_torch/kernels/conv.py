@@ -28,7 +28,7 @@ import torch
 from shadernn_tpu_torch.kernels.chain import ACT_CODES, MAX_SMEM_BYTES
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
 from shadernn_tpu_torch.ops.conv import (
-    conv2d_nhwc_f32, folded_operands as conv_operands, kernel_chain_supported,
+    conv2d_nhwc_f32, folded_operands, kernel_chain_supported,
 )
 
 # Kernel launches since import (a caller may reset them).
@@ -147,9 +147,9 @@ def single_conv_supported(node, in_channels: int) -> bool:
 def conv_run_kernel(node, x: torch.Tensor, compute_dtype: torch.dtype,
                     operands: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
     """A Conv2D node on the kernel (counterpart of ops/conv.py
-    conv_run_pallas_chain); `operands` as conv_operands gives them, where
+    conv_run_pallas_chain); `operands` as ops/conv.py folded_operands gives them, where
     the caller has them prepared."""
-    w, scale, offset = operands or conv_operands(node, compute_dtype)
+    w, scale, offset = operands or folded_operands(node, compute_dtype)
     pads = padding_offsets(node.attr("padding", "same"), int(node.attr("kernel_size")))
     return fused_conv2d_haloed(
         x, w, scale, offset, pads,

@@ -58,7 +58,7 @@ def conv2d_igemm_reference(
 
 
 def _launch(x, w_hwio, scale, offset, stride, pads, activation, alpha) -> torch.Tensor:
-    from shadernn_tpu_torch.kernels._build import kernel_lib
+    from shadernn_tpu_torch.kernels._build import kernel_lib, sm_count
 
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv input must be float32 or bfloat16, got {x.dtype}")
@@ -97,7 +97,7 @@ def _launch(x, w_hwio, scale, offset, stride, pads, activation, alpha) -> torch.
         x.data_ptr(), int(x.dtype == torch.bfloat16), wk.data_ptr(),
         int(wk.dtype == torch.int8), sf.data_ptr(), of.data_ptr(), y.data_ptr(),
         n, h, w, c, kh, kw, o, stride, pt, pb, pl, pr, ACT_CODES[act], float(alpha),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        sm_count(x.device.index), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
@@ -126,6 +126,11 @@ def conv2d_kernel_nhwc(
     if x.device.type == "cpu":
         return conv2d_igemm_reference(x, w_hwio, scale, offset, stride, pads, activation, alpha)
     raise ValueError(f"no implicit-GEMM conv kernel for device {x.device}")
+
+
+# What igemm_conv_supported asks, for the log line of a conv it declines.
+GATE = ("implicit-GEMM kernel's gate (stride 1, c <= 128, o <= 128, k*k*c <= 4096, "
+        "an elementwise activation, float weights)")
 
 
 def igemm_conv_supported(node, in_channels: int) -> bool:

@@ -237,11 +237,6 @@ def pick_launch(spec: InvResSpec, n: int, sms: int) -> Tuple[int, int, int]:
     return th, tw, split
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 _ORDER = ("w1", "s1", "o1", "wd", "sd", "od", "w2", "s2", "o2")
 
 
@@ -288,7 +283,7 @@ def prepare_operands(ops: Dict[str, torch.Tensor], spec: InvResSpec,
 
 
 def _launch(x: torch.Tensor, ops: Dict[str, torch.Tensor], spec: InvResSpec) -> torch.Tensor:
-    from shadernn_tpu_torch.kernels._build import kernel_lib
+    from shadernn_tpu_torch.kernels._build import kernel_lib, sm_count
 
     if not (isinstance(ops, InvResOperands) and ops.spec == spec and ops.dtype == x.dtype):
         ops = prepare_operands(ops, spec, x.dtype)
@@ -302,7 +297,7 @@ def _launch(x: torch.Tensor, ops: Dict[str, torch.Tensor], spec: InvResSpec) -> 
     y = torch.empty((n, spec.h, spec.w, spec.cout), dtype=x.dtype, device=x.device)
     if n == 0:
         return y
-    th, tw, split = pick_launch(spec, n, _sm_count(x.device.index))
+    th, tw, split = pick_launch(spec, n, sm_count(x.device.index))
     lib = kernel_lib()
     rc = lib.snn_invres_block(
         x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(), ops.ptrs, n, spec.h,

@@ -127,6 +127,10 @@ def fused_matmul(
     raise ValueError(f"no matmul kernel for device {x.device}")
 
 
+# What dense_supported asks, for the log line of a layer it declines.
+GATE = "fused-matmul kernel's gate (float weights, an activation of its epilogue)"
+
+
 def dense_supported(node) -> bool:
     """Can the kernel run this Dense node? Float weights (the engine's int8
     comes with the INT8 slice) and an activation of `matmul_supported`."""

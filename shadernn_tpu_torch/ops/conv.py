@@ -24,6 +24,9 @@ from shadernn_tpu_torch.config import BackendKind
 from shadernn_tpu_torch.graph.ir import Node, TensorSpec, Transform, transform_output_dims
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
 from shadernn_tpu_torch.ops.registry import OpDef, RunCtx, register
+from shadernn_tpu_torch.utils import get_logger
+
+log = get_logger("snn_torch.ops")
 
 # Limits of the JAX package's haloed chain format
 # (shadernn_tpu/kernels/conv_pallas.py MH, ML), kept so that AUTO plans
@@ -170,11 +173,13 @@ class Conv2D(OpDef):
         x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
         if ctx.backend == BackendKind.KERNEL:
             from shadernn_tpu_torch.kernels.conv_igemm import (
-                conv_run_igemm, igemm_conv_supported,
+                GATE, conv_run_igemm, igemm_conv_supported,
             )
 
-            if igemm_conv_supported(node, x.shape[-1]):
-                return conv_run_igemm(node, x)
+            # Prepared operands mean the planner has asked the gate already.
+            if ctx.operands is not None or igemm_conv_supported(node, x.shape[-1]):
+                return conv_run_igemm(node, x, ctx.operands)
+            log.warning("conv %s given to KERNEL runs on TORCH: outside the %s", node.name, GATE)
         w = get_weight(node, x.dtype).to(x.device)
         y = conv2d_nhwc_f32(x, w, _conv_pads(node), int(node.attr("stride", 1)))
         return _epilogue(node, y.to(x.dtype))

@@ -22,6 +22,9 @@ from shadernn_tpu_torch.graph.ir import Node, TensorSpec
 from shadernn_tpu_torch.ops.common import apply_activation
 from shadernn_tpu_torch.ops.conv import get_weight
 from shadernn_tpu_torch.ops.registry import OpDef, RunCtx, register
+from shadernn_tpu_torch.utils import get_logger
+
+log = get_logger("snn_torch.ops")
 
 
 @register("Dense", "FullyConnected", "InnerProduct")
@@ -33,10 +36,12 @@ class Dense(OpDef):
     def run(self, node: Node, xs: List, ctx: RunCtx):
         x = xs[0]
         if ctx.backend == BackendKind.KERNEL:
-            from shadernn_tpu_torch.kernels.matmul import dense_run_kernel, dense_supported
+            from shadernn_tpu_torch.kernels.matmul import GATE, dense_run_kernel, dense_supported
 
-            if dense_supported(node):
-                return dense_run_kernel(node, x)
+            # Prepared operands mean the planner has asked the gate already.
+            if ctx.operands is not None or dense_supported(node):
+                return dense_run_kernel(node, x, ctx.operands)
+            log.warning("dense %s given to KERNEL runs on TORCH: outside the %s", node.name, GATE)
         if x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
         w = get_weight(node, x.dtype).to(x.device)  # (in, units)

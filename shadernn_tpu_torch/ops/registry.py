@@ -19,6 +19,10 @@ class RunCtx:
 
     precision: object = None  # shadernn_tpu_torch.config.Precision
     backend: object = None  # BackendKind for this node
+    # Under KERNEL: the node's kernel operands where the planner has admitted
+    # the node and prepared them (ops/conv.py folded_operands); None from a
+    # direct caller, for whom the op asks the gate and folds them itself.
+    operands: object = None
 
 
 class OpDef:

@@ -167,9 +167,10 @@ def test_two_input_conv_under_kernel_matches_jax(prec):
     assert auto.kernel_conv_plan == []
 
 
-def test_conv_op_honours_the_kernel_backend(rng):
+def test_conv_op_honours_the_kernel_backend(rng, caplog):
     """Conv2D.run under KERNEL: concat, then the kernel where the gate
-    holds, TORCH where it does not (stride 2)."""
+    holds, TORCH with a log line that names the gate where it does not
+    (stride 2)."""
     calls = []
     real = conv_igemm.conv2d_kernel_nhwc
 
@@ -190,3 +191,4 @@ def test_conv_op_honours_the_kernel_backend(rng):
     finally:
         conv_igemm.conv2d_kernel_nhwc = real
     assert calls == [1]
+    assert caplog.text.count("conv n given to KERNEL runs on TORCH: outside the implicit-GEMM") == 1

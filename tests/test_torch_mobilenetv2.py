@@ -107,17 +107,25 @@ def test_op_matches_jax(rng, case, prec):
     assert p_op(op).infer(pn, [P.TensorSpec(shape)]).shape == j_op(op).infer(jn, [spec]).shape
 
 
-def test_dense_on_the_kernel_backend_raises(rng):
-    """It raised while the fused-matmul kernel was missing (hence the
-    name); now the KERNEL Dense runs (the kernel's plain version on the CPU)
-    and matches TORCH. tests/test_torch_matmul.py holds the branch further."""
+def test_dense_outside_the_kernel_gate_says_so(rng, caplog):
+    """A direct caller's KERNEL Dense that the fused-matmul kernel's gate
+    declines (int8 weight storage) runs the TORCH body and
+    logs the gate; one inside the gate logs nothing. (The engine decides at
+    plan time and never hands a declined node KERNEL.)"""
+    import logging
+
     params = {"weight": torch.from_numpy(rng.standard_normal((4, 3)).astype(np.float32)),
               "bias": torch.from_numpy(rng.standard_normal(3).astype(np.float32))}
     x = torch.from_numpy(rng.standard_normal((2, 4)).astype(np.float32))
-    for act in ("softmax", "relu"):
-        node = PNode("fc", "Dense", ["x"], dict(units=3, activation=act), params)
-        got = p_op("Dense").run(node, [x], PCtx(backend=P.BackendKind.KERNEL))
+    for int8, logged in ((False, False), (True, True)):
+        extra = {"weight_q": torch.zeros((4, 3), dtype=torch.int8)} if int8 else {}
+        node = PNode("fc", "Dense", ["x"], dict(units=3, activation="relu"), {**params, **extra})
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger="snn_torch.ops"):
+            got = p_op("Dense").run(node, [x], PCtx(backend=P.BackendKind.KERNEL))
         close(got, p_op("Dense").run(node, [x], PCtx(backend=P.BackendKind.TORCH)), "fp32")
+        said = "dense fc given to KERNEL runs on TORCH: outside the fused-matmul" in caplog.text
+        assert said == logged, caplog.text
 
 
 # -- builder and plan --------------------------------------------------------
