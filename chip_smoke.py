@@ -15,9 +15,12 @@ Phases, each of which raises on failure (exit code != 0):
               block geometry of the trained model at its batch (b64) and a
               ragged 13x9 block, bf16 and fp32; the single-conv kernel at the
               trained model's folded stem, k5 c1->16, k3 c128->128 with
-              asymmetric pads, and every distinct geometry of the single-conv
+              asymmetric pads, every distinct geometry of the single-conv
               plans of both ResNet18 paths at their batch (b8, b64) with the
-              models' folded weights; the implicit-GEMM conv
+              models' folded weights, and the edges of its bf16 form (O = 10,
+              a multi-image tile the batch does not fill, C = 3, taps in
+              several stages, k11), bf16 from f32 and from bf16 inputs; the
+              implicit-GEMM conv
               kernel at the ResNet-wide shapes, 540p frames, even k with
               asymmetric pads, stride 2 and int8 weights; the fused-matmul
               kernel at the classifier heads (softmax rows must sum to 1),
@@ -45,7 +48,9 @@ Phases, each of which raises on failure (exit code != 0):
               logits)
   5. timing   kernel, plain version and a library yardstick (cuDNN, cuBLAS),
               each from CUDA events around back-to-back calls and as device time from
-              torch.profiler; the bound
+              torch.profiler; the bound. Per-step sums: the 11 block launches of a
+              MobileNetV2 224 b8 step, the 8 single-conv launches of a ResNet18
+              zoo-width b8 step
 Prints the `kernels` JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Imports no JAX and nothing of
 the JAX package. Exits non-zero without printing a result when no CUDA
@@ -56,6 +61,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -152,9 +158,16 @@ def main() -> int:
     t0 = time.perf_counter()
     _, build_log = _build.build(force=True)
     log(f"[build] nvcc {time.perf_counter() - t0:.1f} s")
+    kernel_name = ""
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:  # the mangled name: kernel and template arguments
+            m = re.search(r"\d+([a-z_]+_kernel)(\w*)'", line)
+            args = m.group(2).split("Ev", 1)[0] if m and m.group(2).startswith("I") else ""
+            targs = re.findall(r"Li(\d+)E", args) + (
+                ["bf16"] if "bfloat16" in args else ["f32"] if "EfE" in args else [])
+            kernel_name = (m.group(1) + (f"<{','.join(targs)}>" if targs else "")) if m else ""
+        elif "registers" in line or "spill" in line:
+            log(f"[build] {kernel_name:<32} {line.strip()}")
     _build.kernel_lib()
 
     # 3. kernel vs plain ---------------------------------------------------
@@ -280,10 +293,13 @@ def main() -> int:
     block_cases = list(geoms.items()) + list(trained_geoms.items()) + [
         (geometry(ragged_spec) + " (ragged)", (ragged_spec, rops, 3)),
     ]
-    launch_cfgs = {invres.pick_launch(spec, nb, torch.cuda.get_device_properties(dev)
-                                      .multi_processor_count) for _l, (spec, _o, nb) in block_cases}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    launch_cfgs = {
+        pname: sorted({(g.tile_h, g.tile_w, g.split) for g in (
+            invres.pick_launch(spec, nb, sms, pname == "bf16") for _l, (spec, _o, nb) in block_cases)})
+        for pname in ("bf16", "fp32")}
     log(f"[kernel] block cases: {len(block_cases)} geometries, launch configurations "
-        f"(tile_h, tile_w, split) {sorted(launch_cfgs)}")
+        f"(tile_h, tile_w, split) bf16 {launch_cfgs['bf16']} fp32 {launch_cfgs['fp32']}")
     block_err = 0.0
     for label, (spec, ops, nb) in block_cases:
         for dt in (bf16, f32):
@@ -310,6 +326,13 @@ def main() -> int:
         # What forced-KERNEL ResNet18 at the zoo width launches (stages 0 and 1).
         ("resnet k3 c64->64 32x32", 8, 32, 32, 64, 3, 64, (1, 1, 1, 1), "relu"),
         ("resnet k3 c128->128 16x16", 8, 16, 16, 128, 3, 128, (1, 1, 1, 1), "relu"),
+        # Edges of the bf16 form: O not a multiple of 8; images that do not
+        # fill a multi-image CTA; C = 3; taps in several stages; a k11 head.
+        ("k3 c24->10 10x12", 2, 10, 12, 24, 3, 10, (1, 1, 1, 1), "tanh"),
+        ("k3 c128->128 4x4 (3 of 4 images)", 3, 4, 4, 128, 3, 128, (1, 1, 1, 1), "relu"),
+        ("k3 c3->64 32x32", 8, 32, 32, 3, 3, 64, (1, 1, 1, 1), "relu"),
+        ("k5 c128->128 20x20 (tap groups)", 2, 20, 20, 128, 5, 128, (2, 2, 2, 2), "relu"),
+        ("k11 c1->16 20x24", 2, 20, 24, 1, 11, 16, (5, 5, 5, 5), "relu"),
     ):
         wts = torch.from_numpy((rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c))
                                .astype(np.float32)).to(dev)
@@ -324,16 +347,17 @@ def main() -> int:
         eng = Engine.from_graph(graph, EngineOptions(precision=Precision.FP32, batch_size=batch,
                                                      backend=BackendKind.KERNEL))
         g, fwd = eng.graph, eng.model.forward
-        singles = {}
+        singles, step = {}, []
         for name_ in fwd.single_conv_plan:
             node = g.nodes[name_]
             s = g.nodes[node.inputs[0]].out_spec
             k, o = int(node.attr("kernel_size")), int(node.attr("out_channels"))
             act = str(node.attr("activation", "linear"))
             pads = padding_offsets(node.attr("padding", "same"), k)
-            singles.setdefault(
-                f"{tag} k{k} c{s.c}->{o} {s.h}x{s.w} {act}",
-                (batch, s.h, s.w, tuple(t.to(dev) for t in folded_operands(node, f32)), pads, act))
+            conv_case = (batch, s.h, s.w, tuple(t.to(dev) for t in folded_operands(node, f32)),
+                         pads, act)
+            singles.setdefault(f"{tag} k{k} c{s.c}->{o} {s.h}x{s.w} {act}", conv_case)
+            step.append(conv_case)
         chains = []
         for head, members in fwd.chain_plan.items():
             nodes = [g.nodes[m] for m in members]
@@ -341,11 +365,13 @@ def main() -> int:
             s = g.nodes[nodes[0].inputs[0]].out_spec
             chains.append((f"{tag} chain {head} {'->'.join(str(n.attr('out_channels')) for n in nodes)}"
                            f" {s.h}x{s.w} b{batch}", nodes, s.c, (batch, s.h, s.w, s.c)))
-        return singles, chains
+        return singles, chains, step
 
-    zoo_singles, zoo_chains = planned_resnet(
+    zoo_singles, zoo_chains, zoo_step = planned_resnet(
         seeded_batchnorm(build_resnet18_cifar10(), 1.2), 8, "resnet18")
-    cls_singles, cls_chains = planned_resnet(parse_model_file(RESNET18_TRAINED), 64, "resnet18 cls10")
+    cls_singles, cls_chains, _ = planned_resnet(parse_model_file(RESNET18_TRAINED), 64,
+                                                "resnet18 cls10")
+    assert len(zoo_step) == 8, len(zoo_step)
     # Zoo width: stem, 64->64 at 32x32 (relu and linear), 128->128 at 16x16
     # (both); trained: stem and 32/64/128 channels at 16x16, 8x8, 4x4 (both).
     assert len(zoo_singles) == 5 and zoo_chains == [], (sorted(zoo_singles), zoo_chains)
@@ -359,12 +385,14 @@ def main() -> int:
                 label, nodes, cin, dt, "none", shape, "fused_conv_chain"))
     conv_err = 0.0
     for label, nb, h, w, (wts, sc, of), pads, act in conv_cases:
-        for dt in (bf16, f32):
-            x = torch.from_numpy(rng.random((nb, h, w, wts.shape[2]), dtype=np.float32)).to(dev)
+        # bf16 from an f32 input (rounded on staging) and from a bf16 input
+        # (the engine's; 16-byte asynchronous copies where C allows); fp32.
+        for dt, x_dt, tag in ((bf16, f32, "bf16"), (bf16, bf16, "bf16 x bf16"), (f32, f32, "fp32")):
+            x = torch.from_numpy(rng.random((nb, h, w, wts.shape[2]), dtype=np.float32)).to(dev, x_dt)
             got = conv.fused_conv2d_haloed(x, wts, sc, of, pads, act, 0.3, dt)
             torch.cuda.synchronize()
             conv_err = max(conv_err, held(
-                f"{label} b{nb} {'bf16' if dt == bf16 else 'fp32'}", "fused_conv2d_haloed",
+                f"{label} b{nb} {tag}", "fused_conv2d_haloed",
                 got, conv.conv2d_haloed_reference(x, wts, sc, of, pads, act, 0.3, dt), dt))
 
     def tensor(a, dt=f32):
@@ -1040,6 +1068,32 @@ def main() -> int:
         conv_rows[pname] = time_conv(
             "fused_conv2d_haloed", "stem 16x16 12->16 k2", single, single_plain, 64, 16, 16,
             *stem_ops, stem_pads, str(stem.attr("activation")), dt)
+        # The 8 single-conv launches of one forced-KERNEL ResNet18 step at the
+        # zoo width (b8), with the model's folded weights, back to back; the
+        # same convs on cuDNN beside them.
+        step = [(tensor(rng.standard_normal((nb, h, w, wts.shape[2])), dt), wts.to(dt), sc, of,
+                 pads, act) for nb, h, w, (wts, sc, of), pads, act in zoo_step]
+        libs = [conv_yardstick(*args, dt) for args in step]
+        t = timed({"kernel": lambda: [single(*args) for args in step],
+                   "plain": lambda: [single_plain(*args) for args in step],
+                   "library": lambda: [fn() for fn in libs]})
+        share, work = {"operations": 0.0, "bytes": 0.0}, [0.0, 0.0]
+        for x, wts, _sc, _of, (pt, pb, pl, pr), _act in step:
+            kh, kw, c, o = wts.shape
+            ho, wo = x.shape[1] + pt + pb - kh + 1, x.shape[2] + pl + pr - kw + 1
+            flops = 2.0 * x.shape[0] * ho * wo * kh * kw * c * o
+            nbytes = (x.numel() + x.shape[0] * ho * wo * o + wts.numel()) * x.element_size() + 8 * o
+            t_b, by = bound(flops, nbytes, dt)
+            share[by] += t_b
+            work[0] += flops
+            work[1] += nbytes
+        b_ms, b_by = sum(share.values()), max(share, key=share.get)
+        conv_rows[("resnet18 zoo width b8, sum of the 8 launches of one step", pname)] = dict(
+            **timing_keys(t), bound_ms=b_ms, bound_by=b_by)
+        log(f"[timing] fused_conv2d_haloed {pname} ResNet18 zoo width b8, sum of the 8 launches "
+            f"of one step: {timing_text(t)} bound {b_ms:.5f} ms (operations-bound convs "
+            f"{share['operations']:.5f} ms, bytes-bound {share['bytes']:.5f} ms; "
+            f"{work[0] / 1e9:.3f} GFLOP, {work[1] / 1e6:.3f} MB, {peak_key} peaks) | {card}")
         nb, h, w, c, k, o = TWO_INPUT
         igemm_rows[pname] = time_conv(
             "conv2d_kernel_nhwc", "two-input k3 c8->16 540x960", igemm, igemm_plain, nb, h, w,

@@ -15,27 +15,56 @@
 // (N, H+pt+pb-kh+1, W+pl+pr-kw+1, O). Limits as the planner's gate
 // (ops/conv.py kernel_chain_supported): c <= 128, o <= 128, kh*kw*c <= 4096.
 //
-// What bounds it on an H100: at the shapes the port plans (small-channel
-// convs; the folded MobileNetV2 stem is 12->16 channels, k=2) a conv does a
-// few hundred FLOPs per byte of input and output, near the ridge of the
-// CUDA cores (67 TFLOP/s f32 over 3.35 TB/s = 20 FLOP/byte) and far below
-// the tensor cores' (295 FLOP/byte). This first version issues its FLOPs as
-// f32 FMAs on the CUDA cores; what the design secures is one read of each
-// input tile (plus halo) and one write of the output.
+// What bounds it on an H100: a k3 conv over 64-128 channels does 500-1000
+// FLOPs per byte of input and output, above the ridge of the bf16 tensor
+// cores (989 TFLOP/s over 3.35 TB/s = 295 FLOP/byte); the small-channel
+// convs (the stems) are near it. At the shapes the port plans the bound is
+// a microsecond or less, so what a launch costs is staging, the halo and
+// filling 132 SMs.
 //
-// Design: one CTA per (image, tile of TH x TW output pixels, block of OB
-// output channels). The input channels are walked in chunks of CC: each
-// chunk stages the input tile plus its (kh-1, kw-1) halo (zero outside the
-// image, channel-planar so that neighbouring threads read neighbouring
-// words) and the chunk's weights [dy][dx][c][OB] in shared memory. One
-// thread owns one output pixel and CH consecutive output channels in
-// registers; the weights are read as broadcast float4s.
+// Two forms, one per compute dtype:
+//
+// bf16 (the JAX kernel's numerics: bf16 x bf16 products, f32 sums) is an
+// implicit GEMM on the tensor cores: M = output pixels, N = O, K = kh*kw*C
+// walked tap by tap and 8 channels at a time (a "unit"; C zero-padded to a
+// multiple of 8). One CTA of 8 warps owns 64 output pixels (one tile of an
+// image with its (kh-1, kw-1) halo, or several whole small images, each
+// with its own halo region) and NB output channels. It walks the input
+// channels in chunks of CC: each chunk's input region is staged in shared
+// memory as bf16, pixel-major with channels contiguous, rows padded to an
+// odd number of 16-byte units so that ldmatrix is free of bank conflicts;
+// the weights as [tap][c][NB] bf16, in groups of taps when a chunk's taps
+// do not fit. cp.async brings the next stage in while the current one
+// computes (two buffers). For each pair of units, the A fragments come
+// from ldmatrix with one row address per output pixel, shifted by the
+// unit's tap (dy, dx), which is how the halo shift stays free; the B
+// fragments from ldmatrix.trans; mma.sync m16n8k16 accumulates in f32
+// registers. Warp w owns pixels 16*(w%4).. and half of the NB channels.
+// Taps outside an image read staged zeros; pixels and channels past the
+// output are never written.
+//
+// f32 (no TF32 on this path) keeps the CUDA cores: one CTA per (image,
+// tile of TH x TW output pixels, block of OB output channels), input
+// channels in chunks of CC staged channel-planar with the halo, one
+// thread per output pixel and CH output channels, weights read as
+// broadcast float4s.
+//
+// The launch geometry (tiles, images per CTA, channel blocks and chunks,
+// taps per stage, strides and the shared-memory layout) is the wrapper's
+// (kernels/conv.py launch_geometry); this file checks it and launches.
 
 #include "snn_common.cuh"
+#include "snn_mma.cuh"
 
-#define SNN_SMEM_TARGET 98304  // 96 KB: two CTAs per SM where a chunk fits
+// Fields of the geometry array the wrapper passes.
+enum {
+  G_TILE_H, G_TILE_W, G_IMGS, G_NB, G_CC, G_TG, G_CH, G_IN_STRIDE, G_W_STRIDE, G_W_ROWS,
+  G_IN_OFF, G_IN_BUFS, G_W_OFF, G_W_BUFS, G_SMEM, G_FIELDS
+};
 
 namespace {
+
+// ---------------------------------------------------------------- f32 ----
 
 struct ConvDesc {
   int n, h, w, c, kh, kw, o, pt, pl, ho, wo;
@@ -47,13 +76,11 @@ struct ConvDesc {
   int in_off, w_off;       // smem offsets (floats)
 };
 
-template <int CH, typename TIn, bool BF16>
+template <int CH, typename TIn>
 __global__ void __launch_bounds__(256)
-conv_single_kernel(const TIn* __restrict__ x, void* __restrict__ y,
-                   const void* __restrict__ w_raw, const float* __restrict__ scale,
+conv_single_kernel(const TIn* __restrict__ x, float* __restrict__ y,
+                   const float* __restrict__ wg, const float* __restrict__ scale,
                    const float* __restrict__ offset, const __grid_constant__ ConvDesc d) {
-  using TOut = typename std::conditional<BF16, __nv_bfloat16, float>::type;
-  const TOut* __restrict__ wg = static_cast<const TOut*>(w_raw);  // compute dtype
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* in_s = smem + d.in_off;
@@ -83,10 +110,8 @@ conv_single_kernel(const TIn* __restrict__ x, void* __restrict__ y,
       const int rr = pix / d.cols, cc = pix - rr * d.cols;
       const int gy = ty0 - d.pt + rr, gx = tx0 - d.pl + cc;
       float v = 0.f;
-      if (gy >= 0 && gy < d.h && gx >= 0 && gx < d.w) {
+      if (gy >= 0 && gy < d.h && gx >= 0 && gx < d.w)
         v = to_float(x[(((size_t)n * d.h + gy) * d.w + gx) * d.c + c0 + ci]);
-        if (BF16) v = round_bf16(v);
-      }
       in_s[ci * plane + pix] = v;
     }
     // Weights of the chunk as [tap][ci][OB], zeros past o.
@@ -94,7 +119,7 @@ conv_single_kernel(const TIn* __restrict__ x, void* __restrict__ y,
       const int j = i % d.ob, r = i / d.ob;
       const int ci = r % ccn, tap = r / ccn;
       const int oc = ob0 + j;
-      w_s[i] = oc < d.o ? to_float(wg[((size_t)tap * d.c + c0 + ci) * d.o + oc]) : 0.f;
+      w_s[i] = oc < d.o ? wg[((size_t)tap * d.c + c0 + ci) * d.o + oc] : 0.f;
     }
     __syncthreads();
     if (g < d.groups) {
@@ -117,47 +142,363 @@ conv_single_kernel(const TIn* __restrict__ x, void* __restrict__ y,
 
   const int gy = ty0 + py, gx = tx0 + px;
   if (g >= d.groups || gy >= d.ho || gx >= d.wo) return;
-  TOut* yo = static_cast<TOut*>(y) + (((size_t)n * d.ho + gy) * d.wo + gx) * d.o;
+  float* yo = y + (((size_t)n * d.ho + gy) * d.wo + gx) * d.o;
 #pragma unroll
   for (int j = 0; j < CH; ++j) {
     const int oc = ob0 + g * CH + j;
-    if (oc < d.o) {
-      const float v = apply_act(fmaf(acc[j], scale[oc], offset[oc]), d.act, d.alpha);
-      if constexpr (BF16) {
-        yo[oc] = __float2bfloat16_rn(v);
-      } else {
-        yo[oc] = v;
-      }
-    }
+    if (oc < d.o) yo[oc] = apply_act(fmaf(acc[j], scale[oc], offset[oc]), d.act, d.alpha);
   }
 }
 
-inline int round4(int v) { return (v + 3) & ~3; }
-
-template <int CH, typename TIn, bool BF16>
-int launch(const void* x, void* y, const void* w, const float* scale,
-           const float* offset, const ConvDesc& d, size_t smem, cudaStream_t s) {
-  auto kern = conv_single_kernel<CH, TIn, BF16>;
+template <int CH, typename TIn>
+int launch_f32(const void* x, void* y, const void* w, const float* scale,
+               const float* offset, const ConvDesc& d, size_t smem, cudaStream_t s) {
+  auto kern = conv_single_kernel<CH, TIn>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles_y = (d.ho + d.tile_h - 1) / d.tile_h;
   dim3 grid(d.tiles_x * tiles_y, (d.o + d.ob - 1) / d.ob, d.n);
   const int threads = d.tile_h * d.tile_w * d.groups;
-  kern<<<grid, threads, smem, s>>>(static_cast<const TIn*>(x), y, w, scale, offset, d);
+  kern<<<grid, threads, smem, s>>>(static_cast<const TIn*>(x), static_cast<float*>(y),
+                                   static_cast<const float*>(w), scale, offset, d);
   return (int)cudaGetLastError();
 }
 
-template <int CH>
-int dispatch(int x_bf16, int compute_bf16, const void* x, void* y, const void* w,
-             const float* scale, const float* offset, const ConvDesc& d,
-             size_t smem, cudaStream_t s) {
-  if (x_bf16) {
-    return compute_bf16 ? launch<CH, __nv_bfloat16, true>(x, y, w, scale, offset, d, smem, s)
-                        : launch<CH, __nv_bfloat16, false>(x, y, w, scale, offset, d, smem, s);
+// --------------------------------------------------------------- bf16 ----
+
+#define SNN_TC_THREADS 256
+#define SNN_TC_BM 64  // output pixels per CTA: 4 warps of 16 rows, twice over N
+
+struct TcDesc {
+  int n, h, w, c, kh, kw, o, pt, pl, ho, wo;
+  int act;
+  float alpha;
+  int tile_h, tile_w, imgs;  // imgs > 1: that many whole images per CTA
+  int tiles_x, tiles_img;    // tiles of one image (imgs == 1)
+  int rows, cols;            // staged region of one image: tile + halo
+  int region;                // staged positions (imgs * rows * cols); a zero row follows
+  int cc, cunits;            // input channels per chunk (multiple of 8), cc / 8
+  int tg, groups, stages;    // taps per stage, tap groups, chunks * groups
+  int in_stride, w_stride;   // bf16 per staged input position / weight row
+  int w_rows;                // staged weight rows per stage (tg * cc, rounded up to 16)
+  int in_off, in_buf, w_off, w_buf;  // smem bytes: offsets and one buffer's size
+  int in_bufs, w_bufs;
+  int vec_x, vec_w;          // 16-byte cp.async loads of x / w
+};
+
+// NT: n8-tiles per warp (NB = 16 * NT channels per CTA).
+template <int NT, typename TIn>
+__global__ void __launch_bounds__(SNN_TC_THREADS)
+conv_single_tc_kernel(const TIn* __restrict__ x, __nv_bfloat16* __restrict__ y,
+                      const __nv_bfloat16* __restrict__ w, const float* __restrict__ scale,
+                      const float* __restrict__ offset, const __grid_constant__ TcDesc d) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int ob0 = blockIdx.y * (16 * NT);
+  int n0, ty0 = 0, tx0 = 0;
+  if (d.imgs > 1) {
+    n0 = blockIdx.x * d.imgs;
+  } else {
+    n0 = blockIdx.x / d.tiles_img;
+    const int t = blockIdx.x - n0 * d.tiles_img;
+    ty0 = (t / d.tiles_x) * d.tile_h;
+    tx0 = (t % d.tiles_x) * d.tile_w;
   }
-  return compute_bf16 ? launch<CH, float, true>(x, y, w, scale, offset, d, smem, s)
-                      : launch<CH, float, false>(x, y, w, scale, offset, d, smem, s);
+  const int tile_px = d.tile_h * d.tile_w;
+  const int bm = d.imgs * tile_px;
+  const int plane = d.rows * d.cols;
+  const int taps = d.kh * d.kw;
+  auto in_buf = [&](int b) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + d.in_off + b * d.in_buf);
+  };
+  auto w_buf = [&](int b) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + d.w_off + b * d.w_buf);
+  };
+
+  // The zero row after each input region: what masked pixels and padded
+  // units read.
+  for (int i = tid; i < d.in_bufs * (d.in_stride / 8); i += SNN_TC_THREADS) {
+    const int b = i / (d.in_stride / 8), u = i - b * (d.in_stride / 8);
+    reinterpret_cast<uint4*>(in_buf(b) + (size_t)d.region * d.in_stride)[u] = make_uint4(0, 0, 0, 0);
+  }
+
+  // This lane's A row: pixel 16*wm + (lane & 15) of the CTA, as a staged
+  // position (-1: past the CTA's pixels).
+  int a_base = -1;
+  {
+    const int p = wm * 16 + (lane & 15);
+    if (p < bm) {
+      const int il = p / tile_px, rem = p - il * tile_px;
+      const int py = rem / d.tile_w, px = rem - py * d.tile_w;
+      a_base = il * plane + py * d.cols + px;
+    }
+  }
+
+  auto load_stage = [&](int s) {
+    const int ci = s / d.groups, grp = s - ci * d.groups;
+    const int c0 = ci * d.cc;
+    if (grp == 0) {  // the chunk's input region, zero outside the images
+      __nv_bfloat16* dst = in_buf(ci % d.in_bufs);
+      if (d.vec_x) {
+        for (int i = tid; i < d.region * d.cunits; i += SNN_TC_THREADS) {
+          const int pos = i / d.cunits, u = i - pos * d.cunits;
+          const int il = pos / plane, rem = pos - il * plane;
+          const int rr = rem / d.cols, cl = rem - rr * d.cols;
+          const int nn = n0 + il, gy = ty0 - d.pt + rr, gx = tx0 - d.pl + cl;
+          const int c = c0 + u * 8;
+          const bool ok = nn < d.n && gy >= 0 && gy < d.h && gx >= 0 && gx < d.w && c < d.c;
+          const TIn* src = ok ? x + (((size_t)nn * d.h + gy) * d.w + gx) * d.c + c : x;
+          cp_async16(dst + (size_t)pos * d.in_stride + u * 8, src, ok ? 16 : 0);
+        }
+      } else {
+        for (int i = tid; i < d.region * d.cc; i += SNN_TC_THREADS) {
+          const int pos = i / d.cc, e = i - pos * d.cc;
+          const int il = pos / plane, rem = pos - il * plane;
+          const int rr = rem / d.cols, cl = rem - rr * d.cols;
+          const int nn = n0 + il, gy = ty0 - d.pt + rr, gx = tx0 - d.pl + cl;
+          const int c = c0 + e;
+          float v = 0.f;
+          if (nn < d.n && gy >= 0 && gy < d.h && gx >= 0 && gx < d.w && c < d.c)
+            v = to_float(x[(((size_t)nn * d.h + gy) * d.w + gx) * d.c + c]);
+          dst[(size_t)pos * d.in_stride + e] = __float2bfloat16_rn(v);
+        }
+      }
+    }
+    // Weights of (chunk, tap group): row r = tap_l * cc + c_l, zero past
+    // the taps, C and O.
+    __nv_bfloat16* dst = w_buf(s % d.w_bufs);
+    constexpr int NB = 16 * NT;
+    if (d.vec_w) {
+      for (int i = tid; i < d.w_rows * (NB / 8); i += SNN_TC_THREADS) {
+        const int r = i / (NB / 8), v = i - r * (NB / 8);
+        const int tap_l = r / d.cc, cl = r - tap_l * d.cc;
+        const int tap = grp * d.tg + tap_l, c = c0 + cl, oc = ob0 + v * 8;
+        const bool ok = tap_l < d.tg && tap < taps && c < d.c && oc < d.o;
+        const __nv_bfloat16* src = ok ? w + ((size_t)tap * d.c + c) * d.o + oc : w;
+        cp_async16(dst + (size_t)r * d.w_stride + v * 8, src, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < d.w_rows * NB; i += SNN_TC_THREADS) {
+        const int r = i / NB, j = i - r * NB;
+        const int tap_l = r / d.cc, cl = r - tap_l * d.cc;
+        const int tap = grp * d.tg + tap_l, c = c0 + cl, oc = ob0 + j;
+        const bool ok = tap_l < d.tg && tap < taps && c < d.c && oc < d.o;
+        dst[(size_t)r * d.w_stride + j] = ok ? w[((size_t)tap * d.c + c) * d.o + oc]
+                                             : __float2bfloat16_rn(0.f);
+      }
+    }
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+
+  load_stage(0);
+  cp_async_commit();
+  for (int s = 0; s < d.stages; ++s) {
+    if (s + 1 < d.stages) load_stage(s + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // stage s has landed (this thread's copies)
+    __syncthreads();     // (everyone's)
+    const int ci = s / d.groups, grp = s - ci * d.groups;
+    const __nv_bfloat16* ib = in_buf(ci % d.in_bufs);
+    const __nv_bfloat16* wb = w_buf(s % d.w_bufs);
+    const int ntap = min(d.tg, taps - grp * d.tg), units = ntap * d.cunits;
+    const __nv_bfloat16* zero_row = ib + (size_t)d.region * d.in_stride;
+    // One k16 step: A rows at ap (this lane's pixel and unit), B rows at
+    // bp (k row lane & 15 of the step).
+    auto step = [&](const __nv_bfloat16* ap, const __nv_bfloat16* bp) {
+      uint32_t a[4];
+      ldmatrix_x4(a, ap);
+      bp += wn * 8 * NT;
+      if constexpr (NT == 1) {
+        uint32_t b[2];
+        ldmatrix_x2_trans(b, bp);
+        mma_bf16(acc[0], a, b[0], b[1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, bp + j * 8 + (lane >> 4) * 8);
+          mma_bf16(acc[j], a, b[0], b[1]);
+          mma_bf16(acc[j + 1], a, b[2], b[3]);
+        }
+      }
+    };
+    const __nv_bfloat16* b_lane = wb + (size_t)(lane & 15) * d.w_stride;
+    if ((d.cunits & 1) == 0) {
+      // Pairs of units within one tap: walk the taps, shifting the A rows.
+      int tap = grp * d.tg;
+      int dy = tap / d.kw, dx = tap - dy * d.kw;
+      const __nv_bfloat16* a_lane =
+          (a_base >= 0 ? ib + (size_t)a_base * d.in_stride : zero_row) + (lane >> 4) * 8;
+      for (int tl = 0; tl < ntap; ++tl) {
+        const __nv_bfloat16* ap =
+            a_base >= 0 ? a_lane + (size_t)(dy * d.cols + dx) * d.in_stride : a_lane;
+        const __nv_bfloat16* bp = b_lane + (size_t)tl * d.cc * d.w_stride;
+#pragma unroll 4
+        for (int u = 0; u < d.cunits; u += 2) step(ap + u * 8, bp + (size_t)u * 8 * d.w_stride);
+        if (++dx == d.kw) {
+          dx = 0;
+          ++dy;
+        }
+      }
+    } else {
+      // One unit per tap (cc = 8, 24, ...): a pair may straddle two taps.
+      for (int ks = 0; ks < (units + 1) / 2; ++ks) {
+        const int ua = 2 * ks + (lane >> 4);
+        const __nv_bfloat16* ap = zero_row;
+        if (ua < units && a_base >= 0) {
+          const int tap_l = ua / d.cunits, u = ua - tap_l * d.cunits;
+          const int tap = grp * d.tg + tap_l;
+          const int dy = tap / d.kw, dx = tap - dy * d.kw;
+          ap = ib + (size_t)(a_base + dy * d.cols + dx) * d.in_stride + u * 8;
+        }
+        step(ap, b_lane + (size_t)16 * ks * d.w_stride);
+      }
+    }
+    __syncthreads();  // the buffers of stage s are free for stage s + 2
+  }
+
+  // Epilogue on the fragments: rows g and g + 8 of the warp's 16 pixels,
+  // columns 2t, 2t + 1 of each n8-tile.
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int p = wm * 16 + g + 8 * half;
+    if (p >= bm) continue;
+    const int il = p / tile_px, rem = p - il * tile_px;
+    const int py = rem / d.tile_w, px = rem - py * d.tile_w;
+    const int nn = n0 + il, gy = ty0 + py, gx = tx0 + px;
+    if (nn >= d.n || gy >= d.ho || gx >= d.wo) continue;
+    __nv_bfloat16* yo = y + (((size_t)nn * d.ho + gy) * d.wo + gx) * d.o;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int oc = ob0 + wn * 8 * NT + j * 8 + 2 * t;
+      if (oc >= d.o) continue;
+      const float v0 = apply_act(fmaf(acc[j][2 * half], scale[oc], offset[oc]), d.act, d.alpha);
+      if (oc + 1 < d.o) {
+        const float v1 =
+            apply_act(fmaf(acc[j][2 * half + 1], scale[oc + 1], offset[oc + 1]), d.act, d.alpha);
+        if ((d.o & 1) == 0) {
+          *reinterpret_cast<uint32_t*>(yo + oc) = pack_bf16x2(v0, v1);
+        } else {
+          yo[oc] = __float2bfloat16_rn(v0);
+          yo[oc + 1] = __float2bfloat16_rn(v1);
+        }
+      } else {
+        yo[oc] = __float2bfloat16_rn(v0);
+      }
+    }
+  }
+}
+
+template <int NT, typename TIn>
+int launch_tc(const void* x, void* y, const void* w, const float* scale, const float* offset,
+              const TcDesc& d, size_t smem, cudaStream_t s) {
+  auto kern = conv_single_tc_kernel<NT, TIn>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int mtiles = d.imgs > 1 ? (d.n + d.imgs - 1) / d.imgs : d.n * d.tiles_img;
+  dim3 grid(mtiles, (d.o + 16 * NT - 1) / (16 * NT));
+  kern<<<grid, SNN_TC_THREADS, smem, s>>>(static_cast<const TIn*>(x),
+                                          static_cast<__nv_bfloat16*>(y),
+                                          static_cast<const __nv_bfloat16*>(w), scale, offset, d);
+  return (int)cudaGetLastError();
+}
+
+template <typename TIn>
+int dispatch_tc(int nt, const void* x, void* y, const void* w, const float* scale,
+                const float* offset, const TcDesc& d, size_t smem, cudaStream_t s) {
+  switch (nt) {
+    case 1: return launch_tc<1, TIn>(x, y, w, scale, offset, d, smem, s);
+    case 2: return launch_tc<2, TIn>(x, y, w, scale, offset, d, smem, s);
+    case 4: return launch_tc<4, TIn>(x, y, w, scale, offset, d, smem, s);
+    default: return launch_tc<8, TIn>(x, y, w, scale, offset, d, smem, s);
+  }
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// [off, off + need) within [lo, hi), 16-byte aligned.
+inline bool fits(long long off, long long need, long long lo, long long hi) {
+  return off % 16 == 0 && off >= lo && off + need <= hi;
+}
+
+int run_tc(const void* x, int x_bf16, void* y, const void* w, const float* scale,
+           const float* offset, TcDesc d, const int* g, cudaStream_t s) {
+  const int nb = g[G_NB], taps = d.kh * d.kw;
+  d.tile_h = g[G_TILE_H]; d.tile_w = g[G_TILE_W]; d.imgs = g[G_IMGS];
+  d.cc = g[G_CC]; d.tg = g[G_TG];
+  d.in_stride = g[G_IN_STRIDE]; d.w_stride = g[G_W_STRIDE]; d.w_rows = g[G_W_ROWS];
+  d.in_off = g[G_IN_OFF]; d.in_bufs = g[G_IN_BUFS]; d.w_off = g[G_W_OFF]; d.w_bufs = g[G_W_BUFS];
+  const long long smem = g[G_SMEM];
+  if (nb != 16 && nb != 32 && nb != 64 && nb != 128) return -4;
+  if (d.tile_h < 1 || d.tile_w < 1 || d.imgs < 1 || d.imgs * d.tile_h * d.tile_w > SNN_TC_BM)
+    return -4;
+  if (d.imgs > 1 && (d.tile_h != d.ho || d.tile_w != d.wo)) return -4;
+  if (d.cc < 8 || d.cc % 8 || d.tg < 1 || d.tg > taps) return -4;
+  if (d.in_stride < d.cc || d.in_stride % 8 || d.w_stride < nb || d.w_stride % 8) return -4;
+  if (d.w_rows < d.tg * d.cc || d.w_rows % 16) return -4;
+  const int chunks = (d.c + d.cc - 1) / d.cc;
+  d.groups = (taps + d.tg - 1) / d.tg;
+  d.stages = chunks * d.groups;
+  if (d.in_bufs != (chunks > 1 ? 2 : 1) || d.w_bufs != (d.stages > 1 ? 2 : 1)) return -4;
+  d.cunits = d.cc / 8;
+  d.tiles_x = (d.wo + d.tile_w - 1) / d.tile_w;
+  d.tiles_img = d.tiles_x * ((d.ho + d.tile_h - 1) / d.tile_h);
+  d.rows = d.tile_h + d.kh - 1;
+  d.cols = d.tile_w + d.kw - 1;
+  d.region = d.imgs * d.rows * d.cols;
+  d.in_buf = (d.region + 1) * d.in_stride * 2;
+  d.w_buf = d.w_rows * d.w_stride * 2;
+  if (smem > SNN_MAX_SMEM || !fits(d.in_off, (long long)d.in_bufs * d.in_buf, 0, d.w_off) ||
+      !fits(d.w_off, (long long)d.w_bufs * d.w_buf, d.in_off, smem))
+    return -2;
+  d.vec_x = x_bf16 && d.c % 8 == 0 && aligned16(x);
+  d.vec_w = d.o % 8 == 0 && aligned16(w);
+  return x_bf16 ? dispatch_tc<__nv_bfloat16>(nb / 16, x, y, w, scale, offset, d, smem, s)
+                : dispatch_tc<float>(nb / 16, x, y, w, scale, offset, d, smem, s);
+}
+
+int run_f32(const void* x, int x_bf16, void* y, const void* w, const float* scale,
+            const float* offset, const TcDesc& t, const int* g, cudaStream_t s) {
+  ConvDesc d;
+  d.n = t.n; d.h = t.h; d.w = t.w; d.c = t.c; d.kh = t.kh; d.kw = t.kw; d.o = t.o;
+  d.pt = t.pt; d.pl = t.pl; d.ho = t.ho; d.wo = t.wo; d.act = t.act; d.alpha = t.alpha;
+  d.tile_h = g[G_TILE_H]; d.tile_w = g[G_TILE_W];
+  d.ob = g[G_NB]; d.cc = g[G_CC];
+  const int ch = g[G_CH];
+  const long long smem = g[G_SMEM];
+  if (ch != 1 && ch != 4 && ch != 8) return -4;
+  if (g[G_IMGS] != 1 || d.ob < ch || d.ob % ch || d.cc < 1 || d.cc > d.c) return -4;
+  if (d.tile_h < 1 || d.tile_w < 1) return -4;
+  d.groups = d.ob / ch;
+  const int threads = d.tile_h * d.tile_w * d.groups;
+  if (threads > 256) return -4;  // __launch_bounds__
+  d.tiles_x = (d.wo + d.tile_w - 1) / d.tile_w;
+  d.rows = d.tile_h + d.kh - 1;
+  d.cols = d.tile_w + d.kw - 1;
+  d.in_off = 0;
+  const long long w_off = g[G_W_OFF];
+  if (smem > SNN_MAX_SMEM || !fits(0, 4LL * d.cc * d.rows * d.cols, 0, w_off) ||
+      !fits(w_off, 4LL * d.kh * d.kw * d.cc * d.ob, 0, smem))
+    return -2;
+  d.w_off = (int)(w_off / 4);
+  auto go = [&](auto tag) {
+    using TIn = decltype(tag);
+    switch (ch) {
+      case 8: return launch_f32<8, TIn>(x, y, w, scale, offset, d, smem, s);
+      case 4: return launch_f32<4, TIn>(x, y, w, scale, offset, d, smem, s);
+      default: return launch_f32<1, TIn>(x, y, w, scale, offset, d, smem, s);
+    }
+  };
+  return x_bf16 ? go(__nv_bfloat16()) : go(float());
 }
 
 }  // namespace
@@ -167,57 +508,35 @@ extern "C" {
 // Returns 0 on success, a negative code for arguments the kernel does not
 // take (see snn_conv_single_error), or the cudaError_t of the launch.
 // w: device HWIO (kh*kw*c*o) in the compute dtype; scale, offset: device
-// f32 (o).
+// f32 (o). geom: G_FIELDS ints, the wrapper's launch geometry (the fields
+// of the enum above; kernels/conv.py ConvLaunch).
 int snn_conv_single(const void* x, int x_bf16, void* y, const void* w,
                     const float* scale, const float* offset, int n, int h,
                     int wd, int c, int kh, int kw, int o, int pt, int pb,
                     int pl, int pr, int act, float alpha, int compute_bf16,
-                    void* stream) {
+                    const int* geom, void* stream) {
   if (n < 1 || h < 1 || wd < 1 || c < 1 || o < 1 || kh < 1 || kw < 1) return -1;
   if (pt < 0 || pb < 0 || pl < 0 || pr < 0) return -1;
   if (c > 128 || o > 128 || kh * kw * c > 4096) return -3;
-  ConvDesc d;
+  TcDesc d;
   d.n = n; d.h = h; d.w = wd; d.c = c; d.kh = kh; d.kw = kw; d.o = o;
   d.pt = pt; d.pl = pl; d.act = act; d.alpha = alpha;
   d.ho = h + pt + pb - kh + 1;
   d.wo = wd + pl + pr - kw + 1;
   if (d.ho < 1 || d.wo < 1) return -1;
-  const int ch = o > 4 ? 8 : (o > 1 ? 4 : 1);
-  const int o_pad = (o + ch - 1) / ch * ch;
-  d.ob = o_pad < 32 ? o_pad : 32;
-  d.groups = d.ob / ch;
-  // About 256 threads: pixels per tile times channel groups.
-  const int pixels = 256 / d.groups;
-  d.tile_w = pixels >= 128 ? 16 : 8;
-  d.tile_h = pixels / d.tile_w;
-  d.tiles_x = (d.wo + d.tile_w - 1) / d.tile_w;
-  d.rows = d.tile_h + kh - 1;
-  d.cols = d.tile_w + kw - 1;
-  // Largest input-channel chunk within 96 KB (two CTAs per SM), else
-  // within 227 KB.
-  const int per_c = round4(d.rows * d.cols) + kh * kw * d.ob;
-  int budget = SNN_SMEM_TARGET / 4;
-  if (per_c > budget) budget = SNN_MAX_SMEM / 4;
-  d.cc = budget / per_c;
-  if (d.cc < 1) return -2;
-  if (d.cc > c) d.cc = c;
-  d.in_off = 0;
-  d.w_off = round4(d.cc * d.rows * d.cols);
-  const size_t smem = (size_t)(d.w_off + kh * kw * d.cc * d.ob) * sizeof(float);
-  if (smem > SNN_MAX_SMEM) return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ch) {
-    case 8: return dispatch<8>(x_bf16, compute_bf16, x, y, w, scale, offset, d, smem, s);
-    case 4: return dispatch<4>(x_bf16, compute_bf16, x, y, w, scale, offset, d, smem, s);
-    default: return dispatch<1>(x_bf16, compute_bf16, x, y, w, scale, offset, d, smem, s);
-  }
+  return compute_bf16 ? run_tc(x, x_bf16, y, w, scale, offset, d, geom, s)
+                      : run_f32(x, x_bf16, y, w, scale, offset, d, geom, s);
 }
 
 const char* snn_conv_single_error(int code) {
   switch (code) {
     case -1: return "empty input, kernel, output or a negative pad";
-    case -2: return "shared memory of one input channel of the tile exceeds 227 KB";
+    case -2: return "the launch geometry's shared-memory layout does not hold its buffers "
+                    "within 227 KB";
     case -3: return "shape outside the kernel's limits (c <= 128, o <= 128, kh*kw*c <= 4096)";
+    case -4: return "launch geometry outside the kernel (tile, channel block, chunk, taps "
+                    "per stage or buffers)";
     default: return code > 0 ? cudaGetErrorString((cudaError_t)code) : "unknown error";
   }
 }

@@ -21,35 +21,63 @@
 // 7x7, E up to 960) do about 2 FLOPs per weight per pixel and read Cin and
 // write Cout values per pixel, tens to hundreds of FLOPs per byte: with
 // the expanded tensor kept on chip they are bound by operations on the
-// tensor cores in bf16 and near the ridge in f32. This first version
-// issues its FLOPs as f32 FMAs on the CUDA cores; what its design secures
-// is the traffic: each input pixel is read about once (plus a one-pixel
-// halo), each output written once, nothing else leaves the chip.
+// tensor cores in bf16 (a few microseconds for a whole MobileNetV2 step)
+// and near the ridge in f32. What the design secures is the traffic: each
+// input pixel is read about once (plus a one-pixel halo), each output
+// written once, nothing else leaves the chip. What is left is latency:
+// the dependent phases of each E chunk, the halo recompute and filling
+// 132 SMs with few tiles.
 //
 // Design: one CTA per (image, tile of TH x TW output pixels, at most 8x8,
 // slice of E), 256 threads. The CTA stages its input tile with a one-pixel
-// halo in shared memory and walks its slice of E in chunks of 32 channels
-// (one per lane). For each chunk it stages the chunk's weights, recomputes
-// the expanded halo tile (each warp four pixels at a time, the input read
-// as broadcast float4s; masked to exact zeros outside the image, rounded),
-// runs the depthwise over the tile with the taps in registers (rounded),
-// and adds d_chunk @ W2[chunk, :] into an f32 accumulator held in
-// registers: warp w owns pixels w, w+8, ... and lane l owns output
-// channels l, l+32, .... Small images give few tiles, so when the tiles
-// alone would leave SMs idle, E is split over the CTAs of a thread-block
-// cluster (up to 8): each writes its partial sums to its shared memory and,
-// after a cluster barrier, each finishes a share of the outputs by adding
-// the partials of every CTA of the cluster in rank order (distributed
-// shared memory; deterministic). The summation order over E differs from
-// the TPU kernel's whole-E dot.
+// halo in shared memory and walks its slice of E in chunks of 32 channels.
+// For each chunk it recomputes the expanded halo tile (masked to exact
+// zeros outside the image, rounded), runs the depthwise over the tile with
+// the taps in registers (rounded), and adds d_chunk @ W2[chunk, :] into an
+// f32 accumulator held in registers. Small images give few tiles, so when
+// the tiles alone would leave SMs idle, E is split over the CTAs of a
+// thread-block cluster (up to 8): each writes its partial sums to its
+// shared memory and, after a cluster barrier, each finishes a share of the
+// outputs by adding the partials of every CTA of the cluster in rank order
+// (distributed shared memory; deterministic). The summation order over E
+// differs from the TPU kernel's whole-E dot.
+//
+// bf16 puts both 1x1 products (about 95% of the FLOPs) on the tensor
+// cores, mma.sync m16n8k16 with f32 accumulators: the expand multiplies
+// the halo tile (rows padded to 16, Cin to 16, staged as bf16) by the
+// chunk of w1, and its epilogue (s1, o1, act, the mask, the rounding)
+// runs on the fragments; the project multiplies d [pixels][32] by the
+// chunk of w2, each warp holding 16 pixels x a share of Cout in f32
+// fragments. The depthwise stays on the CUDA cores with f32 taps. cp.async
+// brings the next chunk's w1, w2, taps and vectors in while the current
+// chunk computes (two buffers). Rows in shared memory are padded to an
+// odd number of 16-byte units, so that ldmatrix is free of bank conflicts.
+//
+// f32 (no TF32 on this path) keeps the CUDA cores: the expand as each warp
+// four pixels at a time with the input read as broadcast float4s, the
+// project as warp w owning pixels w, w+8, ... and lane l output channels
+// l, l+32, ....
+//
+// The launch geometry (tile, split of E, strides and the shared-memory
+// layout) is the wrapper's (kernels/invres.py pick_launch); this file
+// checks it and launches.
 
 #include <cooperative_groups.h>
 #include "snn_common.cuh"
+#include "snn_mma.cuh"
 
 #define SNN_EC 32            // expanded channels per chunk (one per lane)
 #define SNN_MP 8             // pixels per warp (tile <= 64 pixels, 8 warps)
 #define SNN_KC 10            // output channels per lane (Cout <= 320)
 #define SNN_THREADS 256
+#define SNN_ES 40            // bf16 per row of es, ds and w1s: 32 + 8
+
+// Fields of the geometry array the wrapper passes (offsets and buffer
+// sizes in bytes, strides in elements).
+enum {
+  G_TILE_H, G_TILE_W, G_SPLIT, G_XS_STRIDE, G_W2_STRIDE, G_XS_OFF, G_ES_OFF, G_DS_OFF,
+  G_W1_OFF, G_WD_OFF, G_W2_OFF, G_RED_OFF, G_W1_BUF, G_WD_BUF, G_W2_BUF, G_SMEM, G_FIELDS
+};
 
 namespace cg = cooperative_groups;
 
@@ -61,29 +89,33 @@ struct InvResDesc {
   int act_e, act_d, act_o;
   float alpha;
   int tile_h, tile_w, tiles_x;
-  int split;   // CTAs of the cluster that share the tile's E (gridDim.z)
-  int cin4;    // staged input row stride: cin rounded up to 4, zero-padded
-  int xs_off, es_off, ds_off, w1_off, wd_off, w2_off, red_off;  // smem floats
+  int split;      // CTAs of the cluster that share the tile's E (gridDim.z)
+  int xs_stride;  // staged input row: f32 cin rounded up to 4; bf16 >= cin rounded up to 16
+  int w2_stride;  // staged w2 row: f32 cout; bf16 >= cout rounded up to 8
+  int xs_off, es_off, ds_off, w1_off, wd_off, w2_off, red_off;  // smem bytes
+  int w1_buf, wd_buf, w2_buf;  // bf16: bytes of one of the two buffers
+  int vec_x, vec_w1, vec_wd, vec_w2;  // bf16: 16-byte cp.async loads
 };
 
-template <typename T>
+__host__ __device__ __forceinline__ int round16(int v) { return (v + 15) & ~15; }
+
+// ---------------------------------------------------------------- f32 ----
+
 __global__ void __launch_bounds__(SNN_THREADS)
-invres_kernel(const T* __restrict__ x, T* __restrict__ y,
-              const T* __restrict__ w1, const float* __restrict__ s1,
+invres_kernel(const float* __restrict__ x, float* __restrict__ y,
+              const float* __restrict__ w1, const float* __restrict__ s1,
               const float* __restrict__ o1, const float* __restrict__ wd,
               const float* __restrict__ sd, const float* __restrict__ od,
-              const T* __restrict__ w2, const float* __restrict__ s2,
+              const float* __restrict__ w2, const float* __restrict__ s2,
               const float* __restrict__ o2, const __grid_constant__ InvResDesc d) {
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* xs = smem + d.xs_off;   // [HP][cin]   input tile + halo
-  float* es = smem + d.es_off;   // [HP][EC]    expanded chunk
-  float* ds = smem + d.ds_off;   // [P][EC]     depthwise output chunk
-  float* w1s = smem + d.w1_off;  // [cin][EC]
-  float* wds = smem + d.wd_off;  // [9][EC] depthwise taps of the chunk
-  float* vec = wds + 9 * SNN_EC; // [4][EC] s1, o1, sd, od of the chunk
-  float* w2s = smem + d.w2_off;  // [EC][cout]
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw + d.xs_off);   // [HP][cin4]  input tile + halo
+  float* es = reinterpret_cast<float*>(smem_raw + d.es_off);   // [HP][EC]    expanded chunk
+  float* ds = reinterpret_cast<float*>(smem_raw + d.ds_off);   // [P][EC]     depthwise output chunk
+  float* w1s = reinterpret_cast<float*>(smem_raw + d.w1_off);  // [cin4][EC]
+  float* wds = reinterpret_cast<float*>(smem_raw + d.wd_off);  // [9][EC] depthwise taps of the chunk
+  float* vec = wds + 9 * SNN_EC;                               // [4][EC] s1, o1, sd, od of the chunk
+  float* w2s = reinterpret_cast<float*>(smem_raw + d.w2_off);  // [EC][cout]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = blockIdx.y;
@@ -91,7 +123,7 @@ invres_kernel(const T* __restrict__ x, T* __restrict__ y,
   const int tx0 = (blockIdx.x % d.tiles_x) * d.tile_w;
   const int HC = d.tile_w + 2, HP = (d.tile_h + 2) * HC;
   const int P = d.tile_h * d.tile_w;
-  const int cin = d.cin, cin4 = d.cin4, cout = d.cout;
+  const int cin = d.cin, cin4 = d.xs_stride, cout = d.cout;
 
   // Input tile + one-pixel halo, zero outside the image and past cin.
   for (int i = tid; i < HP * cin4; i += SNN_THREADS) {
@@ -99,7 +131,7 @@ invres_kernel(const T* __restrict__ x, T* __restrict__ y,
     const int gy = ty0 - 1 + hp / HC, gx = tx0 - 1 + hp % HC;
     float v = 0.f;
     if (ci < cin && gy >= 0 && gy < d.h && gx >= 0 && gx < d.w)
-      v = to_float(x[(((size_t)n * d.h + gy) * d.w + gx) * cin + ci]);
+      v = x[(((size_t)n * d.h + gy) * d.w + gx) * cin + ci];
     xs[i] = v;
   }
 
@@ -121,7 +153,7 @@ invres_kernel(const T* __restrict__ x, T* __restrict__ y,
     if (d.has_expand) {
       for (int i = tid; i < cin4 * SNN_EC; i += SNN_THREADS) {
         const int ci = i / SNN_EC, j = i - ci * SNN_EC;
-        w1s[i] = ci < cin && e0 + j < d.e ? to_float(w1[(size_t)ci * d.e + e0 + j]) : 0.f;
+        w1s[i] = ci < cin && e0 + j < d.e ? w1[(size_t)ci * d.e + e0 + j] : 0.f;
       }
     }
     // Rows 0-8: depthwise taps; 9-12: s1, o1, sd, od.
@@ -138,7 +170,7 @@ invres_kernel(const T* __restrict__ x, T* __restrict__ y,
     }
     for (int i = tid; i < SNN_EC * cout; i += SNN_THREADS) {
       const int j = i / cout, co = i - j * cout;
-      w2s[i] = e0 + j < d.e ? to_float(w2[(size_t)(e0 + j) * cout + co]) : 0.f;
+      w2s[i] = e0 + j < d.e ? w2[(size_t)(e0 + j) * cout + co] : 0.f;
     }
     __syncthreads();
 
@@ -172,10 +204,8 @@ invres_kernel(const T* __restrict__ x, T* __restrict__ y,
           }
         }
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
+        for (int q = 0; q < 4; ++q)
           v[q] = apply_act(fmaf(s[q], vec[lane], vec[SNN_EC + lane]), d.act_e, d.alpha);
-          if (BF16) v[q] = round_bf16(v[q]);
-        }
       } else if (any && live) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) v[q] = hp[q] < HP ? xs[hp[q] * cin4 + ej] : 0.f;
@@ -201,8 +231,7 @@ invres_kernel(const T* __restrict__ x, T* __restrict__ y,
 #pragma unroll
           for (int dx = 0; dx < 3; ++dx)
             s = fmaf(ep[(dy * HC + dx) * SNN_EC], tap[3 * dy + dx], s);
-        float v = apply_act(fmaf(s, sdl, odl), d.act_d, d.alpha);
-        if (BF16) v = round_bf16(v);
+        const float v = apply_act(fmaf(s, sdl, odl), d.act_d, d.alpha);
         ds[p * SNN_EC + lane] = live ? v : 0.f;
       }
     }
@@ -228,20 +257,14 @@ invres_kernel(const T* __restrict__ x, T* __restrict__ y,
     }
   }
 
-  // Epilogue of one output: scale/offset, residual, act_out, rounding, store.
+  // Epilogue of one output: scale/offset, residual, act_out, store.
   auto finish = [&](int p, int co, float a) {
     const int py = p / d.tile_w, px = p - py * d.tile_w;
     const int gy = ty0 + py, gx = tx0 + px;
     if (gy >= d.h || gx >= d.w) return;
     float v = fmaf(a, s2[co], o2[co]);
     if (d.residual) v += xs[((py + 1) * HC + px + 1) * cin4 + co];
-    v = apply_act(v, d.act_o, d.alpha);
-    T* yo = y + (((size_t)n * d.h + gy) * d.w + gx) * cout + co;
-    if constexpr (BF16) {
-      *yo = __float2bfloat16_rn(v);
-    } else {
-      *yo = v;
-    }
+    y[(((size_t)n * d.h + gy) * d.w + gx) * cout + co] = apply_act(v, d.act_o, d.alpha);
   };
 
   if (d.split == 1) {
@@ -261,7 +284,7 @@ invres_kernel(const T* __restrict__ x, T* __restrict__ y,
   // Split E: partial sums to shared memory, then each CTA of the cluster
   // finishes every split-th output, adding the partials in rank order.
   __syncthreads();  // the chunk buffers (which red overlays) are free
-  float* red = smem + d.red_off;  // [P][cout]
+  float* red = reinterpret_cast<float*>(smem_raw + d.red_off);  // [P][cout]
 #pragma unroll
   for (int m = 0; m < SNN_MP; ++m) {
     const int p = warp + 8 * m;
@@ -282,27 +305,281 @@ invres_kernel(const T* __restrict__ x, T* __restrict__ y,
   cluster.sync();  // peers' shared memory stays alive until every read is done
 }
 
-// Shared-memory layout of one CTA (floats). The split-E partial sums
-// overlay the per-chunk buffers, which are free by then.
-int layout(InvResDesc& d) {
-  const int hp = (d.tile_h + 2) * (d.tile_w + 2);
-  int cur = 0;
-  d.xs_off = cur; cur += hp * d.cin4;
-  const int chunk_start = cur;
-  d.es_off = cur; cur += hp * SNN_EC;
-  d.ds_off = cur; cur += d.tile_h * d.tile_w * SNN_EC;
-  d.w1_off = cur; cur += d.has_expand ? d.cin4 * SNN_EC : 0;
-  d.wd_off = cur; cur += 13 * SNN_EC;  // taps, then s1, o1, sd, od
-  d.w2_off = cur; cur += SNN_EC * d.cout;
-  d.red_off = chunk_start;
-  const int red_end = chunk_start + (d.split > 1 ? d.tile_h * d.tile_w * d.cout : 0);
-  return cur > red_end ? cur : red_end;
+// --------------------------------------------------------------- bf16 ----
+
+typedef __nv_bfloat16 bf16;
+
+// NT: the project's n8-tiles per warp (warps over Cout: 8 / (pixel rows / 16)).
+template <int NT>
+__global__ void __launch_bounds__(SNN_THREADS, NT <= 8 ? 3 : 1)  // 3 CTAs per SM where they fit
+invres_tc_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
+                 const bf16* __restrict__ w1, const float* __restrict__ s1,
+                 const float* __restrict__ o1, const float* __restrict__ wd,
+                 const float* __restrict__ sd, const float* __restrict__ od,
+                 const bf16* __restrict__ w2, const float* __restrict__ s2,
+                 const float* __restrict__ o2, const __grid_constant__ InvResDesc d) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw + d.xs_off);  // [HP16][xs_stride] input tile + halo
+  bf16* es = reinterpret_cast<bf16*>(smem_raw + d.es_off);  // [HP16][ES] expanded chunk
+  bf16* ds = reinterpret_cast<bf16*>(smem_raw + d.ds_off);  // [P16][ES] depthwise output chunk
+  // Two buffers each: w1 [cin16][ES], taps and vectors [13][EC] f32, w2 [EC][w2_stride].
+  auto w1s = [&](int b) { return reinterpret_cast<bf16*>(smem_raw + d.w1_off + b * d.w1_buf); };
+  auto wds = [&](int b) { return reinterpret_cast<float*>(smem_raw + d.wd_off + b * d.wd_buf); };
+  auto w2s = [&](int b) { return reinterpret_cast<bf16*>(smem_raw + d.w2_off + b * d.w2_buf); };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = blockIdx.y;
+  const int ty0 = (blockIdx.x / d.tiles_x) * d.tile_h;
+  const int tx0 = (blockIdx.x % d.tiles_x) * d.tile_w;
+  const int HC = d.tile_w + 2, HP = (d.tile_h + 2) * HC, HP16 = round16(HP);
+  const int P = d.tile_h * d.tile_w, P16 = round16(P);
+  const int cin = d.cin, cin16 = round16(cin), cout = d.cout, xst = d.xs_stride;
+  const int nt_total = (cout + 7) / 8;
+
+  // Input tile + one-pixel halo as bf16 (x is bf16: exact), zero outside
+  // the image, past cin and in the padding rows.
+  if (d.vec_x) {
+    for (int i = tid; i < HP16 * (cin16 / 8); i += SNN_THREADS) {
+      const int hp = i / (cin16 / 8), u = i - hp * (cin16 / 8);
+      const int gy = ty0 - 1 + hp / HC, gx = tx0 - 1 + hp % HC;
+      const bool ok = hp < HP && u * 8 < cin && gy >= 0 && gy < d.h && gx >= 0 && gx < d.w;
+      const bf16* src = ok ? x + (((size_t)n * d.h + gy) * d.w + gx) * cin + u * 8 : x;
+      cp_async16(xs + hp * xst + u * 8, src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < HP16 * cin16; i += SNN_THREADS) {
+      const int hp = i / cin16, ci = i - hp * cin16;
+      const int gy = ty0 - 1 + hp / HC, gx = tx0 - 1 + hp % HC;
+      const bool ok = hp < HP && ci < cin && gy >= 0 && gy < d.h && gx >= 0 && gx < d.w;
+      xs[hp * xst + ci] = ok ? x[(((size_t)n * d.h + gy) * d.w + gx) * cin + ci]
+                             : __float2bfloat16_rn(0.f);
+    }
+  }
+  // The project reads 16-row tiles of ds: its rows past P stay zero.
+  for (int i = tid; i < (P16 - P) * (SNN_ES / 8); i += SNN_THREADS)
+    reinterpret_cast<uint4*>(ds + P * SNN_ES)[i] = make_uint4(0, 0, 0, 0);
+
+  // A chunk's weights into buffer b, zero past E, cin and cout.
+  auto load_chunk = [&](int c, int b) {
+    const int e0 = c * SNN_EC;
+    if (d.has_expand) {
+      bf16* dst = w1s(b);
+      if (d.vec_w1) {
+        for (int i = tid; i < cin16 * (SNN_EC / 8); i += SNN_THREADS) {
+          const int ci = i / (SNN_EC / 8), u = i - ci * (SNN_EC / 8);
+          const bool ok = ci < cin && e0 + u * 8 < d.e;
+          cp_async16(dst + ci * SNN_ES + u * 8, ok ? w1 + (size_t)ci * d.e + e0 + u * 8 : w1,
+                     ok ? 16 : 0);
+        }
+      } else {
+        for (int i = tid; i < cin16 * SNN_EC; i += SNN_THREADS) {
+          const int ci = i / SNN_EC, j = i - ci * SNN_EC;
+          dst[ci * SNN_ES + j] = ci < cin && e0 + j < d.e ? w1[(size_t)ci * d.e + e0 + j]
+                                                          : __float2bfloat16_rn(0.f);
+        }
+      }
+    }
+    // Rows 0-8: depthwise taps; 9-12: s1, o1, sd, od.
+    float* wdst = wds(b);
+    auto wd_row = [&](int r) {
+      return r < 9 ? wd + r * d.e : r == 9 ? s1 : r == 10 ? o1 : r == 11 ? sd : od;
+    };
+    if (d.vec_wd) {
+      for (int i = tid; i < 13 * (SNN_EC / 4); i += SNN_THREADS) {
+        const int r = i / (SNN_EC / 4), u = i - r * (SNN_EC / 4), ec = e0 + u * 4;
+        const bool ok = ec < d.e && (r < 9 || r > 10 || d.has_expand);
+        cp_async16(wdst + i * 4, ok ? wd_row(r) + ec : wd, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < 13 * SNN_EC; i += SNN_THREADS) {
+        const int r = i / SNN_EC, ec = e0 + i - r * SNN_EC;
+        const bool ok = ec < d.e && (r < 9 || r > 10 || d.has_expand);
+        cp_async4(wdst + i, ok ? wd_row(r) + ec : wd, ok);
+      }
+    }
+    bf16* dst = w2s(b);
+    if (d.vec_w2) {  // warp -> rows, lane -> 16-byte units of the row
+      for (int j = warp; j < SNN_EC; j += SNN_THREADS / 32) {
+        for (int u = lane; u < d.w2_stride / 8; u += 32) {
+          const bool ok = e0 + j < d.e && u * 8 < cout;
+          cp_async16(dst + j * d.w2_stride + u * 8,
+                     ok ? w2 + (size_t)(e0 + j) * cout + u * 8 : w2, ok ? 16 : 0);
+        }
+      }
+    } else {
+      for (int i = tid; i < SNN_EC * d.w2_stride; i += SNN_THREADS) {
+        const int j = i / d.w2_stride, co = i - j * d.w2_stride;
+        dst[i] = e0 + j < d.e && co < cout ? w2[(size_t)(e0 + j) * cout + co]
+                                           : __float2bfloat16_rn(0.f);
+      }
+    }
+  };
+
+  // Project warps: WM of 16 pixels times WN over the n8-tiles of Cout.
+  const int WM = P16 / 16, WN = SNN_THREADS / 32 / WM;
+  const int wm = warp % WM, wn = warp / WM;
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+
+  // This CTA's slice of the E chunks.
+  const int chunks = (d.e + SNN_EC - 1) / SNN_EC;
+  const int rank = blockIdx.z;
+  const int c_begin = rank * chunks / d.split, c_end = (rank + 1) * chunks / d.split;
+  if (c_begin < c_end) load_chunk(c_begin, 0);
+  cp_async_commit();  // with xs
+  for (int c = c_begin; c < c_end; ++c) {
+    const int b = (c - c_begin) & 1, e0 = c * SNN_EC;
+    if (c + 1 < c_end) load_chunk(c + 1, b ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // chunk c (and xs) staged
+    const float* vec = wds(b) + 9 * SNN_EC;
+
+    // Expand over the halo tile on the tensor cores: warp item -> 16 rows
+    // x 16 channels; epilogue, mask and rounding on the fragments.
+    if (d.has_expand) {
+      const bf16* w1b = w1s(b);
+      for (int it = warp; it < (HP16 / 16) * 2; it += SNN_THREADS / 32) {
+        const int mt = it >> 1, nh = it & 1;
+        float a2[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        for (int k0 = 0; k0 < cin16; k0 += 16) {
+          uint32_t a[4], bb[4];
+          ldmatrix_x4(a, xs + (mt * 16 + (lane & 15)) * xst + k0 + (lane >> 4) * 8);
+          ldmatrix_x4_trans(bb, w1b + (k0 + (lane & 15)) * SNN_ES + nh * 16 + (lane >> 4) * 8);
+          mma_bf16(a2[0], a, bb[0], bb[1]);
+          mma_bf16(a2[1], a, bb[2], bb[3]);
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = mt * 16 + g + 8 * half;
+          if (r >= HP) continue;
+          const int gy = ty0 - 1 + r / HC, gx = tx0 - 1 + r % HC;
+          const bool inside = gy >= 0 && gy < d.h && gx >= 0 && gx < d.w;
+#pragma unroll
+          for (int jt = 0; jt < 2; ++jt) {
+            const int j = nh * 16 + jt * 8 + 2 * t;
+            float v[2];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              v[q] = inside && e0 + j + q < d.e
+                         ? apply_act(fmaf(a2[jt][2 * half + q], vec[j + q], vec[SNN_EC + j + q]),
+                                     d.act_e, d.alpha)
+                         : 0.f;
+            }
+            *reinterpret_cast<uint32_t*>(es + r * SNN_ES + j) = pack_bf16x2(v[0], v[1]);
+          }
+        }
+      }
+    } else {  // t=1: e = x (zero outside the image already)
+      for (int i = tid; i < HP * SNN_EC; i += SNN_THREADS) {
+        const int r = i / SNN_EC, j = i - r * SNN_EC;
+        es[r * SNN_ES + j] = e0 + j < d.e ? xs[r * xst + e0 + j] : __float2bfloat16_rn(0.f);
+      }
+    }
+    __syncthreads();
+
+    // Depthwise 3x3 over the tile on the CUDA cores, f32 taps in registers.
+    {
+      const float* wdb = wds(b);
+      float tap[9];
+#pragma unroll
+      for (int q = 0; q < 9; ++q) tap[q] = wdb[q * SNN_EC + lane];
+      const float sdl = vec[2 * SNN_EC + lane], odl = vec[3 * SNN_EC + lane];
+      const bool live = e0 + lane < d.e;
+      for (int p = warp; p < P; p += SNN_THREADS / 32) {
+        const int py = p / d.tile_w, px = p - py * d.tile_w;
+        const bf16* ep = es + (py * HC + px) * SNN_ES + lane;
+        float s = 0.f;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+            s = fmaf(__bfloat162float(ep[(dy * HC + dx) * SNN_ES]), tap[3 * dy + dx], s);
+        const float v = apply_act(fmaf(s, sdl, odl), d.act_d, d.alpha);
+        ds[p * SNN_ES + lane] = __float2bfloat16_rn(live ? v : 0.f);
+      }
+    }
+    __syncthreads();
+
+    // Project on the tensor cores: acc += d[16 pixels][32] . w2[32][n8-tiles].
+    if (wn < WN) {
+      uint32_t a0[4], a1[4];
+      ldmatrix_x4(a0, ds + (wm * 16 + (lane & 15)) * SNN_ES + (lane >> 4) * 8);
+      ldmatrix_x4(a1, ds + (wm * 16 + (lane & 15)) * SNN_ES + 16 + (lane >> 4) * 8);
+      const bf16* w2b = w2s(b) + lane * d.w2_stride;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int jj = wn + WN * j;
+        if (jj < nt_total) {
+          uint32_t bb[4];
+          ldmatrix_x4_trans(bb, w2b + jj * 8);
+          mma_bf16(acc[j], a0, bb[0], bb[1]);
+          mma_bf16(acc[j], a1, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();  // the chunk's buffers are free
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // xs is staged even where this CTA had no chunk
+
+  // Epilogue of one output: scale/offset, residual, act_out, rounding, store.
+  auto finish = [&](int p, int co, float a) {
+    const int py = p / d.tile_w, px = p - py * d.tile_w;
+    const int gy = ty0 + py, gx = tx0 + px;
+    if (gy >= d.h || gx >= d.w) return;
+    float v = fmaf(a, s2[co], o2[co]);
+    if (d.residual) v += __bfloat162float(xs[((py + 1) * HC + px + 1) * xst + co]);
+    y[(((size_t)n * d.h + gy) * d.w + gx) * cout + co] =
+        __float2bfloat16_rn(apply_act(v, d.act_o, d.alpha));
+  };
+  // Fragment (j, q) of this thread: pixel wm*16 + g (+8 for q >= 2),
+  // channel 8*(wn + WN*j) + 2t (+1 for odd q).
+  auto each = [&](auto&& fn) {
+    if (wn >= WN) return;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int jj = wn + WN * j;
+      if (jj >= nt_total) continue;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int p = wm * 16 + g + 8 * (q >> 1), co = jj * 8 + 2 * t + (q & 1);
+        if (p < P && co < cout) fn(p, co, acc[j][q]);
+      }
+    }
+  };
+
+  if (d.split == 1) {
+    each(finish);
+    return;
+  }
+
+  // Split E: partial sums to shared memory, then each CTA of the cluster
+  // finishes every split-th output, adding the partials in rank order.
+  float* red = reinterpret_cast<float*>(smem_raw + d.red_off);  // [P][cout]
+  each([&](int p, int co, float a) { red[p * cout + co] = a; });
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int i = rank + d.split * tid; i < P * cout; i += d.split * SNN_THREADS) {
+    float part[8];  // every peer's partial read at once, then summed in rank order
+#pragma unroll
+    for (int q = 0; q < 8; ++q) part[q] = q < d.split ? cluster.map_shared_rank(red, q)[i] : 0.f;
+    float a = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (q < d.split) a += part[q];
+    finish(i / cout, i % cout, a);
+  }
+  cluster.sync();  // peers' shared memory stays alive until every read is done
 }
 
-template <typename T>
-int launch(const void* x, void* y, const void* const* ops, const InvResDesc& d,
+template <typename T, typename K>
+int launch(K kern, const void* x, void* y, const void* const* ops, const InvResDesc& d,
            size_t smem, cudaStream_t stream) {
-  auto kern = invres_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -327,6 +604,39 @@ int launch(const void* x, void* y, const void* const* ops, const InvResDesc& d,
   return (int)cudaGetLastError();
 }
 
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Does the wrapper's layout hold each buffer, 16-byte aligned, inside the
+// shared memory it asks for, without overlaps (the split-E partial sums
+// may overlay the per-chunk buffers, never the input tile)?
+bool layout_holds(const InvResDesc& d, int tile_px, int halo_px, bool tc, long long smem) {
+  const int esz = tc ? 2 : 4, bufs = tc ? 2 : 1;
+  const int rows = tc ? round16(halo_px) : halo_px, prow = tc ? round16(tile_px) : tile_px;
+  const int cin_k = tc ? round16(d.cin) : d.xs_stride, ecs = tc ? SNN_ES : SNN_EC;
+  const long long need[7] = {
+      (long long)rows * d.xs_stride * esz,
+      (long long)rows * ecs * esz,
+      (long long)prow * ecs * esz,
+      d.has_expand ? (long long)bufs * (tc ? d.w1_buf : cin_k * SNN_EC * 4) : 0,
+      (long long)bufs * (tc ? d.wd_buf : 13 * SNN_EC * 4),
+      (long long)bufs * (tc ? d.w2_buf : SNN_EC * d.cout * 4),
+      d.split > 1 ? (long long)tile_px * d.cout * 4 : 0};
+  const long long off[7] = {d.xs_off, d.es_off, d.ds_off, d.w1_off, d.wd_off, d.w2_off, d.red_off};
+  if (tc && ((d.has_expand && d.w1_buf < cin_k * SNN_ES * 2) || d.wd_buf < 13 * SNN_EC * 4 ||
+               d.w2_buf < SNN_EC * d.w2_stride * 2))
+    return false;
+  for (int i = 0; i < 7; ++i) {
+    if (off[i] % 16 || off[i] < 0 || off[i] + need[i] > smem) return false;
+    for (int j = 0; j < i; ++j) {
+      const bool overlay_ok = i == 6 && j > 0;
+      if (!overlay_ok && need[i] && need[j] && off[i] < off[j] + need[j] &&
+          off[j] < off[i] + need[i])
+        return false;
+    }
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -335,14 +645,16 @@ extern "C" {
 // take (see snn_invres_error), or the cudaError_t of the launch.
 // ops: 9 device pointers w1 (cin x e, in x's dtype; unused without
 // expand), s1, o1, wd (9 x e), sd, od (f32), w2 (e x cout, in x's dtype),
-// s2, o2 (f32). acts: act_e, act_d, act_o.
-// The tile (at most 8x8 pixels) and the split of E over a cluster (1, 2, 4
-// or 8 CTAs) are the caller's choice; they change the speed, and the
+// s2, o2 (f32). acts: act_e, act_d, act_o. geom: G_FIELDS ints, the
+// wrapper's launch geometry (kernels/invres.py InvResLaunch): the tile (at
+// most 8x8 pixels), the split of E over a cluster (1, 2, 4 or 8 CTAs), the
+// strides and the shared-memory layout; they change the speed, and the
 // split the order of the sum over E.
-int snn_invres_block(const void* x, int bf16, void* y, const void* const* ops,
+int snn_invres_block(const void* x, int is_bf16, void* y, const void* const* ops,
                      int n, int h, int w, int cin, int e, int cout,
                      int has_expand, int residual, const int* acts, float alpha,
-                     int tile_h, int tile_w, int split, void* stream) {
+                     const int* geom, void* stream) {
+  const int tile_h = geom[G_TILE_H], tile_w = geom[G_TILE_W], split = geom[G_SPLIT];
   if (n < 1 || h < 1 || w < 1 || cin < 1 || e < 1 || cout < 1) return -1;
   if (tile_h < 1 || tile_w < 1 || tile_h * tile_w > 8 * SNN_MP) return -1;
   if (split != 1 && split != 2 && split != 4 && split != 8) return -4;
@@ -355,21 +667,46 @@ int snn_invres_block(const void* x, int bf16, void* y, const void* const* ops,
   d.tile_h = tile_h; d.tile_w = tile_w;
   d.tiles_x = (w + tile_w - 1) / tile_w;
   d.split = split;
-  d.cin4 = (cin + 3) & ~3;
-  const size_t smem = (size_t)layout(d) * sizeof(float);
-  if (smem > SNN_MAX_SMEM) return -2;
+  d.xs_stride = geom[G_XS_STRIDE]; d.w2_stride = geom[G_W2_STRIDE];
+  d.xs_off = geom[G_XS_OFF]; d.es_off = geom[G_ES_OFF]; d.ds_off = geom[G_DS_OFF];
+  d.w1_off = geom[G_W1_OFF]; d.wd_off = geom[G_WD_OFF]; d.w2_off = geom[G_W2_OFF];
+  d.red_off = geom[G_RED_OFF];
+  d.w1_buf = geom[G_W1_BUF]; d.wd_buf = geom[G_WD_BUF]; d.w2_buf = geom[G_W2_BUF];
+  const long long smem = geom[G_SMEM];
+  const bool strides_ok =
+      is_bf16 ? d.xs_stride >= round16(cin) && d.xs_stride % 8 == 0 &&
+                 d.w2_stride >= (cout + 7) / 8 * 8 && d.w2_stride % 8 == 0
+           : d.xs_stride == ((cin + 3) & ~3) && d.w2_stride == cout;
+  if (!strides_ok) return -4;
+  if (smem > SNN_MAX_SMEM ||
+      !layout_holds(d, tile_h * tile_w, (tile_h + 2) * (tile_w + 2), is_bf16, smem))
+    return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(x, y, ops, d, smem, s)
-              : launch<float>(x, y, ops, d, smem, s);
+  if (!is_bf16) return launch<float>(invres_kernel, x, y, ops, d, smem, s);
+  d.vec_x = cin % 8 == 0 && aligned16(x);
+  d.vec_w1 = has_expand && e % 8 == 0 && aligned16(ops[0]);
+  d.vec_wd = e % 4 == 0;
+  for (int i = 1; i < 6; ++i) d.vec_wd = d.vec_wd && (aligned16(ops[i]) || (!has_expand && i < 3));
+  d.vec_w2 = cout % 8 == 0 && aligned16(ops[6]);
+  // The project's n8-tiles per warp: Cout / 8 over 8 / (pixel rows / 16) warps.
+  const int wm = round16(tile_h * tile_w) / 16, wn = SNN_THREADS / 32 / wm;
+  const int need = ((cout + 7) / 8 + wn - 1) / wn;
+  if (need <= 1) return launch<bf16>(invres_tc_kernel<1>, x, y, ops, d, smem, s);
+  if (need <= 2) return launch<bf16>(invres_tc_kernel<2>, x, y, ops, d, smem, s);
+  if (need <= 4) return launch<bf16>(invres_tc_kernel<4>, x, y, ops, d, smem, s);
+  if (need <= 8) return launch<bf16>(invres_tc_kernel<8>, x, y, ops, d, smem, s);
+  return launch<bf16>(invres_tc_kernel<20>, x, y, ops, d, smem, s);
 }
 
 const char* snn_invres_error(int code) {
   switch (code) {
     case -1: return "empty input or a tile outside 1..64 pixels";
-    case -2: return "shared memory of the block's tile exceeds 227 KB";
+    case -2: return "the launch geometry's shared-memory layout does not hold the block's "
+                    "buffers within 227 KB";
     case -3: return "shapes outside the kernel (cout <= 320; e == cin without expand; "
                     "cin == cout with a residual)";
-    case -4: return "split of E not 1, 2, 4 or 8";
+    case -4: return "launch geometry outside the kernel (split of E not 1, 2, 4 or 8, or "
+                    "strides)";
     default: return code > 0 ? cudaGetErrorString((cudaError_t)code) : "unknown error";
   }
 }

@@ -1,0 +1,92 @@
+// Tensor-core and asynchronous-copy helpers shared by the bf16 paths of
+// conv_single.cu and invres_block.cu: shared-memory addresses, ldmatrix
+// (plain and transposed), the bf16 m16n8k16 mma.sync with f32
+// accumulators, and cp.async with zero fill.
+//
+// Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4*g + t):
+//   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
+//                         a2 = A[g][2t+8..2t+9], a3 = A[g+8][2t+8..2t+9]
+//   B (16x8, k x n):      b0 = B[2t..2t+1][g],   b1 = B[2t+8..2t+9][g]
+//   C (16x8, f32):        c0, c1 = C[g][2t..2t+1], c2, c3 = C[g+8][2t..2t+1]
+// ldmatrix.x4 takes one 16-byte row address from each lane: lanes 8i to
+// 8i+7 give the rows of matrix i, which lands in register i. So for A,
+// lane l points at row (l & 15), columns 8 * (l >> 4); for B stored k-major
+// ([k][n], n contiguous) through .trans, lane l points at k row (l & 15)
+// of the 16-row step, columns 8 * (l >> 4) past the first n-tile, and the
+// registers are b0, b1 of that n-tile, then b0, b1 of the next.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// Two matrices: lanes 0-15 give the addresses (the others are ignored).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a (16x16 bf16) * b (16x8 bf16), f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared without passing through registers; the first
+// `bytes` (0..16) are read, the rest of the 16 are zero-filled. dst and
+// src are 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// 4 bytes, zero-filled when `valid` is false; dst and src 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+}  // namespace

@@ -104,12 +104,12 @@ def kernel_lib() -> ctypes.CDLL:
             lib.snn_conv_chain.restype = I
             lib.snn_conv_single.argtypes = [
                 P, I, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I,
-                ctypes.c_float, I, P,
+                ctypes.c_float, I, ctypes.POINTER(I), P,
             ]
             lib.snn_conv_single.restype = I
             lib.snn_invres_block.argtypes = [
                 P, I, P, ctypes.POINTER(P), I, I, I, I, I, I, I, I,
-                ctypes.POINTER(I), ctypes.c_float, I, I, I, P,
+                ctypes.POINTER(I), ctypes.c_float, ctypes.POINTER(I), P,
             ]
             lib.snn_invres_block.restype = I
             lib.snn_conv_igemm.argtypes = [

@@ -17,7 +17,9 @@ rounded to the compute dtype, out-of-image taps exact zeros, the residual
 x added in float32 before the output activation.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
-tensor (tests) it runs `invres_block_reference`. `prepare_operands`
+tensor (tests) it runs `invres_block_reference`. The launch geometry is
+this module's (`pick_launch`, `layout`): the C entry point checks it and
+launches. `prepare_operands`
 checks and lays out a block's operands once (the engine does so once per
 parameter set), so that a launch only checks its input.
 """
@@ -63,28 +65,86 @@ class InvResSpec:
     alpha: float = 0.3
 
 
-def _round4(v: int) -> int:
-    return (v + 3) & ~3
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
-def smem_bytes(spec: InvResSpec, tile_h: int, tile_w: int, split: int = 1) -> int:
-    """Dynamic shared memory of one CTA (the layout of invres_block.cu):
-    the input tile, then the per-chunk buffers, which the split-E partial
-    sums overlay."""
-    hp = (tile_h + 2) * (tile_w + 2)
-    cin4 = _round4(spec.cin)
-    chunk = (
-        hp * CHUNK_E + tile_h * tile_w * CHUNK_E
-        + (cin4 * CHUNK_E if spec.has_expand else 0)
-        + 13 * CHUNK_E + CHUNK_E * spec.cout
-    )
-    red = tile_h * tile_w * spec.cout if split > 1 else 0
-    return 4 * (hp * cin4 + max(chunk, red))
+ES = 40  # bf16 per row of the bf16 form's es, ds and w1 chunk: 32 + 8
+
+
+@dataclasses.dataclass(frozen=True)
+class InvResLaunch:
+    """Launch geometry of one block on csrc/invres_block.cu, in the order
+    of its G_* fields: the tile, the split of E over a cluster, the staged
+    rows' strides (elements) and the shared-memory layout (bytes; the bf16
+    form double-buffers w1, the taps and vectors, and w2)."""
+
+    tile_h: int
+    tile_w: int
+    split: int
+    xs_stride: int
+    w2_stride: int
+    xs_off: int
+    es_off: int
+    ds_off: int
+    w1_off: int
+    wd_off: int
+    w2_off: int
+    red_off: int
+    w1_buf: int
+    wd_buf: int
+    w2_buf: int
+    smem: int
+
+    @functools.cached_property
+    def array(self) -> ctypes.Array:
+        fields = dataclasses.astuple(self)
+        return (ctypes.c_int * len(fields))(*fields)
+
+
+def layout(spec: InvResSpec, tile_h: int, tile_w: int, split: int = 1,
+           bf16: bool = False) -> InvResLaunch:
+    """The shared memory of one CTA: the input tile with its halo, then the
+    per-chunk buffers, which the split-E partial sums overlay. f32: rows
+    of Cin rounded up to 4 floats, one buffer each. bf16: the halo and
+    pixel rows padded to 16 (the tensor cores' tiles), Cin to 16 and Cout
+    to 8, rows padded to an odd number of 16-byte units (ldmatrix without
+    bank conflicts), two buffers of each chunk's weights."""
+    hp, p = (tile_h + 2) * (tile_w + 2), tile_h * tile_w
+    if bf16:
+        cin16, cout8 = _round_up(spec.cin, 16), _round_up(spec.cout, 8)
+        xs_stride = cin16 + 8
+        w2_stride = cout8 + 8 if (cout8 // 8) % 2 == 0 else cout8
+        bufs = (cin16 * ES * 2 if spec.has_expand else 0, 13 * CHUNK_E * 4,
+                CHUNK_E * w2_stride * 2)
+        sizes = (_round_up(hp, 16) * xs_stride * 2, _round_up(hp, 16) * ES * 2,
+                 _round_up(p, 16) * ES * 2, *(2 * b for b in bufs))
+    else:
+        xs_stride, w2_stride = _round_up(spec.cin, 4), spec.cout
+        bufs = (0, 0, 0)
+        sizes = (hp * xs_stride * 4, hp * CHUNK_E * 4, p * CHUNK_E * 4,
+                 xs_stride * CHUNK_E * 4 if spec.has_expand else 0, 13 * CHUNK_E * 4,
+                 CHUNK_E * spec.cout * 4)
+    offs = [0]
+    for size in sizes:
+        offs.append(offs[-1] + size)
+    red = p * spec.cout * 4 if split > 1 else 0
+    return InvResLaunch(tile_h, tile_w, split, xs_stride, w2_stride, *offs[:6], offs[1], *bufs,
+                        max(offs[6], offs[1] + red))
+
+
+def smem_bytes(spec: InvResSpec, tile_h: int, tile_w: int, split: int = 1,
+               bf16: bool = False) -> int:
+    """Dynamic shared memory of one CTA (`layout`)."""
+    return layout(spec, tile_h, tile_w, split, bf16).smem
 
 
 def kernel_takes(spec: InvResSpec) -> bool:
     """Does the CUDA kernel take this block (activations in its epilogue,
-    Cout <= 320, shared memory of the largest tile within 227 KB)?"""
+    Cout <= 320, shared memory of the largest tile within 227 KB)? The
+    shared-memory term is the f32 layout's at both dtypes, so that both
+    plan alike; the bf16 layout fits wherever it does
+    (tests/test_torch_invres.py)."""
     acts = (spec.act_expand, spec.act_dw, spec.act_out)
     return (
         all(str(a).lower() in ACT_CODES for a in acts)
@@ -218,23 +278,50 @@ def invres_block_reference(x: torch.Tensor, ops: Dict[str, torch.Tensor],
 
 
 @functools.lru_cache(maxsize=None)
-def pick_launch(spec: InvResSpec, n: int, sms: int) -> Tuple[int, int, int]:
-    """(tile_h, tile_w, split): a tile of 8x8 output pixels per CTA, or
-    smaller (down to 4x4) while the grid has fewer CTAs than the card has
-    SMs; then E split over 2, 4 or 8 CTAs of a cluster while it still has
-    fewer. Speed only: the tile does not change the result, the split only
-    the order of the sum over E."""
+def pick_launch(spec: InvResSpec, n: int, sms: int, bf16: bool = False) -> InvResLaunch:
+    """The launch of one block (the kernel's only owner of it). Speed only:
+    the tile does not change the result, the split only the order of the
+    sum over E.
+
+    f32: a tile of 8x8 output pixels per CTA, or smaller (down to 4x4)
+    while the grid has fewer CTAs than the card has SMs; then E split over
+    2, 4 or 8 CTAs of a cluster while it still has fewer.
+
+    bf16: the tile (8x8, 4x8 or 4x4) and split with the least modelled
+    time, waves x per-CTA cost. A wave is two CTAs per SM, or one where the
+    shared memory holds one; a CTA costs its E chunks, each about its
+    pixels + 32 (a chunk is a chain of dependent phases, not of products),
+    plus its cluster's reduction, pixels x Cout x split^2 / 1024. Fitted to
+    a sweep of every tile and split of the MobileNetV2 224 blocks on an
+    H100 (PERF.md)."""
+    chunks = -(-spec.e // CHUNK_E)
+    if bf16:
+        best = None
+        for th, tw in ((8, 8), (4, 8), (4, 4)):
+            th, tw = min(th, spec.h), min(tw, spec.w)
+            p = th * tw
+            ctas = n * -(-spec.h // th) * -(-spec.w // tw)
+            for split in (1, 2, 4, 8):
+                geo = layout(spec, th, tw, split, True)
+                if split > chunks or geo.smem > MAX_SMEM_BYTES:
+                    continue
+                per_sm = min(2, MAX_SMEM_BYTES // geo.smem)
+                waves = -(-ctas * split // (per_sm * sms))
+                red = p * spec.cout * split * split / 1024 if split > 1 else 0
+                cost = waves * (-(-chunks // split) * (p + 32) + red)
+                if best is None or cost < best[0]:
+                    best = (cost, geo)
+        return best[1]
     for th, tw in ((8, 8), (4, 8), (4, 4)):
         th, tw = min(th, spec.h), min(tw, spec.w)
         ctas = n * -(-spec.h // th) * -(-spec.w // tw)
         if ctas >= sms:
             break
-    chunks = -(-spec.e // CHUNK_E)
     split = 1
     while (split < MAX_SPLIT and ctas * split < sms and 2 * split <= chunks
            and smem_bytes(spec, th, tw, 2 * split) <= MAX_SMEM_BYTES):
         split *= 2
-    return th, tw, split
+    return layout(spec, th, tw, split)
 
 
 _ORDER = ("w1", "s1", "o1", "wd", "sd", "od", "w2", "s2", "o2")
@@ -297,12 +384,13 @@ def _launch(x: torch.Tensor, ops: Dict[str, torch.Tensor], spec: InvResSpec) -> 
     y = torch.empty((n, spec.h, spec.w, spec.cout), dtype=x.dtype, device=x.device)
     if n == 0:
         return y
-    th, tw, split = pick_launch(spec, n, sm_count(x.device.index))
+    bf16 = x.dtype == torch.bfloat16
+    geo = pick_launch(spec, n, sm_count(x.device.index), bf16)
     lib = kernel_lib()
     rc = lib.snn_invres_block(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(), ops.ptrs, n, spec.h,
-        spec.w, spec.cin, spec.e, spec.cout, int(spec.has_expand), int(spec.residual),
-        ops.acts, float(spec.alpha), th, tw, split, torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), int(bf16), y.data_ptr(), ops.ptrs, n, spec.h, spec.w, spec.cin, spec.e,
+        spec.cout, int(spec.has_expand), int(spec.residual), ops.acts, float(spec.alpha),
+        geo.array, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"invres_block launch failed ({rc}): {lib.snn_invres_error(rc).decode()}")

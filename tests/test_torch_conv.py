@@ -77,8 +77,122 @@ def test_gate():
     assert not conv.single_conv_supported(node(3, 16), 512)     # k*k*c > 4096
     assert not conv.single_conv_supported(node(3, 8, "softmax"), 4)
     assert not conv.single_conv_supported(node(3, 8, weight_q=np.zeros(1)), 4)
+    # The gate's term: the f32 form at one channel per chunk (16x8 tile,
+    # 9x17 staged, 2x2 taps x 16 channels), at both dtypes.
     assert conv.smem_bytes(2, 2, 16) == 4 * ((9 * 17 + 3) // 4 * 4 + 4 * 16)
     assert conv.smem_bytes(48, 48, 64) > conv.MAX_SMEM_BYTES
+    # The bf16 form at the folded MobileNetV2 stem (b64, 16x16, 12->16, k2):
+    # an 8x8 tile with a 9x9 region of 16 channels (rows of 24 bf16) and a
+    # zero row, one stage of 4 taps x 16 channels (rows of 24 bf16).
+    stem = conv.launch_geometry(64, 16, 16, 12, 2, 2, 16, (1, 0, 1, 0), True, 132)
+    assert (stem.tile_h, stem.tile_w, stem.imgs, stem.nb, stem.cc, stem.tg) == (8, 8, 1, 16, 16, 4)
+    assert stem.smem == (9 * 9 + 1) * 24 * 2 + 64 * 24 * 2
+
+
+def _gate_before(k: int, o: int) -> int:
+    """The single-conv gate's shared-memory term as the kernel had it
+    before the bf16 form (one formula in csrc/conv_single.cu)."""
+    ch = 8 if o > 4 else (4 if o > 1 else 1)
+    ob = min(-(-o // ch) * ch, 32)
+    tile_w = 16 if 256 // (ob // ch) >= 128 else 8
+    tile_h = 256 // (ob // ch) // tile_w
+    return 4 * (((tile_h + k - 1) * (tile_w + k - 1) + 3) // 4 * 4 + k * k * ob)
+
+
+def test_gate_admits_what_it_did_and_every_admitted_conv_fits():
+    """The gate's answers are the same as before the bf16 form, and the
+    bf16 form's launch fits 227 KB for every conv the gate admits (any k,
+    C, O within the limits; small and large outputs, several images per
+    CTA), so that both dtypes plan alike."""
+    admitted = 0
+    for k in range(1, 65):
+        for o in (1, 3, 5, 8, 10, 16, 24, 33, 64, 100, 128):
+            assert conv.smem_bytes(k, k, o) == _gate_before(k, o), (k, o)
+            if conv.smem_bytes(k, k, o) > conv.MAX_SMEM_BYTES:
+                continue
+            for c in sorted({1, 2, 3, 8, 12, 16, 24, 64, 128, 4096 // (k * k)}):
+                if c < 1 or c > 128 or k * k * c > 4096:
+                    continue
+                for out in (1, 4, 7, 33):
+                    geo = conv.launch_geometry(3, out + k - 1, out + k - 1, c, k, k, o,
+                                               (0, 0, 0, 0), True, 132)
+                    assert geo.smem <= conv.MAX_SMEM_BYTES, (k, c, o, out, geo)
+                    admitted += 1
+    assert admitted > 1000
+
+
+def _tile_map(geo: conv.ConvLaunch, n, ho, wo, o, bf16):
+    """How often the kernel writes each output element, from its launch
+    geometry: the CTA -> (pixels, channels) map of csrc/conv_single.cu."""
+    count = np.zeros((n, ho, wo, o), np.int32)
+    tiles_x, tiles_y = -(-wo // geo.tile_w), -(-ho // geo.tile_h)
+    if bf16:  # grid (M tiles, channel blocks); a CTA holds 64 pixel rows
+        m_tiles = -(-n // geo.imgs) if geo.imgs > 1 else n * tiles_x * tiles_y
+        ctas = [(bx, by) for bx in range(m_tiles) for by in range(-(-o // geo.nb))]
+    else:  # grid (tiles, channel blocks, images)
+        ctas = [(bz * tiles_x * tiles_y + bx, by) for bz in range(n)
+                for bx in range(tiles_x * tiles_y) for by in range(-(-o // geo.nb))]
+    tile_px = geo.tile_h * geo.tile_w
+    for bx, by in ctas:
+        if geo.imgs > 1:
+            n0, ty0, tx0 = bx * geo.imgs, 0, 0
+        else:
+            n0, t = divmod(bx, tiles_x * tiles_y)
+            ty0, tx0 = (t // tiles_x) * geo.tile_h, (t % tiles_x) * geo.tile_w
+        for p in range(geo.imgs * tile_px):
+            il, rem = divmod(p, tile_px)
+            gy, gx = ty0 + rem // geo.tile_w, tx0 + rem % geo.tile_w
+            if n0 + il < n and gy < ho and gx < wo:
+                count[n0 + il, gy, gx, by * geo.nb:(by + 1) * geo.nb] += 1
+    return count
+
+
+def _planned_convs():
+    """(n, h, w, c, k, o, pads) of every single conv the engines plan: both
+    forced-KERNEL ResNet18 paths (zoo width b8, trained b64) and the
+    trained MobileNetV2's folded stem (b64)."""
+    from shadernn_tpu_torch.models.resnet18 import build_resnet18_cifar10
+    from shadernn_tpu_torch.models.zoo import MOBILENETV2_TRAINED, RESNET18_TRAINED
+    from shadernn_tpu_torch.ops.common import padding_offsets
+
+    kernel = dict(device="cpu", backend=P.BackendKind.KERNEL)
+    engines = [
+        (8, P.Engine.from_graph(build_resnet18_cifar10(), P.EngineOptions(batch_size=8, **kernel))),
+        (64, P.Engine.from_json(RESNET18_TRAINED, P.EngineOptions(batch_size=64, **kernel))),
+        (64, P.Engine.from_json(MOBILENETV2_TRAINED, P.EngineOptions(device="cpu", batch_size=64))),
+    ]
+    convs = set()
+    for n, eng in engines:
+        for name in eng.model.forward.single_conv_plan:
+            node = eng.graph.nodes[name]
+            s = eng.graph.nodes[node.inputs[0]].out_spec
+            k = int(node.attr("kernel_size"))
+            convs.add((n, s.h, s.w, s.c, k, int(node.attr("out_channels")),
+                       padding_offsets(node.attr("padding", "same"), k)))
+    return sorted(convs)
+
+
+def test_launch_geometry_of_every_planned_conv_fits_and_covers_the_output():
+    """At both dtypes, the wrapper's launch of every planned single conv
+    (and the edges chip_smoke.py adds: O = 10, images that do not fill a
+    multi-image CTA, C = 3) fits 227 KB and writes each output element
+    exactly once."""
+    planned = _planned_convs()
+    # zoo width: stem, 64->64 at 32x32, 128->128 at 16x16; trained: stem and
+    # 32/64/128 channels at 16x16, 8x8, 4x4; the MobileNetV2 stem.
+    assert len(planned) == 3 + 4 + 1, planned
+    edges = [(2, 10, 12, 24, 3, 10, (1, 1, 1, 1)), (3, 4, 4, 128, 3, 128, (1, 1, 1, 1)),
+             (8, 32, 32, 3, 3, 64, (1, 1, 1, 1)), (2, 30, 41, 128, 3, 128, (3, 0, 1, 2))]
+    multi = 0
+    for n, h, w, c, k, o, pads in planned + edges:
+        ho, wo = h + pads[0] + pads[1] - k + 1, w + pads[2] + pads[3] - k + 1
+        for bf16 in (True, False):
+            geo = conv.launch_geometry(n, h, w, c, k, k, o, pads, bf16, 132)
+            assert geo.smem <= conv.MAX_SMEM_BYTES, geo
+            count = _tile_map(geo, n, ho, wo, o, bf16)
+            assert count.min() == 1 and count.max() == 1, (n, h, w, c, k, o, bf16, geo)
+            multi += geo.imgs > 1
+    assert multi >= 2  # the 4x4 convs: several whole images per CTA
 
 
 def test_entry_point_rejects_other_devices():

@@ -148,18 +148,107 @@ def test_kernel_gates():
 
 
 def test_launch_choice_fills_the_card():
-    """Tiles shrink, then E splits over a cluster, while CTAs < SMs."""
+    """f32: tiles shrink, then E splits over a cluster, while CTAs < SMs.
+    bf16: the tile and split of least modelled time (two CTAs per SM, E
+    chunks per CTA, the cluster's reduction)."""
+    def choice(spec, n, bf16=False):
+        geo = invres.pick_launch(spec, n, 132, bf16)
+        assert geo.smem == invres.smem_bytes(spec, geo.tile_h, geo.tile_w, geo.split, bf16)
+        assert geo.smem <= invres.MAX_SMEM_BYTES
+        return geo.tile_h, geo.tile_w, geo.split
+
     spec = invres.InvResSpec(7, 7, 160, 960, 160, True, True, "relu6", "relu6", "linear")
-    assert invres.pick_launch(spec, 8, 132) == (4, 4, 8)
-    assert invres.pick_launch(spec, 256, 132) == (7, 7, 1)
+    assert choice(spec, 8) == (4, 4, 8)
+    assert choice(spec, 256) == (7, 7, 1)
     mid = invres.InvResSpec(14, 14, 64, 384, 64, True, True, "relu6", "relu6", "linear")
-    assert invres.pick_launch(mid, 8, 132) == (4, 4, 2)
+    assert choice(mid, 8) == (4, 4, 2)
     big = invres.InvResSpec(28, 28, 32, 192, 32, True, True, "relu6", "relu6", "linear")
-    assert invres.pick_launch(big, 8, 132) == (4, 8, 1)
+    assert choice(big, 8) == (4, 8, 1)
     small_e = invres.InvResSpec(4, 4, 16, 48, 16, True, True, "relu6", "relu6", "linear")
-    assert invres.pick_launch(small_e, 1, 132) == (4, 4, 2)  # no more splits than chunks
-    for th, tw, split in (invres.pick_launch(spec, 8, 132), invres.pick_launch(mid, 8, 132)):
-        assert invres.smem_bytes(spec, th, tw, split) <= invres.MAX_SMEM_BYTES
+    assert choice(small_e, 1) == (4, 4, 2)  # no more splits than chunks
+    # bf16 on the MobileNetV2 224 b8 blocks: 256 CTAs each, a wide Cout
+    # (320) splits less (its cluster reduction costs more), and a big batch
+    # needs no split.
+    assert choice(big, 8, True) == (8, 8, 2)
+    assert choice(mid, 8, True) == (4, 8, 4)
+    assert choice(spec, 8, True) == (4, 4, 8)
+    wide = invres.InvResSpec(7, 7, 160, 960, 320, True, False, "relu6", "relu6", "linear")
+    assert choice(wide, 8, True) == (4, 4, 4)
+    assert choice(spec, 256, True)[2] == 1
+    assert choice(small_e, 1, True)[2] <= 2
+
+
+def test_bf16_layout_fits_wherever_the_gate_admits():
+    """The gate's shared-memory term is the f32 layout's at both dtypes;
+    wherever it admits a block, the bf16 layout of the largest tile fits
+    too, unsplit and at every split pick_launch may take."""
+    admitted = 0
+    for cin in (1, 3, 8, 16, 24, 40, 96, 160, 256, 320, 400, 512):
+        for e in (cin, 4 * cin, 6 * cin, 1024):
+            for cout in (1, 8, 24, 96, 160, 320):
+                for has_expand in (True, False):
+                    if not has_expand and e != cin:
+                        continue
+                    spec = invres.InvResSpec(8, 8, cin, e, cout, has_expand, False,
+                                             "relu6", "relu6", "linear")
+                    if not invres.kernel_takes(spec):
+                        continue
+                    admitted += 1
+                    for split in (1, 2, 4, 8):
+                        assert invres.smem_bytes(spec, 8, 8, split, True) <= invres.MAX_SMEM_BYTES
+                    assert invres.pick_launch(spec, 8, 132, True).smem <= invres.MAX_SMEM_BYTES
+    assert admitted > 100
+
+
+def _tile_map(spec, geo, n):
+    """How often the kernel writes each output element, from its launch
+    geometry: grid (tiles, images, split); without a split a CTA finishes
+    its tile's pixels in the image x every channel, with one the CTA of rank
+    r finishes the tile's elements i = r, r + split, ... (csrc/invres_block.cu)."""
+    count = np.zeros((n, spec.h, spec.w, spec.cout), np.int32)
+    tiles_x = -(-spec.w // geo.tile_w)
+    p = geo.tile_h * geo.tile_w
+    for t in range(tiles_x * -(-spec.h // geo.tile_h)):
+        ty0, tx0 = (t // tiles_x) * geo.tile_h, (t % tiles_x) * geo.tile_w
+        for img in range(n):
+            for rank in range(geo.split):
+                for i in range(rank, p * spec.cout, geo.split):
+                    q, co = divmod(i, spec.cout)
+                    gy, gx = ty0 + q // geo.tile_w, tx0 + q % geo.tile_w
+                    if gy < spec.h and gx < spec.w:
+                        count[img, gy, gx, co] += 1
+    return count
+
+
+def test_launch_geometry_of_every_planned_block_fits_and_covers_the_output():
+    """At both dtypes, the launch of every block the planner fuses on
+    MobileNetV2 224 (b8) and the trained cls10 model (b64), and of a ragged
+    13x9 block (b3), fits 227 KB and writes each output element exactly
+    once."""
+    from shadernn_tpu_torch.models.mobilenetv2 import build_mobilenetv2
+
+    specs = set()
+    for graph, n in ((build_mobilenetv2(), 8), (pparse(MOBILENETV2_TRAINED), 64)):
+        pfusion.optimize(graph)
+        graph.infer_shapes(batch_size=n)
+        for node in graph.toposort():
+            m = invres.match_invres_block(graph, node) if node.op == "SeparableConv2D" else None
+            if m is not None:
+                head = m[0] if m[0] is not None else m[1]
+                _, spec = invres.build_invres(m, graph.nodes[head.inputs[0]].out_spec,
+                                              torch.float32)
+                specs.add((spec, n))
+    specs.add((invres.InvResSpec(13, 9, 24, 144, 24, True, True, "relu6", "relu6", "linear"), 3))
+    assert len(specs) == 15  # 6 at 224, 8 on cls10 (two differ only in activation), ragged
+    splits = set()
+    for spec, n in specs:
+        for bf16 in (True, False):
+            geo = invres.pick_launch(spec, n, 132, bf16)
+            assert geo.smem <= invres.MAX_SMEM_BYTES and geo.tile_h * geo.tile_w <= 64
+            count = _tile_map(spec, geo, min(n, 2))  # every image has the same tiles
+            assert count.min() == 1 and count.max() == 1, (spec, geo)
+            splits.add(geo.split)
+    assert splits >= {1, 2, 4, 8}
 
 
 def test_entry_point_rejects_other_devices(rng):
