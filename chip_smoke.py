@@ -10,7 +10,10 @@ Phases, each of which raises on failure (exit code != 0):
   3. kernel   each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and at edge geometries: the conv-chain
               kernel through both entry points, and at every chain of the
-              trained ResNet18's plan (b64); the inverted-residual block
+              trained ResNet18's plan (b64), each bf16 case from an f32 and
+              from a bf16 input; its edges: a dense-tap head at k9 (C = 1)
+              and at C = 3, o = 32, 8 layers, an image smaller than one
+              tile at b1; the inverted-residual block
               kernel at every block geometry of MobileNetV2 224 (b8), every
               block geometry of the trained model at its batch (b64) and a
               ragged 13x9 block, bf16 and fp32; the single-conv kernel at the
@@ -24,7 +27,9 @@ Phases, each of which raises on failure (exit code != 0):
               kernel at the ResNet-wide shapes, 540p frames, even k with
               asymmetric pads, stride 2 and int8 weights; the fused-matmul
               kernel at the classifier heads (softmax rows must sum to 1),
-              a ragged shape and int8 weights
+              a ragged shape, int8 weights (bf16 x too), M = 1, N = 1001,
+              K = 1, many row and column blocks, and two softmax launches
+              back to back on the same arrival counters
   4. main     ESPCN 2x at 540p, trained weights, batch 8, through
               Engine.from_json at BF16 and at FP32, 5 steps each; every
               step must launch the chain kernel once. MobileNetV2 224
@@ -48,9 +53,11 @@ Phases, each of which raises on failure (exit code != 0):
               logits)
   5. timing   kernel, plain version and a library yardstick (cuDNN, cuBLAS),
               each from CUDA events around back-to-back calls and as device time from
-              torch.profiler; the bound. Per-step sums: the 11 block launches of a
-              MobileNetV2 224 b8 step, the 8 single-conv launches of a ResNet18
-              zoo-width b8 step
+              torch.profiler; the bound. The chain at ESPCN 540p (b1, b8) and at
+              the trained ResNet18's chain (b64); per-step sums: the 11 block
+              launches of a MobileNetV2 224 b8 step, the 8 single-conv launches of
+              a ResNet18 zoo-width b8 step; the fused matmul at the three heads,
+              each call's device work held to one kernel
 Prints the `kernels` JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Imports no JAX and nothing of
 the JAX package. Exits non-zero without printing a result when no CUDA
@@ -201,13 +208,20 @@ def main() -> int:
         return nodes
 
     def case(label, nodes, cin, dt, tail, shape, entry, act_override=None):
+        """One chain against its plain version; at bf16 from an f32 input
+        (rounded on staging) and from a bf16 input (the engine's)."""
         specs = chain.build_chain_specs(nodes, cin, dt, act_override=act_override, tail=tail)
         assert specs is not None, f"{label}: the kernel's gate declined the chain"
         ops = on_dev(chain.chain_operands(nodes, dt))
-        x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
-        got = getattr(chain, entry)(x, ops, specs, tail=tail, compute_dtype=dt)
-        torch.cuda.synchronize()
-        return held(label, entry, got, chain.conv_chain_reference(x, ops, specs, tail, dt), dt)
+        err = 0.0
+        for x_dt in ((f32, bf16) if dt == bf16 else (f32,)):
+            x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev, x_dt)
+            got = getattr(chain, entry)(x, ops, specs, tail=tail, compute_dtype=dt)
+            torch.cuda.synchronize()
+            tag = f" x {'bf16' if x_dt == bf16 else 'f32'}" if dt == bf16 else ""
+            err = max(err, held(label + tag, entry, got,
+                                chain.conv_chain_reference(x, ops, specs, tail, dt), dt))
+        return err
 
     errs = {}
     tanh = ("tanh", 0.3)
@@ -226,6 +240,23 @@ def main() -> int:
          "fused_conv_chain_packed", tanh)
     case("ragged espcn 37x101 b3", espcn_nodes, 1, f32, "none", (3, 37, 101, 1),
          "fused_conv_chain")
+    # Edges of the bf16 form: a dense-tap head at k9 (C = 1) and at C = 3,
+    # o = 32 with C padded to 24 and 32, 8 layers (every unit stride and
+    # both dense layers), an image smaller than one tile at b1.
+    for label, cfg, cin, tail, shape in (
+        ("C1 k9 40x50 b2", [(9, 8, "relu"), (3, 1, "sigmoid")], 1, "c1", (2, 40, 50, 1)),
+        ("C3 33x45 b2", [(3, 20, "gelu"), (3, 4, "linear")], 3, "d2s2", (2, 33, 45, 3)),
+        ("o32 C24 30x41 b2", [(3, 32, "relu"), (1, 32, "leaky_relu"), (3, 12, "relu6")], 24,
+         "none", (2, 30, 41, 24)),
+        ("8 layers 29x37 b2", [(3, 8, "relu"), (3, 12, "silu"), (1, 16, "relu"), (3, 9, "tanh"),
+                               (2, 17, "relu"), (3, 16, "relu"), (3, 5, "sigmoid"),
+                               (3, 4, "gelu")], 2, "none", (2, 29, 37, 2)),
+        ("smaller than a tile 5x7 b1", [(3, 16, "relu"), (3, 4, "linear")], 1, "d2s2",
+         (1, 5, 7, 1)),
+    ):
+        nodes = random_chain(cfg, cin)
+        for dt in (bf16, f32):
+            case(label, nodes, cin, dt, tail, shape, "fused_conv_chain")
 
     def seeded_batchnorm(g, gamma, seed=11):
         """BatchNorm statistics drawn from `seed` around `gamma`, as the
@@ -443,6 +474,11 @@ def main() -> int:
         ("mobilenetv2 fc 8x1280x1000", 8, 1280, 1000, "softmax", False),
         ("ragged 37x100x23", 37, 100, 23, "sigmoid", False),
         ("int8 w 33x70x130", 33, 70, 130, "relu", True),
+        ("int8 w 8x1280x1000", 8, 1280, 1000, "softmax", True),
+        ("M=1 1x300x7", 1, 300, 7, "relu", False),
+        ("N=1001 5x77x1001", 5, 77, 1001, "softmax", False),
+        ("K=1 9x1x40", 9, 1, 40, "tanh", False),
+        ("many row and column blocks 130x1500x2100", 130, 1500, 2100, "softmax", False),
     ):
         for dt in (bf16, f32):
             x = tensor(rng.standard_normal((m, k)), dt)
@@ -465,6 +501,19 @@ def main() -> int:
                 log(f"[kernel] {label} {pname}: softmax rows sum to 1 within {off:.2e} "
                     f"(limit {lim:.1e})")
                 assert off <= lim, f"{label}: softmax rows do not sum to 1"
+    # Two softmax launches back to back on the same arrival counters (the
+    # kernel sets each back to 0; no memset between them), different inputs.
+    for dt in (bf16, f32):
+        pname = "bf16" if dt == bf16 else "fp32"
+        wts = tensor(rng.standard_normal((1280, 1000)) / np.sqrt(1280), dt)
+        sc, of = tensor(np.ones(1000)), tensor(np.zeros(1000))
+        xs = [tensor(rng.standard_normal((8, 1280)), dt) for _ in range(2)]
+        outs = [matmul.fused_matmul(x, wts, sc, of, activation="softmax") for x in xs]
+        torch.cuda.synchronize()
+        for i, (x, got) in enumerate(zip(xs, outs)):
+            matmul_err = max(matmul_err, held(
+                f"back-to-back softmax #{i + 1} 8x1280x1000 {pname}", "fused_matmul", got,
+                matmul.fused_matmul_reference(x, wts, sc, of, "softmax"), dt))
 
     # 4. main path -----------------------------------------------------------
     # Each path runs with every kernel's count set to 0 just before it and
@@ -479,38 +528,6 @@ def main() -> int:
 
     def read_counts():
         return {k: v for counts in counters for k, v in counts.items()}
-
-    frames = rng.random((8, 540, 960, 1), dtype=np.float32)
-    main_stats = {}
-    for prec, entry in ((Precision.BF16, "fused_conv_chain_packed"),
-                        (Precision.FP32, "fused_conv_chain")):
-        opts = EngineOptions(precision=prec, batch_size=8)
-        eng = Engine.from_json(ESPCN_TRAINED, opts, input_hw=(540, 960))
-        reset_counts()
-        outs = [eng.run_single(frames) for _ in range(STEPS)]
-        counts = read_counts()
-        y = outs[-1]
-        assert tuple(y.shape) == (8, 1080, 1920, 1), y.shape
-        assert torch.isfinite(y).all().item() and y.abs().max().item() <= 1.0
-        assert counts[entry] == STEPS, counts
-        assert sum(counts.values()) == STEPS, counts
-        plain = Engine.from_json(
-            ESPCN_TRAINED,
-            EngineOptions(precision=prec, batch_size=8, backend=BackendKind.TORCH),
-            input_hw=(540, 960),
-        ).run_single(frames)
-        err = (y - plain).abs().max().item()
-        tol = ENGINE_TOL[prec.value]
-        step_ms = [1e3 * s for s in eng.stats.total.samples[1:]]
-        bench = eng.benchmark({"input": frames}, loops=20)
-        log(f"[main] {prec.value} plan {eng.model.forward.chain_plan} launches {counts} "
-            f"vs TORCH forward max_abs_diff {err:.3e} tol {tol} "
-            f"run() host ms {['%.3f' % s for s in step_ms]} "
-            f"device step p50 {bench['p50_ms']:.3f} ms")
-        assert err <= tol, f"{prec.value}: engine output disagrees with the plain forward"
-        main_stats[entry] = {"launches": counts[entry], "max_abs_err": err,
-                             "engine_p50_ms": bench["p50_ms"]}
-        del eng, outs, y, plain
 
     def device_profile(fn, reps=10):
         """Device time per call of fn from torch.profiler: the durations of
@@ -542,6 +559,43 @@ def main() -> int:
         top device events by it."""
         dev_inputs = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
         return device_profile(lambda: eng.model(dev_inputs), steps)
+
+    frames = rng.random((8, 540, 960, 1), dtype=np.float32)
+    main_stats = {}
+    for prec, entry in ((Precision.BF16, "fused_conv_chain_packed"),
+                        (Precision.FP32, "fused_conv_chain")):
+        opts = EngineOptions(precision=prec, batch_size=8)
+        eng = Engine.from_json(ESPCN_TRAINED, opts, input_hw=(540, 960))
+        reset_counts()
+        outs = [eng.run_single(frames) for _ in range(STEPS)]
+        counts = read_counts()
+        y = outs[-1]
+        assert tuple(y.shape) == (8, 1080, 1920, 1), y.shape
+        assert torch.isfinite(y).all().item() and y.abs().max().item() <= 1.0
+        assert counts[entry] == STEPS, counts
+        assert sum(counts.values()) == STEPS, counts
+        plain = Engine.from_json(
+            ESPCN_TRAINED,
+            EngineOptions(precision=prec, batch_size=8, backend=BackendKind.TORCH),
+            input_hw=(540, 960),
+        ).run_single(frames)
+        err = (y - plain).abs().max().item()
+        tol = ENGINE_TOL[prec.value]
+        step_ms = [1e3 * s for s in eng.stats.total.samples[1:]]
+        bench = eng.benchmark({"input": frames}, loops=20)
+        log(f"[main] {prec.value} plan {eng.model.forward.chain_plan} launches {counts} "
+            f"vs TORCH forward max_abs_diff {err:.3e} tol {tol} "
+            f"run() host ms {['%.3f' % s for s in step_ms]} "
+            f"device step p50 {bench['p50_ms']:.3f} ms")
+        busy_ms, top_kernels = device_busy(eng, {"input": frames})
+        idle = f"{1 - busy_ms / bench['p50_ms']:.3f}" if busy_ms else "not measured"
+        log(f"[main] espcn 540p b8 {prec.value} torch.profiler: device busy {busy_ms:.3f} ms per "
+            f"step, idle share {idle} of the p50 step; top kernels "
+            + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top_kernels))
+        assert err <= tol, f"{prec.value}: engine output disagrees with the plain forward"
+        main_stats[entry] = {"launches": counts[entry], "max_abs_err": err,
+                             "engine_p50_ms": bench["p50_ms"], "device_busy_ms": busy_ms}
+        del eng, outs, y, plain
 
     # MobileNetV2 224, seeded weights and BatchNorm, batch 8: 11 blocks per step.
     images = rng.random((8, 224, 224, 3), dtype=np.float32)
@@ -922,6 +976,45 @@ def main() -> int:
         t_bytes = nbytes / peak_bw * 1e3
         return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
+    # The trained ResNet18's chains (stage 0: 16->16->16, k3, at 32x32) at
+    # its batch, 64; under BF16 the engine runs them on the bf16 form through
+    # fused_conv_chain. Library: the same convs on cuDNN, channels_last.
+    chain_resnet_rows = {}
+    label, nodes, cin, shape = cls_chains[0]
+    for dt in (bf16, f32):
+        pname = "bf16" if dt == bf16 else "fp32"
+        specs = chain.build_chain_specs(nodes, cin, dt, tail="none")
+        ops = on_dev(chain.chain_operands(nodes, dt))
+        x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev, dt)
+        xl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
+        lib_ops = [(p["w"].to(dt).permute(3, 2, 0, 1).contiguous(memory_format=cl),
+                    p["scale"].to(dt).reshape(1, -1, 1, 1), p["offset"].to(dt).reshape(1, -1, 1, 1), sp)
+                   for p, sp in zip(ops, specs)]
+        assert all(sp.pt == sp.pb and sp.pl == sp.pr for sp in specs), specs
+
+        def library():
+            y = xl
+            with full_precision():
+                for w_, sc_, of_, sp in lib_ops:
+                    y = apply_activation(F.conv2d(y, w_, padding=(sp.pt, sp.pl)) * sc_ + of_,
+                                         sp.activation, sp.alpha)
+            return y
+
+        t = timed({
+            "kernel": lambda: chain.fused_conv_chain(x, ops, specs, compute_dtype=dt),
+            "plain": lambda: chain.conv_chain_reference(x, ops, specs, "none", dt),
+            "library": library,
+        })
+        n_, h_, w_, _ = shape
+        flops = 2.0 * n_ * h_ * w_ * sum(sp.k * sp.k * sp.c * sp.o for sp in specs)
+        isz = 2 if dt == bf16 else 4
+        nbytes = (x.numel() + n_ * h_ * w_ * specs[-1].o) * isz + sum(
+            p["w"].numel() * isz + 8 * p["scale"].numel() for p in ops)
+        b_ms, b_by = bound(flops, nbytes, dt)
+        chain_resnet_rows[pname] = dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by)
+        log(f"[timing] fused_conv_chain {pname} {label}: {timing_text(t)} bound {b_ms:.5f} ms "
+            f"({b_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) | {card}")
+
     def block_library(spec, ops, dt):
         """cuDNN yardstick of one block: 1x1, depthwise and 1x1 F.conv2d on
         channels_last tensors with the epilogues and the residual, in the
@@ -1121,6 +1214,10 @@ def main() -> int:
                 "plain": lambda: matmul.fused_matmul_reference(x, wts, sc, of, "softmax"),
                 "library": lambda: torch.softmax(torch.addmm(of_lib, x, w_lib), dim=-1),
             })
+            # One launch at every N: the call's only device work is the kernel.
+            events = [k_ for k_, _ in device_profile(
+                lambda: matmul.fused_matmul(x, wts, sc, of, activation="softmax"))[1]]
+            assert len(events) == 1 and "matmul_fused_kernel" in events[0], events
             isz = 2 if dt == bf16 else 4
             flops = 2.0 * m * k * n
             nbytes = (m * k + k * n + m * n) * isz + 2 * n * 4
@@ -1146,8 +1243,10 @@ def main() -> int:
             "max_abs_diff": errs[(prec, 8)],
             **r,
             "shape": f"{prec} 8x540x960x1",
+            "resnet18_trained_chain": chain_resnet_rows[prec],
             "resnet18_trained_chains_max_abs_diff": chain_resnet_err,
             "engine_step_p50_ms": main_stats[entry]["engine_p50_ms"],
+            "engine_device_busy_ms": main_stats[entry]["device_busy_ms"],
         })
     r = block_rows["bf16"]
     kernels.append({

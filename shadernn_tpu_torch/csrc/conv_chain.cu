@@ -9,37 +9,87 @@
 //       (entry point fused_conv_chain)
 //
 // Function: NHWC input (f32 or bf16, cast to the compute dtype on load);
-// per layer l an HWIO weight (values in the compute dtype, staged as f32),
-// an f32 accumulation, then y = act(acc * scale[o] + offset[o]) in f32;
-// every intermediate is zeroed outside the image (it is the next layer's
-// padding) and rounded to the compute dtype. Tails: 0 = none, NHWC
-// (N,H,W,o); 1 = c1, (N,H,W,1) (the same layout with o = 1); 2 = d2s2,
-// o = 4 through depth_to_space(2) in TF channel order, (N,2H,2W,1).
+// per layer l an HWIO weight in the compute dtype, an f32 accumulation,
+// then y = act(acc * scale[o] + offset[o]) in f32; every intermediate is
+// zeroed outside the image (it is the next layer's padding) and rounded to
+// the compute dtype. Tails: 0 = none, NHWC (N,H,W,o); 1 = c1, (N,H,W,1)
+// (the same layout with o = 1); 2 = d2s2, o = 4 through depth_to_space(2)
+// in TF channel order, (N,2H,2W,1).
 //
 // What bounds it on an H100: ESPCN at 540p does 2*518400*3280 = 3.4 GFLOP
-// per frame over 6.2 MB of input and output, about 550 FLOP/byte, so the
-// chain is compute-bound once its intermediates stay on chip (as here).
-// This first version issues those FLOPs as f32 FMAs on the CUDA cores
-// (67 TFLOP/s peak), not on the tensor cores (989 TFLOP/s bf16), so it
-// cannot come near the bound; what the design does is keep the data
-// movement at the bound: one read of the input tile plus its halo, one
-// write of the output, nothing in between through device memory.
+// per frame over 6.2 MB of input and output, about 550 FLOP/byte: above
+// the bf16 tensor cores' ridge (989 TFLOP/s over 3.35 TB/s = 295), so the
+// chain is bound by its products once its intermediates stay on chip. The
+// price of keeping them on chip is the halo: each CTA recomputes the rows
+// and columns of the intermediates that its neighbours also need.
 //
-// Design: one CTA per (image, tile of TH x TW final-output pixels). The
-// CTA loads its input tile plus the chain's accumulated halo, stages all
-// weights and scale/offset in shared memory, and computes each layer over
-// its shrinking region (ping-pong buffers, channel-planar so neighbouring
-// threads read neighbouring words), one thread per output pixel, CH output
-// channels per pass held in registers (weights read as broadcast float4).
-// The halo rows/columns are recomputed by neighbouring tiles. No wgmma and
-// no TMA yet: those are for a later version.
+// Both forms: one CTA per (image, tile of TH x TW final-output pixels). The
+// CTA stages its input tile plus the chain's accumulated halo, runs each
+// layer over its shrinking region between two ping-pong buffers, and the
+// last layer writes device memory; nothing in between leaves the chip.
+//
+// bf16 (conv_chain_tc_kernel) runs every layer as an implicit GEMM on the
+// tensor cores (mma.sync m16n8k16, f32 accumulators): M = the pixels of the
+// layer's output region, N = o padded to 8, K = taps x C. Regions are bf16,
+// pixel-major with a pixel's channels contiguous. A layer with C >= 8 walks
+// K in units of 8 channels (C padded to 8; the row pitch an odd number of
+// 16-byte units, so that ldmatrix is free of bank conflicts), two units per
+// k16 step; its A rows come from ldmatrix with one row address per pixel,
+// shifted by the unit's tap offset from a per-CTA table. A layer with C < 8
+// (ESPCN's head, C = 1, k = 5) packs its taps densely, K = round16(taps *
+// C): each thread gathers its A fragment from the staged plane through a
+// table of K offsets, 2 k-steps where padding C to 8 would take 13. A warp
+// takes its m-tiles in pairs, so that each B fragment serves two products
+// and the tensor cores see two independent sums. The weights are a B image
+// [K][N] per layer, packed on the host in that K order, copied with
+// cp.async, and read with ldmatrix.trans. The epilogue runs on the C
+// fragments with its scale and offset in registers: the activation, zero
+// outside the image, the bf16 round, then a store into the next layer's
+// region or, on the last layer, to device memory (d2s2: a thread's channel
+// pair is one bf16x2 of output row 2gy+py). At these channel counts the
+// products are not the cost; the instructions around them and the
+// kernel's code size are: so the n-tile count is a uniform bound (two
+// copies of the layer: dense or not), relu and linear stay inline and the
+// other activations are one call, the address walk is a table and the
+// pixel division a multiply. The launch geometry (tile, threads, region
+// strides, shared-memory layout, whether all weights stay resident) is
+// the wrapper's (kernels/chain.py launch_geometry); this file checks it
+// and launches.
+//
+// f32 (conv_chain_kernel; no TF32) keeps the CUDA cores: regions f32 and
+// channel-planar, one thread per output pixel, CH output channels per pass
+// held in registers, weights read as broadcast float4s; its layout is
+// computed here from the fixed 16 x 32 tile.
 
 #include "snn_common.cuh"
+#include "snn_mma.cuh"
 
 #define SNN_MAX_LAYERS 8
 #define SNN_THREADS 256
+#define SNN_TC_MAX_THREADS 512
+
+// Fields of the bf16 form's geometry array: SNN_CG_FIELDS globals, then
+// SNN_CL_FIELDS per layer (kernels/chain.py ChainLaunch.array).
+enum { CG_TILE_H, CG_TILE_W, CG_THREADS, CG_W_ALL, CG_BUF0, CG_BUF1, CG_SMEM, CG_PARAM_BYTES,
+       SNN_CG_FIELDS };
+enum { CL_CS, CL_OSTRIDE, CL_W_OFF, CL_KTAB_OFF, CL_PW, CL_PS, SNN_CL_FIELDS };
 
 namespace {
+
+// Accumulated pads of the layers from l on: A (top), B (bottom), Lp
+// (left), Rp (right); `layers` holds nl rows of (k, c, o, pt, pb, pl, pr, act).
+void halo(const int* layers, int nl, int* A, int* B, int* Lp, int* Rp) {
+  A[nl] = B[nl] = Lp[nl] = Rp[nl] = 0;
+  for (int l = nl - 1; l >= 0; --l) {
+    const int* r = layers + 8 * l;
+    A[l] = A[l + 1] + r[3];
+    B[l] = B[l + 1] + (r[0] - 1 - r[3]);
+    Lp[l] = Lp[l + 1] + r[5];
+    Rp[l] = Rp[l + 1] + (r[0] - 1 - r[5]);
+  }
+}
+
+// ---------------------------------------------------------------- f32 ----
 
 struct LayerDesc {
   int k, c, o, pt, pl, act, ch, o_pad;
@@ -59,20 +109,10 @@ struct ChainDesc {
   LayerDesc L[SNN_MAX_LAYERS];
 };
 
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // One layer over its output region. The last layer writes device memory.
-template <int CH, bool BF16>
+template <int CH>
 __device__ void run_layer(float* smem, const LayerDesc& L, const ChainDesc& d,
-                          bool last, int n, int ty0, int tx0, void* y) {
-  using TOut = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+                          bool last, int n, int ty0, int tx0, float* y) {
   const float* in = smem + L.in_buf;
   float* out = smem + L.out_buf;
   const float* wts = smem + L.sw_off;
@@ -111,7 +151,7 @@ __device__ void run_layer(float* smem, const LayerDesc& L, const ChainDesc& d,
         const int oc = chunk * CH + j;
         float v = apply_act(fmaf(acc[j], sc[oc], of[oc]), L.act, L.alpha);
         if (!inside) v = 0.f;
-        acc[j] = BF16 ? round_bf16(v) : v;
+        acc[j] = v;
       }
       if (!last) {
 #pragma unroll
@@ -123,35 +163,28 @@ __device__ void run_layer(float* smem, const LayerDesc& L, const ChainDesc& d,
         // depth_to_space(2), channel py*2+px -> (2gy+py, 2gx+px); o == 4
         // gives CH == 4 (checked on the host).
         if constexpr (CH == 4) {
-          TOut* yo = static_cast<TOut*>(y);
           const int W2 = 2 * L.w_out;
 #pragma unroll
           for (int py = 0; py < 2; ++py) {
-            TOut* row = yo + ((size_t)n * 2 * L.h_out + 2 * gy + py) * W2 + 2 * gx;
-            if constexpr (BF16) {
-              *reinterpret_cast<__nv_bfloat162*>(row) =
-                  __floats2bfloat162_rn(acc[2 * py], acc[2 * py + 1]);
-            } else {
-              *reinterpret_cast<float2*>(row) = make_float2(acc[2 * py], acc[2 * py + 1]);
-            }
+            float* row = y + ((size_t)n * 2 * L.h_out + 2 * gy + py) * W2 + 2 * gx;
+            *reinterpret_cast<float2*>(row) = make_float2(acc[2 * py], acc[2 * py + 1]);
           }
         }
       } else {
-        TOut* yo = static_cast<TOut*>(y) +
-                   (((size_t)n * L.h_out + gy) * L.w_out + gx) * L.o;
+        float* yo = y + (((size_t)n * L.h_out + gy) * L.w_out + gx) * L.o;
 #pragma unroll
         for (int j = 0; j < CH; ++j) {
           const int oc = chunk * CH + j;
-          if (oc < L.o) yo[oc] = from_float<TOut>(acc[j]);
+          if (oc < L.o) yo[oc] = acc[j];
         }
       }
     }
   }
 }
 
-template <typename TIn, bool BF16>
+template <typename TIn>
 __global__ void __launch_bounds__(SNN_THREADS)
-conv_chain_kernel(const TIn* __restrict__ x, void* __restrict__ y,
+conv_chain_kernel(const TIn* __restrict__ x, float* __restrict__ y,
                   const float* __restrict__ params,
                   const __grid_constant__ ChainDesc d) {
   extern __shared__ float4 smem4[];
@@ -188,10 +221,8 @@ conv_chain_kernel(const TIn* __restrict__ x, void* __restrict__ y,
       const int rr = p / C, cc = p - rr * C;
       const int gy = gy0 + rr, gx = gx0 + cc;
       float v = 0.f;
-      if (gy >= 0 && gy < d.h && gx >= 0 && gx < d.w) {
+      if (gy >= 0 && gy < d.h && gx >= 0 && gx < d.w)
         v = to_float(x[(((size_t)n * d.h + gy) * d.w + gx) * d.cin + ci]);
-        if (BF16) v = round_bf16(v);
-      }
       buf[(ci * R + rr) * C + cc] = v;
     }
   }
@@ -201,9 +232,9 @@ conv_chain_kernel(const TIn* __restrict__ x, void* __restrict__ y,
     const LayerDesc& L = d.L[l];
     const bool last = l == d.nl - 1;
     switch (L.ch) {
-      case 8: run_layer<8, BF16>(smem, L, d, last, n, ty0, tx0, y); break;
-      case 4: run_layer<4, BF16>(smem, L, d, last, n, ty0, tx0, y); break;
-      default: run_layer<1, BF16>(smem, L, d, last, n, ty0, tx0, y); break;
+      case 8: run_layer<8>(smem, L, d, last, n, ty0, tx0, y); break;
+      case 4: run_layer<4>(smem, L, d, last, n, ty0, tx0, y); break;
+      default: run_layer<1>(smem, L, d, last, n, ty0, tx0, y); break;
     }
     __syncthreads();
   }
@@ -211,17 +242,406 @@ conv_chain_kernel(const TIn* __restrict__ x, void* __restrict__ y,
 
 inline int round4(int v) { return (v + 3) & ~3; }
 
-template <typename TIn, bool BF16>
+template <typename TIn>
 int launch(const void* x, void* y, const float* params, const ChainDesc& d,
            size_t smem, cudaStream_t stream) {
-  auto kern = conv_chain_kernel<TIn, BF16>;
+  auto kern = conv_chain_kernel<TIn>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const LayerDesc& last = d.L[d.nl - 1];
   dim3 grid((last.w_out + d.tile_w - 1) / d.tile_w,
             (last.h_out + d.tile_h - 1) / d.tile_h, d.n);
-  kern<<<grid, SNN_THREADS, smem, stream>>>(static_cast<const TIn*>(x), y, params, d);
+  kern<<<grid, SNN_THREADS, smem, stream>>>(static_cast<const TIn*>(x), static_cast<float*>(y),
+                                            params, d);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------- bf16 ----
+
+typedef __nv_bfloat16 bf16;
+
+struct TcLayer {
+  int k, c, o, act;
+  float alpha;
+  int dense;                    // C < 8: taps packed densely into K
+  int cs;                       // bf16 per staged input position
+  int ksteps, nt, ostride;      // k16 steps, n8-tiles, bf16 per B row
+  int w_off, w_bytes, ktab_off; // smem bytes
+  int pw, ps;                   // byte offsets in params: B image, scale|offset (f32, nt*8 each)
+  int rows_in, cols_in, rows_out, cols_out;
+  float inv_cols;               // 1 / cols_out: pixel -> (row, column) by a multiply
+  int a_out, l_out, h_out, w_out;
+  int in_off, out_off;          // smem bytes of the input / output regions
+  int ncs, ndense;              // the next layer's input layout
+};
+
+struct TcDesc {
+  int nl, n, h, w, cin, a0, l0;
+  int tile_h, tile_w, tail, w_all;
+  TcLayer L[SNN_MAX_LAYERS];
+};
+
+// Pixel p of a region `cols` wide -> its row, exactly for p < 2^20.
+__device__ __forceinline__ int region_row(int p, float inv_cols) {
+  return (int)(((float)p + 0.5f) * inv_cols);
+}
+
+// The B image of one layer, global -> shared, 16 bytes per copy.
+__device__ __forceinline__ void stage_weights(unsigned char* smem, const unsigned char* params,
+                                              const TcLayer& L) {
+  for (int i = threadIdx.x; i < L.w_bytes / 16; i += blockDim.x)
+    cp_async16(smem + L.w_off + 16 * i, params + L.pw + 16 * i, 16);
+}
+
+// Layer l's table of K offsets, from a pixel's first element of the input
+// region: dense, one per K index (-1: padding); else one per 8-channel
+// unit of each k16 step (the padding unit points at the pixel's first:
+// its B rows are zero).
+__device__ void build_ktab(unsigned char* smem, const TcLayer& L) {
+  int* tab = reinterpret_cast<int*>(smem + L.ktab_off);
+  const int U = (L.c + 7) >> 3;  // units of a tap (the pitch's padding unit is never read)
+  const int entries = L.dense ? 16 * L.ksteps : 2 * L.ksteps;
+  for (int i = threadIdx.x; i < entries; i += blockDim.x) {
+    if (L.dense) {
+      const int tap = i / L.c, ci = i - tap * L.c;
+      tab[i] = tap < L.k * L.k ? ((tap / L.k) * L.cols_in + tap % L.k) * L.c + ci : -1;
+    } else {
+      const int tap = i / U, u = i - tap * U;
+      tab[i] = tap < L.k * L.k ? ((tap / L.k) * L.cols_in + tap % L.k) * L.cs + 8 * u : 0;
+    }
+  }
+}
+
+// Layer 0's input region: zero outside the image and past C.
+template <typename TIn>
+__device__ void stage_input(const TIn* __restrict__ x, unsigned char* smem, const TcDesc& d,
+                            int n, int ty0, int tx0, bool vec) {
+  const TcLayer& L = d.L[0];
+  bf16* buf = reinterpret_cast<bf16*>(smem + L.in_off);
+  const int R = L.rows_in, C = L.cols_in, c = L.c;
+  const int gy0 = ty0 - d.a0, gx0 = tx0 - d.l0;
+  if (L.dense) {
+    for (int i = threadIdx.x; i < R * C * c; i += blockDim.x) {
+      const int ci = i % c, pos = i / c;
+      const int rr = pos / C, cc = pos - rr * C;
+      const int gy = gy0 + rr, gx = gx0 + cc;
+      float v = 0.f;
+      if (gy >= 0 && gy < d.h && gx >= 0 && gx < d.w)
+        v = to_float(x[(((size_t)n * d.h + gy) * d.w + gx) * c + ci]);
+      buf[i] = __float2bfloat16_rn(v);
+    }
+    return;
+  }
+  const int U = (c + 7) >> 3;  // channels past C within a unit are zeros
+  for (int i = threadIdx.x; i < R * C * U; i += blockDim.x) {
+    const int u = i % U, pos = i / U;
+    const int rr = pos / C, cc = pos - rr * C;
+    const int gy = gy0 + rr, gx = gx0 + cc;
+    const bool ok = gy >= 0 && gy < d.h && gx >= 0 && gx < d.w && 8 * u < c;
+    const TIn* src = x + (((size_t)n * d.h + (ok ? gy : 0)) * d.w + (ok ? gx : 0)) * c + 8 * u;
+    bf16* dst = buf + pos * L.cs + 8 * u;
+    if (vec) {  // bf16 input, C a multiple of 8, 16-byte aligned
+      cp_async16(dst, ok ? src : x, ok ? 16 : 0);
+    } else {
+      uint32_t q[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ch = 8 * u + 2 * j;
+        const float lo = ok && ch < c ? to_float(src[2 * j]) : 0.f;
+        const float hi = ok && ch + 1 < c ? to_float(src[2 * j + 1]) : 0.f;
+        q[j] = pack_bf16x2(lo, hi);
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(q[0], q[1], q[2], q[3]);
+    }
+  }
+}
+
+// The activations other than relu and linear, as one call: inlined at
+// each of the epilogue's sites they make the kernel too large for the
+// instruction cache, and the epilogue several times slower.
+__device__ __noinline__ float apply_act_call(float v, int act, float alpha) {
+  return apply_act(v, act, alpha);
+}
+
+__device__ __forceinline__ float chain_act(float v, int act, float alpha) {
+  if (act == 1) return fmaxf(v, 0.f);
+  if (act == 0) return v;
+  return apply_act_call(v, act, alpha);
+}
+
+// One layer over its output region: pairs of m-tiles of 16 pixels
+// round-robin over the warps (the pair shares each B fragment and gives
+// the tensor cores two independent sums); nt <= 4 n8-tiles (o <= 8 nt),
+// a uniform bound rather than a template, which keeps the kernel to two
+// copies of this function. Every field the loops read is copied to a
+// register first: read through the reference it would be read again
+// after each asm statement.
+template <bool DENSE>
+__device__ void run_tc_layer(unsigned char* smem, const unsigned char* __restrict__ params,
+                             const TcLayer& L, int tail, bool last, int n, int ty0, int tx0,
+                             bf16* __restrict__ y) {
+  constexpr int NTM = 4;  // most n8-tiles of a layer (o <= 32)
+  const bf16* in = reinterpret_cast<const bf16*>(smem + L.in_off);
+  const bf16* wb = reinterpret_cast<const bf16*>(smem + L.w_off);
+  const int* tab = reinterpret_cast<const int*>(smem + L.ktab_off);
+  bf16* out = last ? nullptr : reinterpret_cast<bf16*>(smem + L.out_off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int M = L.rows_out * L.cols_out, mtiles = (M + 15) / 16;
+  const int cols_in = L.cols_in, cols_out = L.cols_out, cs = L.cs, ksteps = L.ksteps;
+  const int nt = L.nt, ostride = L.ostride, o = L.o, act = L.act, ncs = L.ncs;
+  const int ndense = L.ndense;
+  const int gy0 = ty0 - L.a_out, gx0 = tx0 - L.l_out, h_out = L.h_out, w_out = L.w_out;
+  const float alpha = L.alpha, inv_cols = L.inv_cols;
+  // This thread's epilogue columns 8j + 2t, +1.
+  float sc[NTM][2], of[NTM][2];
+  {
+    const float* so = reinterpret_cast<const float*>(params + L.ps);
+#pragma unroll
+    for (int j = 0; j < NTM; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        sc[j][q] = j < nt ? so[8 * j + 2 * t + q] : 0.f;
+        of[j][q] = j < nt ? so[8 * nt + 8 * j + 2 * t + q] : 0.f;
+      }
+  }
+  // This lane's B row of each k-step: k row (lane & 15), n-tile (lane >> 4) past j.
+  const bf16* brow = wb + (lane & 15) * ostride + (lane >> 4) * 8;
+  auto pixel = [&](int p) {  // element offset of pixel p's first input position
+    const int ry = region_row(p, inv_cols);
+    return (ry * cols_in + p - ry * cols_out) * cs;
+  };
+  for (int mt0 = 2 * warp; mt0 < mtiles; mt0 += 2 * nwarps) {
+    float acc[2][NTM][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NTM; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+    int pix[2][2];  // A rows: dense, pixels g and g + 8; else pixel lane & 15
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if constexpr (DENSE) {
+        pix[i][0] = pixel(min((mt0 + i) * 16 + g, M - 1));
+        pix[i][1] = pixel(min((mt0 + i) * 16 + g + 8, M - 1));
+      } else {
+        pix[i][0] = pix[i][1] = pixel(min((mt0 + i) * 16 + (lane & 15), M - 1));
+      }
+    }
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t a[2][4];
+      if constexpr (DENSE) {
+        // A gathered in registers: rows g and g + 8, k 2t, 2t+1, 2t+8, 2t+9.
+        const unsigned short* inu = reinterpret_cast<const unsigned short*>(in);
+        const int kb = ks * 16 + 2 * t;
+        const int ko[4] = {tab[kb], tab[kb + 1], tab[kb + 8], tab[kb + 9]};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          auto ld = [&](int h, int q) -> uint32_t {
+            return ko[q] >= 0 ? (uint32_t)inu[pix[i][h] + ko[q]] : 0u;
+          };
+          a[i][0] = ld(0, 0) | ld(0, 1) << 16;
+          a[i][1] = ld(1, 0) | ld(1, 1) << 16;
+          a[i][2] = ld(0, 2) | ld(0, 3) << 16;
+          a[i][3] = ld(1, 2) | ld(1, 3) << 16;
+        }
+      } else {
+        // A from ldmatrix: this lane's pixel, shifted by its unit's tap offset.
+        const int off = tab[2 * ks + (lane >> 4)];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) ldmatrix_x4(a[i], in + pix[i][0] + off);
+      }
+      const bf16* bp = brow + ks * 16 * ostride;
+#pragma unroll
+      for (int j = 0; j < NTM; j += 2) {
+        if (j + 1 < nt) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, bp + j * 8);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_bf16(acc[i][j], a[i], b[0], b[1]);
+            mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
+          }
+        } else if (j < nt) {
+          uint32_t b[2];
+          ldmatrix_x2_trans(b, bp + j * 8);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], a[i], b[0], b[1]);
+        }
+      }
+    }
+
+    // Epilogue on the fragments: rows g and g + 8, channels 8j + 2t, +1.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = (mt0 + i) * 16 + g + 8 * h;
+        if (p >= M) continue;
+        const int ry = region_row(p, inv_cols), rx = p - ry * cols_out;
+        const int gy = gy0 + ry, gx = gx0 + rx;
+        const bool inside = gy >= 0 && gy < h_out && gx >= 0 && gx < w_out;
+        if (last && !inside) continue;
+#pragma unroll
+        for (int j = 0; j < NTM; ++j) {
+          if (j >= nt) break;
+          const int oc = 8 * j + 2 * t;
+          float v0 = chain_act(fmaf(acc[i][j][2 * h], sc[j][0], of[j][0]), act, alpha);
+          float v1 = chain_act(fmaf(acc[i][j][2 * h + 1], sc[j][1], of[j][1]), act, alpha);
+          if (!inside || oc >= o) v0 = 0.f;
+          if (!inside || oc + 1 >= o) v1 = 0.f;
+          if (!last) {
+            if (ndense) {  // the next layer's C = o < 8: stride o
+              if (oc < o) out[p * o + oc] = __float2bfloat16_rn(v0);
+              if (oc + 1 < o) out[p * o + oc + 1] = __float2bfloat16_rn(v1);
+            } else {  // every channel of the padded units, zeros past o
+              *reinterpret_cast<uint32_t*>(out + p * ncs + oc) = pack_bf16x2(v0, v1);
+            }
+          } else if (tail == 2) {
+            // o == 4: the pair (py = t, px = 0..1) is one bf16x2 of row 2gy+py.
+            if (j == 0 && t < 2)
+              *reinterpret_cast<uint32_t*>(
+                  y + ((size_t)n * 2 * h_out + 2 * gy + t) * 2 * w_out + 2 * gx) =
+                  pack_bf16x2(v0, v1);
+          } else {
+            bf16* q = y + (((size_t)n * h_out + gy) * w_out + gx) * o;
+            if ((o & 1) == 0 && oc < o) {
+              *reinterpret_cast<uint32_t*>(q + oc) = pack_bf16x2(v0, v1);
+            } else {
+              if (oc < o) q[oc] = __float2bfloat16_rn(v0);
+              if (oc + 1 < o) q[oc + 1] = __float2bfloat16_rn(v1);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename TIn>
+__global__ void __launch_bounds__(SNN_TC_MAX_THREADS)
+conv_chain_tc_kernel(const TIn* __restrict__ x, bf16* __restrict__ y,
+                     const unsigned char* __restrict__ params, int vec_x,
+                     const __grid_constant__ TcDesc d) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = blockIdx.z;
+  const int ty0 = blockIdx.y * d.tile_h;
+  const int tx0 = blockIdx.x * d.tile_w;
+  if (d.w_all)
+    for (int l = 0; l < d.nl; ++l) stage_weights(smem, params, d.L[l]);
+  stage_input<TIn>(x, smem, d, n, ty0, tx0, vec_x);
+  cp_async_commit();
+  for (int l = 0; l < d.nl; ++l) build_ktab(smem, d.L[l]);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int l = 0; l < d.nl; ++l) {
+    const TcLayer& L = d.L[l];
+    if (!d.w_all) {  // one weight buffer: the previous layer is done with it
+      stage_weights(smem, params, L);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    const bool last = l == d.nl - 1;
+    if (L.dense) {
+      run_tc_layer<true>(smem, params, L, d.tail, last, n, ty0, tx0, y);
+    } else {
+      run_tc_layer<false>(smem, params, L, d.tail, last, n, ty0, tx0, y);
+    }
+    __syncthreads();
+  }
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+int run_tc(const void* x, int x_bf16, void* y, const unsigned char* params, const int* layers,
+           const float* alphas, int nl, int n, int h, int w, int tail, const int* geom,
+           cudaStream_t stream) {
+  TcDesc d;
+  d.nl = nl; d.n = n; d.h = h; d.w = w; d.cin = layers[1]; d.tail = tail;
+  d.tile_h = geom[CG_TILE_H]; d.tile_w = geom[CG_TILE_W]; d.w_all = geom[CG_W_ALL];
+  const int threads = geom[CG_THREADS], smem = geom[CG_SMEM], pbytes = geom[CG_PARAM_BYTES];
+  if (d.tile_h < 1 || d.tile_w < 1 || threads < 32 || threads % 32 ||
+      threads > SNN_TC_MAX_THREADS || smem < 0 || smem > SNN_MAX_SMEM)
+    return -5;
+  int A[SNN_MAX_LAYERS + 1], B[SNN_MAX_LAYERS + 1], Lp[SNN_MAX_LAYERS + 1], Rp[SNN_MAX_LAYERS + 1];
+  halo(layers, nl, A, B, Lp, Rp);
+  d.a0 = A[0]; d.l0 = Lp[0];
+  // Intervals of shared memory: (offset, bytes, slot). Two may overlap only
+  // where they share a slot: the regions of one ping-pong buffer, or every
+  // layer's weights when they take turns in one buffer.
+  long long iv[3 * SNN_MAX_LAYERS][3];
+  int niv = 0;
+  int hh = h, ww = w, c = d.cin;
+  for (int l = 0; l < nl; ++l) {
+    const int* r = layers + 8 * l;
+    const int* gl = geom + SNN_CG_FIELDS + SNN_CL_FIELDS * l;
+    TcLayer& L = d.L[l];
+    L.k = r[0]; L.c = r[1]; L.o = r[2]; L.act = r[7]; L.alpha = alphas[l];
+    if (L.c != c || L.k < 1 || L.o < 1 || L.o > 32 || L.c > 32) return -3;
+    hh = hh + r[3] + r[4] - L.k + 1;
+    ww = ww + r[5] + r[6] - L.k + 1;
+    if (hh < 1 || ww < 1) return -3;
+    L.h_out = hh; L.w_out = ww;
+    L.a_out = A[l + 1]; L.l_out = Lp[l + 1];
+    L.rows_in = d.tile_h + A[l] + B[l]; L.cols_in = d.tile_w + Lp[l] + Rp[l];
+    L.rows_out = d.tile_h + A[l + 1] + B[l + 1];
+    L.cols_out = d.tile_w + Lp[l + 1] + Rp[l + 1];
+    if ((long long)L.rows_in * L.cols_in >= (1 << 20)) return -5;
+    L.inv_cols = 1.f / (float)L.cols_out;
+    L.dense = L.c < 8;
+    // Unit layers: C padded to 8, rows an odd number of 16-byte units.
+    L.cs = gl[CL_CS];
+    if (L.dense ? L.cs != L.c : (L.cs < L.c || L.cs % 8 || (L.cs / 8) % 2 == 0)) return -5;
+    L.ksteps = L.dense ? (L.k * L.k * L.c + 15) / 16 : (L.k * L.k * ((L.c + 7) / 8) + 1) / 2;
+    L.nt = (L.o + 7) / 8;
+    L.ostride = gl[CL_OSTRIDE];
+    if (L.ostride < 8 * L.nt || L.ostride % 8) return -5;
+    L.w_bytes = L.ksteps * 16 * L.ostride * 2;
+    L.w_off = gl[CL_W_OFF]; L.ktab_off = gl[CL_KTAB_OFF];
+    L.pw = gl[CL_PW]; L.ps = gl[CL_PS];
+    if (L.pw < 0 || L.pw % 16 || L.pw + L.w_bytes > pbytes || L.ps < 0 || L.ps % 16 ||
+        L.ps + 64 * L.nt > pbytes)
+      return -5;
+    L.in_off = geom[l % 2 ? CG_BUF1 : CG_BUF0];
+    L.out_off = geom[l % 2 ? CG_BUF0 : CG_BUF1];
+    iv[niv][0] = L.in_off; iv[niv][1] = 2LL * L.rows_in * L.cols_in * L.cs; iv[niv++][2] = l % 2;
+    iv[niv][0] = L.w_off; iv[niv][1] = L.w_bytes; iv[niv++][2] = d.w_all ? 10 + l : 2;
+    iv[niv][0] = L.ktab_off; iv[niv][1] = (L.dense ? 64LL : 8LL) * L.ksteps; iv[niv++][2] = 20 + l;
+    c = L.o;
+  }
+  for (int l = 0; l + 1 < nl; ++l) {
+    d.L[l].ncs = d.L[l + 1].cs;
+    d.L[l].ndense = d.L[l + 1].dense;
+  }
+  if (tail == 1 && d.L[nl - 1].o != 1) return -3;
+  if (tail == 2 && d.L[nl - 1].o != 4) return -3;
+  for (int i = 0; i < niv; ++i) {
+    if (iv[i][0] < 0 || iv[i][0] % 16 || iv[i][0] + iv[i][1] > smem) return -2;
+    for (int j = 0; j < i; ++j)
+      if (iv[i][2] != iv[j][2] && iv[i][0] < iv[j][0] + iv[j][1] && iv[j][0] < iv[i][0] + iv[i][1])
+        return -2;
+  }
+  const int vec_x = x_bf16 && d.cin % 8 == 0 && aligned16(x);
+  cudaError_t err;
+  const TcLayer& last = d.L[nl - 1];
+  dim3 grid((last.w_out + d.tile_w - 1) / d.tile_w, (last.h_out + d.tile_h - 1) / d.tile_h, n);
+  if (x_bf16) {
+    auto kern = conv_chain_tc_kernel<bf16>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, threads, smem, stream>>>(static_cast<const bf16*>(x), static_cast<bf16*>(y),
+                                          params, vec_x, d);
+  } else {
+    auto kern = conv_chain_tc_kernel<float>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, threads, smem, stream>>>(static_cast<const float*>(x), static_cast<bf16*>(y),
+                                          params, 0, d);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -235,8 +655,7 @@ extern "C" {
 // params: device f32, per layer [w HWIO (k*k*c*o) | scale (o) | offset (o)].
 int snn_conv_chain(const void* x, int x_bf16, void* y, const float* params,
                    const int* layers, const float* alphas, int nl, int n,
-                   int h, int w, int compute_bf16, int tail, int tile_h,
-                   int tile_w, void* stream) {
+                   int h, int w, int tail, int tile_h, int tile_w, void* stream) {
   if (nl < 1 || nl > SNN_MAX_LAYERS) return -1;
   if (tile_h < 1 || tile_w < 1 || n < 1 || h < 1 || w < 1) return -4;
   ChainDesc d;
@@ -244,14 +663,7 @@ int snn_conv_chain(const void* x, int x_bf16, void* y, const float* params,
   d.tile_h = tile_h; d.tile_w = tile_w; d.tail = tail;
   int A[SNN_MAX_LAYERS + 1], B[SNN_MAX_LAYERS + 1];
   int Lp[SNN_MAX_LAYERS + 1], Rp[SNN_MAX_LAYERS + 1];
-  A[nl] = B[nl] = Lp[nl] = Rp[nl] = 0;
-  for (int l = nl - 1; l >= 0; --l) {
-    const int* r = layers + 8 * l;
-    A[l] = A[l + 1] + r[3];
-    B[l] = B[l + 1] + (r[0] - 1 - r[3]);
-    Lp[l] = Lp[l + 1] + r[5];
-    Rp[l] = Rp[l + 1] + (r[0] - 1 - r[5]);
-  }
+  halo(layers, nl, A, B, Lp, Rp);
   d.a0 = A[0]; d.l0 = Lp[0];
   int hh = h, ww = w, c = d.cin, p_off = 0, cur = 0;
   int buf_size[2] = {0, 0};
@@ -290,20 +702,32 @@ int snn_conv_chain(const void* x, int x_bf16, void* y, const float* params,
   const size_t smem = (size_t)cur * sizeof(float);
   if (smem > SNN_MAX_SMEM) return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    return compute_bf16 ? launch<__nv_bfloat16, true>(x, y, params, d, smem, s)
-                        : launch<__nv_bfloat16, false>(x, y, params, d, smem, s);
-  }
-  return compute_bf16 ? launch<float, true>(x, y, params, d, smem, s)
-                      : launch<float, false>(x, y, params, d, smem, s);
+  return x_bf16 ? launch<__nv_bfloat16>(x, y, params, d, smem, s)
+                : launch<float>(x, y, params, d, smem, s);
+}
+
+// The bf16 form. params: device bytes, per layer the B image (bf16, K rows
+// of ostride) and scale|offset (f32, nt * 8 each, zeros past o), at the
+// offsets of geom; geom: the wrapper's launch geometry (SNN_CG_FIELDS +
+// nl * SNN_CL_FIELDS ints; kernels/chain.py ChainLaunch).
+int snn_conv_chain_tc(const void* x, int x_bf16, void* y, const void* params,
+                      const int* layers, const float* alphas, int nl, int n, int h,
+                      int w, int tail, const int* geom, void* stream) {
+  if (nl < 1 || nl > SNN_MAX_LAYERS) return -1;
+  if (n < 1 || h < 1 || w < 1) return -4;
+  return run_tc(x, x_bf16, y, static_cast<const unsigned char*>(params), layers, alphas, nl,
+                n, h, w, tail, geom, static_cast<cudaStream_t>(stream));
 }
 
 const char* snn_error_string(int code) {
   switch (code) {
     case -1: return "number of layers outside [1, 8]";
-    case -2: return "shared memory of the chain tile exceeds 227 KB";
+    case -2: return "shared memory of the chain tile exceeds 227 KB, or the launch geometry's "
+                    "buffers overlap";
     case -3: return "layer shapes do not chain (channels, o > 32, output size or tail)";
     case -4: return "empty input or tile";
+    case -5: return "launch geometry outside the kernel (tile, threads, strides or parameter "
+                    "offsets)";
     default: return code > 0 ? cudaGetErrorString((cudaError_t)code) : "unknown error";
   }
 }

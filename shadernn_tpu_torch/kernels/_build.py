@@ -98,10 +98,15 @@ def kernel_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             P, I = ctypes.c_void_p, ctypes.c_int
             lib.snn_conv_chain.argtypes = [
-                P, I, P, P, ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_float), I, I, I, I, I, I, I, I, P,
+                P, I, P, P, ctypes.POINTER(I), ctypes.POINTER(ctypes.c_float),
+                I, I, I, I, I, I, I, P,
             ]
             lib.snn_conv_chain.restype = I
+            lib.snn_conv_chain_tc.argtypes = [
+                P, I, P, P, ctypes.POINTER(I), ctypes.POINTER(ctypes.c_float),
+                I, I, I, I, I, ctypes.POINTER(I), P,
+            ]
+            lib.snn_conv_chain_tc.restype = I
             lib.snn_conv_single.argtypes = [
                 P, I, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I,
                 ctypes.c_float, I, ctypes.POINTER(I), P,
@@ -118,7 +123,7 @@ def kernel_lib() -> ctypes.CDLL:
             ]
             lib.snn_conv_igemm.restype = I
             lib.snn_matmul_fused.argtypes = [
-                P, I, P, I, P, P, P, P, I, I, I, I, ctypes.c_float, I, P,
+                P, I, P, I, P, P, P, P, P, I, I, I, I, ctypes.c_float, I, ctypes.POINTER(I), P,
             ]
             lib.snn_matmul_fused.restype = I
             for name in ("snn_error_string", "snn_conv_single_error", "snn_invres_error",

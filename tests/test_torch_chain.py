@@ -122,12 +122,27 @@ def test_plan_declines_what_the_kernel_cannot_take(rng):
 
 
 def test_espcn_shared_memory_fits_two_ctas_per_sm():
+    """The f32 form's layout (the gate's term) fits two CTAs per SM; the
+    bf16 form at ESPCN 540p b8 keeps 16 warps per SM: its 32 x 32 tile
+    leaves room for one CTA, which then has 512 threads."""
     specs = [chain.ChainLayerSpec(5, 1, 16, 2, 2, 2, 2, "relu", 0.3),
              chain.ChainLayerSpec(3, 16, 16, 1, 1, 1, 1, "relu", 0.3),
              chain.ChainLayerSpec(3, 16, 4, 1, 1, 1, 1, "tanh", 0.3)]
     # weights 432 + 2336 + 584 floats; ping-pong regions 16*18*34 and 16*20*36
     assert chain.smem_bytes(specs) == 4 * (432 + 2336 + 584 + 9792 + 11520)
     assert 2 * chain.smem_bytes(specs) < 228 * 1024
+    geo = chain.launch_geometry(tuple(specs), 8, 540, 960, 132)
+    assert (geo.tile_h, geo.tile_w, geo.threads, geo.w_all) == (32, 32, 512, 1)
+    # The head packs its 25 taps into 2 k-steps; 16 channels pad to a pitch
+    # of 24 (3 units); regions 40x40x1 (layer 0) and 34x34x24 (layer 2) in
+    # buffer 0, 36x36x24 (layer 1) in buffer 1.
+    tls = chain.tc_layers(specs)
+    assert [(t.dense, t.cs, t.ksteps, t.nt, t.ostride) for t in tls] == [
+        (True, 1, 2, 2, 24), (False, 24, 9, 2, 24), (False, 24, 9, 1, 8)]
+    assert chain.regions(specs, 32, 32) == [(40, 40), (36, 36), (34, 34), (32, 32)]
+    assert geo.buf1 - geo.buf0 >= 2 * max(40 * 40 * 1, 34 * 34 * 24)
+    assert geo.smem - geo.buf1 == 2 * 36 * 36 * 24
+    assert geo.smem + 1024 > chain.SMEM_PER_SM // 2 and geo.smem <= chain.MAX_SMEM_BYTES
 
 
 def test_entry_points_reject_other_devices(rng):
@@ -139,3 +154,153 @@ def test_entry_points_reject_other_devices(rng):
         chain.fused_conv_chain(x, ops, specs)
     with pytest.raises(ValueError):
         chain.fused_conv_chain_packed(torch.zeros((1, 8, 8, 1)), ops, specs, tail="bogus")
+
+
+# The bf16 tensor-core form's launch geometry and packed weights. The kernel
+# itself is held against its plain version on the card (chip_smoke.py); here
+# the geometry is held to what csrc/conv_chain.cu checks and to covering each
+# final output once, for chains that the gate admits.
+
+ACTS = ["relu", "linear", "tanh", "sigmoid", "leaky_relu", "gelu", "relu6", "silu"]
+
+
+def _random_admitted(rng, cin, depth, tail):
+    """A chain of `depth` layers from `cin` channels that the gate admits
+    (k 1-9, o 1-32; the last o fixed by the tail), with random pads; None
+    when the gate declines it."""
+    nodes, c = [], cin
+    kmax, omax = int(rng.choice([3, 5, 9])), int(rng.choice([8, 16, 32]))
+    for i in range(depth):
+        k = int(rng.integers(1, kmax + 1))
+        o = int(rng.integers(1, omax + 1))
+        if i == depth - 1 and tail != "none":
+            o = 1 if tail == "c1" else 4
+        pad = "same" if rng.random() < 0.7 else "valid"
+        w = np.zeros((k, k, c, o), np.float32)
+        nodes.append(FakeNode(k, o, ACTS[int(rng.integers(len(ACTS)))], w, np.zeros(o, np.float32),
+                              padding=pad))
+        c = o
+    return chain.build_chain_specs(nodes, cin, torch.bfloat16, tail=tail)
+
+
+def _holds(geo, specs):
+    """csrc/conv_chain.cu run_tc's checks: strides, parameter offsets, every
+    buffer 16-byte aligned within the shared memory asked for, and no two
+    overlapping unless they take turns (one ping-pong buffer's regions, the
+    weights when staged layer by layer)."""
+    assert geo.smem <= chain.MAX_SMEM_BYTES and geo.threads % 32 == 0
+    regs = chain.regions(specs, geo.tile_h, geo.tile_w)
+    ivs = []
+    for l, (s, tl, lay) in enumerate(zip(specs, chain.tc_layers(specs), geo.layers)):
+        cs, ostride, w_off, ktab_off, pw, ps = lay
+        assert tl.dense == (s.c < 8) and cs == (s.c if s.c < 8 else 8 * (-(-s.c // 8) | 1))
+        assert ostride >= 8 * tl.nt and ostride % 8 == 0 and (ostride // 8) % 2 == 1
+        assert pw % 16 == 0 and pw + tl.w_bytes <= geo.param_bytes
+        assert ps % 16 == 0 and ps + 64 * tl.nt <= geo.param_bytes
+        rows, cols = regs[l]
+        ivs.append(((geo.buf1 if l % 2 else geo.buf0), 2 * rows * cols * cs, l % 2))
+        ivs.append((w_off, tl.w_bytes, 10 + l if geo.w_all else 2))
+        ivs.append((ktab_off, tl.ktab_bytes, 20 + l))
+    for i, (off, size, slot) in enumerate(ivs):
+        assert off % 16 == 0 and 0 <= off and off + size <= geo.smem, (i, off, size, geo.smem)
+        for off2, size2, slot2 in ivs[:i]:
+            assert slot == slot2 or off >= off2 + size2 or off2 >= off + size, (geo, ivs)
+
+
+def _covers_once(geo, specs, n, h, w):
+    ho, wo = chain._out_hw(h, w, specs)
+    hits = np.zeros((ho, wo), np.int32)
+    for by in range(-(-ho // geo.tile_h)):
+        for bx in range(-(-wo // geo.tile_w)):
+            hits[by * geo.tile_h:(by + 1) * geo.tile_h, bx * geo.tile_w:(bx + 1) * geo.tile_w] += 1
+    assert (hits == 1).all() and geo.tile_h <= ho and geo.tile_w <= wo
+
+
+@pytest.mark.parametrize("depth", range(1, 9))
+@pytest.mark.parametrize("tail", list(chain.TAILS))
+def test_tc_geometry_of_admitted_chains_fits_and_covers_each_output_once(depth, tail):
+    """k 1-9, C 1-32, o 1-32, random pads, every tail, images from 1x1 up to
+    540p and batches 1-64: the bf16 launch fits 227 KB with the layout the
+    kernel checks, and its tiles write each final output exactly once."""
+    rng = np.random.default_rng(1000 * depth + chain.TAILS[tail])
+    seen = 0
+    while seen < 25:
+        cin = int(rng.integers(1, 33))
+        specs = _random_admitted(rng, cin, depth, tail)
+        if specs is None:
+            continue
+        n = int(rng.choice([1, 3, 8, 64]))
+        h, w = (int(v) for v in rng.choice([1, 2, 5, 17, 32, 64, 101, 540], 2))
+        h += sum(s.k - 1 - s.pt - s.pb for s in specs)  # "valid" layers shrink the image
+        w += sum(s.k - 1 - s.pl - s.pr for s in specs)
+        geo = chain.launch_geometry(tuple(specs), n, h, w, 132)
+        _holds(geo, specs)
+        _covers_once(geo, specs, n, h, w)
+        seen += 1
+
+
+def test_tc_geometry_at_the_gate_limits():
+    """The chains the gate admits with the most weights or the widest
+    regions still fit the bf16 form (weights staged layer by layer where
+    they do not all fit beside the regions)."""
+    for specs in (
+        [chain.ChainLayerSpec(5, 32, 32, 2, 2, 2, 2, "relu", 0.3)],
+        [chain.ChainLayerSpec(9, 1, 32, 4, 4, 4, 4, "relu", 0.3),
+         chain.ChainLayerSpec(9, 32, 1, 4, 4, 4, 4, "relu", 0.3)],
+        [chain.ChainLayerSpec(3, 32, 32, 1, 1, 1, 1, "relu", 0.3)] * 2,
+        [chain.ChainLayerSpec(9, 8, 8, 4, 4, 4, 4, "relu", 0.3)] * 8,
+    ):
+        if chain.smem_bytes(specs) > chain.MAX_SMEM_BYTES:
+            continue
+        for n, h, w in ((8, 540, 960), (1, 3, 3), (64, 32, 32)):
+            geo = chain.launch_geometry(tuple(specs), n, h, w, 132)
+            _holds(geo, specs)
+            _covers_once(geo, specs, n, h, w)
+
+
+@pytest.mark.parametrize("c", range(1, 33))
+def test_dense_taps_for_fewer_than_8_channels(c):
+    """C < 8 packs taps densely into K (ESPCN's head: 25 taps in 2 k16
+    steps, not 13); C >= 8 walks units of 8 channels, C padded to 8."""
+    for k in (1, 3, 5, 9):
+        tl = chain.tc_layers([chain.ChainLayerSpec(k, c, 16, 0, k - 1, 0, k - 1, "relu", 0.3)])[0]
+        assert tl.dense == (c < 8)
+        want = -(-(k * k * c) // 16) if c < 8 else -(-(k * k * -(-c // 8)) // 2)
+        assert tl.ksteps == want
+    if c == 1:
+        assert chain.tc_layers([chain.ChainLayerSpec(5, 1, 16, 2, 2, 2, 2, "relu", 0.3)])[0].ksteps == 2
+
+
+@pytest.mark.parametrize("c,o,k", [(1, 16, 5), (3, 20, 3), (16, 16, 3), (12, 4, 2), (32, 32, 1), (24, 9, 4)])
+def test_packed_weights_follow_the_kernel_k_order(rng, c, o, k):
+    """pack_params lays out each layer's B image in the K order the kernel
+    walks (tap-major; channels padded to 8 unless C < 8), so that im2col
+    rows in that order times the image are the convolution, and scale and
+    offset sit behind it, zeros past o."""
+    spec = chain.ChainLayerSpec(k, c, o, (k - 1) // 2, k // 2, (k - 1) // 2, k // 2, "linear", 0.3)
+    p = {"w": torch.from_numpy(rng.standard_normal((k, k, c, o)).astype(np.float32)),
+         "scale": torch.from_numpy(rng.standard_normal(o).astype(np.float32)),
+         "offset": torch.from_numpy(rng.standard_normal(o).astype(np.float32))}
+    tl = chain.tc_layers([spec])[0]
+    packed = chain.pack_params([p], [spec])
+    [(pw, ps)], total = chain.param_layout([spec])
+    assert packed.numel() == total
+    img = packed[pw:pw + tl.w_bytes].view(torch.bfloat16).float().reshape(16 * tl.ksteps, tl.ostride)
+    so = packed[ps:ps + 64 * tl.nt].view(torch.float32).reshape(2, 8 * tl.nt)
+    assert torch.equal(so[0, :o], p["scale"]) and not so[:, o:].any() and not img[:, o:].any()
+    x = torch.from_numpy(rng.standard_normal((1, 6, 7, c)).astype(np.float32)).to(torch.bfloat16).float()
+    xp = torch.nn.functional.pad(x, (0, 0, spec.pl, spec.pr, spec.pt, spec.pb))
+    cols = []
+    for dy in range(k):
+        for dx in range(k):
+            patch = xp[0, dy:dy + 6, dx:dx + 7, :]
+            if not tl.dense:
+                patch = torch.nn.functional.pad(patch, (0, -c % 8))
+            cols.append(patch.reshape(42, -1))
+    a = torch.cat(cols, 1)
+    a = torch.nn.functional.pad(a, (0, 16 * tl.ksteps - a.shape[1]))
+    got = (a.double() @ img.double()[:, :o]).reshape(1, 6, 7, o)
+    wb = p["w"].to(torch.bfloat16).double()
+    ref = sum(torch.einsum("hwc,co->hwo", xp[0, dy:dy + 6, dx:dx + 7].double(), wb[dy, dx])
+              for dy in range(k) for dx in range(k))
+    assert torch.allclose(got[0], ref, atol=1e-9)

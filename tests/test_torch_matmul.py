@@ -147,3 +147,59 @@ def test_dense_on_the_kernel_backend_matches_torch(rng, act, prec):
     assert got.dtype == want.dtype == tdt and tuple(got.shape) == (3, 7)
     assert (got.float() - want.float()).abs().max().item() <= TOL[prec] * max(
         1.0, want.float().abs().max().item())
+
+
+def _holds(geo, m, k, n, bf16):
+    """csrc/matmul_fused.cu's checks of the launch geometry."""
+    esz = 2 if bf16 else 4
+    assert geo.bn in (16, 32, 64) and geo.bk % 16 == 0 and geo.split in (1, 2, 4, 8)
+    if bf16:
+        assert 16 <= geo.mb <= 64 and geo.mb % 16 == 0
+    else:
+        assert 1 <= geo.mb <= 16 and matmul.THREADS % geo.bn == 0
+    assert geo.xstride >= geo.bk and geo.wstride >= geo.bn
+    assert (geo.xstride * esz) % 16 == 0 and (geo.wstride * esz) % 16 == 0
+    groups = 64 // geo.bn if bf16 else matmul.THREADS // geo.bn
+    ends = [(geo.xs_off, geo.xs_off + 2 * geo.mb * geo.xstride * esz),
+            (geo.ws_off, geo.ws_off + 2 * geo.bk * geo.wstride * esz),
+            (geo.red_off, geo.red_off + 4 * groups * geo.mb * geo.bn),
+            (geo.part_off, geo.part_off + 4 * geo.mb * geo.bn),
+            (geo.so_off, geo.so_off + 8 * geo.bn)]
+    prev = 0
+    for lo, hi in ends:
+        assert lo % 16 == 0 and lo >= prev
+        prev = hi
+    assert prev <= geo.smem <= matmul.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 1, 1), (8, 512, 10), (64, 128, 10), (8, 1280, 1000), (1, 300, 7), (5, 77, 1001),
+    (9, 1, 40), (33, 70, 130), (130, 1500, 2100), (1, 1500, 2100), (130, 1, 7), (65, 700, 64),
+    (17, 33, 1001), (16, 16, 16), (100, 1024, 33),
+])
+def test_geometry_covers_every_output_once(m, k, n, bf16):
+    """M 1-130, K 1-1500, N 1-2100, at the chosen split and at every other:
+    the grid's row and column blocks hold each (row, column) once, the
+    cluster's ranks cut K into disjoint ranges that cover it, the layout
+    holds its buffers within 227 KB, and a softmax whose row spans several
+    column blocks (N = 2100: 33 of them) is the one that takes the scratch."""
+    chosen = matmul.launch_geometry(m, k, n, bf16, 132)
+    for split in sorted({chosen.split, 1, 2, 4, 8}):
+        geo = matmul.launch_geometry(m, k, n, bf16, 132, split)
+        _holds(geo, m, k, n, bf16)
+        cols, rows = geo.blocks(m, n)
+        hits = np.zeros((m, n), np.int32)
+        for rb in range(rows):
+            for cb in range(cols):
+                hits[rb * geo.mb:(rb + 1) * geo.mb, cb * geo.bn:(cb + 1) * geo.bn] += 1
+        assert (hits == 1).all()
+        covered = np.zeros(k, np.int32)
+        for lo, hi in geo.k_ranges(k):
+            assert 0 <= lo <= hi <= k and (lo % 16 == 0 or lo == k)
+            covered[lo:hi] += 1
+        assert (covered == 1).all()
+        assert (cols > 1) == (n > geo.bn)
+    cols, rows = chosen.blocks(m, n)
+    assert chosen.split == 1 or (cols * rows * chosen.split // 2 < 132
+                                 and (chosen.split // 2) * chosen.bk < k)
