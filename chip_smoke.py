@@ -51,13 +51,38 @@ Phases, each of which raises on failure (exit code != 0):
               Outputs are checked against the port's plain (TORCH backend)
               forward on the card (the classifiers on probabilities and
               logits)
+  3b/4b int8  every configuration above (ESPCN, MobileNetV2 224 with a
+              linear head, the trained MobileNetV2, the trained ResNet18
+              under AUTO with a linear head; forced to KERNEL the zoo-width
+              ResNet18 and the two-input graph) under Precision.INT8,
+              weight-only, and (but the last two) calibrated on the card over
+              a batch drawn from seed 7 (absolute-max ranges, as the JAX
+              package's INT8 gates calibrate). [kernel] cases of every int8 form at
+              the plans' geometries with the models' quantized weights: the
+              chain with int8 weights (ESPCN, the trained ResNet18's chains)
+              and with a8 layers (ESPCN's plan; a chain whose head quantizes
+              the frame), every block of both MobileNetV2s weight-only and
+              A8W8, the single convs of the trained ResNet18 and the trained
+              MobileNetV2's stem, the two-input conv and both ResNet18 heads
+              with int8 weights; planted faults (a chain layer's in_q
+              halved, a block's ax2 doubled, a single conv's weight_scale
+              zeroed) must be caught. Each path: launches per step held to
+              its plans, outputs to the port's TORCH INT8 forward; ESPCN's
+              weight-only PSNR against FP32 > 30 dB and a8 within 0.1 of
+              weight-only; both trained classifiers' top-1 >= their FP32
+              top-1 - 0.05; ResNet18 with >= 5 nodes stamped
   5. timing   kernel, plain version and a library yardstick (cuDNN, cuBLAS),
               each from CUDA events around back-to-back calls and as device time from
               torch.profiler; the bound. The chain at ESPCN 540p (b1, b8) and at
               the trained ResNet18's chain (b64); per-step sums: the 11 block
               launches of a MobileNetV2 224 b8 step, the 8 single-conv launches of
               a ResNet18 zoo-width b8 step; the fused matmul at the three heads,
-              each call's device work held to one kernel
+              each call's device work held to one kernel. INT8: the chain at
+              ESPCN 540p b8 with int8 weights and with a8 layers, the 11 blocks
+              of a MobileNetV2 224 b8 step weight-only and A8W8, the
+              single-conv launches of an INT8 step of each trained
+              classifier (b64), each beside its bf16 form, bound at the int8
+              peak for s8 products
 Prints the `kernels` JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Imports no JAX and nothing of
 the JAX package. Exits non-zero without printing a result when no CUDA
@@ -66,6 +91,8 @@ device is present or when the port's package is not beside this script.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import re
@@ -73,6 +100,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 STEPS = 5
@@ -144,9 +172,12 @@ def main() -> int:
         ESPCN_TRAINED, MOBILENETV2_TRAINED, RESNET18_TRAINED,
     )
     from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
-    from shadernn_tpu_torch.ops.conv import folded_operands, full_precision
+    from shadernn_tpu_torch.ops.conv import a8w8_engaged, folded_operands, full_precision
+    from shadernn_tpu_torch.ops.registry import RunCtx
     from shadernn_tpu_torch.ops.shape_ops import depth_to_space
+    from shadernn_tpu_torch.quant.calibrate import calibrate_activations
     from shadernn_tpu_torch.tools.train_resnet18 import synth_cls
+    from shadernn_tpu_torch.utils.metrics import psnr
 
     dev = torch.device("cuda", 0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -171,7 +202,9 @@ def main() -> int:
             m = re.search(r"\d+([a-z_]+_kernel)(\w*)'", line)
             args = m.group(2).split("Ev", 1)[0] if m and m.group(2).startswith("I") else ""
             targs = re.findall(r"Li(\d+)E", args) + (
-                ["bf16"] if "bfloat16" in args else ["f32"] if "EfE" in args else [])
+                ["bf16"] if "bfloat16" in args else
+                ["f32"] if re.search(r"(?:^I|E)f(?:E|L)", args) else []) + (
+                ["int8"] if "Lb1E" in args else [])
             kernel_name = (m.group(1) + (f"<{','.join(targs)}>" if targs else "")) if m else ""
         elif "registers" in line or "spill" in line:
             log(f"[build] {kernel_name:<32} {line.strip()}")
@@ -551,7 +584,7 @@ def main() -> int:
             t = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
             if t > 0:
                 per[ev.key] = per.get(ev.key, 0.0) + t / 1e3 / reps
-        top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+        top = sorted(per.items(), key=lambda kv: -kv[1])
         return sum(per.values()), top
 
     def device_busy(eng, inputs, steps=5):
@@ -591,7 +624,7 @@ def main() -> int:
         idle = f"{1 - busy_ms / bench['p50_ms']:.3f}" if busy_ms else "not measured"
         log(f"[main] espcn 540p b8 {prec.value} torch.profiler: device busy {busy_ms:.3f} ms per "
             f"step, idle share {idle} of the p50 step; top kernels "
-            + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top_kernels))
+            + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top_kernels[:6]))
         assert err <= tol, f"{prec.value}: engine output disagrees with the plain forward"
         main_stats[entry] = {"launches": counts[entry], "max_abs_err": err,
                              "engine_p50_ms": bench["p50_ms"], "device_busy_ms": busy_ms}
@@ -646,7 +679,7 @@ def main() -> int:
         idle = f"{1 - busy_ms / bench['p50_ms']:.3f}" if busy_ms else "not measured"
         log(f"[main] mobilenetv2 224 b8 {prec.value} torch.profiler: device busy "
             f"{busy_ms:.3f} ms per step, idle share {idle} of the p50 step; top kernels "
-            + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top_kernels))
+            + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top_kernels[:6]))
         assert err <= tol, f"{prec.value}: MobileNetV2 probabilities disagree with TORCH"
         assert err_logits <= tol * scale, f"{prec.value}: MobileNetV2 logits disagree with TORCH"
         assert top >= 1.0, f"{prec.value}: logits of {top:.3e} would hold nothing"
@@ -700,12 +733,22 @@ def main() -> int:
         assert got == {k: v * steps for k, v in want.items()}, (got, want, steps)
         return want
 
+    # The hand-written kernels' names, as the profiler gives them.
+    PORTED = re.compile(r"\b(conv_chain(_tc)?|conv_single(_tc)?|invres(_tc)?|conv_igemm|"
+                        r"matmul_fused)_kernel\b")
+
     def busy_text(eng, inputs, p50):
+        """Device time per step, split into the hand-written kernels and
+        the rest (the TORCH layers: cuDNN, the int8 im2col and
+        torch._int_mm, quantization, casts), and the top events."""
         busy_ms, top_kernels = device_busy(eng, inputs)
         idle = f"{1 - busy_ms / p50:.3f}" if busy_ms else "not measured"
-        return busy_ms, (f"torch.profiler: device busy {busy_ms:.3f} ms per step, idle share "
-                         f"{idle} of the p50 step; top kernels "
-                         + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top_kernels))
+        ported = sum(v for k, v in top_kernels if PORTED.search(k))
+        return busy_ms, (f"torch.profiler: device busy {busy_ms:.3f} ms per step (hand-written "
+                         f"kernels {ported:.3f} ms, TORCH layers and the rest "
+                         f"{busy_ms - ported:.3f} ms), idle share {idle} of the p50 step; top "
+                         "kernels " + "; ".join(f"{k[:60]} {v:.3f} ms"
+                                                for k, v in top_kernels[:6]))
 
     forced = BackendKind.KERNEL
     # ResNet18 at the zoo width (64/128/256/512, 32x32x3, 10 classes), seeded
@@ -890,6 +933,375 @@ def main() -> int:
                                  "max_abs_diff": err, "planted_fault_diff": err_fault}
         del eng, y, plain
 
+    # 3b/4b. INT8 ------------------------------------------------------------
+    # Each configuration weight-only (int8 weights, per-channel scales) and
+    # calibrated (int8 activations where the plans set them), calibration on
+    # the card over a batch drawn from seed 7, disjoint from the evaluation
+    # inputs. Every path is held against the port's TORCH INT8 forward of
+    # the same quantized (and calibrated) graph; its launches to its plans.
+    I8 = Precision.INT8
+
+    def int8_engines(graph, batch, calib, backend=BackendKind.AUTO):
+        """((weight-only engine, its TORCH forward), (calibrated engine, its
+        TORCH forward) or None). The calibrated pair runs on a copy of the
+        graph: calibration stamps scales on the graph it reads."""
+        opts = EngineOptions(precision=I8, batch_size=batch, backend=backend)
+        plain = EngineOptions(precision=I8, batch_size=batch, backend=BackendKind.TORCH)
+        w = Engine.from_graph(graph, opts)
+        pair_w = (w, Engine.from_graph(w.graph, plain, optimize=False))
+        if calib is None:
+            return pair_w, None
+        src = types.SimpleNamespace(graph=copy.deepcopy(w.graph), options=opts)
+        # Absolute-max ranges, as the JAX package's INT8 gates calibrate.
+        calibrate_activations(src, calib, percentile=None)
+        return pair_w, (Engine.from_graph(src.graph, opts, optimize=False),
+                        Engine.from_graph(src.graph, plain, optimize=False))
+
+    def int8_block_cases(eng, batch, tag):
+        """(label, spec, ops, batch) of every block of an INT8 engine's plan,
+        built from its graph as its forward builds them."""
+        out = []
+        act_scale = lambda n: float(n.attrs.get("act_scale", 0.0) or 0.0)  # noqa: E731
+        for head, spec in eng.model.forward.block_specs.items():
+            node = eng.graph.nodes[head]
+            m = invres.match_invres_block(eng.graph, node if node.op == "SeparableConv2D" else
+                                          eng.graph.consumers(head)[0])
+            in_node = eng.graph.nodes[m[0].inputs[0] if m[0] is not None else m[1].inputs[0]]
+            ops, built = invres.build_invres(m, in_node.out_spec, bf16, act_scale(in_node), True)
+            assert built == spec, (built, spec)
+            form = ("a8w8" if spec.ax1 or spec.ax2 else "w8") + (
+                f" ax1 {spec.ax1:.4g}" if spec.ax1 else "") + (
+                f" ax2 {spec.ax2:.4g}" if spec.ax2 else "")
+            out.append((f"{tag} {head} {geometry(spec)} {form}", spec,
+                        {k: v.to(dev) for k, v in ops.items()}, batch))
+        return out
+
+    calib_rng = np.random.default_rng(7)
+    i8_frames_cal = [{"input": calib_rng.random((8, 540, 960, 1), dtype=np.float32)}]
+    i8_images_cal = [{"input": calib_rng.random((8, 224, 224, 3), dtype=np.float32)}]
+    i8_cls_cal = [{"input": synth_cls(np.random.default_rng(7), 64)[0]}]
+
+    def linear_head(g):
+        g.nodes["fc"].attrs["activation"] = "linear"
+        return g
+
+    espcn_i8 = int8_engines(parse_model_file(ESPCN_TRAINED, input_hw=(540, 960)), 8,
+                            i8_frames_cal)
+    # The classifiers with a linear head: held to the TORCH forward on their
+    # logits (0.1 x max|logit|), scored on the logits' argmax.
+    mnv2_i8 = int8_engines(linear_head(mobilenetv2_224()), 8, i8_images_cal)
+    cls10_i8 = int8_engines(linear_head(parse_model_file(MOBILENETV2_TRAINED)), 64, i8_cls_cal)
+    r18_i8 = int8_engines(linear_head(parse_model_file(RESNET18_TRAINED)), 64, i8_cls_cal)
+    r18zoo_i8, _ = int8_engines(linear_head(seeded_batchnorm(build_resnet18_cifar10(), 1.2)), 8,
+                                None, forced)
+    two_i8, _ = int8_engines(two_input_graph(), TWO_INPUT[0], None, forced)
+
+    # [kernel] cases of the INT8 forms at the paths' own geometries, from
+    # their plans and their quantized weights.
+    i8_err = {"chain_w8": 0.0, "chain_a8": 0.0, "block_w8": 0.0, "block_a8w8": 0.0,
+              "single_w8": 0.0, "igemm_w8": 0.0, "matmul_w8": 0.0}
+
+    def chain_held(label, eng, head, shape, x_dts=(f32, bf16), entry="fused_conv_chain_packed",
+                   tail="d2s2"):
+        fwd = eng.model.forward
+        specs = fwd.chain_specs[head]
+        conv_nodes = [eng.graph.nodes[n] for n in fwd.chain_plan[head]
+                      if eng.graph.nodes[n].op == "Conv2D"]
+        ops = on_dev(chain.chain_operands(conv_nodes, bf16, specs))
+        assert all(p["w"].dtype == torch.int8 for p in ops)
+        err = 0.0
+        for x_dt in x_dts:
+            x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev, x_dt)
+            got = getattr(chain, entry)(x, ops, specs, tail=tail, compute_dtype=bf16)
+            torch.cuda.synchronize()
+            tag = f" x {'bf16' if x_dt == bf16 else 'f32'}"
+            err = max(err, held(label + tag, entry, got,
+                                chain.conv_chain_reference(x, ops, specs, tail, bf16), bf16))
+        return err, specs, ops
+
+    (espcn_w, _), (espcn_c, _) = espcn_i8
+    assert not any(s.in_q for s in espcn_w.model.forward.chain_specs["conv_1"])
+    espcn_in_q = [s.in_q for s in espcn_c.model.forward.chain_specs["conv_1"]]
+    assert espcn_in_q[0] == 0 and all(espcn_in_q[1:]), espcn_in_q  # C = 1 head: bf16
+    i8_err["chain_w8"], espcn_w8_specs, espcn_w8_ops = chain_held(
+        "int8 w espcn 540x960 b8", espcn_w, "conv_1", (8, 540, 960, 1))
+    i8_err["chain_a8"], espcn_a8_specs, espcn_a8_ops = chain_held(
+        f"a8 in_q {[round(q, 5) for q in espcn_in_q]} espcn 540x960 b8", espcn_c, "conv_1",
+        (8, 540, 960, 1))
+    # A chain whose head takes the frame as int8 (ESPCN's head never does).
+    head_nodes = random_chain([(3, 16, "relu6"), (3, 8, "tanh"), (3, 1, "linear")], 8)
+    for n in head_nodes:
+        n.name = "n"
+        n.params = {"weight_q": np.clip(np.round(n.params["weight"] / (np.abs(
+            n.params["weight"]).max((0, 1, 2), keepdims=True) / 127)), -127, 127).astype(np.int8),
+            "weight_scale": (np.abs(n.params["weight"]).max((0, 1, 2), keepdims=True) / 127
+                             ).astype(np.float32), "bias": n.params["bias"]}
+    head_specs = chain.a8_scales(head_nodes, chain.build_chain_specs(
+        head_nodes, 8, bf16, tail="c1"), head_from_frame=True)[0]
+    assert [s.in_q for s in head_specs] == [1 / 127, 6 / 127, 1 / 127], head_specs
+    head_ops = on_dev(chain.chain_operands(head_nodes, bf16, head_specs))
+    for shape in ((2, 47, 61, 8), (1, 5, 7, 8)):
+        for x_dt in (f32, bf16):
+            x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev, x_dt)
+            got = chain.fused_conv_chain_packed(x, head_ops, head_specs, tail="c1",
+                                                compute_dtype=bf16)
+            torch.cuda.synchronize()
+            i8_err["chain_a8"] = max(i8_err["chain_a8"], held(
+                f"a8 int8 head C8 {shape[1]}x{shape[2]} b{shape[0]} x "
+                f"{'bf16' if x_dt == bf16 else 'f32'}", "fused_conv_chain_packed", got,
+                chain.conv_chain_reference(x, head_ops, head_specs, "c1", bf16), bf16))
+    # The trained ResNet18's chains (tail none, the im2col entry: int8
+    # weights, no a8), its single convs and the trained MobileNetV2's stem
+    # with int8 weights; every block of both MobileNetV2s weight-only and
+    # A8W8; the two-input conv and both ResNet18 heads with int8 weights.
+    (r18_w, _), (r18_c, _) = r18_i8
+    for head in r18_c.model.forward.chain_plan:
+        s = r18_c.graph.nodes[r18_c.graph.nodes[head].inputs[0]].out_spec
+        err, _, _ = chain_held(f"int8 w resnet18 cls10 chain {head} {s.h}x{s.w} b64", r18_c, head,
+                               (64, s.h, s.w, s.c), (bf16,), "fused_conv_chain", "none")
+        i8_err["chain_w8"] = max(i8_err["chain_w8"], err)
+    i8_single_cases = {}
+    (cls10_w, _), (cls10_c, _) = cls10_i8
+    for tag, eng, nb in (("resnet18 cls10", r18_c, 64), ("mobilenetv2 cls10", cls10_c, 64)):
+        for name_ in eng.model.forward.single_conv_plan:
+            node = eng.graph.nodes[name_]
+            s = eng.graph.nodes[node.inputs[0]].out_spec
+            k, o = int(node.attr("kernel_size")), int(node.attr("out_channels"))
+            act = str(node.attr("activation", "linear"))
+            ops = tuple(t.to(dev) for t in folded_operands(node, bf16))
+            assert ops[0].dtype == torch.int8
+            i8_single_cases.setdefault(f"int8 w {tag} k{k} c{s.c}->{o} {s.h}x{s.w} {act}", (
+                nb, s.h, s.w, ops, padding_offsets(node.attr("padding", "same"), k), act))
+    for label, (nb, h, w, (wts, sc, of), pads, act) in i8_single_cases.items():
+        for x_dt in (f32, bf16):
+            x = torch.from_numpy(rng.random((nb, h, w, wts.shape[2]), dtype=np.float32)
+                                 ).to(dev, x_dt)
+            got = conv.fused_conv2d_haloed(x, wts, sc, of, pads, act, 0.3, bf16)
+            torch.cuda.synchronize()
+            i8_err["single_w8"] = max(i8_err["single_w8"], held(
+                f"{label} b{nb} x {'bf16' if x_dt == bf16 else 'f32'}", "fused_conv2d_haloed",
+                got, conv.conv2d_haloed_reference(x, wts, sc, of, pads, act, 0.3, bf16), bf16))
+    (mnv2_w, _), (mnv2_c, _) = mnv2_i8
+    i8_blocks = {}
+    for eng, nb, tag in ((mnv2_w, 8, "mnv2 224"), (mnv2_c, 8, "mnv2 224"),
+                         (cls10_w, 64, "cls10"), (cls10_c, 64, "cls10")):
+        cases = int8_block_cases(eng, nb, tag)
+        assert len(cases) == (11 if nb == 8 else 13), len(cases)
+        i8_blocks[(tag, eng is mnv2_c or eng is cls10_c)] = cases
+        for label, spec, ops, nb_ in cases:
+            x = torch.from_numpy(rng.standard_normal((nb_, spec.h, spec.w, spec.cin))
+                                 .astype(np.float32)).to(dev, bf16)
+            got = invres.fused_invres_block(x, ops, spec)
+            torch.cuda.synchronize()
+            key = "block_a8w8" if spec.ax1 or spec.ax2 else "block_w8"
+            i8_err[key] = max(i8_err[key], held(
+                f"{label} b{nb_}", "fused_invres_block", got,
+                invres.invres_block_reference(x, ops, spec), bf16))
+    for tag, n_ax1 in (("mnv2 224", 11), ("cls10", 12)):  # cls10's t=1 block has no expand
+        planned = [s for _l, s, _o, _n in i8_blocks[(tag, True)]]
+        assert all(s.ax2 for s in planned) and sum(bool(s.ax1) for s in planned) == n_ax1, planned
+        assert not any(s.ax1 or s.ax2 for _l, s, _o, _n in i8_blocks[(tag, False)])
+    two_node = two_i8[0].graph.nodes["conv"]
+    two_ops = tuple(t.to(dev) for t in folded_operands(two_node, bf16))
+    assert two_ops[0].dtype == torch.int8
+    x = tensor(rng.random(TWO_INPUT[:3] + (TWO_INPUT[3],)), bf16)
+    got = conv_igemm.conv2d_kernel_nhwc(x, *two_ops, stride=1, pads=(1, 1, 1, 1), activation="relu")
+    torch.cuda.synchronize()
+    i8_err["igemm_w8"] = held("int8 w two-input k3 c8->16 540x960 b8", "conv2d_kernel_nhwc", got,
+                              conv_igemm.conv2d_igemm_reference(x, *two_ops, 1, (1, 1, 1, 1),
+                                                                "relu"), bf16)
+    for tag, eng, m in (("resnet18 zoo fc", r18zoo_i8[0], 8), ("resnet18 cls10 fc", r18_c, 64)):
+        fc = eng.graph.nodes["fc"]
+        fc_ops = tuple(t.to(dev) for t in folded_operands(fc, bf16))
+        assert fc_ops[0].dtype == torch.int8
+        x = tensor(rng.standard_normal((m, fc_ops[0].shape[0])), bf16)
+        for act in ("linear", "softmax"):
+            got = matmul.fused_matmul(x, *fc_ops, activation=act)
+            torch.cuda.synchronize()
+            i8_err["matmul_w8"] = max(i8_err["matmul_w8"], held(
+                f"int8 w {tag} {m}x{fc_ops[0].shape[0]}x{fc_ops[0].shape[1]} {act}",
+                "fused_matmul", got, matmul.fused_matmul_reference(x, *fc_ops, act), bf16))
+
+    # Planted faults the [kernel] checks must catch: a chain layer's in_q
+    # halved (the kernel quantizes by 2/in_q, the epilogue keeps in_q), one
+    # block's ax2 doubled.
+    def caught(label, entry, got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL_BF16 * max(1.0, want.float().abs().max().item())
+        log(f"[kernel] planted fault: {label:<40} {entry:<24} max_abs_diff {err:.3e} tol "
+            f"{tol:.1e} {'caught' if err > tol else 'MISSED'}")
+        assert err > tol, f"planted fault missed: {label}"
+        return err
+
+    x = torch.from_numpy(frames).to(dev)
+    bad = list(espcn_a8_specs)
+    bad[1] = dataclasses.replace(bad[1], in_q=bad[1].in_q / 2)
+    fault_errs = {"chain_in_q_halved": caught(
+        "espcn layer 2 in_q halved 540x960 b8", "fused_conv_chain_packed",
+        chain.fused_conv_chain_packed(x, espcn_a8_ops, bad, tail="d2s2", compute_dtype=bf16),
+        chain.conv_chain_reference(x, espcn_a8_ops, espcn_a8_specs, "d2s2", bf16))}
+    label, spec, ops, nb_ = i8_blocks[("mnv2 224", True)][0]
+    x = torch.from_numpy(rng.standard_normal((nb_, spec.h, spec.w, spec.cin))
+                         .astype(np.float32)).to(dev, bf16)
+    fault_errs["block_ax2_doubled"] = caught(
+        f"mnv2 224 {label.split()[2]} ax2 doubled", "fused_invres_block",
+        invres.fused_invres_block(x, ops, dataclasses.replace(spec, ax2=2 * spec.ax2)),
+        invres.invres_block_reference(x, ops, spec))
+
+    # The INT8 main paths.
+    def torch_a8w8_layers(graph):
+        """The Conv2D/Dense nodes that the TORCH INT8 forward of a graph runs
+        A8W8 (ops/conv.py a8w8_engaged); the others take their int8 weights
+        dequantized to bf16 and bf16 activations."""
+        out, ctx = [], RunCtx(precision=I8)
+        for n in graph.nodes.values():
+            if n.op not in ("Conv2D", "Dense") or "weight_q" not in n.params:
+                continue
+            w = n.params["weight_q"]
+            k, cin = (int(n.attr("kernel_size")), w.shape[2]) if n.op == "Conv2D" else (1, w.shape[0])
+            if a8w8_engaged(n, ctx, k, cin, w.shape[-1]):
+                out.append(n.name)
+        return out
+
+    def run_path(label, pair_, inputs, steps=STEPS, key=None, batches=None):
+        """Run an INT8 path `steps` times with the counts set to 0 just
+        before and read just after; hold its launches to its plans and its
+        outputs to its TORCH INT8 forward (logits or frames; 0.1 x
+        max(1, max|TORCH|)). Returns (outputs, per-step launches, error)."""
+        eng, ref = pair_
+        fwd = eng.model.forward
+        feeds = batches or [inputs] * steps
+        reset_counts()
+        outs = [eng.run(f) for f in feeds]
+        counts = read_counts()
+        per_step = held_to_plans(fwd, counts, len(feeds))
+        key = key or eng.graph.output_names[0]
+        err, scale = 0.0, 1.0
+        for f, out in zip(feeds[:2], outs[:2]):
+            want = ref.run(f)[key]
+            scale = max(scale, want.abs().max().item())
+            err = max(err, (out[key] - want).abs().max().item())
+        tol = ENGINE_TOL["bf16"] * scale
+        p50 = eng.benchmark(feeds[0], loops=20)["p50_ms"]
+        busy_ms, text = busy_text(eng, feeds[0], p50)
+        a8 = torch_a8w8_layers(ref.graph)
+        log(f"[main] int8 {label}: launches per step {per_step} ({len(feeds)} steps) vs TORCH "
+            f"INT8 forward ({len(a8)} layers A8W8: {a8}; the rest int8 weights on bf16 "
+            f"activations) max_abs_diff {err:.3e} tol {tol:.3g}; device step p50 {p50:.3f} ms; "
+            f"{text}")
+        assert all(torch.isfinite(o[key]).all().item() for o in outs), label
+        assert err <= tol, f"int8 {label}: disagrees with the TORCH INT8 forward"
+        i8_steps[label] = {"p50_ms": p50, "device_busy_ms": busy_ms}
+        return [o[key] for o in outs], per_step, err
+
+    i8_main, i8_steps = {}, {}
+    fp32_frames = Engine.from_json(ESPCN_TRAINED, EngineOptions(precision=Precision.FP32,
+                                                                batch_size=8),
+                                   input_hw=(540, 960)).run_single(frames)
+    espcn_out = {}
+    for variant, pair_ in (("weight-only", espcn_i8[0]), ("a8", espcn_i8[1])):
+        outs, per_step, err = run_path(f"espcn 540x960 b8 {variant}", pair_, {"input": frames})
+        assert per_step["chains"] == 1 and sum(per_step.values()) == 1, per_step
+        assert outs[-1].abs().max().item() <= 1.0
+        espcn_out[variant] = outs[-1]
+        i8_main[f"espcn {variant}"] = {"per_step": per_step, "max_abs_diff": err,
+                                       "psnr_vs_fp32_db": psnr(outs[-1], fp32_frames)}
+    # Each ESPCN engine against the chain's plain version at the kernel's
+    # tolerance, run with the plan and operands made here from its graph by
+    # the JAX rule (the TORCH INT8 forward runs no int8 activations in
+    # ESPCN: a8w8_profitable declines every layer); the engine's plan equal
+    # to that one. A planted fault: one in_q halved in an engine's plan
+    # after it prepared its operands.
+    x_frames = torch.from_numpy(frames).to(dev)
+
+    def espcn_plain(eng):
+        names = eng.model.forward.chain_plan["conv_1"]
+        nodes = [eng.graph.nodes[n] for n in names if eng.graph.nodes[n].op == "Conv2D"]
+        last = eng.graph.nodes[names[-1]]  # an Activation folded after the Subpixel, if any
+        override = ((str(last.attr("activation", last.attr("kind", "relu"))),
+                     float(last.attr("leaky_alpha", 0.3))) if last.op == "Activation" else None)
+        assert any(eng.graph.nodes[n].op == "Subpixel" for n in names), names
+        specs = chain.build_chain_specs(nodes, 1, bf16, act_override=override, tail="d2s2")
+        specs = chain.a8_scales(nodes, specs, head_from_frame=True)[0]
+        assert eng.model.forward.chain_specs["conv_1"] == specs, eng.model.forward.chain_specs
+        return chain.conv_chain_reference(x_frames, on_dev(chain.chain_operands(nodes, bf16, specs)),
+                                          specs, "d2s2", bf16)
+
+    for variant, (eng, _ref) in (("weight-only", espcn_i8[0]), ("a8", espcn_i8[1])):
+        want = espcn_plain(eng)
+        tol = TOL_BF16 * max(1.0, want.float().abs().max().item())
+        err = (eng.run({"input": frames})[eng.graph.output_names[0]].float() - want.float()).abs().max().item()
+        log(f"[main] int8 espcn 540x960 b8 {variant} engine vs the plain chain on its plan "
+            f"(in_q {[round(s.in_q, 5) for s in eng.model.forward.chain_specs['conv_1']]}): "
+            f"max_abs_diff {err:.3e} tol {tol:.3g}")
+        assert err <= tol, f"int8 espcn {variant}: the engine disagrees with the plain chain"
+        i8_main[f"espcn {variant}"]["engine_vs_plain_max_abs_diff"] = err
+    faulty = Engine.from_graph(espcn_i8[1][0].graph, EngineOptions(precision=I8, batch_size=8),
+                               optimize=False)
+    faulty.run({"input": frames})  # its operands prepared for the right plan
+    plan = faulty.model.forward.chain_specs["conv_1"]
+    plan[1] = dataclasses.replace(plan[1], in_q=plan[1].in_q / 2)
+    err_fault = (faulty.run({"input": frames})[faulty.graph.output_names[0]].float() - want.float()).abs().max().item()
+    log(f"[main] int8 espcn 540x960 b8 planted fault (layer 2 in_q halved in the engine's plan) "
+        f"moves the frames by {err_fault:.3e} (tol {tol:.3g}) "
+        f"{'caught' if err_fault > tol else 'MISSED'}")
+    assert err_fault > tol, "the ESPCN engine check misses an in_q halved in the plan"
+    fault_errs["engine_in_q_halved"] = err_fault
+    del faulty, want, x_frames
+    d_a8 = (espcn_out["a8"] - espcn_out["weight-only"]).abs().max().item()
+    log(f"[main] int8 espcn 540x960 b8: PSNR vs FP32 weight-only "
+        f"{i8_main['espcn weight-only']['psnr_vs_fp32_db']:.2f} dB (gate 30), a8 "
+        f"{i8_main['espcn a8']['psnr_vs_fp32_db']:.2f} dB; a8 vs weight-only max_abs_diff "
+        f"{d_a8:.3e} (gate 0.1)")
+    assert i8_main["espcn weight-only"]["psnr_vs_fp32_db"] > 30.0, i8_main
+    assert d_a8 < 0.1, d_a8
+    del fp32_frames, espcn_out
+    for variant, pair_ in (("weight-only", mnv2_i8[0]), ("A8W8", mnv2_i8[1])):
+        _, per_step, err = run_path(f"mobilenetv2 224 b8 {variant} (logits)", pair_,
+                                    {"input": images})
+        assert per_step["fused_invres_block"] == 11 and sum(per_step.values()) == 11, per_step
+        i8_main[f"mobilenetv2 224 {variant}"] = {"per_step": per_step, "max_abs_diff": err}
+    cls_batches = [{"input": cls_x[i:i + 64]} for i in range(0, 256, 64)]
+    for tag, pairs, fp32_top1 in (
+        ("mobilenetv2 cls10 b64 (logits)", cls10_i8, trained_stats["fp32"]["top1"]),
+        ("resnet18 cls10 b64 (logits)", r18_i8, resnet_trained["fp32"]["top1"]),
+    ):
+        for variant, pair_ in (("weight-only", pairs[0]), ("calibrated", pairs[1])):
+            outs, per_step, err = run_path(f"{tag} {variant}", pair_, None, batches=cls_batches)
+            top1 = float((torch.cat(outs).argmax(-1).cpu().numpy() == cls_y).mean())
+            log(f"[main] int8 {tag} {variant}: top-1 {top1:.4f} (gate FP32 {fp32_top1:.4f} - 0.05)")
+            assert top1 >= fp32_top1 - 0.05, f"int8 {tag} {variant}: top-1 {top1}"
+            i8_main[f"{tag} {variant}"] = {"per_step": per_step, "max_abs_diff": err,
+                                           "top1": top1}
+    assert i8_main["mobilenetv2 cls10 b64 (logits) weight-only"]["per_step"][
+        "fused_invres_block"] == 13
+    stamped = [n for n, v in r18_c.graph.nodes.items() if "in_act_scale" in v.attrs]
+    log(f"[main] int8 resnet18 cls10 calibrated: {len(stamped)} nodes stamped with in_act_scale")
+    assert len(stamped) >= 5, stamped
+    # A planted fault on the INT8 path: one single conv's weight_scale zeroed.
+    fault_graph = copy.deepcopy(r18_c.graph)
+    zeroed = r18_c.model.forward.single_conv_plan[-1]
+    fault_graph.nodes[zeroed].params["weight_scale"] = np.zeros_like(
+        fault_graph.nodes[zeroed].params["weight_scale"])
+    fault_eng = Engine.from_graph(fault_graph, EngineOptions(precision=I8, batch_size=64),
+                                  optimize=False)
+    want = r18_i8[1][1].run(cls_batches[0])["fc"]
+    err_fault = (fault_eng.run(cls_batches[0])["fc"] - want).abs().max().item()
+    tol_fault = ENGINE_TOL["bf16"] * max(1.0, want.abs().max().item())
+    log(f"[main] int8 resnet18 cls10 planted fault ({zeroed} weight_scale zeroed) moves the "
+        f"logits by {err_fault:.3e} (tol {tol_fault:.3g}) "
+        f"{'caught' if err_fault > tol_fault else 'MISSED'}")
+    assert err_fault > tol_fault, "the INT8 logits check misses a zeroed weight_scale"
+    fault_errs["weight_scale_zeroed"] = err_fault
+    del fault_eng, fault_graph
+    _, per_step, err = run_path("resnet18 zoo width b8 KERNEL weight-only (logits)", r18zoo_i8,
+                                {"input": images32})
+    assert per_step["fused_matmul"] == 1 and per_step["fused_conv2d_haloed"] == 8, per_step
+    i8_main["resnet18 zoo KERNEL weight-only"] = {"per_step": per_step, "max_abs_diff": err}
+    _, per_step, err = run_path("two-input conv 540x960 b8 KERNEL weight-only", two_i8, pair)
+    assert per_step["conv2d_kernel_nhwc"] == 1 and sum(per_step.values()) == 1, per_step
+    i8_main["two-input KERNEL weight-only"] = {"per_step": per_step, "max_abs_diff": err}
+
     # 5. timings -------------------------------------------------------------
     def time_ms(fn, reps=20, warm=3, rounds=3):
         """Median over `rounds` of the mean time of `reps` back-to-back
@@ -976,6 +1388,27 @@ def main() -> int:
         t_bytes = nbytes / peak_bw * 1e3
         return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
+    def chain_library(x, ops, specs, tail, dt):
+        """cuDNN yardstick of a chain: F.conv2d on channels_last tensors with
+        the weights (float, or int8 cast exactly) and the folded epilogue in
+        the compute dtype, then the tail. Timed only; the port never calls
+        it."""
+        xl = x.permute(0, 3, 1, 2).to(dt).contiguous(memory_format=cl)
+        lib_ops = [(p["w"].to(dt).permute(3, 2, 0, 1).contiguous(memory_format=cl),
+                    p["scale"].to(dt).reshape(1, -1, 1, 1),
+                    p["offset"].to(dt).reshape(1, -1, 1, 1), sp) for p, sp in zip(ops, specs)]
+        assert all(sp.pt == sp.pb and sp.pl == sp.pr for sp in specs), specs
+
+        def run():
+            y = xl
+            with full_precision():
+                for w_, sc_, of_, sp in lib_ops:
+                    y = apply_activation(F.conv2d(y, w_, padding=(sp.pt, sp.pl)) * sc_ + of_,
+                                         sp.activation, sp.alpha)
+            y = y.permute(0, 2, 3, 1)
+            return depth_to_space(y, 2) if tail == "d2s2" else y
+        return run
+
     # The trained ResNet18's chains (stage 0: 16->16->16, k3, at 32x32) at
     # its batch, 64; under BF16 the engine runs them on the bf16 form through
     # fused_conv_chain. Library: the same convs on cuDNN, channels_last.
@@ -986,24 +1419,10 @@ def main() -> int:
         specs = chain.build_chain_specs(nodes, cin, dt, tail="none")
         ops = on_dev(chain.chain_operands(nodes, dt))
         x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev, dt)
-        xl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
-        lib_ops = [(p["w"].to(dt).permute(3, 2, 0, 1).contiguous(memory_format=cl),
-                    p["scale"].to(dt).reshape(1, -1, 1, 1), p["offset"].to(dt).reshape(1, -1, 1, 1), sp)
-                   for p, sp in zip(ops, specs)]
-        assert all(sp.pt == sp.pb and sp.pl == sp.pr for sp in specs), specs
-
-        def library():
-            y = xl
-            with full_precision():
-                for w_, sc_, of_, sp in lib_ops:
-                    y = apply_activation(F.conv2d(y, w_, padding=(sp.pt, sp.pl)) * sc_ + of_,
-                                         sp.activation, sp.alpha)
-            return y
-
         t = timed({
             "kernel": lambda: chain.fused_conv_chain(x, ops, specs, compute_dtype=dt),
             "plain": lambda: chain.conv_chain_reference(x, ops, specs, "none", dt),
-            "library": library,
+            "library": chain_library(x, ops, specs, "none", dt),
         })
         n_, h_, w_, _ = shape
         flops = 2.0 * n_ * h_ * w_ * sum(sp.k * sp.k * sp.c * sp.o for sp in specs)
@@ -1227,6 +1646,142 @@ def main() -> int:
                 f"bound {b_ms:.6f} ms ({b_by}; {flops / 1e6:.3f} MFLOP, {nbytes / 1e3:.1f} KB) "
                 f"| {card}")
 
+    # INT8 timings: each form beside its plain version and the bf16 form of
+    # the same kernel in this run; the bound at the int8 peak for the s8
+    # products and at the bf16 peak for the rest. The weight-only forms have
+    # a library yardstick: cuDNN on the int8 weights cast to bf16 (exact)
+    # with the folded f32 scale in the epilogue, the same function. No
+    # library call computes the a8 / A8W8 forms (cuDNN takes no int8
+    # activations there): library null.
+    PEAK_INT8 = 1979e12
+
+    def timing_keys_i8(t):
+        lib = t.get("library", (None, None))
+        return dict(ms=t["kernel"][0], plain_ms=t["plain"][0], library_ms=lib[0],
+                    device_ms=t["kernel"][1], plain_device_ms=t["plain"][1],
+                    library_device_ms=lib[1])
+
+    def text_i8(t):
+        lib = (f" cudnn {t['library'][0]:.4f} ms (device {t['library'][1]:.4f})"
+               if "library" in t else "")
+        return (f"kernel {t['kernel'][0]:.4f} ms (device {t['kernel'][1]:.4f}) "
+                f"plain {t['plain'][0]:.4f} ms (device {t['plain'][1]:.4f}){lib}")
+
+
+    def bound_i8(flops_bf16, flops_int8, nbytes):
+        t_ops = (flops_bf16 / peak_bf16 + flops_int8 / PEAK_INT8) * 1e3
+        t_bytes = nbytes / peak_bw * 1e3
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+    i8_rows = {}
+    x = torch.from_numpy(frames).to(dev)
+    for form, specs, ops in (("int8 weights", espcn_w8_specs, espcn_w8_ops),
+                             ("a8", espcn_a8_specs, espcn_a8_ops)):
+        fns = {"kernel": lambda: chain.fused_conv_chain_packed(
+                   x, ops, specs, tail="d2s2", compute_dtype=bf16),
+               "plain": lambda: chain.conv_chain_reference(x, ops, specs, "d2s2", bf16)}
+        if not any(sp.in_q for sp in specs):
+            fns["library"] = chain_library(x, ops, specs, "d2s2", bf16)
+        t = timed(fns)
+        per_layer = [2.0 * 8 * 540 * 960 * sp.k * sp.k * sp.c * sp.o for sp in specs]
+        f_i8 = sum(f for f, sp in zip(per_layer, specs) if sp.in_q)
+        nbytes = x.numel() * 4 + 8 * 1080 * 1920 * 2 + sum(
+            p["w"].numel() + 8 * p["scale"].numel() for p in ops)
+        b_ms, b_by = bound_i8(sum(per_layer) - f_i8, f_i8, nbytes)
+        i8_rows[("chain", form)] = dict(**timing_keys_i8(t), bound_ms=b_ms, bound_by=b_by)
+        bf = rows[("fused_conv_chain_packed", 8)]
+        log(f"[timing] fused_conv_chain_packed {form} espcn 540x960 b8 (in_q "
+            f"{[round(sp.in_q, 5) for sp in specs]}): {text_i8(t)} bound {b_ms:.4f} ms ({b_by}; "
+            f"{f_i8 / 1e9:.2f} of {sum(per_layer) / 1e9:.2f} GFLOP at the int8 peak); the bf16 "
+            f"form (float weights): kernel {bf['ms']:.4f} ms (device {bf['device_ms']:.4f}) | "
+            f"{card}")
+    for variant, calibrated in (("int8 weights", False), ("A8W8", True)):
+        cases = i8_blocks[("mnv2 224", calibrated)]
+        step = []
+        for _label, spec, ops, nb_ in cases:
+            xb = torch.from_numpy(rng.standard_normal((nb_, spec.h, spec.w, spec.cin))
+                                  .astype(np.float32)).to(dev, bf16)
+            step.append((spec, xb, invres.prepare_operands(ops, spec, bf16)))
+        fns = {"kernel": lambda: [invres.fused_invres_block(xb, o, sp) for sp, xb, o in step],
+               "plain": lambda: [invres.invres_block_reference(xb, o, sp) for sp, xb, o in step]}
+        if not calibrated:  # int8 w1 / w2 cast to bf16 in the yardstick
+            libs = [(block_library(sp, o, bf16), xb.permute(0, 3, 1, 2)) for sp, xb, o in step]
+            fns["library"] = lambda: [fn(xl) for fn, xl in libs]
+        t = timed(fns)
+        f16 = f8 = nbytes = 0.0
+        for spec, _xb, _o in step:
+            px = 8 * spec.h * spec.w
+            f1 = 2.0 * px * spec.cin * spec.e if spec.has_expand else 0.0
+            f2 = 2.0 * px * spec.e * spec.cout
+            f16 += 2.0 * px * 9 * spec.e + (0 if spec.ax1 else f1) + (0 if spec.ax2 else f2)
+            f8 += (f1 if spec.ax1 else 0) + (f2 if spec.ax2 else 0)
+            nbytes += px * (spec.cin + spec.cout) * 2 + (spec.cin * spec.e + spec.e * spec.cout) \
+                + (9 * spec.e + 4 * spec.e + 2 * spec.cout) * 4
+        b_ms, b_by = bound_i8(f16, f8, nbytes)
+        i8_rows[("block", variant)] = dict(**timing_keys_i8(t), bound_ms=b_ms, bound_by=b_by)
+        bf = block_rows["bf16"]
+        log(f"[timing] fused_invres_block {variant} MobileNetV2 224 b8, sum of the 11 launches of "
+            f"one step: {text_i8(t)} bound {b_ms:.5f} ms ({b_by}; {f8 / 1e9:.3f} GFLOP at the "
+            f"int8 peak, {f16 / 1e9:.3f} at bf16); the bf16 form: kernel {bf['ms']:.4f} ms "
+            f"(device {bf['device_ms']:.4f}) | {card}")
+    # The single-conv launches of one INT8 step of each trained classifier
+    # (b64; under AUTO each has one, its stem), int8 weights, beside the
+    # bf16 form on the same geometries (weights dequantized to bf16).
+    for tag, eng in (("ResNet18 cls10", r18_c), ("MobileNetV2 cls10", cls10_c)):
+        step_i8, step_bf = [], []
+        for name_ in eng.model.forward.single_conv_plan:
+            node = eng.graph.nodes[name_]
+            s_ = eng.graph.nodes[node.inputs[0]].out_spec
+            wq, sc, of = (t_.to(dev) for t_ in folded_operands(node, bf16))
+            pads = padding_offsets(node.attr("padding", "same"), int(node.attr("kernel_size")))
+            act = str(node.attr("activation", "linear"))
+            xb = tensor(rng.standard_normal((64, s_.h, s_.w, s_.c)), bf16)
+            step_i8.append((xb, wq, sc, of, pads, act))
+            step_bf.append((xb, wq.to(bf16), sc, of, pads, act))
+        libs = [conv_yardstick(*a, bf16) for a in step_i8]  # int8 weights cast to bf16
+        t = timed({"kernel": lambda: [single(*a) for a in step_i8],
+                   "plain": lambda: [single_plain(*a) for a in step_i8],
+                   "library": lambda: [fn() for fn in libs]})
+        t_bf = timed({"bf16": lambda: [single(*a) for a in step_bf]})["bf16"]
+        flops = nbytes = 0.0
+        for xb, wq, _sc, _of, (pt, pb, pl, pr), _act in step_i8:
+            kh, kw, c_, o_ = wq.shape
+            ho, wo = xb.shape[1] + pt + pb - kh + 1, xb.shape[2] + pl + pr - kw + 1
+            flops += 2.0 * 64 * ho * wo * kh * kw * c_ * o_
+            nbytes += (xb.numel() + 64 * ho * wo * o_) * 2 + wq.numel() + 8 * o_
+        b_ms, b_by = bound_i8(flops, 0.0, nbytes)
+        i8_rows[("single", tag)] = dict(**timing_keys_i8(t), bound_ms=b_ms, bound_by=b_by,
+                                        bf16_form_ms=t_bf[0], bf16_form_device_ms=t_bf[1])
+        log(f"[timing] fused_conv2d_haloed int8 weights {tag} b64, the {len(step_i8)} "
+            f"single-conv launch(es) of one INT8 step: {text_i8(t)} bound {b_ms:.5f} ms "
+            f"({b_by}; bf16 products); the bf16 form (float weights): kernel {t_bf[0]:.4f} ms "
+            f"(device {t_bf[1]:.4f}) | {card}")
+
+    # What each entry ran beyond its BF16/FP32 forms: the INT8 forms, their
+    # launches on the INT8 paths, their [kernel] errors and timings.
+    def i8_launches(key, kind):
+        return i8_main[key]["per_step"][kind] * (4 if "cls10" in key else STEPS)
+
+    chain_int8 = {
+        "fused_conv_chain_packed": {
+            "forms": ["bf16 (ESPCN BF16)", "bf16 with int8 weights (ESPCN INT8 weight-only)",
+                      "bf16 with a8 int8 x int8 layers (ESPCN INT8 calibrated)"],
+            "int8": {"int8 weights": dict(**i8_rows[("chain", "int8 weights")],
+                                          launches=i8_launches("espcn weight-only", "chains")),
+                     "a8": dict(**i8_rows[("chain", "a8")],
+                                launches=i8_launches("espcn a8", "chains"),
+                                in_q=espcn_in_q,
+                                psnr_vs_fp32_db=i8_main["espcn a8"]["psnr_vs_fp32_db"]),
+                     "max_abs_err": {"int8 weights": i8_err["chain_w8"], "a8": i8_err["chain_a8"]},
+                     "psnr_weight_only_vs_fp32_db": i8_main["espcn weight-only"]["psnr_vs_fp32_db"],
+                     "engine_steps": {k: v for k, v in i8_steps.items() if "espcn" in k},
+                     "planted_fault_in_q_halved_diff": fault_errs["chain_in_q_halved"]}},
+        "fused_conv_chain": {
+            "forms": ["fp32 (ESPCN FP32, trained ResNet18 FP32)", "bf16 (trained ResNet18 BF16)",
+                      "bf16 with int8 weights (trained ResNet18 INT8)"],
+            "int8": {"launches": i8_launches("resnet18 cls10 b64 (logits) calibrated", "chains"),
+                     "max_abs_err": i8_err["chain_w8"]}},
+    }
     kernels = []
     for entry, replaces, prec in (
         ("fused_conv_chain_packed", "shadernn_tpu/kernels/chain_packed_pallas.py:121", "bf16"),
@@ -1247,6 +1802,7 @@ def main() -> int:
             "resnet18_trained_chains_max_abs_diff": chain_resnet_err,
             "engine_step_p50_ms": main_stats[entry]["engine_p50_ms"],
             "engine_device_busy_ms": main_stats[entry]["device_busy_ms"],
+            **chain_int8[entry],
         })
     r = block_rows["bf16"]
     kernels.append({
@@ -1267,6 +1823,15 @@ def main() -> int:
         "engine_logits": {k: {"max_abs_diff": v["logits_max_abs_diff"],
                               "planted_fault_diff": v["planted_fault_logits_diff"]}
                           for k, v in mnv2_stats.items()},
+        "forms": ["bf16", "fp32", "bf16 with int8 weights (MobileNetV2s INT8 weight-only)",
+                  "bf16 A8W8: s8 expand (ax1) and project (ax2) (MobileNetV2s INT8 calibrated)"],
+        "int8": {variant: dict(**i8_rows[("block", variant)], launches=i8_launches(
+                     f"mobilenetv2 224 {key}", "fused_invres_block"))
+                 for variant, key in (("int8 weights", "weight-only"), ("A8W8", "A8W8"))}
+        | {"max_abs_err": {"int8 weights": i8_err["block_w8"], "A8W8": i8_err["block_a8w8"]},
+           "planted_fault_ax2_doubled_diff": fault_errs["block_ax2_doubled"],
+           "engine_steps": {k: v for k, v in i8_steps.items() if "mobilenetv2" in k},
+           "top1": {k: v["top1"] for k, v in i8_main.items() if "mobilenetv2 cls10" in k}},
     })
     r = conv_rows["bf16"]
     kernels.append({
@@ -1285,6 +1850,14 @@ def main() -> int:
         "resnet18_launches_per_step": resnet_stats["bf16"]["per_step"]["fused_conv2d_haloed"],
         "trained_top1": {k: v["top1"] for k, v in trained_stats.items()},
         "engine_step_p50_ms": trained_stats["bf16"]["engine_p50_ms"],
+        "forms": ["bf16", "fp32", "bf16 with int8 weights (trained ResNet18 and MobileNetV2 INT8)"],
+        "int8": dict(**i8_rows[("single", "MobileNetV2 cls10")], launches=i8_launches(
+            "mobilenetv2 cls10 b64 (logits) calibrated", "fused_conv2d_haloed"),
+            resnet18_cls10=dict(**i8_rows[("single", "ResNet18 cls10")], launches=i8_launches(
+                "resnet18 cls10 b64 (logits) calibrated", "fused_conv2d_haloed")),
+            max_abs_err=i8_err["single_w8"],
+            top1={k: v["top1"] for k, v in i8_main.items() if "resnet18 cls10" in k},
+            planted_fault_weight_scale_zeroed_diff=fault_errs["weight_scale_zeroed"]),
     })
     r = igemm_rows["bf16"]
     kernels.append({
@@ -1307,6 +1880,10 @@ def main() -> int:
         "engine_check": {k: {"max_abs_diff": v["max_abs_diff"],
                              "planted_fault_diff": v["planted_fault_diff"]}
                          for k, v in two_stats.items()},
+        "forms": ["bf16", "fp32", "bf16 with int8 weights (two-input graph INT8)"],
+        "int8": {"launches": i8_launches("two-input KERNEL weight-only", "conv2d_kernel_nhwc"),
+                 "max_abs_err": i8_err["igemm_w8"],
+                 "engine_max_abs_diff": i8_main["two-input KERNEL weight-only"]["max_abs_diff"]},
     })
     r = matmul_rows[("resnet18 fc 8x512x10", "bf16")]
     kernels.append({
@@ -1337,6 +1914,10 @@ def main() -> int:
         "engine_logits": {k: {"max_abs_diff": v["logits_max_abs_diff"],
                               "planted_fault_diff": v["planted_fault_logits_diff"]}
                           for k, v in resnet_stats.items()},
+        "forms": ["bf16", "fp32", "bf16 with int8 weights (forced-KERNEL ResNet18 INT8)"],
+        "int8": {"launches": i8_launches("resnet18 zoo KERNEL weight-only", "fused_matmul"),
+                 "max_abs_err": i8_err["matmul_w8"],
+                 "engine_max_abs_diff": i8_main["resnet18 zoo KERNEL weight-only"]["max_abs_diff"]},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -18,7 +18,9 @@ import torch
 
 
 class Precision(enum.Enum):
-    """Compute/storage precision policy (FP32 -> float32, BF16 -> bfloat16)."""
+    """Compute/storage precision policy (FP32 -> float32 activations; BF16
+    and INT8 -> bfloat16 activations, INT8 with int8 weights and
+    per-output-channel scales, quant/quantize.py)."""
 
     FP32 = "fp32"
     BF16 = "bf16"
@@ -26,9 +28,11 @@ class Precision(enum.Enum):
 
     @property
     def activation_dtype(self) -> torch.dtype:
-        if self is Precision.INT8:
-            raise NotImplementedError("INT8 comes in a later slice")
         return torch.float32 if self is Precision.FP32 else torch.bfloat16
+
+    @property
+    def is_quantized(self) -> bool:
+        return self is Precision.INT8
 
 
 class BackendKind(enum.Enum):
@@ -40,6 +44,7 @@ class BackendKind(enum.Enum):
 
 
 CHAIN_FORMATS = ("auto", "packed", "im2col")
+CHAIN_A8 = ("auto", "off")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +66,10 @@ class EngineOptions:
     # otherwise; "im2col" always takes `fused_conv_chain`. On Hopper both
     # entry points launch the same kernel (kernels/chain.py).
     chain_format: str = "auto"
+    # Under INT8: "auto" runs a packed chain layer's dot int8 x int8 where
+    # its input range is bounded (the JAX package's a8 rule,
+    # kernels/chain.py a8_scales); "off" keeps every chain dot on bf16.
+    chain_a8: str = "auto"
     # Fold BatchNorm into the preceding conv weights at load.
     fold_batchnorm: bool = True
     # Return every layer's output under "__dumps__" (disables chain fusion
@@ -73,11 +82,12 @@ class EngineOptions:
     device: str = "cuda"
 
     def __post_init__(self):
-        self.precision.activation_dtype  # raises for INT8
         if self.chain_format not in CHAIN_FORMATS:
             raise ValueError(
                 f"chain_format {self.chain_format!r} not in {CHAIN_FORMATS}"
             )
+        if self.chain_a8 not in CHAIN_A8:
+            raise ValueError(f"chain_a8 {self.chain_a8!r} not in {CHAIN_A8}")
 
     def backend_for(self, node_name: str) -> BackendKind:
         if self.backend_overrides and node_name in self.backend_overrides:

@@ -9,10 +9,11 @@
 //       (entry point fused_conv_chain)
 //
 // Function: NHWC input (f32 or bf16, cast to the compute dtype on load);
-// per layer l an HWIO weight in the compute dtype, an f32 accumulation,
-// then y = act(acc * scale[o] + offset[o]) in f32; every intermediate is
-// zeroed outside the image (it is the next layer's padding) and rounded to
-// the compute dtype. Tails: 0 = none, NHWC (N,H,W,o); 1 = c1, (N,H,W,1)
+// per layer l an HWIO weight in the compute dtype (int8 weights arrive as
+// their exact bf16 or f32 values, their scale folded into scale[o]), an
+// f32 accumulation, then y = act(acc * scale[o] + offset[o]) in f32; every
+// intermediate is zeroed outside the image (it is the next layer's
+// padding) and rounded to the compute dtype. Tails: 0 = none, NHWC (N,H,W,o); 1 = c1, (N,H,W,1)
 // (the same layout with o = 1); 2 = d2s2, o = 4 through depth_to_space(2)
 // in TF channel order, (N,2H,2W,1).
 //
@@ -56,6 +57,18 @@
 // the wrapper's (kernels/chain.py launch_geometry); this file checks it
 // and launches.
 //
+// A8 (bf16 form; the int8 `in_q` dots of _packed_kernel): a layer whose
+// input is int8 runs m16n8k32 s8 products with s32 sums (exact), then the
+// same f32 epilogue (in_q folded into its scale on the host). Its region
+// is int8, pixel-major, C padded to units of 16 and the pitch an odd
+// number of 16-byte units, so ldmatrix reads it as it reads bf16; K walks
+// in k32 steps of two units. ldmatrix has no 8-bit transpose, so its B
+// image is packed n-major on the host (K contiguous per output channel,
+// the row an odd number of 16-byte units) and read without .trans. The
+// producer quantizes: the previous layer's epilogue writes
+// clip(rint(y * inv_q), +-127) from the f32 y after the activation (inv_q
+// = 1/in_q, f32), or, for the head, stage_input from the frame.
+//
 // f32 (conv_chain_kernel; no TF32) keeps the CUDA cores: regions f32 and
 // channel-planar, one thread per output pixel, CH output channels per pass
 // held in registers, weights read as broadcast float4s; its layout is
@@ -72,7 +85,7 @@
 // SNN_CL_FIELDS per layer (kernels/chain.py ChainLaunch.array).
 enum { CG_TILE_H, CG_TILE_W, CG_THREADS, CG_W_ALL, CG_BUF0, CG_BUF1, CG_SMEM, CG_PARAM_BYTES,
        SNN_CG_FIELDS };
-enum { CL_CS, CL_OSTRIDE, CL_W_OFF, CL_KTAB_OFF, CL_PW, CL_PS, SNN_CL_FIELDS };
+enum { CL_CS, CL_OSTRIDE, CL_W_OFF, CL_KTAB_OFF, CL_PW, CL_PS, CL_Q8, SNN_CL_FIELDS };
 
 namespace {
 
@@ -265,15 +278,19 @@ struct TcLayer {
   int k, c, o, act;
   float alpha;
   int dense;                    // C < 8: taps packed densely into K
-  int cs;                       // bf16 per staged input position
-  int ksteps, nt, ostride;      // k16 steps, n8-tiles, bf16 per B row
+  int q8;                       // int8 input: s8 products (C % 8 == 0)
+  float inv_q;                  // q8: 1 / in_q, what the producer multiplies by
+  int cs;                       // elements (bf16, or int8 for q8) per staged input position
+  int ksteps, nt, ostride;      // k16 (k32 for q8) steps, n8-tiles, bf16 per B row
+                                // (q8: bytes per n-major B row)
   int w_off, w_bytes, ktab_off; // smem bytes
   int pw, ps;                   // byte offsets in params: B image, scale|offset (f32, nt*8 each)
   int rows_in, cols_in, rows_out, cols_out;
   float inv_cols;               // 1 / cols_out: pixel -> (row, column) by a multiply
   int a_out, l_out, h_out, w_out;
   int in_off, out_off;          // smem bytes of the input / output regions
-  int ncs, ndense;              // the next layer's input layout
+  int ncs, ndense, nq8;         // the next layer's input layout
+  float inv_nq;                 // nq8: the next layer's inv_q
 };
 
 struct TcDesc {
@@ -294,13 +311,14 @@ __device__ __forceinline__ void stage_weights(unsigned char* smem, const unsigne
     cp_async16(smem + L.w_off + 16 * i, params + L.pw + 16 * i, 16);
 }
 
-// Layer l's table of K offsets, from a pixel's first element of the input
-// region: dense, one per K index (-1: padding); else one per 8-channel
-// unit of each k16 step (the padding unit points at the pixel's first:
-// its B rows are zero).
+// Layer l's table of K offsets, in elements from a pixel's first element of
+// the input region: dense, one per K index (-1: padding); else one per
+// 16-byte unit (8 bf16 or 16 int8 channels) of each k step (the padding
+// unit points at the pixel's first: its B rows are zero).
 __device__ void build_ktab(unsigned char* smem, const TcLayer& L) {
   int* tab = reinterpret_cast<int*>(smem + L.ktab_off);
-  const int U = (L.c + 7) >> 3;  // units of a tap (the pitch's padding unit is never read)
+  const int ue = L.q8 ? 16 : 8;  // elements of a unit
+  const int U = (L.c + ue - 1) / ue;  // units of a tap (the pitch's padding unit is never read)
   const int entries = L.dense ? 16 * L.ksteps : 2 * L.ksteps;
   for (int i = threadIdx.x; i < entries; i += blockDim.x) {
     if (L.dense) {
@@ -308,19 +326,45 @@ __device__ void build_ktab(unsigned char* smem, const TcLayer& L) {
       tab[i] = tap < L.k * L.k ? ((tap / L.k) * L.cols_in + tap % L.k) * L.c + ci : -1;
     } else {
       const int tap = i / U, u = i - tap * U;
-      tab[i] = tap < L.k * L.k ? ((tap / L.k) * L.cols_in + tap % L.k) * L.cs + 8 * u : 0;
+      tab[i] = tap < L.k * L.k ? ((tap / L.k) * L.cols_in + tap % L.k) * L.cs + ue * u : 0;
     }
   }
 }
 
-// Layer 0's input region: zero outside the image and past C.
-template <typename TIn>
+// Layer 0's input region: zero outside the image and past C (A8: int8
+// where layer 0's input is).
+template <typename TIn, bool A8>
 __device__ void stage_input(const TIn* __restrict__ x, unsigned char* smem, const TcDesc& d,
                             int n, int ty0, int tx0, bool vec) {
   const TcLayer& L = d.L[0];
   bf16* buf = reinterpret_cast<bf16*>(smem + L.in_off);
   const int R = L.rows_in, C = L.cols_in, c = L.c;
   const int gy0 = ty0 - d.a0, gx0 = tx0 - d.l0;
+  if (A8 && L.q8) {  // the frame quantized as it is staged: units of 16 channels
+    int8_t* buf8 = reinterpret_cast<int8_t*>(smem + L.in_off);
+    const int U = (c + 15) >> 4;
+    const float inv = L.inv_q;
+    for (int i = threadIdx.x; i < R * C * U; i += blockDim.x) {
+      const int u = i % U, pos = i / U;
+      const int rr = pos / C, cc = pos - rr * C;
+      const int gy = gy0 + rr, gx = gx0 + cc;
+      const bool ok = gy >= 0 && gy < d.h && gx >= 0 && gx < d.w;
+      const TIn* src = x + (((size_t)n * d.h + (ok ? gy : 0)) * d.w + (ok ? gx : 0)) * c + 16 * u;
+      uint32_t q[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        int b[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ch = 16 * u + 4 * j + e;
+          b[e] = ok && ch < c ? quant_s8(to_float(src[4 * j + e]), inv) : 0;
+        }
+        q[j] = pack_s8x4(b[0], b[1], b[2], b[3]);
+      }
+      *reinterpret_cast<uint4*>(buf8 + pos * L.cs + 16 * u) = make_uint4(q[0], q[1], q[2], q[3]);
+    }
+    return;
+  }
   if (L.dense) {
     for (int i = threadIdx.x; i < R * C * c; i += blockDim.x) {
       const int ci = i % c, pos = i / c;
@@ -370,19 +414,28 @@ __device__ __forceinline__ float chain_act(float v, int act, float alpha) {
   return apply_act_call(v, act, alpha);
 }
 
+// The three forms of a layer's products: bf16 in 8-channel units, bf16 with
+// dense taps, int8 in 16-channel units.
+enum { MODE_UNITS, MODE_DENSE, MODE_Q8 };
+
 // One layer over its output region: pairs of m-tiles of 16 pixels
 // round-robin over the warps (the pair shares each B fragment and gives
 // the tensor cores two independent sums); nt <= 4 n8-tiles (o <= 8 nt),
-// a uniform bound rather than a template, which keeps the kernel to two
-// copies of this function. Every field the loops read is copied to a
-// register first: read through the reference it would be read again
-// after each asm statement.
-template <bool DENSE>
+// a uniform bound rather than a template, which keeps the kernel to one
+// copy of this function per MODE. A8: the kernel has int8 layers, whose
+// producers quantize in this epilogue; a kernel without them is compiled
+// without any int8 code (code size is the bf16 form's cost, PERF.md §6). Every
+// field the loops read is copied to a register first: read through the
+// reference it would be read again after each asm statement.
+template <int MODE, bool A8>
 __device__ void run_tc_layer(unsigned char* smem, const unsigned char* __restrict__ params,
                              const TcLayer& L, int tail, bool last, int n, int ty0, int tx0,
                              bf16* __restrict__ y) {
   constexpr int NTM = 4;  // most n8-tiles of a layer (o <= 32)
+  constexpr bool DENSE = MODE == MODE_DENSE, Q8 = MODE == MODE_Q8;
+  using Acc = typename std::conditional<Q8, int, float>::type;
   const bf16* in = reinterpret_cast<const bf16*>(smem + L.in_off);
+  const int8_t* in8 = reinterpret_cast<const int8_t*>(smem + L.in_off);
   const bf16* wb = reinterpret_cast<const bf16*>(smem + L.w_off);
   const int* tab = reinterpret_cast<const int*>(smem + L.ktab_off);
   bf16* out = last ? nullptr : reinterpret_cast<bf16*>(smem + L.out_off);
@@ -391,7 +444,8 @@ __device__ void run_tc_layer(unsigned char* smem, const unsigned char* __restric
   const int M = L.rows_out * L.cols_out, mtiles = (M + 15) / 16;
   const int cols_in = L.cols_in, cols_out = L.cols_out, cs = L.cs, ksteps = L.ksteps;
   const int nt = L.nt, ostride = L.ostride, o = L.o, act = L.act, ncs = L.ncs;
-  const int ndense = L.ndense;
+  const int ndense = L.ndense, nq8 = L.nq8;
+  const float inv_nq = L.inv_nq;
   const int gy0 = ty0 - L.a_out, gx0 = tx0 - L.l_out, h_out = L.h_out, w_out = L.w_out;
   const float alpha = L.alpha, inv_cols = L.inv_cols;
   // This thread's epilogue columns 8j + 2t, +1.
@@ -406,20 +460,23 @@ __device__ void run_tc_layer(unsigned char* smem, const unsigned char* __restric
         of[j][q] = j < nt ? so[8 * nt + 8 * j + 2 * t + q] : 0.f;
       }
   }
-  // This lane's B row of each k-step: k row (lane & 15), n-tile (lane >> 4) past j.
+  // This lane's B row of each k-step: k row (lane & 15), n-tile (lane >> 4) past j;
+  // q8 (n-major): n row (lane & 7) + 8 (lane >> 4), k byte 16 ((lane >> 3) & 1).
   const bf16* brow = wb + (lane & 15) * ostride + (lane >> 4) * 8;
+  const int8_t* brow8 = reinterpret_cast<const int8_t*>(smem + L.w_off) +
+                        ((lane & 7) + 8 * (lane >> 4)) * ostride + 16 * ((lane >> 3) & 1);
   auto pixel = [&](int p) {  // element offset of pixel p's first input position
     const int ry = region_row(p, inv_cols);
     return (ry * cols_in + p - ry * cols_out) * cs;
   };
   for (int mt0 = 2 * warp; mt0 < mtiles; mt0 += 2 * nwarps) {
-    float acc[2][NTM][4];
+    Acc acc[2][NTM][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < NTM; ++j)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
 
     int pix[2][2];  // A rows: dense, pixels g and g + 8; else pixel lane & 15
 #pragma unroll
@@ -448,28 +505,53 @@ __device__ void run_tc_layer(unsigned char* smem, const unsigned char* __restric
           a[i][2] = ld(0, 2) | ld(0, 3) << 16;
           a[i][3] = ld(1, 2) | ld(1, 3) << 16;
         }
+      } else if constexpr (Q8) {
+        // A from ldmatrix as below (16 int8 per row); B n-major, no .trans.
+        const int off = tab[2 * ks + (lane >> 4)];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) ldmatrix_x4(a[i], in8 + pix[i][0] + off);
+        const int8_t* bp = brow8 + ks * 32;
+#pragma unroll
+        for (int j = 0; j < NTM; j += 2) {
+          if (j + 1 < nt) {
+            uint32_t b[4];
+            ldmatrix_x4(b, bp + j * 8 * ostride);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              mma_s8(acc[i][j], a[i], b[0], b[1]);
+              mma_s8(acc[i][j + 1], a[i], b[2], b[3]);
+            }
+          } else if (j < nt) {
+            uint32_t b[2];
+            ldmatrix_x2(b, bp + j * 8 * ostride);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_s8(acc[i][j], a[i], b[0], b[1]);
+          }
+        }
       } else {
         // A from ldmatrix: this lane's pixel, shifted by its unit's tap offset.
         const int off = tab[2 * ks + (lane >> 4)];
 #pragma unroll
         for (int i = 0; i < 2; ++i) ldmatrix_x4(a[i], in + pix[i][0] + off);
       }
-      const bf16* bp = brow + ks * 16 * ostride;
+      if constexpr (!Q8) {
+        const bf16* bp = brow + ks * 16 * ostride;
 #pragma unroll
-      for (int j = 0; j < NTM; j += 2) {
-        if (j + 1 < nt) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, bp + j * 8);
+        for (int j = 0; j < NTM; j += 2) {
+          if (j + 1 < nt) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, bp + j * 8);
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            mma_bf16(acc[i][j], a[i], b[0], b[1]);
-            mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
+            for (int i = 0; i < 2; ++i) {
+              mma_bf16(acc[i][j], a[i], b[0], b[1]);
+              mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
+            }
+          } else if (j < nt) {
+            uint32_t b[2];
+            ldmatrix_x2_trans(b, bp + j * 8);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], a[i], b[0], b[1]);
           }
-        } else if (j < nt) {
-          uint32_t b[2];
-          ldmatrix_x2_trans(b, bp + j * 8);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], a[i], b[0], b[1]);
         }
       }
     }
@@ -489,12 +571,17 @@ __device__ void run_tc_layer(unsigned char* smem, const unsigned char* __restric
         for (int j = 0; j < NTM; ++j) {
           if (j >= nt) break;
           const int oc = 8 * j + 2 * t;
-          float v0 = chain_act(fmaf(acc[i][j][2 * h], sc[j][0], of[j][0]), act, alpha);
-          float v1 = chain_act(fmaf(acc[i][j][2 * h + 1], sc[j][1], of[j][1]), act, alpha);
+          float v0 = chain_act(fmaf((float)acc[i][j][2 * h], sc[j][0], of[j][0]), act, alpha);
+          float v1 = chain_act(fmaf((float)acc[i][j][2 * h + 1], sc[j][1], of[j][1]), act, alpha);
           if (!inside || oc >= o) v0 = 0.f;
           if (!inside || oc + 1 >= o) v1 = 0.f;
           if (!last) {
-            if (ndense) {  // the next layer's C = o < 8: stride o
+            if (A8 && nq8) {  // the next layer's int8 input (o % 8 == 0): quantized here
+              const uint32_t q2 = pack_s8x4(quant_s8(v0, inv_nq), quant_s8(v1, inv_nq), 0, 0);
+              if (oc < o)
+                *reinterpret_cast<uint16_t*>(reinterpret_cast<int8_t*>(out) + p * ncs + oc) =
+                    (uint16_t)q2;
+            } else if (ndense) {  // the next layer's C = o < 8: stride o
               if (oc < o) out[p * o + oc] = __float2bfloat16_rn(v0);
               if (oc + 1 < o) out[p * o + oc + 1] = __float2bfloat16_rn(v1);
             } else {  // every channel of the padded units, zeros past o
@@ -521,7 +608,7 @@ __device__ void run_tc_layer(unsigned char* smem, const unsigned char* __restric
   }
 }
 
-template <typename TIn>
+template <typename TIn, bool A8>
 __global__ void __launch_bounds__(SNN_TC_MAX_THREADS)
 conv_chain_tc_kernel(const TIn* __restrict__ x, bf16* __restrict__ y,
                      const unsigned char* __restrict__ params, int vec_x,
@@ -532,7 +619,7 @@ conv_chain_tc_kernel(const TIn* __restrict__ x, bf16* __restrict__ y,
   const int tx0 = blockIdx.x * d.tile_w;
   if (d.w_all)
     for (int l = 0; l < d.nl; ++l) stage_weights(smem, params, d.L[l]);
-  stage_input<TIn>(x, smem, d, n, ty0, tx0, vec_x);
+  stage_input<TIn, A8>(x, smem, d, n, ty0, tx0, vec_x);
   cp_async_commit();
   for (int l = 0; l < d.nl; ++l) build_ktab(smem, d.L[l]);
   cp_async_wait<0>();
@@ -546,10 +633,17 @@ conv_chain_tc_kernel(const TIn* __restrict__ x, bf16* __restrict__ y,
       __syncthreads();
     }
     const bool last = l == d.nl - 1;
-    if (L.dense) {
-      run_tc_layer<true>(smem, params, L, d.tail, last, n, ty0, tx0, y);
-    } else {
-      run_tc_layer<false>(smem, params, L, d.tail, last, n, ty0, tx0, y);
+    bool q8 = false;
+    if constexpr (A8) {
+      q8 = L.q8;
+      if (q8) run_tc_layer<MODE_Q8, true>(smem, params, L, d.tail, last, n, ty0, tx0, y);
+    }
+    if (!q8) {
+      if (L.dense) {
+        run_tc_layer<MODE_DENSE, A8>(smem, params, L, d.tail, last, n, ty0, tx0, y);
+      } else {
+        run_tc_layer<MODE_UNITS, A8>(smem, params, L, d.tail, last, n, ty0, tx0, y);
+      }
     }
     __syncthreads();
   }
@@ -558,8 +652,8 @@ conv_chain_tc_kernel(const TIn* __restrict__ x, bf16* __restrict__ y,
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 int run_tc(const void* x, int x_bf16, void* y, const unsigned char* params, const int* layers,
-           const float* alphas, int nl, int n, int h, int w, int tail, const int* geom,
-           cudaStream_t stream) {
+           const float* alphas, const float* inv_q, int nl, int n, int h, int w, int tail,
+           const int* geom, cudaStream_t stream) {
   TcDesc d;
   d.nl = nl; d.n = n; d.h = h; d.w = w; d.cin = layers[1]; d.tail = tail;
   d.tile_h = geom[CG_TILE_H]; d.tile_w = geom[CG_TILE_W]; d.w_all = geom[CG_W_ALL];
@@ -592,15 +686,24 @@ int run_tc(const void* x, int x_bf16, void* y, const unsigned char* params, cons
     L.cols_out = d.tile_w + Lp[l + 1] + Rp[l + 1];
     if ((long long)L.rows_in * L.cols_in >= (1 << 20)) return -5;
     L.inv_cols = 1.f / (float)L.cols_out;
+    L.q8 = gl[CL_Q8];
+    L.inv_q = inv_q[l];
+    if (L.q8 && (L.c % 8 || !(L.inv_q > 0.f))) return -3;
     L.dense = L.c < 8;
-    // Unit layers: C padded to 8, rows an odd number of 16-byte units.
+    // Unit layers: C padded to a unit of 16 bytes, rows an odd number of units.
+    const int ue = L.q8 ? 16 : 8;
     L.cs = gl[CL_CS];
-    if (L.dense ? L.cs != L.c : (L.cs < L.c || L.cs % 8 || (L.cs / 8) % 2 == 0)) return -5;
-    L.ksteps = L.dense ? (L.k * L.k * L.c + 15) / 16 : (L.k * L.k * ((L.c + 7) / 8) + 1) / 2;
+    if (L.dense ? L.cs != L.c : (L.cs < L.c || L.cs % ue || (L.cs / ue) % 2 == 0)) return -5;
+    L.ksteps = L.dense ? (L.k * L.k * L.c + 15) / 16 : (L.k * L.k * ((L.c + ue - 1) / ue) + 1) / 2;
     L.nt = (L.o + 7) / 8;
     L.ostride = gl[CL_OSTRIDE];
-    if (L.ostride < 8 * L.nt || L.ostride % 8) return -5;
-    L.w_bytes = L.ksteps * 16 * L.ostride * 2;
+    if (L.q8) {  // bytes per n-major row: the k32 steps, an odd number of 16-byte units
+      if (L.ostride < 32 * L.ksteps || L.ostride % 16 || (L.ostride / 16) % 2 == 0) return -5;
+      L.w_bytes = 8 * L.nt * L.ostride;
+    } else {
+      if (L.ostride < 8 * L.nt || L.ostride % 8) return -5;
+      L.w_bytes = L.ksteps * 16 * L.ostride * 2;
+    }
     L.w_off = gl[CL_W_OFF]; L.ktab_off = gl[CL_KTAB_OFF];
     L.pw = gl[CL_PW]; L.ps = gl[CL_PS];
     if (L.pw < 0 || L.pw % 16 || L.pw + L.w_bytes > pbytes || L.ps < 0 || L.ps % 16 ||
@@ -608,14 +711,18 @@ int run_tc(const void* x, int x_bf16, void* y, const unsigned char* params, cons
       return -5;
     L.in_off = geom[l % 2 ? CG_BUF1 : CG_BUF0];
     L.out_off = geom[l % 2 ? CG_BUF0 : CG_BUF1];
-    iv[niv][0] = L.in_off; iv[niv][1] = 2LL * L.rows_in * L.cols_in * L.cs; iv[niv++][2] = l % 2;
+    iv[niv][0] = L.in_off; iv[niv][1] = (L.q8 ? 1LL : 2LL) * L.rows_in * L.cols_in * L.cs;
+    iv[niv++][2] = l % 2;
     iv[niv][0] = L.w_off; iv[niv][1] = L.w_bytes; iv[niv++][2] = d.w_all ? 10 + l : 2;
     iv[niv][0] = L.ktab_off; iv[niv][1] = (L.dense ? 64LL : 8LL) * L.ksteps; iv[niv++][2] = 20 + l;
     c = L.o;
   }
-  for (int l = 0; l + 1 < nl; ++l) {
-    d.L[l].ncs = d.L[l + 1].cs;
-    d.L[l].ndense = d.L[l + 1].dense;
+  for (int l = 0; l < nl; ++l) {
+    const bool has_next = l + 1 < nl;
+    d.L[l].ncs = has_next ? d.L[l + 1].cs : 0;
+    d.L[l].ndense = has_next && d.L[l + 1].dense;
+    d.L[l].nq8 = has_next && d.L[l + 1].q8;
+    d.L[l].inv_nq = has_next ? d.L[l + 1].inv_q : 0.f;
   }
   if (tail == 1 && d.L[nl - 1].o != 1) return -3;
   if (tail == 2 && d.L[nl - 1].o != 4) return -3;
@@ -625,24 +732,23 @@ int run_tc(const void* x, int x_bf16, void* y, const unsigned char* params, cons
       if (iv[i][2] != iv[j][2] && iv[i][0] < iv[j][0] + iv[j][1] && iv[j][0] < iv[i][0] + iv[i][1])
         return -2;
   }
-  const int vec_x = x_bf16 && d.cin % 8 == 0 && aligned16(x);
-  cudaError_t err;
+  bool a8 = false;
+  for (int l = 0; l < nl; ++l) a8 = a8 || d.L[l].q8;
+  const int vec_x = x_bf16 && d.cin % 8 == 0 && aligned16(x) && !d.L[0].q8;
   const TcLayer& last = d.L[nl - 1];
   dim3 grid((last.w_out + d.tile_w - 1) / d.tile_w, (last.h_out + d.tile_h - 1) / d.tile_h, n);
-  if (x_bf16) {
-    auto kern = conv_chain_tc_kernel<bf16>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto go = [&](auto kern, const auto* xin, int vec) -> int {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    kern<<<grid, threads, smem, stream>>>(static_cast<const bf16*>(x), static_cast<bf16*>(y),
-                                          params, vec_x, d);
-  } else {
-    auto kern = conv_chain_tc_kernel<float>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    kern<<<grid, threads, smem, stream>>>(static_cast<const float*>(x), static_cast<bf16*>(y),
-                                          params, 0, d);
-  }
-  return (int)cudaGetLastError();
+    kern<<<grid, threads, smem, stream>>>(xin, static_cast<bf16*>(y), params, vec, d);
+    return (int)cudaGetLastError();
+  };
+  const bf16* xb = static_cast<const bf16*>(x);
+  const float* xf = static_cast<const float*>(x);
+  if (x_bf16) return a8 ? go(conv_chain_tc_kernel<bf16, true>, xb, vec_x)
+                        : go(conv_chain_tc_kernel<bf16, false>, xb, vec_x);
+  return a8 ? go(conv_chain_tc_kernel<float, true>, xf, 0)
+            : go(conv_chain_tc_kernel<float, false>, xf, 0);
 }
 
 }  // namespace
@@ -707,16 +813,18 @@ int snn_conv_chain(const void* x, int x_bf16, void* y, const float* params,
 }
 
 // The bf16 form. params: device bytes, per layer the B image (bf16, K rows
-// of ostride) and scale|offset (f32, nt * 8 each, zeros past o), at the
-// offsets of geom; geom: the wrapper's launch geometry (SNN_CG_FIELDS +
-// nl * SNN_CL_FIELDS ints; kernels/chain.py ChainLaunch).
+// of ostride; an int8 layer's int8, n-major rows of ostride bytes) and
+// scale|offset (f32, nt * 8 each, zeros past o), at the offsets of geom;
+// inv_q: per layer 1/in_q where its input is int8 (CL_Q8), host f32; geom:
+// the wrapper's launch geometry (SNN_CG_FIELDS + nl * SNN_CL_FIELDS ints;
+// kernels/chain.py ChainLaunch).
 int snn_conv_chain_tc(const void* x, int x_bf16, void* y, const void* params,
-                      const int* layers, const float* alphas, int nl, int n, int h,
-                      int w, int tail, const int* geom, void* stream) {
+                      const int* layers, const float* alphas, const float* inv_q, int nl,
+                      int n, int h, int w, int tail, const int* geom, void* stream) {
   if (nl < 1 || nl > SNN_MAX_LAYERS) return -1;
   if (n < 1 || h < 1 || w < 1) return -4;
-  return run_tc(x, x_bf16, y, static_cast<const unsigned char*>(params), layers, alphas, nl,
-                n, h, w, tail, geom, static_cast<cudaStream_t>(stream));
+  return run_tc(x, x_bf16, y, static_cast<const unsigned char*>(params), layers, alphas, inv_q,
+                nl, n, h, w, tail, geom, static_cast<cudaStream_t>(stream));
 }
 
 const char* snn_error_string(int code) {
@@ -724,7 +832,8 @@ const char* snn_error_string(int code) {
     case -1: return "number of layers outside [1, 8]";
     case -2: return "shared memory of the chain tile exceeds 227 KB, or the launch geometry's "
                     "buffers overlap";
-    case -3: return "layer shapes do not chain (channels, o > 32, output size or tail)";
+    case -3: return "layer shapes do not chain (channels, o > 32, output size or tail), or an "
+                    "int8 layer input without C % 8 == 0 and in_q > 0";
     case -4: return "empty input or tile";
     case -5: return "launch geometry outside the kernel (tile, threads, strides or parameter "
                     "offsets)";

@@ -9,7 +9,9 @@
 // NHWC in and gives NHWC out.
 //
 // Function: x NHWC (N,H,W,C), f32 or bf16, cast to the compute dtype on
-// load; w HWIO (kh,kw,C,O) in the compute dtype; an f32 sum
+// load; w HWIO (kh,kw,C,O) in the compute dtype, or int8 under bf16 (its
+// scale folded into scale[o]; upcast to bf16, exactly, as it is staged,
+// as the JAX kernel's dequant upcasts it); an f32 sum
 // over (dy, dx, c); y = act(acc * scale[o] + offset[o]) in f32, rounded to
 // the compute dtype. Pads (pt, pb, pl, pr) are zeros; the output is
 // (N, H+pt+pb-kh+1, W+pl+pr-kw+1, O). Limits as the planner's gate
@@ -185,14 +187,17 @@ struct TcDesc {
   int in_off, in_buf, w_off, w_buf;  // smem bytes: offsets and one buffer's size
   int in_bufs, w_bufs;
   int vec_x, vec_w;          // 16-byte cp.async loads of x / w
+  int w_int8;                // w is int8: upcast to bf16 (exact) as it is staged
 };
 
 // NT: n8-tiles per warp (NB = 16 * NT channels per CTA).
 template <int NT, typename TIn>
 __global__ void __launch_bounds__(SNN_TC_THREADS)
 conv_single_tc_kernel(const TIn* __restrict__ x, __nv_bfloat16* __restrict__ y,
-                      const __nv_bfloat16* __restrict__ w, const float* __restrict__ scale,
+                      const void* __restrict__ wv, const float* __restrict__ scale,
                       const float* __restrict__ offset, const __grid_constant__ TcDesc d) {
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(wv);
+  const int8_t* wq = static_cast<const int8_t*>(wv);
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
@@ -270,7 +275,24 @@ conv_single_tc_kernel(const TIn* __restrict__ x, __nv_bfloat16* __restrict__ y,
     // the taps, C and O.
     __nv_bfloat16* dst = w_buf(s % d.w_bufs);
     constexpr int NB = 16 * NT;
-    if (d.vec_w) {
+    if (d.w_int8) {  // 8 channels of a row per thread, upcast on the way in
+      for (int i = tid; i < d.w_rows * (NB / 8); i += SNN_TC_THREADS) {
+        const int r = i / (NB / 8), v = i - r * (NB / 8);
+        const int tap_l = r / d.cc, cl = r - tap_l * d.cc;
+        const int tap = grp * d.tg + tap_l, c = c0 + cl, oc = ob0 + v * 8;
+        const bool ok = tap_l < d.tg && tap < taps && c < d.c;
+        const int8_t* src = wq + ((size_t)tap * d.c + c) * d.o + oc;
+        uint32_t q[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float lo = ok && oc + 2 * j < d.o ? (float)src[2 * j] : 0.f;
+          const float hi = ok && oc + 2 * j + 1 < d.o ? (float)src[2 * j + 1] : 0.f;
+          q[j] = pack_bf16x2(lo, hi);
+        }
+        *reinterpret_cast<uint4*>(dst + (size_t)r * d.w_stride + v * 8) =
+            make_uint4(q[0], q[1], q[2], q[3]);
+      }
+    } else if (d.vec_w) {
       for (int i = tid; i < d.w_rows * (NB / 8); i += SNN_TC_THREADS) {
         const int r = i / (NB / 8), v = i - r * (NB / 8);
         const int tap_l = r / d.cc, cl = r - tap_l * d.cc;
@@ -408,7 +430,7 @@ int launch_tc(const void* x, void* y, const void* w, const float* scale, const f
   dim3 grid(mtiles, (d.o + 16 * NT - 1) / (16 * NT));
   kern<<<grid, SNN_TC_THREADS, smem, s>>>(static_cast<const TIn*>(x),
                                           static_cast<__nv_bfloat16*>(y),
-                                          static_cast<const __nv_bfloat16*>(w), scale, offset, d);
+                                          w, scale, offset, d);
   return (int)cudaGetLastError();
 }
 
@@ -461,7 +483,7 @@ int run_tc(const void* x, int x_bf16, void* y, const void* w, const float* scale
       !fits(d.w_off, (long long)d.w_bufs * d.w_buf, d.in_off, smem))
     return -2;
   d.vec_x = x_bf16 && d.c % 8 == 0 && aligned16(x);
-  d.vec_w = d.o % 8 == 0 && aligned16(w);
+  d.vec_w = !d.w_int8 && d.o % 8 == 0 && aligned16(w);
   return x_bf16 ? dispatch_tc<__nv_bfloat16>(nb / 16, x, y, w, scale, offset, d, smem, s)
                 : dispatch_tc<float>(nb / 16, x, y, w, scale, offset, d, smem, s);
 }
@@ -507,10 +529,11 @@ extern "C" {
 
 // Returns 0 on success, a negative code for arguments the kernel does not
 // take (see snn_conv_single_error), or the cudaError_t of the launch.
-// w: device HWIO (kh*kw*c*o) in the compute dtype; scale, offset: device
+// w: device HWIO (kh*kw*c*o) in the compute dtype, or int8 when w_int8
+// (bf16 compute only); scale, offset: device
 // f32 (o). geom: G_FIELDS ints, the wrapper's launch geometry (the fields
 // of the enum above; kernels/conv.py ConvLaunch).
-int snn_conv_single(const void* x, int x_bf16, void* y, const void* w,
+int snn_conv_single(const void* x, int x_bf16, void* y, const void* w, int w_int8,
                     const float* scale, const float* offset, int n, int h,
                     int wd, int c, int kh, int kw, int o, int pt, int pb,
                     int pl, int pr, int act, float alpha, int compute_bf16,
@@ -518,7 +541,9 @@ int snn_conv_single(const void* x, int x_bf16, void* y, const void* w,
   if (n < 1 || h < 1 || wd < 1 || c < 1 || o < 1 || kh < 1 || kw < 1) return -1;
   if (pt < 0 || pb < 0 || pl < 0 || pr < 0) return -1;
   if (c > 128 || o > 128 || kh * kw * c > 4096) return -3;
+  if (w_int8 && !compute_bf16) return -3;
   TcDesc d;
+  d.w_int8 = w_int8;
   d.n = n; d.h = h; d.w = wd; d.c = c; d.kh = kh; d.kw = kw; d.o = o;
   d.pt = pt; d.pl = pl; d.act = act; d.alpha = alpha;
   d.ho = h + pt + pb - kh + 1;
@@ -534,7 +559,8 @@ const char* snn_conv_single_error(int code) {
     case -1: return "empty input, kernel, output or a negative pad";
     case -2: return "the launch geometry's shared-memory layout does not hold its buffers "
                     "within 227 KB";
-    case -3: return "shape outside the kernel's limits (c <= 128, o <= 128, kh*kw*c <= 4096)";
+    case -3: return "shape outside the kernel's limits (c <= 128, o <= 128, kh*kw*c <= 4096), "
+                    "or int8 weights under f32 activations";
     case -4: return "launch geometry outside the kernel (tile, channel block, chunk, taps "
                     "per stage or buffers)";
     default: return code > 0 ? cudaGetErrorString((cudaError_t)code) : "unknown error";

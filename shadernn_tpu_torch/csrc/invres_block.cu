@@ -15,7 +15,15 @@
 // act_d(dw3x3(e) * sd + od) with f32 taps (the depthwise weight is NOT
 // rounded to T) and an f32 sum, rounded to T; y = d @ w2 * s2 + o2 with an
 // f32 sum, plus x when the block has a residual, then act_o, rounded to T.
-// w1 and w2 are T; the depthwise taps and the epilogue vectors f32.
+// w1 and w2 are T, or int8 (their scales folded into s1 / s2), which the
+// kernel reads as int8 and upcasts as it stages them (exact); the
+// depthwise taps and the epilogue vectors f32, every int8 scale folded in.
+//
+// A8W8 (bf16 only; the JAX kernel's ax1 / ax2): under ax1 the expand runs
+// q8(x) @ w1 with x quantized in the kernel, under ax2 the project runs
+// q8(d) @ w2 with d after its activation and rounded to bf16; q8(v) =
+// clip(rint(v * inv_ax), +-127) with inv_ax = 1/ax in f32, and the product
+// int8 x int8 with s32 sums (exact), ax folded into s1 / s2 on the host.
 //
 // What bounds it on an H100: the blocks MobileNetV2 fuses (28x28 down to
 // 7x7, E up to 960) do about 2 FLOPs per weight per pixel and read Cin and
@@ -53,6 +61,19 @@
 // chunk computes (two buffers). Rows in shared memory are padded to an
 // odd number of 16-byte units, so that ldmatrix is free of bank conflicts.
 //
+// The A8W8 products run mma.sync m16n8k32 s8 with s32 accumulators. The
+// quantized input tile (rows of Cin padded to 32 plus a 16-byte unit) is
+// made once per CTA from the staged bf16 tile; the int8 d chunk is a
+// [pixels][32] tile of rows of 48 bytes, one k32 step. ldmatrix has no
+// 8-bit transpose, so w1 and w2 come n-major from the host (w1q: E rows of
+// Cin, w2q: Cout rows of E, both padded to 32) and are staged as rows of
+// an odd number of 16-byte units. The project's int32 chunk sums are added
+// into the f32 accumulators; they stay exact, since E <= 1024 keeps every
+// sum under 2^24 (E x 127^2). The int8 form (int8 weights, upcast to bf16
+// as they are staged or, under ax1 / ax2, fed to the s8 products) is its
+// own instantiation of the bf16 kernel, so that a block with bf16 weights
+// runs no int8 code.
+//
 // f32 (no TF32 on this path) keeps the CUDA cores: the expand as each warp
 // four pixels at a time with the input read as broadcast float4s, the
 // project as warp w owning pixels w, w+8, ... and lane l output channels
@@ -76,8 +97,11 @@
 // sizes in bytes, strides in elements).
 enum {
   G_TILE_H, G_TILE_W, G_SPLIT, G_XS_STRIDE, G_W2_STRIDE, G_XS_OFF, G_ES_OFF, G_DS_OFF,
-  G_W1_OFF, G_WD_OFF, G_W2_OFF, G_RED_OFF, G_W1_BUF, G_WD_BUF, G_W2_BUF, G_SMEM, G_FIELDS
+  G_W1_OFF, G_WD_OFF, G_W2_OFF, G_RED_OFF, G_W1_BUF, G_WD_BUF, G_W2_BUF, G_SMEM,
+  G_Q_STRIDE, G_XQ_OFF, G_FIELDS
 };
+
+#define SNN_QROW 48          // bytes per row of the int8 d chunk and staged int8 w2: 32 + 16
 
 namespace cg = cooperative_groups;
 
@@ -95,19 +119,45 @@ struct InvResDesc {
   int xs_off, es_off, ds_off, w1_off, wd_off, w2_off, red_off;  // smem bytes
   int w1_buf, wd_buf, w2_buf;  // bf16: bytes of one of the two buffers
   int vec_x, vec_w1, vec_wd, vec_w2;  // bf16: 16-byte cp.async loads
+  int q1, q2;                  // A8W8 expand / project (bf16 only)
+  float inv_ax1, inv_ax2;      // 1/ax1, 1/ax2 (f32)
+  int q_stride, xq_off;        // q1: bytes per row of the int8 input tile and of staged w1
+  int w1_i8, w2_i8;            // int8 w1 / w2 in the k-major layout, upcast as staged
 };
+
+__host__ __device__ __forceinline__ int round32(int v) { return (v + 31) & ~31; }
 
 __host__ __device__ __forceinline__ int round16(int v) { return (v + 15) & ~15; }
 
+// Element i of a weight held as f32 or, in the int8 form (W8) where i8 is
+// set, as int8, as f32 (exact).
+template <bool W8>
+__device__ __forceinline__ float weight_at(const void* w, int i8, size_t i) {
+  return W8 && i8 ? (float)static_cast<const int8_t*>(w)[i] : static_cast<const float*>(w)[i];
+}
+
+// The first n (<= 8; none where n <= 0) int8 values at p as 8 bf16 (exact),
+// zero past n.
+__device__ __forceinline__ uint4 upcast_s8x8(const int8_t* p, int n) {
+  uint32_t q[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    q[j] = pack_bf16x2(2 * j < n ? (float)p[2 * j] : 0.f, 2 * j + 1 < n ? (float)p[2 * j + 1] : 0.f);
+  return make_uint4(q[0], q[1], q[2], q[3]);
+}
+
 // ---------------------------------------------------------------- f32 ----
 
+// W8: the int8 form (w1_i8 or w2_i8 set); without it no int8 code.
+template <bool W8>
 __global__ void __launch_bounds__(SNN_THREADS)
 invres_kernel(const float* __restrict__ x, float* __restrict__ y,
-              const float* __restrict__ w1, const float* __restrict__ s1,
+              const void* __restrict__ w1, const float* __restrict__ s1,
               const float* __restrict__ o1, const float* __restrict__ wd,
               const float* __restrict__ sd, const float* __restrict__ od,
-              const float* __restrict__ w2, const float* __restrict__ s2,
+              const void* __restrict__ w2, const float* __restrict__ s2,
               const float* __restrict__ o2, const __grid_constant__ InvResDesc d) {
+  // w1, w2: f32, or int8 (w1_i8, w2_i8) upcast as staged.
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* xs = reinterpret_cast<float*>(smem_raw + d.xs_off);   // [HP][cin4]  input tile + halo
   float* es = reinterpret_cast<float*>(smem_raw + d.es_off);   // [HP][EC]    expanded chunk
@@ -153,7 +203,8 @@ invres_kernel(const float* __restrict__ x, float* __restrict__ y,
     if (d.has_expand) {
       for (int i = tid; i < cin4 * SNN_EC; i += SNN_THREADS) {
         const int ci = i / SNN_EC, j = i - ci * SNN_EC;
-        w1s[i] = ci < cin && e0 + j < d.e ? w1[(size_t)ci * d.e + e0 + j] : 0.f;
+        w1s[i] = ci < cin && e0 + j < d.e ? weight_at<W8>(w1, d.w1_i8, (size_t)ci * d.e + e0 + j)
+                                          : 0.f;
       }
     }
     // Rows 0-8: depthwise taps; 9-12: s1, o1, sd, od.
@@ -170,7 +221,7 @@ invres_kernel(const float* __restrict__ x, float* __restrict__ y,
     }
     for (int i = tid; i < SNN_EC * cout; i += SNN_THREADS) {
       const int j = i / cout, co = i - j * cout;
-      w2s[i] = e0 + j < d.e ? w2[(size_t)(e0 + j) * cout + co] : 0.f;
+      w2s[i] = e0 + j < d.e ? weight_at<W8>(w2, d.w2_i8, (size_t)(e0 + j) * cout + co) : 0.f;
     }
     __syncthreads();
 
@@ -310,15 +361,25 @@ invres_kernel(const float* __restrict__ x, float* __restrict__ y,
 typedef __nv_bfloat16 bf16;
 
 // NT: the project's n8-tiles per warp (warps over Cout: 8 / (pixel rows / 16)).
-template <int NT>
+// Q: the int8 form (int8 weights: w1_i8 / w2_i8, or ax1 / ax2 set); a
+// kernel without it is compiled without any int8 code.
+template <int NT, bool Q>
 __global__ void __launch_bounds__(SNN_THREADS, NT <= 8 ? 3 : 1)  // 3 CTAs per SM where they fit
 invres_tc_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
-                 const bf16* __restrict__ w1, const float* __restrict__ s1,
+                 const void* __restrict__ w1v, const float* __restrict__ s1,
                  const float* __restrict__ o1, const float* __restrict__ wd,
                  const float* __restrict__ sd, const float* __restrict__ od,
-                 const bf16* __restrict__ w2, const float* __restrict__ s2,
+                 const void* __restrict__ w2v, const float* __restrict__ s2,
                  const float* __restrict__ o2, const __grid_constant__ InvResDesc d) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  // bf16 weights; (q1 / q2) the n-major int8 w1q (E x cin32) / w2q (Cout x
+  // E32); or (w1_i8 / w2_i8) the k-major int8 weights, read through the same
+  // int8 pointers.
+  const bf16* w1 = static_cast<const bf16*>(w1v);
+  const bf16* w2 = static_cast<const bf16*>(w2v);
+  const int8_t* w1q = static_cast<const int8_t*>(w1v);
+  const int8_t* w2q = static_cast<const int8_t*>(w2v);
+  int8_t* xq = reinterpret_cast<int8_t*>(smem_raw + d.xq_off);  // q1: [HP16][q_stride]
   bf16* xs = reinterpret_cast<bf16*>(smem_raw + d.xs_off);  // [HP16][xs_stride] input tile + halo
   bf16* es = reinterpret_cast<bf16*>(smem_raw + d.es_off);  // [HP16][ES] expanded chunk
   bf16* ds = reinterpret_cast<bf16*>(smem_raw + d.ds_off);  // [P16][ES] depthwise output chunk
@@ -356,14 +417,35 @@ invres_tc_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
                              : __float2bfloat16_rn(0.f);
     }
   }
-  // The project reads 16-row tiles of ds: its rows past P stay zero.
-  for (int i = tid; i < (P16 - P) * (SNN_ES / 8); i += SNN_THREADS)
-    reinterpret_cast<uint4*>(ds + P * SNN_ES)[i] = make_uint4(0, 0, 0, 0);
+  // The project reads 16-row tiles of ds: its rows past P stay zero (q2:
+  // the int8 rows of SNN_QROW bytes).
+  const int ds_row = (Q && d.q2) ? SNN_QROW : 2 * SNN_ES;
+  for (int i = tid; i < (P16 - P) * (ds_row / 16); i += SNN_THREADS)
+    reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(ds) + P * ds_row)[i] =
+        make_uint4(0, 0, 0, 0);
+  int8_t* ds8 = reinterpret_cast<int8_t*>(ds);
+  const int cin32 = round32(cin), e32 = round32(d.e), cout8 = (cout + 7) / 8 * 8;
 
   // A chunk's weights into buffer b, zero past E, cin and cout.
   auto load_chunk = [&](int c, int b) {
     const int e0 = c * SNN_EC;
-    if (d.has_expand) {
+    if (d.has_expand && (Q && d.q1)) {  // rows e0.. of w1q, cin32 bytes each
+      int8_t* dst = reinterpret_cast<int8_t*>(w1s(b));
+      const int units = cin32 / 16;
+      for (int i = tid; i < SNN_EC * units; i += SNN_THREADS) {
+        const int j = i / units, u = i - j * units;
+        const bool ok = e0 + j < d.e;
+        cp_async16(dst + j * d.q_stride + 16 * u,
+                   ok ? w1q + (size_t)(e0 + j) * cin32 + 16 * u : w1q, ok ? 16 : 0);
+      }
+    } else if (d.has_expand && (Q && d.w1_i8)) {  // int8 rows ci, upcast as staged
+      bf16* dst = w1s(b);
+      for (int i = tid; i < cin16 * (SNN_EC / 8); i += SNN_THREADS) {
+        const int ci = i / (SNN_EC / 8), u = i - ci * (SNN_EC / 8), e1 = e0 + u * 8;
+        *reinterpret_cast<uint4*>(dst + ci * SNN_ES + u * 8) =
+            upcast_s8x8(w1q + (size_t)ci * d.e + e1, ci < cin ? min(8, d.e - e1) : 0);
+      }
+    } else if (d.has_expand) {
       bf16* dst = w1s(b);
       if (d.vec_w1) {
         for (int i = tid; i < cin16 * (SNN_EC / 8); i += SNN_THREADS) {
@@ -399,7 +481,21 @@ invres_tc_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
       }
     }
     bf16* dst = w2s(b);
-    if (d.vec_w2) {  // warp -> rows, lane -> 16-byte units of the row
+    if (Q && d.q2) {  // the chunk's 32 bytes of each w2q row, zero rows past cout
+      int8_t* dst8 = reinterpret_cast<int8_t*>(dst);
+      for (int i = tid; i < cout8 * 2; i += SNN_THREADS) {
+        const int r = i >> 1, u = i & 1;
+        const bool ok = r < cout;
+        cp_async16(dst8 + r * SNN_QROW + 16 * u, ok ? w2q + (size_t)r * e32 + e0 + 16 * u : w2q,
+                   ok ? 16 : 0);
+      }
+    } else if (Q && d.w2_i8) {  // int8 rows e0 + j, upcast as staged
+      for (int i = tid; i < SNN_EC * (d.w2_stride / 8); i += SNN_THREADS) {
+        const int j = i / (d.w2_stride / 8), u = i - j * (d.w2_stride / 8);
+        *reinterpret_cast<uint4*>(dst + j * d.w2_stride + u * 8) = upcast_s8x8(
+            w2q + (size_t)(e0 + j) * cout + u * 8, e0 + j < d.e ? min(8, cout - u * 8) : 0);
+      }
+    } else if (d.vec_w2) {  // warp -> rows, lane -> 16-byte units of the row
       for (int j = warp; j < SNN_EC; j += SNN_THREADS / 32) {
         for (int u = lane; u < d.w2_stride / 8; u += 32) {
           const bool ok = e0 + j < d.e && u * 8 < cout;
@@ -431,6 +527,26 @@ invres_tc_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
   const int c_begin = rank * chunks / d.split, c_end = (rank + 1) * chunks / d.split;
   if (c_begin < c_end) load_chunk(c_begin, 0);
   cp_async_commit();  // with xs
+  if (Q && d.q1) {  // the input tile quantized once: rows of q_stride bytes, zero past cin
+    cp_async_wait<0>();
+    __syncthreads();
+    const int units = d.q_stride / 16;
+    for (int i = tid; i < HP16 * units; i += SNN_THREADS) {
+      const int r = i / units, u = i - r * units;
+      uint32_t q[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        int v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ch = 16 * u + 4 * j + e;
+          v[e] = ch < cin ? quant_s8(__bfloat162float(xs[r * xst + ch]), d.inv_ax1) : 0;
+        }
+        q[j] = pack_s8x4(v[0], v[1], v[2], v[3]);
+      }
+      *reinterpret_cast<uint4*>(xq + r * d.q_stride + 16 * u) = make_uint4(q[0], q[1], q[2], q[3]);
+    }
+  }
   for (int c = c_begin; c < c_end; ++c) {
     const int b = (c - c_begin) & 1, e0 = c * SNN_EC;
     if (c + 1 < c_end) load_chunk(c + 1, b ^ 1);
@@ -443,15 +559,32 @@ invres_tc_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
     // x 16 channels; epilogue, mask and rounding on the fragments.
     if (d.has_expand) {
       const bf16* w1b = w1s(b);
+      const int8_t* w1b8 = reinterpret_cast<const int8_t*>(w1b);
       for (int it = warp; it < (HP16 / 16) * 2; it += SNN_THREADS / 32) {
         const int mt = it >> 1, nh = it & 1;
         float a2[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        for (int k0 = 0; k0 < cin16; k0 += 16) {
-          uint32_t a[4], bb[4];
-          ldmatrix_x4(a, xs + (mt * 16 + (lane & 15)) * xst + k0 + (lane >> 4) * 8);
-          ldmatrix_x4_trans(bb, w1b + (k0 + (lane & 15)) * SNN_ES + nh * 16 + (lane >> 4) * 8);
-          mma_bf16(a2[0], a, bb[0], bb[1]);
-          mma_bf16(a2[1], a, bb[2], bb[3]);
+        if (Q && d.q1) {  // s8: A rows of xq, B n-major rows of w1 (channels nh*16..)
+          int s32[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+          for (int k0 = 0; k0 < cin32; k0 += 32) {
+            uint32_t a[4], bb[4];
+            ldmatrix_x4(a, xq + (mt * 16 + (lane & 15)) * d.q_stride + k0 + (lane >> 4) * 16);
+            ldmatrix_x4(bb, w1b8 + (nh * 16 + (lane & 7) + 8 * (lane >> 4)) * d.q_stride + k0 +
+                                16 * ((lane >> 3) & 1));
+            mma_s8(s32[0], a, bb[0], bb[1]);
+            mma_s8(s32[1], a, bb[2], bb[3]);
+          }
+#pragma unroll
+          for (int jt = 0; jt < 2; ++jt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) a2[jt][q] = (float)s32[jt][q];
+        } else {
+          for (int k0 = 0; k0 < cin16; k0 += 16) {
+            uint32_t a[4], bb[4];
+            ldmatrix_x4(a, xs + (mt * 16 + (lane & 15)) * xst + k0 + (lane >> 4) * 8);
+            ldmatrix_x4_trans(bb, w1b + (k0 + (lane & 15)) * SNN_ES + nh * 16 + (lane >> 4) * 8);
+            mma_bf16(a2[0], a, bb[0], bb[1]);
+            mma_bf16(a2[1], a, bb[2], bb[3]);
+          }
         }
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
@@ -500,13 +633,34 @@ invres_tc_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
           for (int dx = 0; dx < 3; ++dx)
             s = fmaf(__bfloat162float(ep[(dy * HC + dx) * SNN_ES]), tap[3 * dy + dx], s);
         const float v = apply_act(fmaf(s, sdl, odl), d.act_d, d.alpha);
-        ds[p * SNN_ES + lane] = __float2bfloat16_rn(live ? v : 0.f);
+        const bf16 dv = __float2bfloat16_rn(live ? v : 0.f);
+        if (Q && d.q2)
+          ds8[p * SNN_QROW + lane] = (int8_t)quant_s8(__bfloat162float(dv), d.inv_ax2);
+        else
+          ds[p * SNN_ES + lane] = dv;
       }
     }
     __syncthreads();
 
     // Project on the tensor cores: acc += d[16 pixels][32] . w2[32][n8-tiles].
-    if (wn < WN) {
+    if (wn < WN && (Q && d.q2)) {  // s8, one k32 step; B n-major rows of 48 bytes
+      uint32_t a[4];
+      ldmatrix_x4(a, ds8 + (wm * 16 + (lane & 15)) * SNN_QROW + (lane >> 4) * 16);
+      const int8_t* w2b = reinterpret_cast<const int8_t*>(w2s(b)) + (lane & 7) * SNN_QROW +
+                          16 * ((lane >> 3) & 1);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int jj = wn + WN * j;
+        if (jj < nt_total) {
+          uint32_t bb[2];
+          ldmatrix_x2(bb, w2b + jj * 8 * SNN_QROW);
+          int c4[4] = {0, 0, 0, 0};
+          mma_s8(c4, a, bb[0], bb[1]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[j][q] += (float)c4[q];
+        }
+      }
+    } else if (wn < WN) {
       uint32_t a0[4], a1[4];
       ldmatrix_x4(a0, ds + (wm * 16 + (lane & 15)) * SNN_ES + (lane >> 4) * 8);
       ldmatrix_x4(a1, ds + (wm * 16 + (lane & 15)) * SNN_ES + 16 + (lane >> 4) * 8);
@@ -597,9 +751,8 @@ int launch(K kern, const void* x, void* y, const void* const* ops, const InvResD
   cfg.attrs = attr;
   cfg.numAttrs = d.split > 1 ? 1 : 0;
   auto f = [&](int i) { return static_cast<const float*>(ops[i]); };
-  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x), static_cast<T*>(y),
-                           static_cast<const T*>(ops[0]), f(1), f(2), f(3), f(4), f(5),
-                           static_cast<const T*>(ops[6]), f(7), f(8), d);
+  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x), static_cast<T*>(y), ops[0], f(1),
+                           f(2), f(3), f(4), f(5), ops[6], f(7), f(8), d);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -609,26 +762,32 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 
 // Does the wrapper's layout hold each buffer, 16-byte aligned, inside the
 // shared memory it asks for, without overlaps (the split-E partial sums
 // may overlay the per-chunk buffers, never the input tile)?
+// Under q1 the int8 input tile is held as well (the partial sums may
+// overlay it: the residual reads xs).
 bool layout_holds(const InvResDesc& d, int tile_px, int halo_px, bool tc, long long smem) {
   const int esz = tc ? 2 : 4, bufs = tc ? 2 : 1;
   const int rows = tc ? round16(halo_px) : halo_px, prow = tc ? round16(tile_px) : tile_px;
   const int cin_k = tc ? round16(d.cin) : d.xs_stride, ecs = tc ? SNN_ES : SNN_EC;
-  const long long need[7] = {
+  const long long need[8] = {
       (long long)rows * d.xs_stride * esz,
       (long long)rows * ecs * esz,
       (long long)prow * ecs * esz,
       d.has_expand ? (long long)bufs * (tc ? d.w1_buf : cin_k * SNN_EC * 4) : 0,
       (long long)bufs * (tc ? d.wd_buf : 13 * SNN_EC * 4),
       (long long)bufs * (tc ? d.w2_buf : SNN_EC * d.cout * 4),
+      d.q1 ? (long long)rows * d.q_stride : 0,
       d.split > 1 ? (long long)tile_px * d.cout * 4 : 0};
-  const long long off[7] = {d.xs_off, d.es_off, d.ds_off, d.w1_off, d.wd_off, d.w2_off, d.red_off};
-  if (tc && ((d.has_expand && d.w1_buf < cin_k * SNN_ES * 2) || d.wd_buf < 13 * SNN_EC * 4 ||
-               d.w2_buf < SNN_EC * d.w2_stride * 2))
+  const long long off[8] = {d.xs_off, d.es_off, d.ds_off, d.w1_off, d.wd_off, d.w2_off, d.xq_off,
+                            d.red_off};
+  const int w1_need = d.q1 ? SNN_EC * d.q_stride : cin_k * SNN_ES * 2;
+  const int w2_need = d.q2 ? (d.cout + 7) / 8 * 8 * SNN_QROW : SNN_EC * d.w2_stride * 2;
+  if (tc && ((d.has_expand && d.w1_buf < w1_need) || d.wd_buf < 13 * SNN_EC * 4 ||
+             d.w2_buf < w2_need))
     return false;
-  for (int i = 0; i < 7; ++i) {
+  for (int i = 0; i < 8; ++i) {
     if (off[i] % 16 || off[i] < 0 || off[i] + need[i] > smem) return false;
     for (int j = 0; j < i; ++j) {
-      const bool overlay_ok = i == 6 && j > 0;
+      const bool overlay_ok = i == 7 && j > 0;
       if (!overlay_ok && need[i] && need[j] && off[i] < off[j] + need[j] &&
           off[j] < off[i] + need[i])
         return false;
@@ -643,9 +802,10 @@ extern "C" {
 
 // Returns 0 on success, a negative code for arguments the kernel does not
 // take (see snn_invres_error), or the cudaError_t of the launch.
-// ops: 9 device pointers w1 (cin x e, in x's dtype; unused without
-// expand), s1, o1, wd (9 x e), sd, od (f32), w2 (e x cout, in x's dtype),
-// s2, o2 (f32). acts: act_e, act_d, act_o. geom: G_FIELDS ints, the
+// ops: 9 device pointers w1 (cin x e, in x's dtype or int8 with bit 0 of
+// w8; under ax1 the n-major int8 w1q; unused without expand), s1, o1, wd
+// (9 x e), sd, od (f32), w2 (e x cout, in x's dtype or int8 with bit 1 of
+// w8; under ax2 the n-major int8 w2q), s2, o2 (f32). acts: act_e, act_d, act_o. geom: G_FIELDS ints, the
 // wrapper's launch geometry (kernels/invres.py InvResLaunch): the tile (at
 // most 8x8 pixels), the split of E over a cluster (1, 2, 4 or 8 CTAs), the
 // strides and the shared-memory layout; they change the speed, and the
@@ -653,7 +813,7 @@ extern "C" {
 int snn_invres_block(const void* x, int is_bf16, void* y, const void* const* ops,
                      int n, int h, int w, int cin, int e, int cout,
                      int has_expand, int residual, const int* acts, float alpha,
-                     const int* geom, void* stream) {
+                     float inv_ax1, float inv_ax2, int w8, const int* geom, void* stream) {
   const int tile_h = geom[G_TILE_H], tile_w = geom[G_TILE_W], split = geom[G_SPLIT];
   if (n < 1 || h < 1 || w < 1 || cin < 1 || e < 1 || cout < 1) return -1;
   if (tile_h < 1 || tile_w < 1 || tile_h * tile_w > 8 * SNN_MP) return -1;
@@ -672,6 +832,16 @@ int snn_invres_block(const void* x, int is_bf16, void* y, const void* const* ops
   d.w1_off = geom[G_W1_OFF]; d.wd_off = geom[G_WD_OFF]; d.w2_off = geom[G_W2_OFF];
   d.red_off = geom[G_RED_OFF];
   d.w1_buf = geom[G_W1_BUF]; d.wd_buf = geom[G_WD_BUF]; d.w2_buf = geom[G_W2_BUF];
+  d.q1 = inv_ax1 > 0.f; d.q2 = inv_ax2 > 0.f;
+  d.inv_ax1 = inv_ax1; d.inv_ax2 = inv_ax2;
+  d.q_stride = geom[G_Q_STRIDE]; d.xq_off = geom[G_XQ_OFF];
+  d.w1_i8 = has_expand && (w8 & 1); d.w2_i8 = (w8 >> 1) & 1;
+  if ((d.q1 || d.q2) && !is_bf16) return -3;
+  if ((d.w1_i8 && d.q1) || (d.w2_i8 && d.q2)) return -4;
+  if (d.q1 && (!has_expand || d.q_stride < round32(cin) || d.q_stride % 16 ||
+               (d.q_stride / 16) % 2 == 0))
+    return -4;
+  if ((d.q1 && !aligned16(ops[0])) || (d.q2 && !aligned16(ops[6]))) return -4;
   const long long smem = geom[G_SMEM];
   const bool strides_ok =
       is_bf16 ? d.xs_stride >= round16(cin) && d.xs_stride % 8 == 0 &&
@@ -682,7 +852,9 @@ int snn_invres_block(const void* x, int is_bf16, void* y, const void* const* ops
       !layout_holds(d, tile_h * tile_w, (tile_h + 2) * (tile_w + 2), is_bf16, smem))
     return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) return launch<float>(invres_kernel, x, y, ops, d, smem, s);
+  if (!is_bf16)
+    return d.w1_i8 || d.w2_i8 ? launch<float>(invres_kernel<true>, x, y, ops, d, smem, s)
+                              : launch<float>(invres_kernel<false>, x, y, ops, d, smem, s);
   d.vec_x = cin % 8 == 0 && aligned16(x);
   d.vec_w1 = has_expand && e % 8 == 0 && aligned16(ops[0]);
   d.vec_wd = e % 4 == 0;
@@ -691,11 +863,15 @@ int snn_invres_block(const void* x, int is_bf16, void* y, const void* const* ops
   // The project's n8-tiles per warp: Cout / 8 over 8 / (pixel rows / 16) warps.
   const int wm = round16(tile_h * tile_w) / 16, wn = SNN_THREADS / 32 / wm;
   const int need = ((cout + 7) / 8 + wn - 1) / wn;
-  if (need <= 1) return launch<bf16>(invres_tc_kernel<1>, x, y, ops, d, smem, s);
-  if (need <= 2) return launch<bf16>(invres_tc_kernel<2>, x, y, ops, d, smem, s);
-  if (need <= 4) return launch<bf16>(invres_tc_kernel<4>, x, y, ops, d, smem, s);
-  if (need <= 8) return launch<bf16>(invres_tc_kernel<8>, x, y, ops, d, smem, s);
-  return launch<bf16>(invres_tc_kernel<20>, x, y, ops, d, smem, s);
+  auto go = [&](auto plain, auto i8form) {
+    return d.q1 || d.q2 || d.w1_i8 || d.w2_i8 ? launch<bf16>(i8form, x, y, ops, d, smem, s)
+                                              : launch<bf16>(plain, x, y, ops, d, smem, s);
+  };
+  if (need <= 1) return go(invres_tc_kernel<1, false>, invres_tc_kernel<1, true>);
+  if (need <= 2) return go(invres_tc_kernel<2, false>, invres_tc_kernel<2, true>);
+  if (need <= 4) return go(invres_tc_kernel<4, false>, invres_tc_kernel<4, true>);
+  if (need <= 8) return go(invres_tc_kernel<8, false>, invres_tc_kernel<8, true>);
+  return go(invres_tc_kernel<20, false>, invres_tc_kernel<20, true>);
 }
 
 const char* snn_invres_error(int code) {
@@ -704,9 +880,10 @@ const char* snn_invres_error(int code) {
     case -2: return "the launch geometry's shared-memory layout does not hold the block's "
                     "buffers within 227 KB";
     case -3: return "shapes outside the kernel (cout <= 320; e == cin without expand; "
-                    "cin == cout with a residual)";
-    case -4: return "launch geometry outside the kernel (split of E not 1, 2, 4 or 8, or "
-                    "strides)";
+                    "cin == cout with a residual; A8W8 only under bf16)";
+    case -4: return "launch geometry outside the kernel (split of E not 1, 2, 4 or 8, "
+                    "strides, int8 operands without an expand or unaligned, or a weight "
+                    "flagged int8 in both layouts)";
     default: return code > 0 ? cudaGetErrorString((cudaError_t)code) : "unknown error";
   }
 }

@@ -1,7 +1,8 @@
-// Tensor-core and asynchronous-copy helpers shared by the bf16 paths of
-// conv_single.cu and invres_block.cu: shared-memory addresses, ldmatrix
-// (plain and transposed), the bf16 m16n8k16 mma.sync with f32
-// accumulators, and cp.async with zero fill.
+// Tensor-core and asynchronous-copy helpers shared by the tensor-core
+// paths of conv_chain.cu, conv_single.cu and invres_block.cu: shared-memory
+// addresses, ldmatrix (plain and transposed), the bf16 m16n8k16 mma.sync
+// with f32 accumulators, the s8 m16n8k32 mma.sync with s32 accumulators,
+// the symmetric int8 quantizer, and cp.async with zero fill.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4*g + t):
 //   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
@@ -14,6 +15,17 @@
 // ([k][n], n contiguous) through .trans, lane l points at k row (l & 15)
 // of the 16-row step, columns 8 * (l >> 4) past the first n-tile, and the
 // registers are b0, b1 of that n-tile, then b0, b1 of the next.
+//
+// mma.sync.m16n8k32.row.col.s32.s8.s8.s32 (four int8 per register):
+//   A (16x32, row-major): a0 = A[g][4t..4t+3],    a1 = A[g+8][4t..4t+3],
+//                         a2 = A[g][4t+16..4t+19], a3 = A[g+8][4t+16..4t+19]
+//   B (32x8, k x n):      b0 = B[4t..4t+3][g],    b1 = B[4t+16..4t+19][g]
+//   C (16x8, s32):        as the f32 C above.
+// ldmatrix moves 16-byte rows, so the A addressing is the bf16 one (a row
+// of 16 int8 is a row of 8 bf16). It has no 8-bit transpose: B is stored
+// n-major ([n][k], k contiguous) and read without .trans, one 8-row matrix
+// per (n-tile, 16 k): lane l of an .x4 points at n row (l & 7) + 8 (l >> 4),
+// k byte 16 ((l >> 3) & 1), giving b0, b1 of one n-tile, then of the next.
 
 #pragma once
 
@@ -41,6 +53,13 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
 }
 
 // Two matrices: lanes 0-15 give the addresses (the others are ignored).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -56,6 +75,28 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16x32 s8) * b (32x8 s8), s32 accumulators: exact.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The symmetric int8 quantizer of the JAX kernels: v * inv (inv = 1/scale,
+// a float32 constant) rounded half to even, clipped to +-127.
+__device__ __forceinline__ int quant_s8(float v, float inv) {
+  return max(-127, min(127, __float2int_rn(v * inv)));
+}
+
+// Four quantized values as one register, the first in the low byte.
+__device__ __forceinline__ uint32_t pack_s8x4(int q0, int q1, int q2, int q3) {
+  return (uint32_t)(q0 & 0xff) | (uint32_t)(q1 & 0xff) << 8 | (uint32_t)(q2 & 0xff) << 16 |
+         (uint32_t)(q3 & 0xff) << 24;
 }
 
 // 16 bytes global -> shared without passing through registers; the first

@@ -25,11 +25,20 @@ Every other node runs its plain PyTorch op. A Conv2D or Dense that was
 given to KERNEL and that no kernel's gate admits runs on TORCH too, with
 a log line that names the gate: the decision is made here, never at
 launch time.
+
+Under INT8 (bfloat16 activations, int8 weights) the planners also set the
+int8 activations of a calibrated graph, as the JAX package does: a packed
+chain's per-layer `in_q` (kernels/chain.py a8_scales, unless
+`chain_a8="off"`; logged per chain with the reason for each layer), a
+block's `ax1`/`ax2` (kernels/invres.py build_invres), and, through
+`propagate_input_scales` before planning, the `in_act_scale` that the
+TORCH path's A8W8 reads (ops/conv.py a8w8_engaged).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -41,6 +50,7 @@ from shadernn_tpu_torch.ops import get_op
 from shadernn_tpu_torch.ops.common import ACTIVATIONS
 from shadernn_tpu_torch.ops.conv import folded_operands, kernel_chain_supported
 from shadernn_tpu_torch.ops.registry import RunCtx
+from shadernn_tpu_torch.quant.calibrate import propagate_input_scales
 from shadernn_tpu_torch.utils import get_logger
 from shadernn_tpu_torch.weights import params_from_numpy
 
@@ -138,10 +148,11 @@ def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]):
     """(chains, singles): head name -> (run, tail, tail_node, act_node,
     specs), and the names of the convs that run alone on the single-conv
     kernel."""
-    from shadernn_tpu_torch.kernels.chain import build_chain_specs
+    from shadernn_tpu_torch.kernels.chain import a8_scales, build_chain_specs
     from shadernn_tpu_torch.kernels.conv import single_conv_supported
 
     act_dtype = options.precision.activation_dtype
+    a8 = options.precision.is_quantized and options.chain_a8 != "off"
 
     def eligible(node: Node) -> bool:
         return (
@@ -156,7 +167,7 @@ def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]):
 
     def alone(run: List[Node], why: str) -> None:
         for n in run:
-            if single_conv_supported(n, graph.nodes[n.inputs[0]].out_spec.c):
+            if single_conv_supported(n, graph.nodes[n.inputs[0]].out_spec.c, act_dtype):
                 log.info("conv %s runs alone on the single-conv kernel (%s)", n.name, why)
                 singles.append(n.name)
             else:
@@ -164,8 +175,8 @@ def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]):
                 # policy), so _plan_layer_kernels sees it next and logs where
                 # it runs: the implicit-GEMM kernel or TORCH.
                 log.info("conv %s declined by the single-conv kernel's gate (activation, "
-                         "int8 weights or shared memory); the per-layer kernel plan "
-                         "decides where it runs", n.name)
+                         "int8 weights under float32 activations, or shared memory); the "
+                         "per-layer kernel plan decides where it runs", n.name)
 
     visited = set()
     for node in order:
@@ -242,20 +253,28 @@ def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]):
             )
             alone(run, f"chain at {node.name} declined")
             continue
+        if a8 and options.chain_format in ("auto", "packed") and tail in ("c1", "d2s2"):
+            # The packed entry's int8 dots, as the JAX package plans them; a
+            # declined layer runs the bf16 dot there too.
+            specs, notes = a8_scales(run, specs, graph.nodes[node.inputs[0]].op == "InputLayer")
+            log.info("chain at %s, int8 dots: %s", node.name, "; ".join(
+                f"{name} in_q {q:.6g} ({why})" if q else f"{name} bf16 ({why})"
+                for name, q, why in notes))
         chains[node.name] = (run, tail, tail_node, act_node, specs)
     return chains, singles
 
 
 def _plan_blocks(graph: Graph, options: EngineOptions, order: List[Node], taken: set) -> dict:
-    """head name -> ((expand, dw, project, add), InvResSpec) for each
-    inverted-residual block the kernel takes; `taken` holds the names that
-    chains (and earlier blocks) already run and grows with each block's
-    members other than its head."""
+    """head name -> ((expand, dw, project, add), InvResSpec, (in_act_scale,
+    a8w8)) for each inverted-residual block the kernel takes; `taken` holds
+    the names that chains (and earlier blocks) already run and grows with
+    each block's members other than its head."""
     from shadernn_tpu_torch.kernels.invres import build_invres, match_invres_block
 
     blocks: dict = {}
     if options.dump_outputs:  # intermediates must be observable
         return blocks
+    int8 = options.precision.is_quantized
     for node in order:
         if node.op != "SeparableConv2D" or options.backend_for(node.name) not in (
             BackendKind.AUTO, BackendKind.KERNEL,
@@ -269,14 +288,20 @@ def _plan_blocks(graph: Graph, options: EngineOptions, order: List[Node], taken:
         members = [n for n in m if n is not None]
         if any(n.name in taken for n in members):
             continue
-        built = build_invres(m, graph.nodes[head.inputs[0]].out_spec,
-                             options.precision.activation_dtype)
+        in_node = graph.nodes[head.inputs[0]]
+        # A8W8 scales only under an INT8 engine: a calibrated graph rebuilt
+        # at FP32/BF16 runs float activations.
+        a8w8 = (float(in_node.attrs.get("act_scale", 0.0) or 0.0) if int8 else 0.0, int8)
+        built = build_invres(m, in_node.out_spec, options.precision.activation_dtype, *a8w8)
         if built is None:
-            log.info("block at %s declined by the kernel's gate (activation, int8 "
-                     "weights, Cout > 320 or shared memory); its ops run on TORCH",
-                     head.name)
+            log.info("block at %s declined by the kernel's gate (activation, Cout > 320 "
+                     "or shared memory); its ops run on TORCH", head.name)
             continue
-        blocks[head.name] = (m, built[1])
+        if int8:
+            log.info("block at %s: expand %s, project %s", head.name,
+                     f"int8 (ax1 {built[1].ax1:.6g})" if built[1].ax1 else "bf16",
+                     f"int8 (ax2 {built[1].ax2:.6g})" if built[1].ax2 else "bf16")
+        blocks[head.name] = (m, built[1], a8w8)
         taken.update(n.name for n in members if n is not head)
     return blocks
 
@@ -321,7 +346,8 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
     """The forward over (params, inputs) -> {output name: tensor}; with
     options.dump_outputs also every layer's output under "__dumps__".
     `forward.chain_plan` and `forward.block_plan` map each chain or block
-    head to the nodes it fuses; `forward.single_conv_plan`,
+    head to the nodes it fuses (`forward.chain_specs` and
+    `forward.block_specs` to its kernel's specs); `forward.single_conv_plan`,
     `forward.kernel_conv_plan` and `forward.kernel_dense_plan` list the
     nodes that run alone on the single-conv, implicit-GEMM and fused-matmul
     kernels."""
@@ -346,7 +372,7 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
         skip.update(n.name for n in run[1:])
         skip.update(n.name for n in (tail_node, act_node) if n is not None)
     blocks = _plan_blocks(graph, options, order, skip | set(chains))
-    for head, (members, _spec) in blocks.items():
+    for head, (members, _spec, _a8w8) in blocks.items():
         skip.update(n.name for n in members if n is not None and n.name != head)
     singles = [n for n in singles if n not in skip and n not in blocks]
     kernel_convs, kernel_denses, on_torch = _plan_layer_kernels(
@@ -356,7 +382,8 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
 
     def operands(head: str, views, make):
         """The kernel operands of a planned chain, block, conv or dense
-        layer (weights cast, epilogues folded), prepared once for each set of
+        layer (weights cast, epilogues folded), or the weight of a TORCH
+        layer (ops/conv.py layer_weight), prepared once for each set of
         parameter tensors: `CompiledModel.load_params` installs new
         tensors, which prepares them anew."""
         key = tuple(t for v in views if v is not None for t in v.params.values())
@@ -377,11 +404,12 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
             if node.name in skip or node.op == "InputLayer":
                 continue
             if node.name in blocks:
-                members, spec = blocks[node.name]
+                members, spec, a8w8 = blocks[node.name]
                 views = [_NodeView(n, params.get(n.name, {})) if n is not None else None
                          for n in members]
                 ops = operands(node.name, views, lambda: prepare_operands(build_invres(
-                    views, graph.nodes[node.inputs[0]].out_spec, act_dtype)[0], spec, act_dtype))
+                    views, graph.nodes[node.inputs[0]].out_spec, act_dtype, *a8w8)[0], spec,
+                    act_dtype))
                 out = members[3] if members[3] is not None else members[2]
                 env[out.name] = fused_invres_block(
                     value(node.inputs[0]).contiguous(), ops, spec)
@@ -398,7 +426,8 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
                     if options.chain_format in ("auto", "packed") and tail in ("c1", "d2s2")
                     else fused_conv_chain
                 )
-                res = entry(vin, operands(node.name, views, lambda: chain_operands(views, act_dtype)),
+                res = entry(vin, operands(node.name, views,
+                                          lambda: chain_operands(views, act_dtype, specs)),
                             specs, tail=tail, compute_dtype=act_dtype)
                 for n in (run[-1], tail_node, act_node):
                     if n is not None:
@@ -419,7 +448,8 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
             else:
                 backend = (BackendKind.TORCH if node.name in on_torch
                            else resolve_backend(node, graph, options))
-                ctx = RunCtx(precision=options.precision, backend=backend)
+                ctx = RunCtx(precision=options.precision, backend=backend,
+                             cache=functools.partial(operands, node.name, [view]))
             env[node.name] = get_op(node.op).run(view, [value(i) for i in node.inputs], ctx)
         outs = {o: value(o).to(out_dtype) for o in graph.output_names}
         if options.dump_outputs:
@@ -436,8 +466,13 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
     }
     forward.block_plan = {
         head: [n.name for n in members if n is not None]
-        for head, (members, _spec) in blocks.items()
+        for head, (members, _spec, _a8w8) in blocks.items()
     }
+    # The kernels' static plans: each chain's layer specs (in_q; the lists
+    # the forward runs, so that a planted fault can edit one) and each
+    # block's spec (ax1, ax2).
+    forward.chain_specs = {head: c[4] for head, c in chains.items()}
+    forward.block_specs = {head: spec for head, (_m, spec, _a8w8) in blocks.items()}
     forward.single_conv_plan = list(singles)
     forward.kernel_conv_plan = list(kernel_convs)
     forward.kernel_dense_plan = list(kernel_denses)
@@ -485,6 +520,9 @@ def compile_graph(graph: Graph, options: Optional[EngineOptions] = None) -> Comp
     device = resolve_device(options)
     if any(n.out_spec is None for n in graph.nodes.values()):
         graph.infer_shapes(batch_size=options.batch_size)
+    # Int8 activations: each quantized consumer takes its producer's
+    # calibrated scale (a no-op unless calibrate_activations ran).
+    propagate_input_scales(graph)
     params = params_from_numpy(extract_params(graph), device)
     forward = build_forward(graph, options)
     input_specs = {n: graph.nodes[n].out_spec.shape for n in graph.input_names}

@@ -47,6 +47,10 @@ class Engine:
             counts = fusion.optimize(graph, fold_bn=options.fold_batchnorm)
             logger.info("graph optimize: %s", counts)
         graph.infer_shapes(batch_size=options.batch_size)
+        if options.precision.is_quantized:
+            from shadernn_tpu_torch.quant.quantize import quantize_graph_weights
+
+            quantize_graph_weights(graph)
         logger.info("\n%s", graph.summary())
         return cls(compile_graph(graph, options))
 

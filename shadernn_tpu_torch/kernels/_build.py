@@ -104,17 +104,18 @@ def kernel_lib() -> ctypes.CDLL:
             lib.snn_conv_chain.restype = I
             lib.snn_conv_chain_tc.argtypes = [
                 P, I, P, P, ctypes.POINTER(I), ctypes.POINTER(ctypes.c_float),
-                I, I, I, I, I, ctypes.POINTER(I), P,
+                ctypes.POINTER(ctypes.c_float), I, I, I, I, I, ctypes.POINTER(I), P,
             ]
             lib.snn_conv_chain_tc.restype = I
             lib.snn_conv_single.argtypes = [
-                P, I, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I,
+                P, I, P, P, I, P, P, I, I, I, I, I, I, I, I, I, I, I, I,
                 ctypes.c_float, I, ctypes.POINTER(I), P,
             ]
             lib.snn_conv_single.restype = I
             lib.snn_invres_block.argtypes = [
                 P, I, P, ctypes.POINTER(P), I, I, I, I, I, I, I, I,
-                ctypes.POINTER(I), ctypes.c_float, ctypes.POINTER(I), P,
+                ctypes.POINTER(I), ctypes.c_float, ctypes.c_float, ctypes.c_float, I,
+                ctypes.POINTER(I), P,
             ]
             lib.snn_invres_block.restype = I
             lib.snn_conv_igemm.argtypes = [

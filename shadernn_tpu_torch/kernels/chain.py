@@ -9,11 +9,20 @@ point `fused_conv_chain_packed`) and `shadernn_tpu/kernels/chain_pallas.py`
 kept under their JAX names and launch the one kernel.
 
 The function, at the tensor boundary: NHWC input (float32 or bfloat16,
-cast to the compute dtype), per layer an HWIO weight in the compute dtype,
-a float32 accumulation and `act(acc * scale + offset)` in float32, each
+cast to the compute dtype), per layer an HWIO weight in the compute dtype
+or int8 (exact in both; its scale folded into `scale`), a float32
+accumulation and `act(acc * scale + offset)` in float32, each
 intermediate zero outside the image and rounded to the compute dtype.
 Tails: "none" -> (N,H,W,o); "c1" (o=1) -> (N,H,W,1); "d2s2" (o=4) ->
 (N,2H,2W,1) through depth_to_space(2) in TF channel order.
+
+A8 (the JAX kernel's int8 `in_q` dots, bf16 form only): a layer with
+`in_q > 0` takes an int8 input and int8 weights, sums int8 x int8 in
+int32 (exact) and folds `in_q` into its float32 scale. Its producer
+writes `clip(rint(y * (1/in_q)), +-127)` from the float32 value after the
+activation (the layer before's epilogue, or the frame itself for the
+head), rounding half to even with 1/in_q a float32 constant. `a8_scales`
+is the plan: which layers get an `in_q`, and why the others do not.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 (tests) it runs `conv_chain_reference`. The bf16 form runs on the tensor
@@ -36,7 +45,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
-from shadernn_tpu_torch.ops.conv import conv2d_nhwc_f32, epilogue_scale_offset
+from shadernn_tpu_torch.ops.conv import (
+    conv2d_nhwc_f32, conv2d_nhwc_int8, epilogue_scale_offset, quantize_act,
+)
 from shadernn_tpu_torch.ops.shape_ops import depth_to_space
 
 # Final-output pixels per CTA of the f32 form (rows, columns) and the
@@ -71,6 +82,9 @@ class ChainLayerSpec:
     pr: int
     activation: str
     alpha: float
+    # Dequantization scale of this layer's int8 input (x ~ x_q * in_q);
+    # 0.0: the input stays in the compute dtype.
+    in_q: float = 0.0
 
 
 def _round4(v: int) -> int:
@@ -116,11 +130,11 @@ def build_chain_specs(
     tail: str = "none",
 ) -> Optional[List[ChainLayerSpec]]:
     """Plan a run of Conv2D nodes for the kernel, or None where the kernel
-    cannot take it: stride != 1, k > 9, o > 32, int8 weight storage (the
-    JAX kernel's int8 `in_q` dots come with the INT8 slice), an activation
-    outside the kernel's epilogue, more than 8 layers, or shared memory
-    over 227 KB. `act_override` = (name, alpha) replaces the last layer's
-    activation with a folded one (e.g. ESPCN's post-subpixel tanh)."""
+    cannot take it: stride != 1, k > 9, o > 32, an activation outside the
+    kernel's epilogue, more than 8 layers, or shared memory over 227 KB.
+    Float and int8 weights alike (`a8_scales` adds the int8 dots).
+    `act_override` = (name, alpha) replaces the last layer's activation
+    with a folded one (e.g. ESPCN's post-subpixel tanh)."""
     if act_dtype not in (torch.float32, torch.bfloat16) or tail not in TAILS:
         return None
     if not 1 <= len(views) <= MAX_LAYERS:
@@ -128,7 +142,7 @@ def build_chain_specs(
     specs: List[ChainLayerSpec] = []
     c = in_channels
     for idx, node in enumerate(views):
-        if int(node.attr("stride", 1)) != 1 or "weight_q" in node.params:
+        if int(node.attr("stride", 1)) != 1:
             return None
         k = int(node.attr("kernel_size"))
         o = int(node.attr("out_channels"))
@@ -150,13 +164,62 @@ def build_chain_specs(
     return specs
 
 
-def chain_operands(views, compute_dtype: torch.dtype) -> List[dict]:
-    """Per-layer kernel operands: weight "w" (HWIO, compute dtype) and the
-    folded float32 "scale"/"offset" (bias, BatchNorm)."""
+# The input range of a layer after each bounded activation (|y| <= 1 or
+# 0 <= y <= 6): an int8 step that needs no calibration.
+_BOUNDED_STEP = {"tanh": 1.0 / 127.0, "sigmoid": 1.0 / 127.0, "relu6": 6.0 / 127.0}
+
+
+def a8_scales(views, specs: Sequence[ChainLayerSpec], head_from_frame: bool):
+    """The JAX package's per-layer a8 rule (chain_packed_pallas.
+    build_chain_packed(a8=True)): a layer's dot runs int8 x int8 where its
+    weights are int8, its C is a multiple of 8 and its input range is
+    bounded: the previous layer's tanh, sigmoid or relu6, else a calibrated
+    `in_act_scale`, and for the head the model frame ([0, 1], step 1/127)
+    when an InputLayer feeds it (`head_from_frame`). Unlike the JAX
+    package, a head that a mid-graph value feeds gets no such step without
+    calibration (its range is not the frame's). Returns (specs with
+    `in_q` set, [(layer, in_q or 0.0, why)])."""
+    out, notes = list(specs), []
+    for l, (node, s) in enumerate(zip(views, specs)):
+        calibrated = float(node.attr("in_act_scale", 0.0) or 0.0)
+        if "weight_q" not in node.params:
+            notes.append((node.name, 0.0, "float weights"))
+            continue
+        if s.c % 8:
+            notes.append((node.name, 0.0, f"C = {s.c} is not a multiple of 8"))
+            continue
+        if l == 0:
+            q = calibrated or (1.0 / 127.0 if head_from_frame else 0.0)
+            why = ("calibrated in_act_scale" if calibrated else
+                   "the model frame's range [0, 1]" if q else
+                   "a mid-graph head without a calibrated in_act_scale")
+        else:
+            prev = specs[l - 1].activation
+            q = _BOUNDED_STEP.get(prev, calibrated)
+            why = (f"bounded by the previous {prev}" if prev in _BOUNDED_STEP else
+                   "calibrated in_act_scale" if q else
+                   f"input after {prev} without a calibrated in_act_scale")
+        if q > 0.0:
+            out[l] = dataclasses.replace(s, in_q=q)
+        notes.append((node.name, q, why))
+    return out, notes
+
+
+def chain_operands(views, compute_dtype: torch.dtype,
+                   specs: Optional[Sequence[ChainLayerSpec]] = None) -> List[dict]:
+    """Per-layer kernel operands: weight "w" (HWIO, the compute dtype, or
+    the int8 weight as it is) and the folded float32 "scale"/"offset" (the
+    int8 scale, bias, BatchNorm; times `in_q` for a layer with an int8
+    input)."""
     out = []
-    for node in views:
+    for l, node in enumerate(views):
         scale, offset = epilogue_scale_offset(node)
-        w = torch.as_tensor(node.params["weight"]).to(compute_dtype)
+        if specs is not None and specs[l].in_q > 0.0:
+            scale = scale * specs[l].in_q
+        if "weight_q" in node.params:
+            w = torch.as_tensor(node.params["weight_q"])
+        else:
+            w = torch.as_tensor(node.params["weight"]).to(compute_dtype)
         out.append({"w": w, "scale": scale, "offset": offset})
     return out
 
@@ -178,33 +241,51 @@ SMEM_PER_SM = 233472  # 228 KB; each resident CTA also takes 1 KB
 
 @dataclasses.dataclass(frozen=True)
 class TcLayer:
-    """The tile-independent layout of one layer in the bf16 form."""
+    """The tile-independent layout of one layer in the bf16 form. A layer
+    with a bf16 input runs m16n8k16 bf16 products; one with an int8 input
+    (`q8`, an `in_q`) m16n8k32 s8 products."""
 
     dense: bool   # C < 8: taps packed densely, K = round16(k*k*C)
-    cs: int       # bf16 per staged input position: C (dense), or C padded to 8
-                  # and to an odd number of 16-byte units (ldmatrix rows)
-    ksteps: int   # k16 steps of K
+    cs: int       # per staged input position, in elements of the input (bf16,
+                  # or int8 bytes): C (dense), or C padded to units of 16 bytes
+                  # (8 bf16 or 16 int8) and to an odd number of units (ldmatrix rows)
+    ksteps: int   # k16 (bf16) or k32 (int8) steps of K
     nt: int       # n8-tiles: o padded to 8
-    ostride: int  # bf16 per B row: nt * 8, padded to an odd number of 16-byte units
+    ostride: int  # bf16: elements per B row (k-major B), nt * 8 padded to an odd
+                  # number of 16-byte units; int8: bytes per B row (n-major B, K
+                  # contiguous), 32 * ksteps plus one 16-byte unit
+    q8: bool = False
+
+    @property
+    def esize(self) -> int:
+        return 1 if self.q8 else 2
 
     @property
     def w_bytes(self) -> int:
+        if self.q8:
+            return 8 * self.nt * self.ostride
         return self.ksteps * 16 * self.ostride * 2
 
     @property
     def ktab_bytes(self) -> int:
         """The table of K offsets: one per K index (dense), else one per
-        8-channel unit."""
+        16-byte unit."""
         return (64 if self.dense else 8) * self.ksteps
 
 
 def tc_layers(specs: Sequence[ChainLayerSpec]) -> List[TcLayer]:
     out = []
     for s in specs:
+        nt = -(-s.o // 8)
+        if s.in_q > 0.0:  # int8 input, C a multiple of 8: units of 16 channels
+            units = -(-s.c // 16)
+            ksteps = -(-(s.k * s.k * units) // 2)
+            out.append(TcLayer(False, 16 * (units + 1 - units % 2), ksteps, nt,
+                               32 * ksteps + 16, True))
+            continue
         dense, units = s.c < 8, -(-s.c // 8)
         cs = s.c if dense else 8 * (units + 1 - units % 2)
         ksteps = -(-(s.k * s.k * s.c) // 16) if dense else -(-(s.k * s.k * units) // 2)
-        nt = -(-s.o // 8)
         ostride = 8 * nt + (8 if nt % 2 == 0 else 0)
         out.append(TcLayer(dense, cs, ksteps, nt, ostride))
     return out
@@ -240,7 +321,8 @@ class ChainLaunch:
     buf1: int
     smem: int
     param_bytes: int
-    layers: Tuple[Tuple[int, int, int, int, int, int], ...]  # (cs, ostride, w_off, ktab_off, pw, ps)
+    # (cs, ostride, w_off, ktab_off, pw, ps, q8) per layer
+    layers: Tuple[Tuple[int, int, int, int, int, int, int], ...]
 
     @functools.cached_property
     def array(self) -> ctypes.Array:
@@ -274,13 +356,14 @@ def _tc_launch(specs: Sequence[ChainLayerSpec], tile_h: int, tile_w: int,
     need = [0, 0]
     for l, tl in enumerate(tls):
         rows, cols = regs[l]
-        need[l % 2] = max(need[l % 2], 2 * rows * cols * tl.cs)
+        need[l % 2] = max(need[l % 2], tl.esize * rows * cols * tl.cs)
     buf0 = cur
     buf1 = _align(buf0 + need[0])
     offs, pbytes = param_layout(specs)
     return ChainLaunch(
         tile_h, tile_w, threads, int(w_all), buf0, buf1, buf1 + need[1], pbytes,
-        tuple((tl.cs, tl.ostride, w_off[l], ktab[l], *offs[l]) for l, tl in enumerate(tls)))
+        tuple((tl.cs, tl.ostride, w_off[l], ktab[l], *offs[l], int(tl.q8))
+              for l, tl in enumerate(tls)))
 
 
 def _tc_cost(specs: Sequence[ChainLayerSpec], geo: ChainLaunch, n: int, ho: int, wo: int,
@@ -330,16 +413,30 @@ def launch_geometry(specs: Tuple[ChainLayerSpec, ...], n: int, h: int, w: int,
 
 def pack_params(layer_params: List[dict], specs: Sequence[ChainLayerSpec]) -> torch.Tensor:
     """The bf16 form's parameters as one byte tensor (`param_layout`): per
-    layer the B image, K rows in the kernel's order (tap-major; C padded to
-    8 per unit unless the layer packs its taps densely) padded to whole k16 steps,
-    `ostride` columns, zeros past o; then scale and offset, zeros past o."""
+    layer the B image, then scale and offset (float32, zeros past o). A
+    bf16 layer's B image has K rows in the kernel's order (tap-major; C
+    padded to 8 per unit unless the layer packs its taps densely) padded to
+    whole k16 steps, `ostride` columns, zeros past o; int8 weights become
+    bf16 here, exactly. An int8 layer's B image is n-major (ldmatrix has no
+    8-bit transpose): one row of `ostride` bytes per output channel, K in
+    the kernel's order (tap-major, C padded to 16 per unit) padded to whole
+    k32 steps, zero rows past o."""
     chunks = []
+    pad = torch.nn.functional.pad
     for p, s, tl in zip(layer_params, specs, tc_layers(specs)):
-        w = p["w"].to(torch.bfloat16)
-        if not tl.dense:
-            w = torch.nn.functional.pad(w, (0, 0, 0, -s.c % 8))
-        w = w.reshape(-1, s.o)
-        w = torch.nn.functional.pad(w, (0, tl.ostride - s.o, 0, 16 * tl.ksteps - w.shape[0]))
+        if tl.q8:
+            if p["w"].dtype != torch.int8:
+                raise TypeError(f"a layer with an int8 input takes int8 weights, "
+                                f"got {p['w'].dtype}")
+            w = pad(p["w"], (0, 0, 0, -s.c % 16)).reshape(-1, s.o)
+            w = pad(w, (0, 0, 0, 32 * tl.ksteps - w.shape[0])).t()
+            w = pad(w, (0, tl.ostride - w.shape[1], 0, 8 * tl.nt - s.o))
+        else:
+            w = p["w"].to(torch.bfloat16)
+            if not tl.dense:
+                w = pad(w, (0, 0, 0, -s.c % 8))
+            w = w.reshape(-1, s.o)
+            w = pad(w, (0, tl.ostride - s.o, 0, 16 * tl.ksteps - w.shape[0]))
         so = torch.zeros((2, 8 * tl.nt), dtype=torch.float32, device=w.device)
         so[0, :s.o] = p["scale"].float().reshape(-1)
         so[1, :s.o] = p["offset"].float().reshape(-1)
@@ -379,17 +476,32 @@ def conv_chain_reference(
     compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, layer by layer over the whole
-    image. Zero-padding each layer's input (inside conv2d_nhwc_f32) is the
-    kernel's mask of its halo outside the image."""
+    image. Zero-padding each layer's input (inside the convolutions) is
+    the kernel's mask of its halo outside the image. A layer with an int8
+    input sums int8 x int8 exactly in int32 (ops/conv.py conv2d_nhwc_int8);
+    its producer quantizes its float32 output (the frame, for the head)."""
     dt = _compute_dtype(x, compute_dtype)
-    v = x.to(dt)
-    for p, s in zip(layer_params, specs):
-        acc = conv2d_nhwc_f32(v, p["w"].to(dt), (s.pt, s.pb, s.pl, s.pr))
-        y = acc * p["scale"].float() + p["offset"].float()
-        v = apply_activation(y, s.activation, s.alpha).to(dt)
+    _check_a8(specs, dt)
+    v = quantize_act(x, specs[0].in_q) if specs[0].in_q > 0.0 else x.to(dt)
+    for l, (p, s) in enumerate(zip(layer_params, specs)):
+        pads = (s.pt, s.pb, s.pl, s.pr)
+        if s.in_q > 0.0:
+            acc = conv2d_nhwc_int8(v, p["w"], pads).float()
+        else:
+            acc = conv2d_nhwc_f32(v, p["w"].to(dt), pads)
+        y = apply_activation(acc * p["scale"].float() + p["offset"].float(), s.activation,
+                             s.alpha)
+        nq = specs[l + 1].in_q if l + 1 < len(specs) else 0.0
+        v = quantize_act(y, nq) if nq > 0.0 else y.to(dt)
     if tail == "d2s2":
         v = depth_to_space(v, 2)
     return v.contiguous()
+
+
+def _check_a8(specs: Sequence[ChainLayerSpec], dt: torch.dtype) -> None:
+    for s in specs:
+        if s.in_q > 0.0 and (dt != torch.bfloat16 or s.c % 8):
+            raise ValueError(f"an int8 layer input (in_q) needs the bf16 form and C % 8 == 0: {s}")
 
 
 def _launch(x, layer_params, specs, tail, dt, entry) -> torch.Tensor:
@@ -405,6 +517,7 @@ def _launch(x, layer_params, specs, tail, dt, entry) -> torch.Tensor:
         raise ValueError("conv chain input must be contiguous")
     if len(layer_params) != len(specs):
         raise ValueError("one operand dict per layer spec")
+    _check_a8(specs, dt)
     for p, s in zip(layer_params, specs):
         if tuple(p["w"].shape) != (s.k, s.k, s.c, s.o):
             raise ValueError(f"weight shape {tuple(p['w'].shape)} != {(s.k, s.k, s.c, s.o)}")
@@ -427,9 +540,14 @@ def _launch(x, layer_params, specs, tail, dt, entry) -> torch.Tensor:
     x_bf16 = int(x.dtype == torch.bfloat16)
     if dt == torch.bfloat16:
         geo = launch_geometry(tuple(specs), n, h, w, sm_count(x.device.index))
-        params = _packed(layer_params, "bf16", lambda: pack_params(layer_params, specs))
+        params = _packed(layer_params, ("bf16",) + tuple(s.in_q > 0.0 for s in specs),
+                         lambda: pack_params(layer_params, specs))
+        # 1/in_q as float32, the constant the JAX kernel multiplies by.
+        inv_q = (ctypes.c_float * len(specs))(*[1.0 / s.in_q if s.in_q > 0.0 else 0.0
+                                                for s in specs])
         rc = lib.snn_conv_chain_tc(x.data_ptr(), x_bf16, y.data_ptr(), params.data_ptr(), ints,
-                                   alphas, len(specs), n, h, w, TAILS[tail], geo.array, stream)
+                                   alphas, inv_q, len(specs), n, h, w, TAILS[tail], geo.array,
+                                   stream)
     else:
         params = _packed(layer_params, "f32", lambda: torch.cat([
             t.float().reshape(-1) for p in layer_params

@@ -9,9 +9,11 @@ packing are TPU layouts and are not carried over: the function is taken
 at the tensor boundary, NHWC in and NHWC out.
 
 The function: x (N,H,W,C) cast to the compute dtype, an HWIO weight
-(kh,kw,C,O), rectangular kernels allowed, in the compute dtype, a float32
-sum, `act(acc * scale + offset)` in float32 with zero padding (pt, pb, pl,
-pr), the result rounded to the compute dtype. The engine runs on it every
+(kh,kw,C,O), rectangular kernels allowed, in the compute dtype (or int8
+under bfloat16: the kernel upcasts it as it stages it, exactly, and its
+scale arrives folded into `scale`), a float32 sum, `act(acc * scale +
+offset)` in float32 with zero padding (pt, pb, pl, pr), the result
+rounded to the compute dtype. The engine runs on it every
 conv that AUTO gives the kernel but no chain takes: a chain of one, or the
 convs of a chain that the chain kernel's gate declines.
 
@@ -212,12 +214,13 @@ def _launch(x, w_hwio, scale, offset, pads, activation, alpha, dt) -> torch.Tens
                           sm_count(x.device.index))
     if geo.smem > MAX_SMEM_BYTES:
         raise ValueError(f"conv k{kh}x{kw} {c}->{o} does not fit the kernel's shared memory")
-    wf = w_hwio.to(dt).contiguous()
+    w_int8 = w_hwio.dtype == torch.int8 and dt == torch.bfloat16
+    wf = (w_hwio if w_int8 else w_hwio.to(dt)).contiguous()
     sf = scale.float().contiguous()
     of = offset.float().contiguous()
     lib = kernel_lib()
     rc = lib.snn_conv_single(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(), wf.data_ptr(),
+        x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(), wf.data_ptr(), int(w_int8),
         sf.data_ptr(), of.data_ptr(), n, h, w, c, kh, kw, o, pt, pb, pl, pr,
         ACT_CODES[activation.lower()], float(alpha), int(dt == torch.bfloat16), geo.array,
         torch.cuda.current_stream(x.device).cuda_stream,
@@ -258,15 +261,17 @@ def smem_bytes(kh: int, kw: int, o: int) -> int:
     return _f32_launch(kh, kw, 1, o, cc=1).smem
 
 
-def single_conv_supported(node, in_channels: int) -> bool:
-    """Can the kernel run this Conv2D node? The chain gate's geometry
-    (ops/conv.py kernel_chain_supported) plus an activation in its
-    epilogue, float weights (int8 comes with the INT8 slice) and the
-    shared memory of one input channel."""
+def single_conv_supported(node, in_channels: int,
+                          act_dtype: torch.dtype = torch.float32) -> bool:
+    """Can the kernel run this Conv2D node at activation dtype `act_dtype`?
+    The chain gate's geometry (ops/conv.py kernel_chain_supported) plus an
+    activation in its epilogue, float weights or int8 weights under
+    bfloat16 (the form that stages them; INT8 engines run bfloat16), and
+    the shared memory of one input channel."""
     k = int(node.attr("kernel_size"))
     return (
         kernel_chain_supported(node, in_channels)
-        and "weight_q" not in node.params
+        and ("weight_q" not in node.params or act_dtype == torch.bfloat16)
         and str(node.attr("activation", "linear")).lower() in ACT_CODES
         and smem_bytes(k, k, int(node.attr("out_channels"))) <= MAX_SMEM_BYTES
     )

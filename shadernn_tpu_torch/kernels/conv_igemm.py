@@ -130,19 +130,19 @@ def conv2d_kernel_nhwc(
 
 # What igemm_conv_supported asks, for the log line of a conv it declines.
 GATE = ("implicit-GEMM kernel's gate (stride 1, c <= 128, o <= 128, k*k*c <= 4096, "
-        "an elementwise activation, float weights)")
+        "an elementwise activation)")
 
 
 def igemm_conv_supported(node, in_channels: int) -> bool:
     """Can the kernel run this Conv2D node over `in_channels` (all inputs
     of a multi-input conv together)? The geometry gate
-    (ops/conv.py kernel_conv_supported), an activation in the kernel's
+    (ops/conv.py kernel_conv_supported) and an activation in the kernel's
     epilogue (softmax would reduce over channels, which the TPU kernel does
-    not compute either) and float weights (the engine's int8 comes with the
-    INT8 slice)."""
+    not compute either). Float and int8 weights alike: ops/conv.py
+    folded_operands hands the kernel the int8 weight and the folded
+    scale."""
     return (
         kernel_conv_supported(node, in_channels)
-        and "weight_q" not in node.params
         and str(node.attr("activation", "linear")).lower() in ACT_CODES
     )
 

@@ -6,22 +6,30 @@ The kernel ports `_invres_kernel` of the JAX package
 (`shadernn_tpu/kernels/block_pallas.py`, entry point `fused_invres_block`):
 [1x1 expand + act] -> 3x3 stride-1 SAME depthwise + act -> 1x1 project
 [+ residual] -> act as one kernel, the expanded tensor kept on chip. The
-planner (`match_invres_block`, `build_invres`) is the JAX package's, float
-path, without the TPU layout fields (b_tile, padded, row_chunk, wp, hp).
+planner (`match_invres_block`, `build_invres`) is the JAX package's,
+without the TPU layout fields (b_tile, padded, row_chunk, wp, hp).
 
 Numerics of the JAX kernel, which the plain version and the kernel share:
-w1 and w2 in the compute dtype (the dtype of x), the depthwise taps kept
-float32 (the per-op TORCH path casts them to the compute dtype, so under
-BF16 the two paths differ by design), every sum in float32, e and d
-rounded to the compute dtype, out-of-image taps exact zeros, the residual
-x added in float32 before the output activation.
+w1 and w2 in the compute dtype (the dtype of x), or int8, which the kernel
+reads as int8 and upcasts as it stages them (exact), the depthwise taps
+kept float32 (int8 taps upcast; the per-op TORCH path casts them to the
+compute dtype, so under BF16 the two paths differ by design), every sum in
+float32, e and d rounded to the compute dtype, out-of-image taps exact
+zeros, the residual x added in float32 before the output activation. Every
+int8 weight's scale is folded into its stage's float32 epilogue scale.
+
+A8W8 (bf16 only, a calibrated INT8 engine): `ax1` quantizes the block
+input for the expand product and `ax2` the depthwise output (after its
+activation, rounded to bf16) for the project product, each symmetric int8
+with a float32 1/ax, rounded half to even; those products are int8 x int8
+with exact int32 sums, ax folded into s1 / s2 (the JAX kernel's `q8`).
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor (tests) it runs `invres_block_reference`. The launch geometry is
 this module's (`pick_launch`, `layout`): the C entry point checks it and
-launches. `prepare_operands`
-checks and lays out a block's operands once (the engine does so once per
-parameter set), so that a launch only checks its input.
+launches. `prepare_operands` checks and lays out a block's operands once
+(the engine does so once per parameter set), so that a launch only checks
+its input.
 """
 
 from __future__ import annotations
@@ -35,7 +43,9 @@ import torch
 
 from shadernn_tpu_torch.kernels.chain import ACT_CODES, MAX_SMEM_BYTES
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
-from shadernn_tpu_torch.ops.conv import conv2d_nhwc_f32, epilogue_scale_offset
+from shadernn_tpu_torch.ops.conv import (
+    conv2d_nhwc_f32, epilogue_scale_offset, int8_matmul, quantize_act,
+)
 
 # Limits of csrc/invres_block.cu: expanded channels per chunk, the largest
 # tile (pixels), output width and CTAs of a cluster that split E.
@@ -43,6 +53,7 @@ CHUNK_E = 32
 MAX_TILE = 8
 MAX_COUT = 320
 MAX_SPLIT = 8
+MAX_E_A8W8 = 1024  # E of an A8W8 project; match_invres_block's E <= 1024 too
 
 # Kernel launches since import (a caller may reset them).
 launches = {"fused_invres_block": 0}
@@ -63,6 +74,11 @@ class InvResSpec:
     act_dw: str
     act_out: str  # applied after the (optional) residual add
     alpha: float = 0.3
+    # A8W8: the calibrated scales of the block input (expand product) and
+    # of the depthwise output (project product); 0.0 keeps that product on
+    # the compute dtype.
+    ax1: float = 0.0
+    ax2: float = 0.0
 
 
 def _round_up(v: int, m: int) -> int:
@@ -77,7 +93,8 @@ class InvResLaunch:
     """Launch geometry of one block on csrc/invres_block.cu, in the order
     of its G_* fields: the tile, the split of E over a cluster, the staged
     rows' strides (elements) and the shared-memory layout (bytes; the bf16
-    form double-buffers w1, the taps and vectors, and w2)."""
+    form double-buffers w1, the taps and vectors, and w2; under ax1 it also
+    holds the quantized input tile `xq`, rows of `q_stride` bytes)."""
 
     tile_h: int
     tile_w: int
@@ -95,6 +112,8 @@ class InvResLaunch:
     wd_buf: int
     w2_buf: int
     smem: int
+    q_stride: int = 0
+    xq_off: int = 0
 
     @functools.cached_property
     def array(self) -> ctypes.Array:
@@ -102,35 +121,46 @@ class InvResLaunch:
         return (ctypes.c_int * len(fields))(*fields)
 
 
+Q_ROW = 48  # bytes per row of the int8 d chunk and of the staged int8 w2: 32 + 16
+
+
 def layout(spec: InvResSpec, tile_h: int, tile_w: int, split: int = 1,
            bf16: bool = False) -> InvResLaunch:
     """The shared memory of one CTA: the input tile with its halo, then the
-    per-chunk buffers, which the split-E partial sums overlay. f32: rows
-    of Cin rounded up to 4 floats, one buffer each. bf16: the halo and
-    pixel rows padded to 16 (the tensor cores' tiles), Cin to 16 and Cout
-    to 8, rows padded to an odd number of 16-byte units (ldmatrix without
-    bank conflicts), two buffers of each chunk's weights."""
+    per-chunk buffers, then (ax1) the quantized input tile; the split-E
+    partial sums overlay all but the input tile. f32: rows of Cin rounded
+    up to 4 floats, one buffer each. bf16: the halo and pixel rows padded
+    to 16 (the tensor cores' tiles), Cin to 16 and Cout to 8, rows padded
+    to an odd number of 16-byte units (ldmatrix without bank conflicts),
+    two buffers of each chunk's weights. The int8 operands (ax1: the input
+    tile and w1 n-major, rows of Cin padded to 32 plus 16 bytes; ax2: w2
+    n-major, rows of the chunk's 32 bytes plus 16) take the same care."""
     hp, p = (tile_h + 2) * (tile_w + 2), tile_h * tile_w
+    q_stride = xq = 0
     if bf16:
         cin16, cout8 = _round_up(spec.cin, 16), _round_up(spec.cout, 8)
         xs_stride = cin16 + 8
         w2_stride = cout8 + 8 if (cout8 // 8) % 2 == 0 else cout8
-        bufs = (cin16 * ES * 2 if spec.has_expand else 0, 13 * CHUNK_E * 4,
-                CHUNK_E * w2_stride * 2)
+        if spec.ax1:
+            q_stride = _round_up(spec.cin, 32) + 16
+            xq = _round_up(hp, 16) * q_stride
+        w1_buf = (CHUNK_E * q_stride if spec.ax1 else cin16 * ES * 2) if spec.has_expand else 0
+        bufs = (w1_buf, 13 * CHUNK_E * 4,
+                cout8 * Q_ROW if spec.ax2 else CHUNK_E * w2_stride * 2)
         sizes = (_round_up(hp, 16) * xs_stride * 2, _round_up(hp, 16) * ES * 2,
-                 _round_up(p, 16) * ES * 2, *(2 * b for b in bufs))
+                 _round_up(p, 16) * ES * 2, *(2 * b for b in bufs), xq)
     else:
         xs_stride, w2_stride = _round_up(spec.cin, 4), spec.cout
         bufs = (0, 0, 0)
         sizes = (hp * xs_stride * 4, hp * CHUNK_E * 4, p * CHUNK_E * 4,
                  xs_stride * CHUNK_E * 4 if spec.has_expand else 0, 13 * CHUNK_E * 4,
-                 CHUNK_E * spec.cout * 4)
+                 CHUNK_E * spec.cout * 4, 0)
     offs = [0]
     for size in sizes:
         offs.append(offs[-1] + size)
     red = p * spec.cout * 4 if split > 1 else 0
     return InvResLaunch(tile_h, tile_w, split, xs_stride, w2_stride, *offs[:6], offs[1], *bufs,
-                        max(offs[6], offs[1] + red))
+                        max(offs[7], offs[1] + red), q_stride, offs[6] if xq else 0)
 
 
 def smem_bytes(spec: InvResSpec, tile_h: int, tile_w: int, split: int = 1,
@@ -143,46 +173,72 @@ def kernel_takes(spec: InvResSpec) -> bool:
     """Does the CUDA kernel take this block (activations in its epilogue,
     Cout <= 320, shared memory of the largest tile within 227 KB)? The
     shared-memory term is the f32 layout's at both dtypes, so that both
-    plan alike; the bf16 layout fits wherever it does
-    (tests/test_torch_invres.py)."""
+    plan alike; the bf16 layout fits wherever it does, and the A8W8 layout
+    at a 4x4 tile is checked too (tests/test_torch_invres.py)."""
     acts = (spec.act_expand, spec.act_dw, spec.act_out)
     return (
         all(str(a).lower() in ACT_CODES for a in acts)
         and spec.cout <= MAX_COUT
         and smem_bytes(spec, min(MAX_TILE, spec.h), min(MAX_TILE, spec.w)) <= MAX_SMEM_BYTES
+        and (not (spec.ax1 or spec.ax2)
+             or smem_bytes(spec, min(4, spec.h), min(4, spec.w), 1, True) <= MAX_SMEM_BYTES)
+        # the project's int32 chunk sums add up exactly in float32 while
+        # E * 127^2 < 2^24 (csrc/invres_block.cu)
+        and (not spec.ax2 or spec.e <= MAX_E_A8W8)
     )
 
 
-def build_invres(views, in_spec, act_dtype: torch.dtype):
+def _weight(node) -> torch.Tensor:
+    return torch.as_tensor(node.params["weight_q" if "weight_q" in node.params else "weight"])
+
+
+def build_invres(views, in_spec, act_dtype: torch.dtype, in_act_scale: float = 0.0,
+                 a8w8: bool = False):
     """(operands, InvResSpec) for a matched [expand?, dw, project, add?]
     run of nodes, or None where the kernel cannot take it (the JAX
-    package's build_invres, float path; its VMEM gate becomes the kernel's
+    package's build_invres; its VMEM gate becomes the kernel's
     shared-memory and width gate). `views` give .params/.attr; operands is
-    a dict: w1 (Cin,E) and w2 (E,Cout) in the compute dtype, wd (9,E)
-    float32, and the float32 epilogue vectors s1/o1, sd/od, s2/o2."""
+    a dict: w1 (Cin,E) and w2 (E,Cout) in the compute dtype or int8, wd
+    (9,E) float32 (int8 taps upcast), and the float32 epilogue vectors
+    s1/o1, sd/od, s2/o2 with every int8 scale folded in.
+
+    A8W8 as the JAX package sets it: `ax1` = `in_act_scale` (the block
+    input's calibrated act_scale, which the caller passes under INT8 only)
+    where w1 is int8; `ax2` = the depthwise node's `act_scale` where w2 is
+    int8 and `a8w8` (an INT8 engine); each folded into s1 / s2."""
     expand, dw, project, add = views
-    if any("weight_q" in v.params for v in views if v is not None):
-        return None  # int8 weights come with the INT8 slice
     h, w, cin = in_spec.h, in_spec.w, in_spec.c
     ops: Dict[str, torch.Tensor] = {}
+    ax1 = ax2 = 0.0
     if expand is not None:
-        w1 = torch.as_tensor(expand.params["weight"])  # (1, 1, Cin, E)
+        w1 = _weight(expand)  # (1, 1, Cin, E)
         e_ch = int(w1.shape[-1])
-        ops["w1"] = w1.reshape(cin, e_ch).to(act_dtype)
+        ops["w1"] = w1.reshape(cin, e_ch)
         ops["s1"], ops["o1"] = epilogue_scale_offset(expand)
+        if w1.dtype == torch.int8 and in_act_scale > 0:
+            ax1 = float(in_act_scale)
+            ops["s1"] = ops["s1"] * ax1  # the int32 sums carry 1/ax1
+        elif w1.dtype != torch.int8:
+            ops["w1"] = ops["w1"].to(act_dtype)
         act_expand = expand.attr("activation", "linear")
     else:
         e_ch = cin
         act_expand = "linear"
-    wd = torch.as_tensor(dw.params["weight"])  # (3, 3, 1, E)
+    wd = _weight(dw)  # (3, 3, 1, E)
     if tuple(wd.shape[:2]) != (3, 3) or int(wd.shape[-1]) != e_ch:
         return None
     ops["wd"] = wd.reshape(9, e_ch).float()
     ops["sd"], ops["od"] = epilogue_scale_offset(dw)
-    w2 = torch.as_tensor(project.params["weight"])  # (1, 1, E, Cout)
+    w2 = _weight(project)  # (1, 1, E, Cout)
     cout = int(w2.shape[-1])
-    ops["w2"] = w2.reshape(e_ch, cout).to(act_dtype)
+    ops["w2"] = w2.reshape(e_ch, cout)
     ops["s2"], ops["o2"] = epilogue_scale_offset(project)
+    dw_scale = float(dw.attr("act_scale", 0.0) or 0.0) if a8w8 else 0.0
+    if w2.dtype == torch.int8 and dw_scale > 0:
+        ax2 = dw_scale
+        ops["s2"] = ops["s2"] * ax2
+    elif w2.dtype != torch.int8:
+        ops["w2"] = ops["w2"].to(act_dtype)
     spec = InvResSpec(
         h=h, w=w, cin=cin, e=e_ch, cout=cout,
         has_expand=expand is not None,
@@ -192,6 +248,7 @@ def build_invres(views, in_spec, act_dtype: torch.dtype):
         act_out=(add.attr("activation", "linear") if add is not None
                  else project.attr("activation", "linear")),
         alpha=float(dw.attr("leaky_alpha", 0.3)),
+        ax1=ax1, ax2=ax2,
     )
     if not kernel_takes(spec):
         return None
@@ -257,12 +314,20 @@ def match_invres_block(graph, dw_node) -> Optional[tuple]:
 
 def invres_block_reference(x: torch.Tensor, ops: Dict[str, torch.Tensor],
                            spec: InvResSpec) -> torch.Tensor:
-    """Plain PyTorch version of the kernel over whole images."""
+    """Plain PyTorch version of the kernel over whole images. The A8W8
+    products are int8 x int8 with exact int32 sums (ops/conv.py
+    int8_matmul)."""
     dt = x.dtype
     n, h, w, _ = x.shape
     a = spec.alpha
+    if (spec.ax1 or spec.ax2) and dt != torch.bfloat16:
+        raise ValueError("the block's A8W8 form runs under bfloat16 activations")
     if spec.has_expand:
-        e = x.float().reshape(-1, spec.cin) @ ops["w1"].to(dt).float()
+        x2 = x.reshape(-1, spec.cin)
+        if spec.ax1:
+            e = int8_matmul(quantize_act(x2, spec.ax1), ops["w1"]).float()
+        else:
+            e = x2.float() @ ops["w1"].to(dt).float()
         e = apply_activation(e * ops["s1"].float() + ops["o1"].float(), spec.act_expand, a)
         e = e.to(dt).reshape(n, h, w, spec.e)
     else:
@@ -270,7 +335,11 @@ def invres_block_reference(x: torch.Tensor, ops: Dict[str, torch.Tensor],
     acc = conv2d_nhwc_f32(e, ops["wd"].float().reshape(3, 3, 1, spec.e), (1, 1, 1, 1),
                           groups=spec.e)
     d = apply_activation(acc * ops["sd"].float() + ops["od"].float(), spec.act_dw, a).to(dt)
-    y = d.float().reshape(-1, spec.e) @ ops["w2"].to(dt).float()
+    d2 = d.reshape(-1, spec.e)
+    if spec.ax2:
+        y = int8_matmul(quantize_act(d2, spec.ax2), ops["w2"]).float()
+    else:
+        y = d2.float() @ ops["w2"].to(dt).float()
     y = (y * ops["s2"].float() + ops["o2"].float()).reshape(n, h, w, spec.cout)
     if spec.residual:
         y = y + x.float()
@@ -329,14 +398,19 @@ _ORDER = ("w1", "s1", "o1", "wd", "sd", "od", "w2", "s2", "o2")
 
 class InvResOperands(dict):
     """A block's operands checked against its spec and laid out for the
-    kernel (w1, w2 in the compute dtype, the rest float32, contiguous, on
-    one device), with the kernel's pointer and activation arrays."""
+    kernel (w1, w2 in the compute dtype or int8, which the kernel upcasts
+    as it stages them; under ax1 / ax2 int8 with their n-major copies w1q
+    (E, Cin padded to 32) and w2q (Cout, E padded to 32) that the kernel
+    reads instead; the rest float32; contiguous, on one device), with the
+    kernel's pointer and activation arrays and `w8`, the int8 weights it
+    upcasts (bit 0 w1, bit 1 w2)."""
 
     spec: InvResSpec
     dtype: torch.dtype
     device: torch.device
     ptrs: ctypes.Array
     acts: ctypes.Array
+    w8: int
 
 
 def prepare_operands(ops: Dict[str, torch.Tensor], spec: InvResSpec,
@@ -348,6 +422,9 @@ def prepare_operands(ops: Dict[str, torch.Tensor], spec: InvResSpec,
         raise TypeError(f"block compute dtype must be float32 or bfloat16, got {dtype}")
     if not kernel_takes(spec):
         raise ValueError(f"the block kernel does not take {spec}")
+    if (spec.ax1 or spec.ax2) and dtype != torch.bfloat16:
+        raise TypeError("the block's A8W8 form runs under bfloat16 activations")
+    int8_keys = {k for k, on in (("w1", spec.ax1), ("w2", spec.ax2)) if on}
     shapes = {"wd": (9, spec.e), "sd": (spec.e,), "od": (spec.e,),
               "w2": (spec.e, spec.cout), "s2": (spec.cout,), "o2": (spec.cout,)}
     if spec.has_expand:
@@ -357,13 +434,27 @@ def prepare_operands(ops: Dict[str, torch.Tensor], spec: InvResSpec,
         t = ops[key]
         if tuple(t.shape) != shape:
             raise ValueError(f"operand {key} has shape {tuple(t.shape)}, want {shape}")
-        out[key] = (t.to(dtype) if key in ("w1", "w2") else t.float()).contiguous()
+        if key in int8_keys and t.dtype != torch.int8:
+            raise TypeError(f"operand {key} of an A8W8 product must be int8, got {t.dtype}")
+        if key in ("w1", "w2"):
+            out[key] = (t if t.dtype == torch.int8 else t.to(dtype)).contiguous()
+        else:
+            out[key] = t.float().contiguous()
+    pad = torch.nn.functional.pad
+    if spec.ax1:
+        out["w1q"] = pad(out["w1"].t(), (0, -spec.cin % 32)).contiguous()
+    if spec.ax2:
+        out["w2q"] = pad(out["w2"].t(), (0, -spec.e % 32)).contiguous()
     devices = {t.device for t in out.values()}
     if len(devices) != 1:
         raise ValueError(f"block operands on several devices: {sorted(map(str, devices))}")
     out.spec, out.dtype, out.device = spec, dtype, devices.pop()
+    out.w8 = sum(bit for key, bit in (("w1", 1), ("w2", 2))
+                 if key in out and key not in int8_keys and out[key].dtype == torch.int8)
     # Without expand the kernel reads no w1/s1/o1: any valid pointer will do.
-    out.ptrs = (ctypes.c_void_p * 9)(*[out.get(k, out["wd"]).data_ptr() for k in _ORDER])
+    kernel_keys = [("w1q" if spec.ax1 else "w1") if k == "w1" else
+                   ("w2q" if spec.ax2 else "w2") if k == "w2" else k for k in _ORDER]
+    out.ptrs = (ctypes.c_void_p * 9)(*[out.get(k, out["wd"]).data_ptr() for k in kernel_keys])
     out.acts = (ctypes.c_int * 3)(*[ACT_CODES[str(a).lower()]
                                     for a in (spec.act_expand, spec.act_dw, spec.act_out)])
     return out
@@ -390,6 +481,8 @@ def _launch(x: torch.Tensor, ops: Dict[str, torch.Tensor], spec: InvResSpec) -> 
     rc = lib.snn_invres_block(
         x.data_ptr(), int(bf16), y.data_ptr(), ops.ptrs, n, spec.h, spec.w, spec.cin, spec.e,
         spec.cout, int(spec.has_expand), int(spec.residual), ops.acts, float(spec.alpha),
+        # 1/ax as float32, the constant the JAX kernel multiplies by; 0: no A8W8
+        1.0 / spec.ax1 if spec.ax1 else 0.0, 1.0 / spec.ax2 if spec.ax2 else 0.0, ops.w8,
         geo.array, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:

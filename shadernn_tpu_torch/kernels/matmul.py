@@ -227,13 +227,14 @@ def fused_matmul(
 
 
 # What dense_supported asks, for the log line of a layer it declines.
-GATE = "fused-matmul kernel's gate (float weights, an activation of its epilogue)"
+GATE = "fused-matmul kernel's gate (an activation of its epilogue)"
 
 
 def dense_supported(node) -> bool:
-    """Can the kernel run this Dense node? Float weights (the engine's int8
-    comes with the INT8 slice) and an activation of `matmul_supported`."""
-    return "weight" in node.params and "weight_q" not in node.params and matmul_supported(
+    """Can the kernel run this Dense node? Float or int8 weights (ops/conv.py
+    folded_operands hands the kernel the int8 weight and the folded scale)
+    and an activation of `matmul_supported`."""
+    return ("weight" in node.params or "weight_q" in node.params) and matmul_supported(
         node.attr("activation", "linear"))
 
 

@@ -1,5 +1,7 @@
 """Conv2D and SeparableConv2D (depthwise) on NHWC tensors with HWIO weights
 (counterpart of shadernn_tpu/ops/conv.py; Conv2DTranspose comes later).
+Weights are float (`weight`) or int8 with per-output-channel scales
+(`weight_q`, `weight_scale`; quant/quantize.py).
 
 The TORCH backend runs `F.conv2d` on NCHW views, the analog of the XLA
 convolution the JAX package uses; under KERNEL a Conv2D inside the
@@ -10,12 +12,18 @@ preferred_element_type=float32)` does, with TF32 off: cuDNN would
 otherwise round float32 operands to TF32 (about three decimal digits),
 where the JAX package runs float32 at HIGHEST precision. bfloat16 values
 are exact in TF32, so the rule costs bfloat16 nothing in accuracy.
+
+Under a calibrated INT8 engine a Conv2D with int8 weights and an
+`in_act_scale` runs A8W8 where `a8w8_profitable` holds, as the JAX XLA
+path does: the input quantized to int8, an exact int32 sum (an int8
+im2col times the weight through `torch._int_mm`; a float32 sum is not
+exact past 2^24), then (sa * weight_scale) and the epilogue.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,7 +69,117 @@ def conv2d_nhwc_f32(x: torch.Tensor, w_hwio: torch.Tensor, pads, stride: int = 1
 
 
 def get_weight(node: Node, dtype: torch.dtype) -> torch.Tensor:
+    """The node's weight in `dtype`. Int8 storage (quant/quantize.py:
+    `weight_q` and a per-output-channel `weight_scale`) is dequantized as
+    the JAX package's get_weight does it: both factors cast to `dtype`
+    first, so that under BF16/INT8 the product is rounded to bfloat16. A
+    node that carries both runs the int8 one."""
+    if "weight_q" in node.params:
+        wq = torch.as_tensor(node.params["weight_q"])
+        ws = torch.as_tensor(node.params["weight_scale"]).to(wq.device)
+        return wq.to(dtype) * ws.to(dtype)
     return torch.as_tensor(node.params["weight"]).to(dtype)
+
+
+def quantize_act(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Symmetric int8 activation quantization of the A8W8 path: float32
+    x times the float32 constant 1/scale, rounded half to even, clipped to
+    +-127 (the JAX package's quantize_act)."""
+    return torch.clamp(torch.round(x.float() * (1.0 / scale)), -127, 127).to(torch.int8)
+
+
+def a8w8_profitable(k: int, cin: int, cout: int) -> bool:
+    """Does a Conv2D/Dense run int8 activations on the TORCH path under a
+    calibrated INT8 engine? The JAX package's rule (measured on its TPU),
+    kept so that both packages run the same layers at A8W8: a reasonably
+    full contraction (k*k*cin >= 256, cin >= 16) and cout >= 32."""
+    return cin >= 16 and cout >= 32 and k * k * cin >= 256
+
+
+def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    if t.shape[dim] >= size:
+        return t
+    pad = [0, 0] * (t.dim() - 1 - dim % t.dim()) + [0, size - t.shape[dim]]
+    return F.pad(t, pad)
+
+
+def int8_rhs(b: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """int8 (K, N) `b` laid out as `torch._int_mm`'s B operand on its
+    device, with N. On the card cuBLASLt's int8 product wants N a multiple
+    of 8 and (measured on the H100: K = 16 is refused) K a multiple of 32,
+    with B column-major: B is zero-padded there, which adds nothing to the
+    sums."""
+    n = b.shape[1]
+    if b.device.type == "cuda":
+        k32 = -(-b.shape[0] // 32) * 32
+        return _pad_to(_pad_to(b, 0, k32), 1, -(-n // 8) * 8).t().contiguous().t(), n
+    return b.contiguous(), n
+
+
+def int8_matmul(a: torch.Tensor, b) -> torch.Tensor:
+    """Exact int32 product of int8 (M, K) `a` and (K, N) `b` through
+    `torch._int_mm` (the XLA int8 dot's analog: a library call, no Pallas
+    kernel computes it). `b` is the int8 tensor or `int8_rhs(b)`, laid out
+    once by the caller. On the card A is zero-padded to B's K and to M
+    above 16, as cuBLASLt wants."""
+    bb, n = b if isinstance(b, tuple) else int8_rhs(b)
+    m = a.shape[0]
+    if a.device.type == "cuda":
+        a = _pad_to(_pad_to(a, 1, bb.shape[0]), 0, max(m, 17)).contiguous()
+        return torch._int_mm(a, bb)[:m, :n]
+    return torch._int_mm(a.contiguous(), bb)
+
+
+def conv2d_nhwc_int8(xq: torch.Tensor, wq_hwio: torch.Tensor, pads, stride: int = 1,
+                     rhs: Optional[Tuple[torch.Tensor, int]] = None):
+    """int32 convolution of NHWC int8 `xq` with HWIO int8 `wq_hwio`: an int8
+    im2col (exact: zero-point 0, so the padding is zeros) times the weight
+    as a (kh*kw*C, O) matrix (`rhs`: that matrix as int8_rhs laid it out,
+    where the caller has). Returns NHWC int32."""
+    t, b, l, r = pads
+    kh, kw, c, o = wq_hwio.shape
+    xp = F.pad(xq, (0, 0, l, r, t, b))
+    n, hp, wp, _ = xp.shape
+    ho, wo = (hp - kh) // stride + 1, (wp - kw) // stride + 1
+    cols = torch.cat([
+        xp[:, dy:dy + stride * (ho - 1) + 1:stride, dx:dx + stride * (wo - 1) + 1:stride, :]
+        for dy in range(kh) for dx in range(kw)], dim=-1)
+    acc = int8_matmul(cols.reshape(n * ho * wo, kh * kw * c),
+                      rhs if rhs is not None else wq_hwio.reshape(kh * kw * c, o))
+    return acc.reshape(n, ho, wo, o)
+
+
+def a8w8_engaged(node: Node, ctx: RunCtx, k: int, cin: int, cout: int) -> float:
+    """The input activation scale where this node runs A8W8 on the TORCH
+    path (int8 weights, a calibrated `in_act_scale`, an INT8 engine and
+    `a8w8_profitable`), else 0: a calibrated graph rebuilt at FP32/BF16
+    runs float activations."""
+    from shadernn_tpu_torch.config import Precision
+
+    sa = float(node.attr("in_act_scale", 0.0) or 0.0)
+    if ("weight_q" in node.params and sa > 0.0 and ctx.precision == Precision.INT8
+            and a8w8_profitable(k, cin, cout)):
+        return sa
+    return 0.0
+
+
+def layer_weight(node: Node, ctx: RunCtx, dtype: torch.dtype, device: torch.device,
+                 sa: float):
+    """What a TORCH Conv2D, SeparableConv2D or Dense body multiplies by,
+    made once per parameter set through the engine's `ctx.cache` (on every
+    call without one). Under A8W8 (`sa` > 0) the pair (int8_rhs of the int8
+    weight as a (k*k*Cin, O) matrix, the float32 column scale sa *
+    weight_scale that dequantizes its int32 sums, in the JAX package's
+    order); else get_weight in `dtype` on `device`."""
+
+    def make():
+        if sa:
+            wq = torch.as_tensor(node.params["weight_q"]).to(device)
+            ws = torch.as_tensor(node.params["weight_scale"]).to(device, torch.float32)
+            return int8_rhs(wq.reshape(-1, wq.shape[-1])), sa * ws.reshape(-1)
+        return get_weight(node, dtype).to(device)
+
+    return make() if ctx.cache is None else ctx.cache(make)
 
 
 def bn_scale_offset(node: Node, out_dtype: torch.dtype):
@@ -93,11 +211,18 @@ def _conv_pads(node: Node):
 
 
 def epilogue_scale_offset(node: Node):
-    """Fold bias + BatchNorm into one per-output-channel float32
-    (scale, offset) pair: y = act(acc * scale + offset)."""
-    w = torch.as_tensor(node.params["weight"])
-    o = w.shape[-1]
-    scale = torch.ones(o, dtype=torch.float32, device=w.device)
+    """Fold the int8 dequantization scale, bias and BatchNorm into one
+    per-output-channel float32 (scale, offset) pair: y = act(acc * scale +
+    offset)."""
+    if "weight_q" in node.params:
+        w = torch.as_tensor(node.params["weight_q"])
+        o = w.shape[-1]
+        scale = torch.as_tensor(node.params["weight_scale"]).to(w.device, torch.float32)
+        scale = scale.reshape(o)
+    else:
+        w = torch.as_tensor(node.params["weight"])
+        o = w.shape[-1]
+        scale = torch.ones(o, dtype=torch.float32, device=w.device)
     offset = torch.zeros(o, dtype=torch.float32, device=w.device)
     if "bias" in node.params and node.attr("use_bias", True):
         offset = torch.as_tensor(node.params["bias"]).to(device=w.device, dtype=torch.float32)
@@ -110,10 +235,13 @@ def epilogue_scale_offset(node: Node):
 
 
 def folded_operands(node: Node, compute_dtype: torch.dtype):
-    """(weight in the compute dtype, float32 scale, float32 offset) of a
-    Conv2D or Dense node, as the kernels take them: bias and BatchNorm
-    folded into the epilogue."""
+    """(weight, float32 scale, float32 offset) of a Conv2D or Dense node, as
+    the kernels take them: the weight in the compute dtype, or the int8
+    weight itself with its scale folded into the epilogue with bias and
+    BatchNorm."""
     scale, offset = epilogue_scale_offset(node)
+    if "weight_q" in node.params:
+        return torch.as_tensor(node.params["weight_q"]), scale, offset
     return torch.as_tensor(node.params["weight"]).to(compute_dtype), scale, offset
 
 
@@ -180,8 +308,15 @@ class Conv2D(OpDef):
             if ctx.operands is not None or igemm_conv_supported(node, x.shape[-1]):
                 return conv_run_igemm(node, x, ctx.operands)
             log.warning("conv %s given to KERNEL runs on TORCH: outside the %s", node.name, GATE)
-        w = get_weight(node, x.dtype).to(x.device)
-        y = conv2d_nhwc_f32(x, w, _conv_pads(node), int(node.attr("stride", 1)))
+        k, stride = int(node.attr("kernel_size")), int(node.attr("stride", 1))
+        sa = a8w8_engaged(node, ctx, k, x.shape[-1], int(node.attr("out_channels")))
+        w = layer_weight(node, ctx, x.dtype, x.device, sa)
+        if sa:  # A8W8: int8 x int8 -> exact int32, (sa * weight_scale) folded after
+            rhs, col_scale = w
+            acc = conv2d_nhwc_int8(quantize_act(x, sa), torch.as_tensor(node.params["weight_q"]),
+                                   _conv_pads(node), stride, rhs)
+            return _epilogue(node, (acc.float() * col_scale).to(x.dtype))
+        y = conv2d_nhwc_f32(x, w, _conv_pads(node), stride)
         return _epilogue(node, y.to(x.dtype))
 
 
@@ -206,7 +341,7 @@ class SeparableConv2D(OpDef):
 
     def run(self, node: Node, xs: List, ctx: RunCtx):
         x = xs[0]
-        w = get_weight(node, x.dtype).to(x.device)  # (k, k, 1, C*mult)
+        w = layer_weight(node, ctx, x.dtype, x.device, 0.0)  # (k, k, 1, C*mult)
         y = conv2d_nhwc_f32(x, w, _conv_pads(node), int(node.attr("stride", 1)),
                             groups=x.shape[-1])
         return _epilogue(node, y.to(x.dtype))

@@ -23,6 +23,11 @@ class RunCtx:
     # the node and prepared them (ops/conv.py folded_operands); None from a
     # direct caller, for whom the op asks the gate and folds them itself.
     operands: object = None
+    # The engine's cache of what a body derives from its parameters (the
+    # weight it multiplies by, ops/conv.py layer_weight): cache(make) gives
+    # make()'s result, made once per parameter set. None from a direct
+    # caller, for whom the body makes it on every call.
+    cache: object = None
 
 
 class OpDef:

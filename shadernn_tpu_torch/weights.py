@@ -4,12 +4,18 @@
 `extract_params(graph)` (its engine/compile.py) returns — node name ->
 {param name: numpy array}, conv weights HWIO — and returns the port's
 tensors on `device`, ready for `CompiledModel.load_params`. The port keeps
-HWIO at this boundary; only the convolutions convert it.
+HWIO at this boundary; only the convolutions convert it. Every array keeps
+its dtype: int8 `weight_q` and float32 `weight_scale` arrive unchanged.
+
+`calibration_from_graph` copies the calibrated activation scales
+(quant/calibrate.py: `act_scale`, `in_act_scale`) from another graph's
+nodes, so that both packages plan and run int8 activations on one set of
+scales.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable
 
 import numpy as np
 import torch
@@ -20,3 +26,24 @@ def params_from_numpy(params: Dict[str, Dict[str, np.ndarray]], device) -> Dict[
         name: {k: torch.from_numpy(np.array(v)).to(device) for k, v in d.items()}
         for name, d in params.items()
     }
+
+
+CALIBRATION_ATTRS = ("act_scale", "in_act_scale")
+
+
+def calibration_from_graph(src, dst, keys: Iterable[str] = CALIBRATION_ATTRS) -> int:
+    """Copy the calibration attrs of `src`'s nodes (any graph whose `.nodes`
+    maps names to nodes with `.attrs`, the JAX package's too) onto the
+    nodes of `dst` with the same names, and `act_scales` of its meta.
+    Returns the number of attrs copied."""
+    count = 0
+    for name, node in src.nodes.items():
+        if name not in dst.nodes:
+            continue
+        for k in keys:
+            if k in node.attrs:
+                dst.nodes[name].attrs[k] = float(node.attrs[k])
+                count += 1
+    if "act_scales" in getattr(src, "meta", {}):
+        dst.meta["act_scales"] = {k: float(v) for k, v in src.meta["act_scales"].items()}
+    return count

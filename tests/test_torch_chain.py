@@ -4,6 +4,8 @@ tests/test_chain_packed.py runs them. On the CPU the port's entry points
 run the kernel's plain version; the CUDA kernel itself is held against
 that plain version on the card by chip_smoke.py."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -192,13 +194,19 @@ def _holds(geo, specs):
     regs = chain.regions(specs, geo.tile_h, geo.tile_w)
     ivs = []
     for l, (s, tl, lay) in enumerate(zip(specs, chain.tc_layers(specs), geo.layers)):
-        cs, ostride, w_off, ktab_off, pw, ps = lay
-        assert tl.dense == (s.c < 8) and cs == (s.c if s.c < 8 else 8 * (-(-s.c // 8) | 1))
-        assert ostride >= 8 * tl.nt and ostride % 8 == 0 and (ostride // 8) % 2 == 1
+        cs, ostride, w_off, ktab_off, pw, ps, q8 = lay
+        assert q8 == int(s.in_q > 0)
+        if q8:  # int8 input: 16-channel units, n-major B rows of k32 steps
+            assert not tl.dense and s.c % 8 == 0 and cs == 16 * (-(-s.c // 16) | 1)
+            assert ostride >= 32 * tl.ksteps and ostride % 16 == 0 and (ostride // 16) % 2 == 1
+            assert tl.w_bytes == 8 * tl.nt * ostride
+        else:
+            assert tl.dense == (s.c < 8) and cs == (s.c if s.c < 8 else 8 * (-(-s.c // 8) | 1))
+            assert ostride >= 8 * tl.nt and ostride % 8 == 0 and (ostride // 8) % 2 == 1
         assert pw % 16 == 0 and pw + tl.w_bytes <= geo.param_bytes
         assert ps % 16 == 0 and ps + 64 * tl.nt <= geo.param_bytes
         rows, cols = regs[l]
-        ivs.append(((geo.buf1 if l % 2 else geo.buf0), 2 * rows * cols * cs, l % 2))
+        ivs.append(((geo.buf1 if l % 2 else geo.buf0), tl.esize * rows * cols * cs, l % 2))
         ivs.append((w_off, tl.w_bytes, 10 + l if geo.w_all else 2))
         ivs.append((ktab_off, tl.ktab_bytes, 20 + l))
     for i, (off, size, slot) in enumerate(ivs):
@@ -304,3 +312,169 @@ def test_packed_weights_follow_the_kernel_k_order(rng, c, o, k):
     ref = sum(torch.einsum("hwc,co->hwo", xp[0, dy:dy + 6, dx:dx + 7].double(), wb[dy, dx])
               for dy in range(k) for dx in range(k))
     assert torch.allclose(got[0], ref, atol=1e-9)
+
+
+# -- INT8: int8 weights and the a8 dots ----------------------------------------
+
+class QNode(FakeNode):
+    """A conv node after quantize_graph_weights (int8 weight, per-channel
+    scale), with a calibrated input scale where one is given."""
+
+    def __init__(self, name, k, o, act, w, b, in_act_scale=0.0):
+        from shadernn_tpu.quant.quantize import quantize_weight
+
+        super().__init__(k, o, act, w, b)
+        self.name = name
+        q, s = quantize_weight(w)
+        self.params = dict(weight_q=q, weight_scale=s, bias=b)
+        if in_act_scale:
+            self._a["in_act_scale"] = in_act_scale
+
+
+def make_qnodes(rng, cfg, cin, scales):
+    return [QNode(f"l{i}", n.attr("kernel_size"), n.attr("out_channels"), n.attr("activation"),
+                  n.params["weight"], n.params["bias"], s)
+            for i, (n, s) in enumerate(zip(make_nodes(rng, cfg, cin), scales))]
+
+
+# (cfg, cin, tail, act_override, calibrated in_act_scale per layer): ESPCN's
+# body (the head's C = 1 keeps bf16; layers 2-3 take calibrated scales) and a
+# chain whose head takes the frame as int8 (step 1/127) and whose last layer
+# follows a tanh (step 1/127).
+A8_CHAINS = {
+    "espcn": (ESPCN_BODY, 1, "d2s2", ("tanh", 0.3), [0.0, 0.03, 0.05]),
+    "int8_head": ([(3, 16, "relu"), (3, 8, "tanh"), (3, 1, "linear")], 8, "c1", None,
+                  [0.0, 0.02, 0.0]),
+}
+
+
+@pytest.mark.parametrize("a8", [False, True], ids=["weight_only", "a8"])
+@pytest.mark.parametrize("case", list(A8_CHAINS))
+def test_int8_chain_matches_jax_packed_kernel(rng, case, a8):
+    """Int8 weights (weight-only) and the a8 int8 x int8 dots: the plan's
+    in_q per layer equals build_chain_packed(a8=True)'s, and the plain
+    version is within the int8 tolerance of the JAX kernel (Pallas
+    interpret mode) on the same int8 weights and frames."""
+    cfg, cin, tail, act_override, scales = A8_CHAINS[case]
+    nodes = make_qnodes(rng, cfg, cin, scales)
+    x = rng.random((2, 16, 24, cin), dtype=np.float32)
+    lp, jspecs = build_chain_packed(nodes, cin, jnp.bfloat16, act_override=act_override,
+                                    width=24, tail=tail, a8=a8)
+    want = np.asarray(j_packed(jnp.asarray(x), lp, jspecs, interpret=True, tail=tail,
+                               compute_dtype=jnp.bfloat16), np.float32)
+    specs = chain.build_chain_specs(nodes, cin, torch.bfloat16, act_override=act_override,
+                                    tail=tail)
+    if a8:
+        specs, notes = chain.a8_scales(nodes, specs, head_from_frame=True)
+        assert [n[1] for n in notes] == [s.in_q for s in specs]
+    assert [s.in_q for s in specs] == [s.in_q for s in jspecs]
+    assert any(s.in_q for s in specs) == a8
+    ops = chain.chain_operands(nodes, torch.bfloat16, specs)
+    assert all(p["w"].dtype == torch.int8 for p in ops)
+    got = chain.fused_conv_chain_packed(torch.from_numpy(x), ops, specs, tail=tail,
+                                        compute_dtype=torch.bfloat16).float().numpy()
+    assert got.shape == want.shape
+    assert np.max(np.abs(got - want)) <= 0.1 * max(1.0, float(np.abs(want).max()))
+
+
+def test_a8_rule_matches_jax_but_not_its_mid_graph_head_fallback(rng):
+    """a8_scales is build_chain_packed's rule: bounded previous activations
+    (tanh, sigmoid: 1/127; relu6: 6/127), else a calibrated scale; float
+    weights and C % 8 != 0 keep bf16. A head without a calibrated scale
+    takes the frame's 1/127 only when an InputLayer feeds it (the JAX
+    package gives it to any head, ROADMAP C1)."""
+    cfg = [(3, 16, "relu6"), (3, 16, "sigmoid"), (3, 12, "relu"), (3, 8, "relu"), (3, 8, "relu"),
+           (3, 1, "tanh")]
+    nodes = make_qnodes(rng, cfg, 16, [0.0, 0.0, 0.0, 0.0, 0.04, 0.0])
+    _, jspecs = build_chain_packed(nodes, 16, jnp.bfloat16, width=32, tail="c1", a8=True)
+    specs = chain.build_chain_specs(nodes, 16, torch.bfloat16, tail="c1")
+    frame, _ = chain.a8_scales(nodes, specs, head_from_frame=True)
+    mid, notes = chain.a8_scales(nodes, specs, head_from_frame=False)
+    assert [s.in_q for s in frame] == [s.in_q for s in jspecs]
+    assert [s.in_q for s in frame] == [1 / 127, 6 / 127, 1 / 127, 0.0, 0.04, 0.0]
+    assert [s.in_q for s in mid] == [0.0, 6 / 127, 1 / 127, 0.0, 0.04, 0.0]
+    assert "mid-graph head" in notes[0][2] and "C = 12" in notes[3][2]
+    assert "calibrated" in notes[4][2] and "without a calibrated" in notes[5][2]
+    floats = make_nodes(rng, cfg, 16)
+    for n in floats:
+        n.name = "f"
+    fspecs = chain.build_chain_specs(floats, 16, torch.bfloat16, tail="c1")
+    assert not any(s.in_q for s in chain.a8_scales(floats, fspecs, True)[0])
+
+
+def test_a8_needs_the_bf16_form(rng):
+    nodes = make_qnodes(rng, ESPCN_BODY, 1, [0.0, 0.03, 0.05])
+    specs = chain.a8_scales(nodes, chain.build_chain_specs(nodes, 1, torch.float32), True)[0]
+    ops = chain.chain_operands(nodes, torch.float32, specs)
+    with pytest.raises(ValueError, match="bf16 form"):
+        chain.fused_conv_chain(torch.zeros((1, 8, 8, 1)), ops, specs, compute_dtype=torch.float32)
+
+
+def _random_a8(rng, depth, tail):
+    """An admitted chain with int8 inputs (in_q) on a random subset of the
+    layers whose C is a multiple of 8."""
+    while True:
+        cin = int(rng.choice([1, 8, 16, 24, 32]))
+        specs = _random_admitted(rng, cin, depth, tail)
+        if specs is None:
+            continue
+        specs = [dataclasses.replace(s, in_q=0.01) if s.c % 8 == 0 and rng.random() < 0.7 else s
+                 for s in specs]
+        if any(s.in_q for s in specs):
+            return specs
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 5, 8])
+def test_a8_geometry_fits_and_covers_each_output_once(depth):
+    """The launch of chains with int8 layer inputs (16-channel units, n-major
+    B rows of k32 steps) fits 227 KB with the layout the kernel checks and
+    writes each final output once, from 1x1 images up to 540p."""
+    rng = np.random.default_rng(77 + depth)
+    for i in range(20):
+        tail = list(chain.TAILS)[i % 3]
+        specs = _random_a8(rng, depth, tail)
+        n = int(rng.choice([1, 3, 8, 64]))
+        h, w = (int(v) for v in rng.choice([1, 2, 5, 17, 32, 101, 540], 2))
+        h += sum(s.k - 1 - s.pt - s.pb for s in specs)
+        w += sum(s.k - 1 - s.pl - s.pr for s in specs)
+        geo = chain.launch_geometry(tuple(specs), n, h, w, 132)
+        _holds(geo, specs)
+        _covers_once(geo, specs, n, h, w)
+    espcn = [chain.ChainLayerSpec(5, 1, 16, 2, 2, 2, 2, "relu", 0.3),
+             chain.ChainLayerSpec(3, 16, 16, 1, 1, 1, 1, "relu", 0.3, 0.03),
+             chain.ChainLayerSpec(3, 16, 4, 1, 1, 1, 1, "tanh", 0.3, 0.05)]
+    geo = chain.launch_geometry(tuple(espcn), 8, 540, 960, 132)
+    _holds(geo, espcn)
+    _covers_once(geo, espcn, 8, 540, 960)
+    # int8 regions of 16 channels are one 16-byte unit a pixel; k32 steps.
+    assert [(t.q8, t.cs, t.ksteps, t.ostride) for t in chain.tc_layers(espcn)[1:]] == [
+        (True, 16, 5, 176), (True, 16, 5, 176)]
+
+
+@pytest.mark.parametrize("c,o,k", [(8, 16, 3), (16, 16, 3), (16, 4, 3), (24, 9, 5), (32, 32, 1)])
+def test_q8_packed_weights_follow_the_kernel_k_order(rng, c, o, k):
+    """An int8 layer's B image is n-major: row n holds output channel n's
+    weights in the kernel's K order (tap-major, C padded to 16), so that an
+    im2col in that order times its transpose is the convolution; rows past
+    o and K past the taps are zero."""
+    spec = chain.ChainLayerSpec(k, c, o, (k - 1) // 2, k // 2, (k - 1) // 2, k // 2, "linear",
+                                0.3, 0.02)
+    p = {"w": torch.from_numpy(rng.integers(-127, 128, (k, k, c, o)).astype(np.int8)),
+         "scale": torch.from_numpy(rng.standard_normal(o).astype(np.float32)),
+         "offset": torch.from_numpy(rng.standard_normal(o).astype(np.float32))}
+    tl = chain.tc_layers([spec])[0]
+    assert tl.q8 and tl.ksteps == -(-(k * k * -(-c // 16)) // 2)
+    packed = chain.pack_params([p], [spec])
+    [(pw, ps)], total = chain.param_layout([spec])
+    assert packed.numel() == total
+    img = packed[pw:pw + tl.w_bytes].view(torch.int8).reshape(8 * tl.nt, tl.ostride)
+    assert not img[o:].any() and not img[:, 32 * tl.ksteps:].any()
+    so = packed[ps:ps + 64 * tl.nt].view(torch.float32).reshape(2, 8 * tl.nt)
+    assert torch.equal(so[1, :o], p["offset"])
+    x = torch.from_numpy(rng.integers(-127, 128, (1, 6, 7, c)).astype(np.int8))
+    xp = torch.nn.functional.pad(x, (0, -c % 16, spec.pl, spec.pr, spec.pt, spec.pb))
+    a = torch.cat([xp[0, dy:dy + 6, dx:dx + 7, :].reshape(42, -1)
+                   for dy in range(k) for dx in range(k)], 1).long()
+    got = a @ img[:o, :a.shape[1]].long().t()
+    want = chain.conv2d_nhwc_int8(x, p["w"], (spec.pt, spec.pb, spec.pl, spec.pr))
+    assert torch.equal(got.int(), want.reshape(42, o))

@@ -77,6 +77,9 @@ def test_gate():
     assert not conv.single_conv_supported(node(3, 16), 512)     # k*k*c > 4096
     assert not conv.single_conv_supported(node(3, 8, "softmax"), 4)
     assert not conv.single_conv_supported(node(3, 8, weight_q=np.zeros(1)), 4)
+    # int8 weights: under bfloat16 activations only (INT8 engines run bf16).
+    assert not conv.single_conv_supported(node(3, 8, weight_q=np.zeros(1)), 4, torch.float32)
+    assert conv.single_conv_supported(node(3, 8, weight_q=np.zeros(1)), 4, torch.bfloat16)
     # The gate's term: the f32 form at one channel per chunk (16x8 tile,
     # 9x17 staged, 2x2 taps x 16 channels), at both dtypes.
     assert conv.smem_bytes(2, 2, 16) == 4 * ((9 * 17 + 3) // 4 * 4 + 4 * 16)
@@ -246,3 +249,32 @@ def test_singleton_runs_on_the_kernel():
     eng = P.Engine.from_graph(b.build(), P.EngineOptions(device="cpu"))
     assert eng.model.forward.single_conv_plan == ["k3"]
     assert eng.model.forward.chain_plan == {}
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"c{c[3]}k{c[4]}o{c[5]}")
+def test_int8_weights_match_jax_haloed_kernel(rng, case):
+    """Int8 weights under bfloat16 (the INT8 engine's single convs): the
+    JAX kernel dequantizes in-kernel, the port's kernel upcasts as it
+    stages; folded_operands hands it the int8 weight and the folded scale.
+    The plain version against the JAX kernel (Pallas interpret mode)."""
+    from shadernn_tpu.quant.quantize import quantize_weight
+
+    n, h, w, c, k, o, padding, act = case
+    x = rng.random((n, h, w, c), dtype=np.float32)
+    wf = (rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c)).astype(np.float32)
+    q, s = quantize_weight(wf)
+    params = {"weight_q": q, "weight_scale": s,
+              "bias": (rng.standard_normal(o) * 0.1).astype(np.float32)}
+    jnode = JNode("conv", "Conv2D", ["x"], attrs(k, o, padding, act),
+                  {key: jnp.asarray(v) for key, v in params.items()})
+    want = np.asarray(from_haloed(conv_run_pallas_chain(
+        jnode, jnp.asarray(x, jnp.bfloat16), JCtx())), np.float32)
+    pnode = PNode("conv", "Conv2D", ["x"], attrs(k, o, padding, act),
+                  {key: torch.from_numpy(v) for key, v in params.items()})
+    assert conv.single_conv_supported(pnode, c, torch.bfloat16)
+    assert not conv.single_conv_supported(pnode, c, torch.float32)
+    ops = P.ops.conv.folded_operands(pnode, torch.bfloat16)
+    assert ops[0].dtype == torch.int8
+    got = conv.conv_run_kernel(pnode, torch.from_numpy(x).to(torch.bfloat16), torch.bfloat16, ops)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    assert np.max(np.abs(got.float().numpy() - want)) <= 0.1 * max(1.0, float(np.abs(want).max()))

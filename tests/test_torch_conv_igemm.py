@@ -100,9 +100,11 @@ def test_gate_is_the_jax_gate(k, o, stride, c):
 
 
 def test_gate_declines_softmax_and_int8_storage():
+    """Softmax stays declined; int8 weight storage is taken (the kernel
+    reads int8, the scale arrives folded)."""
     assert conv_igemm.igemm_conv_supported(conv_node(PNode, 3, 8), 4)
     assert not conv_igemm.igemm_conv_supported(conv_node(PNode, 3, 8, "softmax"), 4)
-    assert not conv_igemm.igemm_conv_supported(
+    assert conv_igemm.igemm_conv_supported(
         conv_node(PNode, 3, 8, weight_q=np.zeros(1, np.int8)), 4)
     w, s = torch.zeros((3, 3, 4, 8)), torch.ones(8)
     with pytest.raises(ValueError):
@@ -192,3 +194,39 @@ def test_conv_op_honours_the_kernel_backend(rng, caplog):
         conv_igemm.conv2d_kernel_nhwc = real
     assert calls == [1]
     assert caplog.text.count("conv n given to KERNEL runs on TORCH: outside the implicit-GEMM") == 1
+
+
+def test_two_input_conv_int8_under_kernel_matches_jax():
+    """Under INT8 the two-input conv's weights are int8 and the kernel's
+    gate takes them: folded_operands hands the implicit-GEMM kernel the
+    int8 weight and the folded scale, as the JAX package hands its
+    `_conv_kernel` (Pallas interpret mode) the int8 weight."""
+    seed = 7767517
+    xa = np.random.default_rng(1).random((2, 10, 12, 3), dtype=np.float32)
+    xb = np.random.default_rng(2).random((2, 10, 12, 5), dtype=np.float32)
+    jeng = J.Engine.from_graph(two_input_graph(JGraph, JNode, np.random.default_rng(seed)),
+                               J.EngineOptions(precision=J.Precision.INT8,
+                                               backend=J.BackendKind.PALLAS, batch_size=2),
+                               optimize=False)
+    want = np.asarray(jeng.run({"a": xa, "b": xb})["conv"], np.float32)
+    seen = []
+    real = conv_igemm.conv2d_kernel_nhwc
+
+    def counted(x, w, *a, **kw):
+        seen.append(w.dtype)
+        return real(x, w, *a, **kw)
+
+    eng = P.Engine.from_graph(two_input_graph(PGraph, PNode, np.random.default_rng(seed)),
+                              P.EngineOptions(device="cpu", precision=P.Precision.INT8,
+                                              backend=P.BackendKind.KERNEL, batch_size=2),
+                              optimize=False)
+    assert "weight_q" in eng.graph.nodes["conv"].params
+    assert eng.model.forward.kernel_conv_plan == ["conv"]
+    conv_igemm.conv2d_kernel_nhwc = counted
+    try:
+        got = eng.run({"a": xa, "b": xb})["conv"].numpy()
+    finally:
+        conv_igemm.conv2d_kernel_nhwc = real
+    assert seen == [torch.int8]
+    assert got.shape == want.shape
+    assert np.max(np.abs(got - want)) <= 0.1 * max(1.0, float(np.abs(want).max()))

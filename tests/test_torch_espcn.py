@@ -125,8 +125,11 @@ def test_engine_contracts(rng):
     assert tuple(out.shape) == (3, 32, 48, 1)
     stats = eng.benchmark({"input": np.zeros((1, 16, 24, 1), np.float32)}, loops=3)
     assert stats["clock"] == "host" and stats["loops"] == 1
-    with pytest.raises(NotImplementedError):
-        P.EngineOptions(precision=P.Precision.INT8)
+    int8 = P.EngineOptions(precision=P.Precision.INT8)
+    assert int8.precision.is_quantized and int8.precision.activation_dtype == torch.bfloat16
+    assert int8.chain_a8 == "auto"
+    with pytest.raises(ValueError):
+        P.EngineOptions(chain_a8="on")
     with pytest.raises(ValueError):
         P.EngineOptions(chain_format="tiles")
 

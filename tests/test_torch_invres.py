@@ -273,6 +273,7 @@ def test_prepared_operands_give_the_same_block(rng, prec):
     for k, t in prepared.items():
         assert t.dtype == (tdt if k in ("w1", "w2") else torch.float32), k
         assert t.is_contiguous(), k
+    assert prepared.w8 == 0
     assert len(prepared.ptrs) == 9 and list(prepared.acts) == [2, 2, 0]
     xt = torch.from_numpy(x).to(tdt)
     assert torch.equal(invres.fused_invres_block(xt, prepared, spec),
@@ -289,3 +290,178 @@ def test_prepare_operands_rejects_what_the_kernel_cannot_take(rng):
         invres.prepare_operands(tops, dataclasses.replace(spec, act_out="softmax"), torch.float32)
     with pytest.raises(TypeError):
         invres.prepare_operands(tops, spec, torch.float16)
+
+
+# -- INT8: int8 weights and A8W8 -----------------------------------------------
+
+A8W8_MODES = {"weight_only": (0.0, 0.0), "ax1": (0.02, 0.0), "ax2": (0.0, 0.03),
+              "ax1_ax2": (0.02, 0.03)}
+
+
+def int8_block(rng, n, h, w, cin, e, cout, has_expand):
+    """A block's operands as build_invres gives them after quantization:
+    int8 w1, w2 and taps (the taps upcast to float32), float32 vectors."""
+    x, ops = random_block(rng, n, h, w, cin, e, cout, has_expand)
+    q = lambda *s: rng.integers(-127, 128, s).astype(np.int8)  # noqa: E731
+    e = e if has_expand else cin
+    if has_expand:
+        ops.update(w1=q(cin, e), s1=ops["s1"] / 127 / np.sqrt(cin))
+    ops.update(wd=q(9, e).astype(np.float32), sd=ops["sd"] / 127 / 3, w2=q(e, cout),
+               s2=ops["s2"] / 127 / np.sqrt(e))
+    return x, ops
+
+
+@pytest.mark.parametrize("mode", list(A8W8_MODES))
+@pytest.mark.parametrize("geom", GEOMETRIES[:2] + GEOMETRIES[3:], ids=lambda g: "x".join(
+    map(str, g[:6])) + ("_expand" if g[6] else "_t1") + ("_res" if g[7] else ""))
+def test_int8_reference_matches_jax_kernel(rng, geom, mode):
+    """Int8 w1/w2/taps (weight-only) and the A8W8 products (ax1 quantizes
+    the block input for the expand, ax2 the depthwise output for the
+    project; the scales folded into s1/s2): the plain version against the
+    JAX kernel (Pallas interpret mode) at bf16."""
+    n, h, w, cin, e, cout, has_expand, residual = geom
+    ax1, ax2 = A8W8_MODES[mode]
+    ax1 = ax1 if has_expand else 0.0
+    x, ops = int8_block(rng, *geom[:7])
+    if ax1:
+        ops["s1"] = ops["s1"] * np.float32(ax1)
+    if ax2:
+        ops["s2"] = ops["s2"] * np.float32(ax2)
+    e_ch = e if has_expand else cin
+    acts = ("relu6" if has_expand else "linear", "relu6", "linear")
+    jspec = JSpec(h=h, w=w, cin=cin, e=e_ch, cout=cout, has_expand=has_expand, residual=residual,
+                  act_expand=acts[0], act_dw=acts[1], act_out=acts[2], ax1=ax1, ax2=ax2)
+    j = {k: jnp.asarray(v) for k, v in ops.items()}
+    want = j_block(jnp.asarray(x, jnp.bfloat16), j.get("w1"), j.get("s1"), j.get("o1"), j["wd"],
+                   j["sd"], j["od"], j["w2"], j["s2"], j["o2"], jspec, interpret=True)
+    want = np.asarray(want, np.float32)
+    spec = invres.InvResSpec(h, w, cin, e_ch, cout, has_expand, residual, *acts, ax1=ax1, ax2=ax2)
+    assert invres.kernel_takes(spec)
+    tops = {k: torch.from_numpy(v) for k, v in ops.items()}
+    prepared = invres.prepare_operands(tops, spec, torch.bfloat16)
+    # The int8 weights reach the kernel as int8: it upcasts those outside
+    # the s8 products (bits of w8) as it stages them.
+    assert all(prepared[k].dtype == torch.int8 for k in ("w1", "w2") if k in prepared)
+    assert prepared.w8 == (1 if has_expand and not ax1 else 0) + (0 if ax2 else 2)
+    if ax1:  # the kernel's n-major copy: E rows of Cin padded to 32
+        assert prepared["w1q"].shape == (e_ch, -(-cin // 32) * 32)
+    got = invres.fused_invres_block(torch.from_numpy(x).to(torch.bfloat16), prepared, spec)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    tol = 0.1 * max(1.0, float(np.abs(want).max()))
+    assert np.max(np.abs(got.float().numpy() - want)) <= tol
+
+
+def _quantized_cls10(parse, fusion, quantize, calibrated: bool):
+    g = _cls10(parse, fusion)
+    quantize(g)
+    if calibrated:  # one fixed act_scale per node, as calibrate_activations stamps them
+        for i, node in enumerate(g.toposort()):
+            node.attrs["act_scale"] = 0.01 + 0.001 * i
+    return g
+
+
+@pytest.mark.parametrize("calibrated", [False, True], ids=["weight_only", "calibrated"])
+def test_build_matches_jax_on_quantized_cls10_graph(calibrated):
+    """On the trained model quantized as both packages quantize it (and, when
+    calibrated, one act_scale per node), build_invres gives the JAX
+    planner's ax1/ax2 and operands at every block, INT8 and not."""
+    from shadernn_tpu.quant.quantize import quantize_graph_weights as j_quantize
+
+    from shadernn_tpu_torch.quant.quantize import quantize_graph_weights as p_quantize
+
+    pg = _quantized_cls10(pparse, pfusion, p_quantize, calibrated)
+    jg = _quantized_cls10(jparse, jfusion, j_quantize, calibrated)
+    seen = set()
+    for name, node in pg.nodes.items():
+        pm = invres.match_invres_block(pg, node) if node.op == "SeparableConv2D" else None
+        if pm is None:
+            continue
+        jm = j_match(jg, jg.nodes[name], None)
+        head = pm[0] if pm[0] is not None else pm[1]
+        in_node = pg.nodes[head.inputs[0]]
+        for int8 in (False, True):
+            scale = float(in_node.attrs.get("act_scale", 0.0)) if int8 else 0.0
+            ops, spec = invres.build_invres(pm, in_node.out_spec, torch.bfloat16, scale, int8)
+            jops, jspec = j_build(jm, jg.nodes[head.inputs[0]].out_spec, jnp.bfloat16, batch=8,
+                                  in_act_scale=scale, a8w8=int8)
+            assert (spec.ax1, spec.ax2) == (jspec.ax1, jspec.ax2), name
+            seen.add((bool(spec.ax1), bool(spec.ax2)))
+            for key, jv in zip(("w1", "s1", "o1", "wd", "sd", "od", "w2", "s2", "o2"), jops):
+                if jv is None:
+                    continue
+                # int8 w1/w2 stay int8 (the JAX ones too); the taps are upcast here,
+                # in the JAX entry point there
+                assert ops[key].dtype == (torch.int8 if key in ("w1", "w2") else torch.float32)
+                np.testing.assert_array_equal(ops[key].float().numpy(),
+                                              np.asarray(jv, np.float32), err_msg=key)
+    assert seen == ({(False, False), (True, True), (False, True)} if calibrated
+                    else {(False, False)})
+
+
+def _planned_specs():
+    """Every block the planner fuses on MobileNetV2 224 (b8) and the trained
+    cls10 model (b64), as (spec, batch)."""
+    from shadernn_tpu_torch.models.mobilenetv2 import build_mobilenetv2
+
+    specs = set()
+    for graph, n in ((build_mobilenetv2(), 8), (pparse(MOBILENETV2_TRAINED), 64)):
+        pfusion.optimize(graph)
+        graph.infer_shapes(batch_size=n)
+        for node in graph.toposort():
+            m = invres.match_invres_block(graph, node) if node.op == "SeparableConv2D" else None
+            if m is not None:
+                head = m[0] if m[0] is not None else m[1]
+                _, spec = invres.build_invres(m, graph.nodes[head.inputs[0]].out_spec,
+                                              torch.float32)
+                specs.add((spec, n))
+    return specs
+
+
+def test_s8_launch_of_every_mobilenetv2_block_fits_and_covers_the_output():
+    """Under A8W8 (ax1 where the block expands, ax2) and weight-only int8,
+    pick_launch gives every block of both MobileNetV2s a launch whose
+    layout (the int8 input tile, n-major int8 w1/w2 buffers) fits 227 KB
+    and which writes each output element exactly once."""
+    specs = _planned_specs()
+    assert len(specs) == 14
+    for spec, n in specs:
+        for ax1, ax2 in A8W8_MODES.values():
+            s8 = dataclasses.replace(spec, ax1=ax1 if spec.has_expand else 0.0, ax2=ax2)
+            assert invres.kernel_takes(s8)
+            geo = invres.pick_launch(s8, n, 132, True)
+            assert geo.smem == invres.smem_bytes(s8, geo.tile_h, geo.tile_w, geo.split, True)
+            assert geo.smem <= invres.MAX_SMEM_BYTES and geo.tile_h * geo.tile_w <= 64
+            if s8.ax1:
+                assert geo.q_stride == -(-spec.cin // 32) * 32 + 16 and geo.xq_off > 0
+                assert (geo.q_stride // 16) % 2 == 1
+            count = _tile_map(s8, geo, min(n, 2))
+            assert count.min() == 1 and count.max() == 1, (s8, geo)
+
+
+def test_s8_layout_fits_wherever_the_gate_admits():
+    """Every A8W8 block the gate admits has a layout that holds its buffers
+    without overlaps (the partial sums may overlay all but the input tile),
+    at every split pick_launch may take; E over 1024 is declined under ax2
+    (the project's sums would pass 2^24)."""
+    admitted = 0
+    for cin in (8, 16, 24, 40, 96, 160, 320):
+        for e in (cin, 6 * cin, 1024):
+            for cout in (8, 24, 160, 320):
+                spec = invres.InvResSpec(8, 8, cin, e, cout, True, False, "relu6", "relu6",
+                                         "linear", ax1=0.02, ax2=0.03)
+                if not invres.kernel_takes(spec):
+                    continue
+                admitted += 1
+                geo = invres.pick_launch(spec, 8, 132, True)
+                hp16 = -(-100 // 16) * 16 if geo.tile_h == 8 else None
+                regions = [(geo.xs_off, geo.es_off), (geo.es_off, geo.ds_off),
+                           (geo.ds_off, geo.w1_off), (geo.w1_off, geo.wd_off),
+                           (geo.wd_off, geo.w2_off), (geo.w2_off, geo.xq_off),
+                           (geo.xq_off, geo.xq_off + -(-(geo.tile_h + 2) * (geo.tile_w + 2)
+                                                         // 16) * 16 * geo.q_stride)]
+                assert all(a % 16 == 0 and a <= b <= geo.smem for a, b in regions), geo
+                assert geo.w1_buf >= 32 * geo.q_stride and geo.w2_buf >= -(-cout // 8) * 8 * 48
+                del hp16
+    assert admitted > 40
+    assert not invres.kernel_takes(invres.InvResSpec(1, 1, 320, 1280, 320, True, False, "relu6",
+                                                     "relu6", "linear", ax2=0.03))

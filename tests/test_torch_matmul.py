@@ -113,6 +113,10 @@ def test_gate_and_entry_point():
                  {"weight": torch.zeros(4, 3)})
     assert matmul.dense_supported(node)
     node.params["weight_q"] = torch.zeros(4, 3, dtype=torch.int8)
+    assert matmul.dense_supported(node)  # int8 storage is taken
+    del node.params["weight"]
+    assert matmul.dense_supported(node)
+    node.attrs["activation"] = "hard_swish"
     assert not matmul.dense_supported(node)
     s = torch.ones(3)
     with pytest.raises(ValueError):
@@ -203,3 +207,32 @@ def test_geometry_covers_every_output_once(m, k, n, bf16):
     cols, rows = chosen.blocks(m, n)
     assert chosen.split == 1 or (cols * rows * chosen.split // 2 < 132
                                  and (chosen.split // 2) * chosen.bk < k)
+
+
+@pytest.mark.parametrize("act", ["relu", "linear"])
+def test_int8_dense_on_the_kernel_matches_jax(rng, act):
+    """A quantized Dense (weight_q, weight_scale, no float weight) under
+    KERNEL at bf16: the gate takes it, folded_operands hands the fused
+    matmul the int8 W with the scale folded in; against the JAX op under
+    PALLAS (fused_matmul in interpret mode; no softmax: C3)."""
+    from shadernn_tpu.graph.ir import Node as JNode
+    from shadernn_tpu.ops.registry import RunCtx as JCtx
+    from shadernn_tpu.ops.registry import get_op as j_op
+    from shadernn_tpu.quant.quantize import quantize_weight
+
+    import shadernn_tpu as J
+
+    wq, ws = quantize_weight((rng.standard_normal((96, 10)) / 10).astype(np.float32))
+    params = {"weight_q": wq, "weight_scale": ws,
+              "bias": (rng.standard_normal(10) * 0.1).astype(np.float32)}
+    attrs = dict(units=10, activation=act, use_bias=True)
+    x = rng.standard_normal((6, 96)).astype(np.float32)
+    want = np.asarray(j_op("Dense").run(
+        JNode("fc", "Dense", ["x"], attrs, {k: jnp.asarray(v) for k, v in params.items()}),
+        [jnp.asarray(x, jnp.bfloat16)], JCtx(backend=J.BackendKind.PALLAS)), np.float32)
+    node = PNode("fc", "Dense", ["x"], attrs, {k: torch.from_numpy(v) for k, v in params.items()})
+    assert matmul.dense_supported(node)
+    got = p_op("Dense").run(node, [torch.from_numpy(x).to(torch.bfloat16)],
+                            PCtx(backend=P.BackendKind.KERNEL))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    assert np.max(np.abs(got.float().numpy() - want)) <= 0.1 * max(1.0, float(np.abs(want).max()))

@@ -107,25 +107,32 @@ def test_op_matches_jax(rng, case, prec):
     assert p_op(op).infer(pn, [P.TensorSpec(shape)]).shape == j_op(op).infer(jn, [spec]).shape
 
 
-def test_dense_outside_the_kernel_gate_says_so(rng, caplog):
+def test_dense_outside_the_kernel_gate_says_so(rng, caplog, monkeypatch):
     """A direct caller's KERNEL Dense that the fused-matmul kernel's gate
-    declines (int8 weight storage) runs the TORCH body and
-    logs the gate; one inside the gate logs nothing. (The engine decides at
-    plan time and never hands a declined node KERNEL.)"""
+    declines runs the TORCH body and logs the gate; one inside the gate
+    logs nothing, float or int8 weights alike (the gate takes int8
+    storage, and its activations are all of the TORCH body's, so a
+    declining gate is stood in for). (The engine decides at plan time and
+    never hands a declined node KERNEL.)"""
     import logging
+
+    from shadernn_tpu_torch.kernels import matmul
 
     params = {"weight": torch.from_numpy(rng.standard_normal((4, 3)).astype(np.float32)),
               "bias": torch.from_numpy(rng.standard_normal(3).astype(np.float32))}
+    int8 = {"weight_q": torch.from_numpy(rng.integers(-127, 128, (4, 3)).astype(np.int8)),
+            "weight_scale": torch.from_numpy(rng.random((1, 3)).astype(np.float32) / 64)}
     x = torch.from_numpy(rng.standard_normal((2, 4)).astype(np.float32))
-    for int8, logged in ((False, False), (True, True)):
-        extra = {"weight_q": torch.zeros((4, 3), dtype=torch.int8)} if int8 else {}
+    for extra, declined in (({}, False), (int8, False), ({}, True)):
+        if declined:
+            monkeypatch.setattr(matmul, "dense_supported", lambda node: False)
         node = PNode("fc", "Dense", ["x"], dict(units=3, activation="relu"), {**params, **extra})
         caplog.clear()
         with caplog.at_level(logging.WARNING, logger="snn_torch.ops"):
             got = p_op("Dense").run(node, [x], PCtx(backend=P.BackendKind.KERNEL))
         close(got, p_op("Dense").run(node, [x], PCtx(backend=P.BackendKind.TORCH)), "fp32")
         said = "dense fc given to KERNEL runs on TORCH: outside the fused-matmul" in caplog.text
-        assert said == logged, caplog.text
+        assert said == declined, caplog.text
 
 
 # -- builder and plan --------------------------------------------------------

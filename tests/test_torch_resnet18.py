@@ -222,18 +222,21 @@ def test_declined_nodes_are_logged_with_their_gate(caplog):
     x = b.flatten(x)
     b.dense(x, 5, activation="softmax", name="int8_fc")
     g = b.build()
-    # int8 weight storage belongs to the INT8 slice: no kernel's gate takes it.
-    g.nodes["int8_fc"].params["weight_q"] = np.zeros((8 * 8 * 136, 5), np.int8)
+    # int8 weight storage (weight-only INT8): the fused matmul takes it.
+    fc = g.nodes["int8_fc"].params
+    fc["weight_q"] = np.zeros((8 * 8 * 136, 5), np.int8)
+    fc["weight_scale"] = np.ones((1, 5), np.float32)
+    del fc["weight"]
     with caplog.at_level(logging.INFO, logger="snn_torch.compile"):
         eng = P.Engine.from_graph(g, P.EngineOptions(
             device="cpu", backend=P.BackendKind.KERNEL))
     fwd = eng.model.forward
-    assert fwd.kernel_conv_plan == [] and fwd.kernel_dense_plan == []
+    assert fwd.kernel_conv_plan == [] and fwd.kernel_dense_plan == ["int8_fc"]
     assert fwd.single_conv_plan == [] and fwd.chain_plan == {}
     text = caplog.text
     for name in ("softmax_conv", "wide"):
         assert f"conv {name} given to KERNEL runs on TORCH: outside the implicit-GEMM" in text
-    assert "dense int8_fc given to KERNEL runs on TORCH: outside the fused-matmul" in text
+    assert "dense int8_fc runs on the fused-matmul kernel" in text
     y = eng.run_single(np.random.default_rng(0).random((1, 8, 8, 4), dtype=np.float32))
     assert torch.allclose(y.sum(-1), torch.ones(1), atol=1e-4)
 
