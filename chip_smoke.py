@@ -22,8 +22,13 @@ Phases, each of which raises on failure (exit code != 0):
               plans of both ResNet18 paths at their batch (b8, b64) with the
               models' folded weights, and the edges of its bf16 form (O = 10,
               a multi-image tile the batch does not fill, C = 3, taps in
-              several stages, k11), bf16 from f32 and from bf16 inputs; the
-              implicit-GEMM conv
+              several stages, k11) and the largest K the gate admits (k8
+              c64), bf16 from f32 and from bf16 inputs, fp32 (3xTF32) from
+              f32 inputs at |x| ~ 1 and ~ 1e2 and from bf16 inputs; the
+              block's fp32 edges: |x| ~ 1e2 through the widest block
+              (160->960->320, linear) and the ragged one, int8 weights
+              (the f32 form's two-pass instantiation), a block whose
+              weights fit one buffer; the implicit-GEMM conv
               kernel at the ResNet-wide shapes, 540p frames, even k with
               asymmetric pads, stride 2 and int8 weights; the fused-matmul
               kernel at the classifier heads (softmax rows must sum to 1),
@@ -36,7 +41,8 @@ Phases, each of which raises on failure (exit code != 0):
               (seeded weights and BatchNorm statistics), batch 8, through
               Engine.from_graph at BF16 and FP32, 5 steps each: every step
               launches the block kernel 11 times and no other kernel; a
-              block with a planted fault must fail the logits check. The
+              block with a planted fault must fail the logits check; device
+              busy split into the hand-written kernels and the rest. The
               trained MobileNetV2 (10
               classes) through Engine.from_json at b64: 13 blocks and one
               single conv per step, top-1 >= 0.9 on 256 images of its task.
@@ -82,7 +88,12 @@ Phases, each of which raises on failure (exit code != 0):
               of a MobileNetV2 224 b8 step weight-only and A8W8, the
               single-conv launches of an INT8 step of each trained
               classifier (b64), each beside its bf16 form, bound at the int8
-              peak for s8 products
+              peak for s8 products; int8 weights in the chain's im2col entry
+              at the trained ResNet18's chain (b64), the implicit-GEMM conv
+              at the two-input graph (b8) and the fused matmul at both
+              ResNet18 heads, each beside its plain version and the library
+              call on the weights cast to bf16. Every fp32 line also prints
+              the bound in 3xTF32 (a third of the TF32 peak)
 Prints the `kernels` JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Imports no JAX and nothing of
 the JAX package. Exits non-zero without printing a result when no CUDA
@@ -110,11 +121,14 @@ TOL_FP32 = 1e-4  # summation order only
 TOL_BF16 = 0.03
 ENGINE_TOL = {"bf16": 0.1, "fp32": 0.01}  # tests/conftest.py thresholds
 
-# Published peaks (dense) per card: bytes/s, bf16 FLOP/s, f32 FLOP/s
-# (CUDA cores; TF32 is not an fp32-exact path).
+# Published peaks (dense) per card: bytes/s, bf16 FLOP/s, f32 FLOP/s on
+# the CUDA cores, TF32 FLOP/s on the tensor cores. The fp32 forms of the
+# single-conv and block kernels run 3xTF32 (three TF32 products per f32
+# product, about f32's accuracy): their work is bounded at a third of the
+# TF32 peak, printed beside the CUDA-core bound.
 PEAKS = {
-    "H100 SXM": (3.35e12, 989e12, 67e12),
-    "H100 PCIe": (2.0e12, 756e12, 51e12),
+    "H100 SXM": (3.35e12, 989e12, 67e12, 495e12),
+    "H100 PCIe": (2.0e12, 756e12, 51e12, 378e12),
 }
 
 
@@ -190,22 +204,35 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} nvcc '{nvcc}'")
     log(f"[env] {card} | devices {torch.cuda.device_count()}")
-    peak_key, (peak_bw, peak_bf16, peak_f32) = peaks_for(name)
+    peak_key, (peak_bw, peak_bf16, peak_f32, peak_tf32) = peaks_for(name)
 
     # 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
     _, build_log = _build.build(force=True)
     log(f"[build] nvcc {time.perf_counter() - t0:.1f} s")
+    def kernel_of(line):
+        """(kernel name, the mangled rest) of a ptxas 'Compiling entry' line:
+        the name is the length-prefixed identifier ending in _kernel (the
+        length's digits may follow a hash's)."""
+        mangled = line.split("'")[1] if "'" in line else line
+        for m in re.finditer(r"\d+", mangled):
+            for j in range(len(m.group())):
+                size = int(m.group()[j:])
+                ident = mangled[m.end():m.end() + size]
+                if len(ident) == size and re.fullmatch(r"[a-z_][a-z0-9_]*_kernel", ident):
+                    return ident, mangled[m.end() + size:]
+        return "", ""
+
     kernel_name = ""
     for line in build_log.splitlines():
         if "Compiling entry function" in line:  # the mangled name: kernel and template arguments
-            m = re.search(r"\d+([a-z_]+_kernel)(\w*)'", line)
-            args = m.group(2).split("Ev", 1)[0] if m and m.group(2).startswith("I") else ""
+            ident, rest = kernel_of(line)
+            args = rest.split("Ev", 1)[0] if rest.startswith("I") else ""
             targs = re.findall(r"Li(\d+)E", args) + (
                 ["bf16"] if "bfloat16" in args else
                 ["f32"] if re.search(r"(?:^I|E)f(?:E|L)", args) else []) + (
                 ["int8"] if "Lb1E" in args else [])
-            kernel_name = (m.group(1) + (f"<{','.join(targs)}>" if targs else "")) if m else ""
+            kernel_name = ident + (f"<{','.join(targs)}>" if targs else "")
         elif "registers" in line or "spill" in line:
             log(f"[build] {kernel_name:<32} {line.strip()}")
     _build.kernel_lib()
@@ -335,8 +362,12 @@ def main() -> int:
         return (f"{spec.h}x{spec.w} {spec.cin}->{spec.e}->{spec.cout}"
                 + (" res" if spec.residual else "") + ("" if spec.has_expand else " t=1"))
 
+    def int8_tensor(shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+
     mnv2_blocks = planned_blocks(mobilenetv2_224(), 8)
     assert len(mnv2_blocks) == 11, [b[0] for b in mnv2_blocks]
+    assert geometry(mnv2_blocks[-1][1]) == "7x7 160->960->320", geometry(mnv2_blocks[-1][1])
     trained_graph = parse_model_file(MOBILENETV2_TRAINED)
     trained_blocks = planned_blocks(trained_graph, 64)
     assert len(trained_blocks) == 13 and sum(not b[1].has_expand for b in trained_blocks) == 1
@@ -375,6 +406,40 @@ def main() -> int:
             block_err = max(block_err, held(
                 f"{label} b{nb} {'bf16' if dt == bf16 else 'fp32'}", "fused_invres_block",
                 got, invres.invres_block_reference(x, ops_dt, spec), dt))
+    # Edges of the fp32 form (3xTF32): inputs at |x| ~ 1e2 through the
+    # widest block (160 -> 960 -> 320 at 7x7, b8; linear activations, so
+    # that nothing clips them) and the ragged one; int8 weights (the f32 W8
+    # instantiation, two passes); a block whose weights fit one buffer only.
+    def random_block_ops(cin, e, cout, int8=False):
+        ops = {"w1": rng.standard_normal((cin, e)) / np.sqrt(cin),
+               "s1": 1 + 0.1 * rng.standard_normal(e), "o1": 0.1 * rng.standard_normal(e),
+               "wd": rng.standard_normal((9, e)) / 3, "sd": 1 + 0.1 * rng.standard_normal(e),
+               "od": 0.1 * rng.standard_normal(e), "w2": rng.standard_normal((e, cout)) / np.sqrt(e),
+               "s2": 1 + 0.1 * rng.standard_normal(cout), "o2": 0.1 * rng.standard_normal(cout)}
+        ops = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in ops.items()}
+        if int8:  # int8 w1 / w2, their scales folded into s1 / s2
+            ops.update(w1=int8_tensor((cin, e)), w2=int8_tensor((e, cout)),
+                       s1=ops["s1"] / 127 / np.sqrt(cin), s2=ops["s2"] / 127 / np.sqrt(e))
+        return ops
+
+    wide_lin = invres.InvResSpec(7, 7, 160, 960, 320, True, False, "linear", "linear", "linear")
+    one_buf = invres.InvResSpec(8, 8, 300, 600, 320, True, False, "relu6", "relu6", "linear")
+    assert invres.pick_launch(one_buf, 2, sms).bufs == 1
+    for label, spec, ops, nb, mag in (
+        ("7x7 160->960->320 linear |x|~1e2", wide_lin, random_block_ops(160, 960, 320), 8, 100.0),
+        ("ragged 13x9 24->144->24 res |x|~1e2", ragged_spec, rops, 3, 100.0),
+        ("7x7 160->960->320 int8 w", mnv2_blocks[-1][1], random_block_ops(160, 960, 320, True),
+         8, 1.0),
+        ("ragged 13x9 24->144->24 res int8 w", ragged_spec, random_block_ops(24, 144, 24, True),
+         3, 1.0),
+        ("one buffer 8x8 300->600->320", one_buf, random_block_ops(300, 600, 320), 2, 1.0),
+    ):
+        x = torch.from_numpy((mag * rng.standard_normal((nb, spec.h, spec.w, spec.cin)))
+                             .astype(np.float32)).to(dev)
+        got = invres.fused_invres_block(x, ops, spec)
+        torch.cuda.synchronize()
+        block_err = max(block_err, held(f"{label} b{nb} fp32", "fused_invres_block", got,
+                                        invres.invres_block_reference(x, ops, spec), f32))
 
     # Single convs: the trained model's folded stem (12->16, k2, pads from
     # fold_stride2_convs) at its main-path batch 64 and at 8, and two edges.
@@ -397,6 +462,8 @@ def main() -> int:
         ("k3 c3->64 32x32", 8, 32, 32, 3, 3, 64, (1, 1, 1, 1), "relu"),
         ("k5 c128->128 20x20 (tap groups)", 2, 20, 20, 128, 5, 128, (2, 2, 2, 2), "relu"),
         ("k11 c1->16 20x24", 2, 20, 24, 1, 11, 16, (5, 5, 5, 5), "relu"),
+        # The largest K the gate admits (kh*kw*C = 4096), even k.
+        ("k8 c64->128 24x24 (K 4096)", 2, 24, 24, 64, 8, 128, (3, 4, 3, 4), "linear"),
     ):
         wts = torch.from_numpy((rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c))
                                .astype(np.float32)).to(dev)
@@ -447,23 +514,46 @@ def main() -> int:
         for dt in (bf16, f32):
             chain_resnet_err = max(chain_resnet_err, case(
                 label, nodes, cin, dt, "none", shape, "fused_conv_chain"))
-    conv_err = 0.0
+    def conv_f64(x, wts, sc, of, pads):
+        """A linear conv's output in float64 on the card."""
+        pt, pb, pl, pr = pads
+        xd = F.pad(x.double().permute(0, 3, 1, 2), (pl, pr, pt, pb))
+        acc = F.conv2d(xd, wts.double().permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+        return acc * sc.double() + of.double()
+
+    conv_err, conv_f64_errs = 0.0, {"kernel": 0.0, "plain": 0.0}
     for label, nb, h, w, (wts, sc, of), pads, act in conv_cases:
         # bf16 from an f32 input (rounded on staging) and from a bf16 input
-        # (the engine's; 16-byte asynchronous copies where C allows); fp32.
-        for dt, x_dt, tag in ((bf16, f32, "bf16"), (bf16, bf16, "bf16 x bf16"), (f32, f32, "fp32")):
-            x = torch.from_numpy(rng.random((nb, h, w, wts.shape[2]), dtype=np.float32)).to(dev, x_dt)
-            got = conv.fused_conv2d_haloed(x, wts, sc, of, pads, act, 0.3, dt)
+        # (the engine's; 16-byte asynchronous copies where C allows); fp32
+        # (3xTF32), from an f32 input, from a bf16 input (exact in TF32: two
+        # passes) and at |x| ~ 1e2. That one runs the epilogue linear: the
+        # tolerance scales with max|plain|, and a saturating activation
+        # would hold pre-activations of ~1e2 to 1e-4 absolute, finer than
+        # the plain version's own float32 sums reach (against float64,
+        # printed beside it).
+        for dt, x_dt, tag, mag in ((bf16, f32, "bf16", 1.0), (bf16, bf16, "bf16 x bf16", 1.0),
+                                   (f32, f32, "fp32", 1.0), (f32, bf16, "fp32 x bf16", 1.0),
+                                   (f32, f32, "fp32 |x|~1e2 linear", 100.0)):
+            act_ = "linear" if mag > 1 else act
+            x = torch.from_numpy(mag * rng.random((nb, h, w, wts.shape[2]), dtype=np.float32)
+                                 ).to(dev, x_dt)
+            got = conv.fused_conv2d_haloed(x, wts, sc, of, pads, act_, 0.3, dt)
             torch.cuda.synchronize()
-            conv_err = max(conv_err, held(
-                f"{label} b{nb} {tag}", "fused_conv2d_haloed",
-                got, conv.conv2d_haloed_reference(x, wts, sc, of, pads, act, 0.3, dt), dt))
+            want = conv.conv2d_haloed_reference(x, wts, sc, of, pads, act_, 0.3, dt)
+            conv_err = max(conv_err, held(f"{label} b{nb} {tag}", "fused_conv2d_haloed",
+                                          got, want, dt))
+            if mag > 1:
+                exact = conv_f64(x, wts, sc, of, pads)
+                scale = max(1.0, exact.abs().max().item())
+                f64_err = {k: (v.double() - exact).abs().max().item() / scale
+                           for k, v in (("kernel", got), ("plain", want))}
+                log(f"[kernel] {label} b{nb} {tag}: against float64, relative to max(1, "
+                    f"max|y|): kernel {f64_err['kernel']:.2e}, plain {f64_err['plain']:.2e}")
+                for k, v in f64_err.items():
+                    conv_f64_errs[k] = max(conv_f64_errs[k], v)
 
     def tensor(a, dt=f32):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
-
-    def int8_tensor(shape):
-        return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
 
     # The implicit-GEMM conv: the ResNet-wide shapes, 540p frames (k5 and
     # the two-input graph's conv, its main-path shape), even k with
@@ -567,23 +657,28 @@ def main() -> int:
         the device's own events (kernels, copies, fills) over `reps` calls
         after one warm call, divided by reps; and the top events by it.
         Only device events are summed: a CPU op's device time repeats its
-        kernels'. (0.0, []) where the profiler sees no device time."""
+        kernels'. Now and then a profile records no device event at all: it
+        is then taken again, up to three times; (0.0, []) where it still
+        sees none."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
         per = {}
-        for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            t = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
-            if t > 0:
-                per[ev.key] = per.get(ev.key, 0.0) + t / 1e3 / reps
+        for _attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            for ev in prof.key_averages():
+                if ev.device_type != DeviceType.CUDA:
+                    continue
+                t = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
+                if t > 0:
+                    per[ev.key] = per.get(ev.key, 0.0) + t / 1e3 / reps
+            if per:
+                break
         top = sorted(per.items(), key=lambda kv: -kv[1])
         return sum(per.values()), top
 
@@ -592,6 +687,24 @@ def main() -> int:
         top device events by it."""
         dev_inputs = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
         return device_profile(lambda: eng.model(dev_inputs), steps)
+
+    # The hand-written kernels' names, as the profiler gives them.
+    PORTED = re.compile(r"\b(conv_chain(_tc)?|conv_single(_tc|_tf32)?|invres(_tc|_tf32)?|"
+                        r"conv_igemm|matmul_fused)_kernel\b")
+
+    def busy_text(eng, inputs, p50):
+        """Device time per step, the hand-written kernels' share of it and
+        a line that splits it into those and the rest (the TORCH layers:
+        cuDNN, the int8 im2col and torch._int_mm, quantization, casts) and
+        names the top events."""
+        busy_ms, top_kernels = device_busy(eng, inputs)
+        idle = f"{1 - busy_ms / p50:.3f}" if busy_ms else "not measured"
+        ported = sum(v for k, v in top_kernels if PORTED.search(k))
+        return busy_ms, ported, (f"torch.profiler: device busy {busy_ms:.3f} ms per step (hand-written "
+                         f"kernels {ported:.3f} ms, TORCH layers and the rest "
+                         f"{busy_ms - ported:.3f} ms), idle share {idle} of the p50 step; top "
+                         "kernels " + "; ".join(f"{k[:60]} {v:.3f} ms"
+                                                for k, v in top_kernels[:6]))
 
     frames = rng.random((8, 540, 960, 1), dtype=np.float32)
     main_stats = {}
@@ -675,11 +788,8 @@ def main() -> int:
             f"(max|logit| {top:.3e}, relative {err_logits / top:.3e}); planted fault "
             f"({zeroed} zeroed) moves the logits by {err_fault:.3e} "
             f"device step p50 {bench['p50_ms']:.3f} ms")
-        busy_ms, top_kernels = device_busy(eng, {"input": images})
-        idle = f"{1 - busy_ms / bench['p50_ms']:.3f}" if busy_ms else "not measured"
-        log(f"[main] mobilenetv2 224 b8 {prec.value} torch.profiler: device busy "
-            f"{busy_ms:.3f} ms per step, idle share {idle} of the p50 step; top kernels "
-            + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top_kernels[:6]))
+        busy_ms, kernels_ms, text = busy_text(eng, {"input": images}, bench["p50_ms"])
+        log(f"[main] mobilenetv2 224 b8 {prec.value} {text}")
         assert err <= tol, f"{prec.value}: MobileNetV2 probabilities disagree with TORCH"
         assert err_logits <= tol * scale, f"{prec.value}: MobileNetV2 logits disagree with TORCH"
         assert top >= 1.0, f"{prec.value}: logits of {top:.3e} would hold nothing"
@@ -687,6 +797,7 @@ def main() -> int:
         mnv2_stats[prec.value] = {"launches": counts["fused_invres_block"],
                                   "engine_p50_ms": bench["p50_ms"],
                                   "device_busy_ms": busy_ms,
+                                  "kernels_device_ms": kernels_ms,
                                   "logits_max_abs_diff": err_logits,
                                   "planted_fault_logits_diff": err_fault}
         del eng, outs, y, logits, logits_plain
@@ -732,23 +843,6 @@ def main() -> int:
                 "fused_matmul": len(fwd.kernel_dense_plan)}
         assert got == {k: v * steps for k, v in want.items()}, (got, want, steps)
         return want
-
-    # The hand-written kernels' names, as the profiler gives them.
-    PORTED = re.compile(r"\b(conv_chain(_tc)?|conv_single(_tc)?|invres(_tc)?|conv_igemm|"
-                        r"matmul_fused)_kernel\b")
-
-    def busy_text(eng, inputs, p50):
-        """Device time per step, split into the hand-written kernels and
-        the rest (the TORCH layers: cuDNN, the int8 im2col and
-        torch._int_mm, quantization, casts), and the top events."""
-        busy_ms, top_kernels = device_busy(eng, inputs)
-        idle = f"{1 - busy_ms / p50:.3f}" if busy_ms else "not measured"
-        ported = sum(v for k, v in top_kernels if PORTED.search(k))
-        return busy_ms, (f"torch.profiler: device busy {busy_ms:.3f} ms per step (hand-written "
-                         f"kernels {ported:.3f} ms, TORCH layers and the rest "
-                         f"{busy_ms - ported:.3f} ms), idle share {idle} of the p50 step; top "
-                         "kernels " + "; ".join(f"{k[:60]} {v:.3f} ms"
-                                                for k, v in top_kernels[:6]))
 
     forced = BackendKind.KERNEL
     # ResNet18 at the zoo width (64/128/256/512, 32x32x3, 10 classes), seeded
@@ -798,7 +892,7 @@ def main() -> int:
             f"rows sum to 1 within {row_off:.1e}; logits max_abs_diff {err_logits:.3e} tol "
             f"{tol * scale:.3g} (max|logit| {top:.3e}); planted fault (fc zeroed) moves the "
             f"logits by {err_fault:.3e}; device step p50 {bench['p50_ms']:.3f} ms")
-        busy_ms, text = busy_text(eng, {"input": images32}, bench["p50_ms"])
+        busy_ms, kernels_ms, text = busy_text(eng, {"input": images32}, bench["p50_ms"])
         log(f"[main] resnet18 zoo width b8 {prec.value} {text}")
         assert err <= tol, f"{prec.value}: ResNet18 probabilities disagree with TORCH"
         assert err_logits <= tol * scale, f"{prec.value}: ResNet18 logits disagree with TORCH"
@@ -806,6 +900,7 @@ def main() -> int:
         assert err_fault > tol * scale, f"{prec.value}: the logits check misses a zeroed fc"
         resnet_stats[prec.value] = {"launches": counts["fused_matmul"], "per_step": per_step,
                                     "engine_p50_ms": bench["p50_ms"], "device_busy_ms": busy_ms,
+                                    "kernels_device_ms": kernels_ms,
                                     "logits_max_abs_diff": err_logits,
                                     "planted_fault_logits_diff": err_fault}
         del eng, outs, y, logits, logits_plain
@@ -924,7 +1019,7 @@ def main() -> int:
             f"{per_step} ({STEPS} steps) vs TORCH forward max_abs_diff {err:.3e} tol "
             f"{tol * scale:.3g}; planted fault (centre tap dropped) moves the output by "
             f"{err_fault:.3e}; device step p50 {bench['p50_ms']:.3f} ms")
-        busy_ms, text = busy_text(eng, pair, bench["p50_ms"])
+        busy_ms, _, text = busy_text(eng, pair, bench["p50_ms"])
         log(f"[main] two-input conv 540x960 b8 {prec.value} {text}")
         assert err <= tol * scale, f"{prec.value}: the two-input conv disagrees with TORCH"
         assert err_fault > tol * scale, f"{prec.value}: the check misses a dropped tap"
@@ -1055,11 +1150,14 @@ def main() -> int:
     # with int8 weights; every block of both MobileNetV2s weight-only and
     # A8W8; the two-input conv and both ResNet18 heads with int8 weights.
     (r18_w, _), (r18_c, _) = r18_i8
+    r18_chains_i8 = []
     for head in r18_c.model.forward.chain_plan:
         s = r18_c.graph.nodes[r18_c.graph.nodes[head].inputs[0]].out_spec
-        err, _, _ = chain_held(f"int8 w resnet18 cls10 chain {head} {s.h}x{s.w} b64", r18_c, head,
-                               (64, s.h, s.w, s.c), (bf16,), "fused_conv_chain", "none")
+        err, specs_, ops_ = chain_held(f"int8 w resnet18 cls10 chain {head} {s.h}x{s.w} b64",
+                                       r18_c, head, (64, s.h, s.w, s.c), (bf16,),
+                                       "fused_conv_chain", "none")
         i8_err["chain_w8"] = max(i8_err["chain_w8"], err)
+        r18_chains_i8.append((specs_, ops_, (64, s.h, s.w, s.c)))
     i8_single_cases = {}
     (cls10_w, _), (cls10_c, _) = cls10_i8
     for tag, eng, nb in (("resnet18 cls10", r18_c, 64), ("mobilenetv2 cls10", cls10_c, 64)):
@@ -1183,7 +1281,7 @@ def main() -> int:
             err = max(err, (out[key] - want).abs().max().item())
         tol = ENGINE_TOL["bf16"] * scale
         p50 = eng.benchmark(feeds[0], loops=20)["p50_ms"]
-        busy_ms, text = busy_text(eng, feeds[0], p50)
+        busy_ms, _, text = busy_text(eng, feeds[0], p50)
         a8 = torch_a8w8_layers(ref.graph)
         log(f"[main] int8 {label}: launches per step {per_step} ({len(feeds)} steps) vs TORCH "
             f"INT8 forward ({len(a8)} layers A8W8: {a8}; the rest int8 weights on bf16 "
@@ -1339,6 +1437,14 @@ def main() -> int:
                 f"plain {t['plain'][0]:.4f} ms (device {t['plain'][1]:.4f}) "
                 f"cudnn {t['library'][0]:.4f} ms (device {t['library'][1]:.4f})")
 
+    def tf32(flops, nbytes, dt):
+        """fp32 work only: the bound in 3xTF32 (three TF32 products per f32
+        product) as a dict entry and a text, beside the CUDA-core bound."""
+        if dt == bf16:
+            return {}, ""
+        b = max(3 * flops / peak_tf32, nbytes / peak_bw) * 1e3
+        return {"bound_3xtf32_ms": b}, f"; 3xTF32 bound {b:.5f} ms"
+
     macs_px = sum(int(np.prod(n.params["weight"].shape)) for n in espcn_nodes)
     rows = {}
     for dt, entry, tail in ((bf16, "fused_conv_chain_packed", "d2s2"),
@@ -1373,13 +1479,14 @@ def main() -> int:
                 p["w"].numel() * p["w"].element_size() + 8 * p["scale"].numel() for p in ops)
             t_ops = flops / (peak_bf16 if dt == bf16 else peak_f32) * 1e3
             t_bytes = nbytes / peak_bw * 1e3
+            b3, b3_text = tf32(flops, nbytes, dt)
             rows[(entry, nb)] = dict(**timing_keys(t), bound_ms=max(t_ops, t_bytes),
-                                     bound_by="operations" if t_ops >= t_bytes else "bytes")
+                                     bound_by="operations" if t_ops >= t_bytes else "bytes", **b3)
             r = rows[(entry, nb)]
             log(f"[timing] {entry:<24} {'bf16 d2s2' if dt == bf16 else 'fp32 none'} 540x960 "
                 f"b{nb}: {timing_text(t)} "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {flops / 1e9:.2f} GFLOP, "
-                f"{nbytes / 1e6:.2f} MB, {peak_key} peaks) | {card}")
+                f"{nbytes / 1e6:.2f} MB, {peak_key} peaks{b3_text}) | {card}")
 
     cl = torch.channels_last
 
@@ -1430,9 +1537,10 @@ def main() -> int:
         nbytes = (x.numel() + n_ * h_ * w_ * specs[-1].o) * isz + sum(
             p["w"].numel() * isz + 8 * p["scale"].numel() for p in ops)
         b_ms, b_by = bound(flops, nbytes, dt)
-        chain_resnet_rows[pname] = dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by)
+        b3, b3_text = tf32(flops, nbytes, dt)
+        chain_resnet_rows[pname] = dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by, **b3)
         log(f"[timing] fused_conv_chain {pname} {label}: {timing_text(t)} bound {b_ms:.5f} ms "
-            f"({b_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) | {card}")
+            f"({b_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB{b3_text}) | {card}")
 
     def block_library(spec, ops, dt):
         """cuDNN yardstick of one block: 1x1, depthwise and 1x1 F.conv2d on
@@ -1467,9 +1575,12 @@ def main() -> int:
         return flops, nbytes
 
     def block_inputs(spec, ops, nb, dt):
+        """An input and the block's operands laid out once for the kernel
+        (prepare_operands, as the engine does once per parameter set)."""
         x = torch.from_numpy(rng.standard_normal((nb, spec.h, spec.w, spec.cin))
                              .astype(np.float32)).to(dev, dt)
-        return x, {k: (v.to(dt) if k in ("w1", "w2") else v) for k, v in ops.items()}
+        return x, invres.prepare_operands(
+            {k: (v.to(dt) if k in ("w1", "w2") else v) for k, v in ops.items()}, spec, dt)
 
     block_rows = {}
     for dt in (bf16, f32):
@@ -1485,7 +1596,8 @@ def main() -> int:
             b_ms, b_by = bound(flops, nbytes, dt)
             log(f"[timing] fused_invres_block {pname} {label} b{nb}: {timing_text(t)} "
                 f"bound {b_ms:.5f} ms ({b_by}; "
-                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) | {card}")
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB{tf32(flops, nbytes, dt)[1]}) "
+                f"| {card}")
         # The 11 launches of one MobileNetV2 224 b8 step, back to back.
         step = [(spec, *block_inputs(spec, ops, 8, dt)) for _name, spec, ops in mnv2_blocks]
         libs = [(block_library(spec, ops_dt, dt), x.permute(0, 3, 1, 2))
@@ -1502,12 +1614,15 @@ def main() -> int:
             share[by] += t_b
         b_ms = sum(share.values())
         b_by = max(share, key=share.get)
-        block_rows[pname] = dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by)
+        b3 = ({"bound_3xtf32_ms": sum(tf32(f, b, dt)[0]["bound_3xtf32_ms"] for f, b in work)}
+              if dt == f32 else {})
+        b3_text = f"; 3xTF32 bound {b3['bound_3xtf32_ms']:.5f} ms" if b3 else ""
+        block_rows[pname] = dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by, **b3)
         log(f"[timing] fused_invres_block {pname} MobileNetV2 224 b8, sum of the 11 launches "
             f"of one step: {timing_text(t)} "
             f"bound {b_ms:.5f} ms (operations-bound blocks {share['operations']:.5f} ms, "
             f"bytes-bound {share['bytes']:.5f} ms; {sum(f for f, _ in work) / 1e9:.3f} "
-            f"GFLOP, {sum(b for _, b in work) / 1e6:.3f} MB, {peak_key} peaks) | {card}")
+            f"GFLOP, {sum(b for _, b in work) / 1e6:.3f} MB, {peak_key} peaks{b3_text}) | {card}")
 
     def conv_yardstick(x, wts, sc, of, pads, act, dt):
         """cuDNN yardstick of one stride-1 conv: F.conv2d on channels_last
@@ -1541,9 +1656,10 @@ def main() -> int:
         flops = 2.0 * nb * ho * wo * kh * kw * c * o
         nbytes = (x.numel() + nb * ho * wo * o + wts.numel()) * isz + 2 * o * 4
         b_ms, b_by = bound(flops, nbytes, dt)
+        b3, b3_text = tf32(flops, nbytes, dt)
         log(f"[timing] {entry} {pname} {label} b{nb}: {timing_text(t)} bound {b_ms:.5f} ms "
-            f"({b_by}; {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB) | {card}")
-        return dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by)
+            f"({b_by}; {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB{b3_text}) | {card}")
+        return dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by, **b3)
 
     def random_conv(c, k, o):
         return (tensor(rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c)),
@@ -1589,7 +1705,7 @@ def main() -> int:
         t = timed({"kernel": lambda: [single(*args) for args in step],
                    "plain": lambda: [single_plain(*args) for args in step],
                    "library": lambda: [fn() for fn in libs]})
-        share, work = {"operations": 0.0, "bytes": 0.0}, [0.0, 0.0]
+        share, work, step_work = {"operations": 0.0, "bytes": 0.0}, [0.0, 0.0], []
         for x, wts, _sc, _of, (pt, pb, pl, pr), _act in step:
             kh, kw, c, o = wts.shape
             ho, wo = x.shape[1] + pt + pb - kh + 1, x.shape[2] + pl + pr - kw + 1
@@ -1599,13 +1715,17 @@ def main() -> int:
             share[by] += t_b
             work[0] += flops
             work[1] += nbytes
+            step_work.append((flops, nbytes))
         b_ms, b_by = sum(share.values()), max(share, key=share.get)
+        b3 = ({"bound_3xtf32_ms": sum(tf32(f, b, dt)[0]["bound_3xtf32_ms"] for f, b in step_work)}
+              if dt == f32 else {})
+        b3_text = f"; 3xTF32 bound {b3['bound_3xtf32_ms']:.5f} ms" if b3 else ""
         conv_rows[("resnet18 zoo width b8, sum of the 8 launches of one step", pname)] = dict(
-            **timing_keys(t), bound_ms=b_ms, bound_by=b_by)
+            **timing_keys(t), bound_ms=b_ms, bound_by=b_by, **b3)
         log(f"[timing] fused_conv2d_haloed {pname} ResNet18 zoo width b8, sum of the 8 launches "
             f"of one step: {timing_text(t)} bound {b_ms:.5f} ms (operations-bound convs "
             f"{share['operations']:.5f} ms, bytes-bound {share['bytes']:.5f} ms; "
-            f"{work[0] / 1e9:.3f} GFLOP, {work[1] / 1e6:.3f} MB, {peak_key} peaks) | {card}")
+            f"{work[0] / 1e9:.3f} GFLOP, {work[1] / 1e6:.3f} MB, {peak_key} peaks{b3_text}) | {card}")
         nb, h, w, c, k, o = TWO_INPUT
         igemm_rows[pname] = time_conv(
             "conv2d_kernel_nhwc", "two-input k3 c8->16 540x960", igemm, igemm_plain, nb, h, w,
@@ -1641,10 +1761,11 @@ def main() -> int:
             flops = 2.0 * m * k * n
             nbytes = (m * k + k * n + m * n) * isz + 2 * n * 4
             b_ms, b_by = bound(flops, nbytes, dt)
-            matmul_rows[(label, pname)] = dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by)
+            b3, b3_text = tf32(flops, nbytes, dt)
+            matmul_rows[(label, pname)] = dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by, **b3)
             log(f"[timing] fused_matmul {pname} {label} softmax: {library_text(t, 'addmm+softmax')} "
-                f"bound {b_ms:.6f} ms ({b_by}; {flops / 1e6:.3f} MFLOP, {nbytes / 1e3:.1f} KB) "
-                f"| {card}")
+                f"bound {b_ms:.6f} ms ({b_by}; {flops / 1e6:.3f} MFLOP, {nbytes / 1e3:.1f} KB"
+                f"{b3_text}) | {card}")
 
     # INT8 timings: each form beside its plain version and the bf16 form of
     # the same kernel in this run; the bound at the int8 peak for the s8
@@ -1757,6 +1878,57 @@ def main() -> int:
             f"({b_by}; bf16 products); the bf16 form (float weights): kernel {t_bf[0]:.4f} ms "
             f"(device {t_bf[1]:.4f}) | {card}")
 
+    # The int8-weight forms of B2 (the chain's im2col entry at the trained
+    # ResNet18's first chain, b64), B5 (the two-input conv, b8) and B6 (both
+    # ResNet18 heads), each beside its plain version and the library call
+    # on the weights cast to bf16 (cuDNN; addmm with the scale folded, then
+    # the softmax).
+    specs_, ops_, shape = r18_chains_i8[0]
+    x = tensor(rng.random(shape), bf16)
+    t = timed({"kernel": lambda: chain.fused_conv_chain(x, ops_, specs_, compute_dtype=bf16),
+               "plain": lambda: chain.conv_chain_reference(x, ops_, specs_, "none", bf16),
+               "library": chain_library(x, ops_, specs_, "none", bf16)})
+    n_, h_, w_, _ = shape
+    flops = 2.0 * n_ * h_ * w_ * sum(sp.k * sp.k * sp.c * sp.o for sp in specs_)
+    nbytes = (x.numel() + n_ * h_ * w_ * specs_[-1].o) * 2 + sum(
+        p["w"].numel() + 8 * p["scale"].numel() for p in ops_)
+    b_ms, b_by = bound_i8(flops, 0.0, nbytes)
+    i8_rows[("chain", "resnet18 int8 weights")] = dict(**timing_keys_i8(t), bound_ms=b_ms,
+                                                       bound_by=b_by)
+    bf = chain_resnet_rows["bf16"]
+    log(f"[timing] fused_conv_chain int8 weights resnet18 cls10 chain "
+        f"{'->'.join(str(sp.o) for sp in specs_)} {h_}x{w_} b{n_}: {text_i8(t)} bound "
+        f"{b_ms:.5f} ms ({b_by}; bf16 products); the bf16 form (float weights): kernel "
+        f"{bf['ms']:.4f} ms (device {bf['device_ms']:.4f}) | {card}")
+    nb_, h_, w_, c_, k_, o_ = TWO_INPUT
+    x = tensor(rng.random((nb_, h_, w_, c_)), bf16)
+    t = timed({"kernel": lambda: conv_igemm.conv2d_kernel_nhwc(x, *two_ops, stride=1, pads=same3,
+                                                                activation="relu"),
+               "plain": lambda: conv_igemm.conv2d_igemm_reference(x, *two_ops, 1, same3, "relu"),
+               "library": conv_yardstick(x, *two_ops, same3, "relu", bf16)})
+    flops = 2.0 * nb_ * h_ * w_ * k_ * k_ * c_ * o_
+    nbytes = (x.numel() + nb_ * h_ * w_ * o_) * 2 + two_ops[0].numel() + 8 * o_
+    b_ms, b_by = bound_i8(flops, 0.0, nbytes)
+    i8_rows[("igemm", "int8 weights")] = dict(**timing_keys_i8(t), bound_ms=b_ms, bound_by=b_by)
+    bf = igemm_rows["bf16"]
+    log(f"[timing] conv2d_kernel_nhwc int8 weights two-input k3 c8->16 540x960 b8: {text_i8(t)} "
+        f"bound {b_ms:.5f} ms ({b_by}; bf16 products); the bf16 form (float weights): kernel "
+        f"{bf['ms']:.4f} ms (device {bf['device_ms']:.4f}) | {card}")
+    for tag, eng, m in (("resnet18 zoo fc", r18zoo_i8[0], 8), ("resnet18 cls10 fc", r18_c, 64)):
+        fc_ops = tuple(t_.to(dev) for t_ in folded_operands(eng.graph.nodes["fc"], bf16))
+        wq, sc, of = fc_ops
+        k_, n_ = wq.shape
+        x = tensor(rng.standard_normal((m, k_)), bf16)
+        w_lib, of_lib = (wq.float() * sc).to(bf16), of.to(bf16)
+        t = timed({"kernel": lambda: matmul.fused_matmul(x, *fc_ops, activation="softmax"),
+                   "plain": lambda: matmul.fused_matmul_reference(x, *fc_ops, "softmax"),
+                   "library": lambda: torch.softmax(torch.addmm(of_lib, x, w_lib), dim=-1)})
+        b_ms, b_by = bound_i8(2.0 * m * k_ * n_, 0.0, (m * k_ + m * n_) * 2 + k_ * n_ + 8 * n_)
+        i8_rows[("matmul", tag)] = dict(**timing_keys_i8(t), bound_ms=b_ms, bound_by=b_by)
+        log(f"[timing] fused_matmul int8 weights {tag} {m}x{k_}x{n_} softmax: "
+            f"{text_i8(t).replace('cudnn', 'addmm+softmax')} bound {b_ms:.6f} ms ({b_by}; bf16 "
+            f"products) | {card}")
+
     # What each entry ran beyond its BF16/FP32 forms: the INT8 forms, their
     # launches on the INT8 paths, their [kernel] errors and timings.
     def i8_launches(key, kind):
@@ -1780,7 +1952,8 @@ def main() -> int:
             "forms": ["fp32 (ESPCN FP32, trained ResNet18 FP32)", "bf16 (trained ResNet18 BF16)",
                       "bf16 with int8 weights (trained ResNet18 INT8)"],
             "int8": {"launches": i8_launches("resnet18 cls10 b64 (logits) calibrated", "chains"),
-                     "max_abs_err": i8_err["chain_w8"]}},
+                     "max_abs_err": i8_err["chain_w8"],
+                     "resnet18_trained_chain": i8_rows[("chain", "resnet18 int8 weights")]}},
     }
     kernels = []
     for entry, replaces, prec in (
@@ -1820,10 +1993,13 @@ def main() -> int:
         "engine_step_p50_ms_fp32": mnv2_stats["fp32"]["engine_p50_ms"],
         "engine_device_busy_ms": mnv2_stats["bf16"]["device_busy_ms"],
         "engine_device_busy_ms_fp32": mnv2_stats["fp32"]["device_busy_ms"],
+        "engine_kernels_device_ms": {k: v["kernels_device_ms"] for k, v in mnv2_stats.items()},
         "engine_logits": {k: {"max_abs_diff": v["logits_max_abs_diff"],
                               "planted_fault_diff": v["planted_fault_logits_diff"]}
                           for k, v in mnv2_stats.items()},
-        "forms": ["bf16", "fp32", "bf16 with int8 weights (MobileNetV2s INT8 weight-only)",
+        "forms": ["bf16", "fp32: 3xTF32 on mma.sync m16n8k8 (invres_tf32_kernel)",
+                  "fp32 with int8 weights: 3xTF32, two passes (invres_tf32_kernel<NT, true>)",
+                  "bf16 with int8 weights (MobileNetV2s INT8 weight-only)",
                   "bf16 A8W8: s8 expand (ax1) and project (ax2) (MobileNetV2s INT8 calibrated)"],
         "int8": {variant: dict(**i8_rows[("block", variant)], launches=i8_launches(
                      f"mobilenetv2 224 {key}", "fused_invres_block"))
@@ -1845,12 +2021,18 @@ def main() -> int:
         **r,
         "shape": "bf16 64x16x16x12 -> 64x16x16x16, k2 (the trained MobileNetV2's folded stem)",
         "fp32": conv_rows["fp32"],
+        "fp32_x1e2_vs_float64": conv_f64_errs,
         "other_shapes": {" ".join(key): row for key, row in conv_rows.items()
                          if isinstance(key, tuple)},
         "resnet18_launches_per_step": resnet_stats["bf16"]["per_step"]["fused_conv2d_haloed"],
+        "resnet18_engine": {k: {"step_p50_ms": v["engine_p50_ms"], "device_busy_ms": v["device_busy_ms"],
+                                "kernels_device_ms": v["kernels_device_ms"]}
+                            for k, v in resnet_stats.items()},
         "trained_top1": {k: v["top1"] for k, v in trained_stats.items()},
         "engine_step_p50_ms": trained_stats["bf16"]["engine_p50_ms"],
-        "forms": ["bf16", "fp32", "bf16 with int8 weights (trained ResNet18 and MobileNetV2 INT8)"],
+        "forms": ["bf16", "fp32: 3xTF32 on mma.sync m16n8k8 (conv_single_tf32_kernel; two "
+                  "passes from a bf16 input)",
+                  "bf16 with int8 weights (trained ResNet18 and MobileNetV2 INT8)"],
         "int8": dict(**i8_rows[("single", "MobileNetV2 cls10")], launches=i8_launches(
             "mobilenetv2 cls10 b64 (logits) calibrated", "fused_conv2d_haloed"),
             resnet18_cls10=dict(**i8_rows[("single", "ResNet18 cls10")], launches=i8_launches(
@@ -1883,6 +2065,7 @@ def main() -> int:
         "forms": ["bf16", "fp32", "bf16 with int8 weights (two-input graph INT8)"],
         "int8": {"launches": i8_launches("two-input KERNEL weight-only", "conv2d_kernel_nhwc"),
                  "max_abs_err": i8_err["igemm_w8"],
+                 **i8_rows[("igemm", "int8 weights")],
                  "engine_max_abs_diff": i8_main["two-input KERNEL weight-only"]["max_abs_diff"]},
     })
     r = matmul_rows[("resnet18 fc 8x512x10", "bf16")]
@@ -1917,6 +2100,8 @@ def main() -> int:
         "forms": ["bf16", "fp32", "bf16 with int8 weights (forced-KERNEL ResNet18 INT8)"],
         "int8": {"launches": i8_launches("resnet18 zoo KERNEL weight-only", "fused_matmul"),
                  "max_abs_err": i8_err["matmul_w8"],
+                 **i8_rows[("matmul", "resnet18 zoo fc")],
+                 "resnet18_cls10_fc": i8_rows[("matmul", "resnet18 cls10 fc")],
                  "engine_max_abs_diff": i8_main["resnet18 zoo KERNEL weight-only"]["max_abs_diff"]},
     })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -45,11 +45,19 @@
 // Taps outside an image read staged zeros; pixels and channels past the
 // output are never written.
 //
-// f32 (no TF32 on this path) keeps the CUDA cores: one CTA per (image,
-// tile of TH x TW output pixels, block of OB output channels), input
-// channels in chunks of CC staged channel-planar with the halo, one
-// thread per output pixel and CH output channels, weights read as
-// broadcast float4s.
+// f32 (f32 x f32 products at about f32's accuracy, as the JAX package runs
+// f32 at HIGHEST precision) is the same implicit GEMM in 3xTF32 on mma.sync
+// m16n8k8 tf32 (csrc/snn_mma.cuh): the input region staged as f32 (a bf16
+// input converted as it is staged), rows of the chunk's channels plus 4
+// floats; one k8 step per unit, so a pair never straddles two taps. The
+// weights come n-major from the host (O rows of kh*kw*C8, C zero-padded to
+// 8; kernels/conv.py makes them once per weight tensor) and are staged as
+// [NB][tg * cc + 4]: ldmatrix has no 32-bit transpose. Each fragment is
+// split into its TF32 hi and lo in registers, three passes per k8 step (two
+// from a bf16 input, exact in TF32). Within a tap, a_hi b_hi and the small
+// passes sum in accumulators of their own, added into the f32 sums with
+// round-to-nearest adds after the tap: the tensor cores' accumulation
+// truncates, and promoted per tap its error no longer grows with K.
 //
 // The launch geometry (tiles, images per CTA, channel blocks and chunks,
 // taps per stage, strides and the shared-memory layout) is the wrapper's
@@ -60,114 +68,11 @@
 
 // Fields of the geometry array the wrapper passes.
 enum {
-  G_TILE_H, G_TILE_W, G_IMGS, G_NB, G_CC, G_TG, G_CH, G_IN_STRIDE, G_W_STRIDE, G_W_ROWS,
+  G_TILE_H, G_TILE_W, G_IMGS, G_NB, G_CC, G_TG, G_IN_STRIDE, G_W_STRIDE, G_W_ROWS,
   G_IN_OFF, G_IN_BUFS, G_W_OFF, G_W_BUFS, G_SMEM, G_FIELDS
 };
 
 namespace {
-
-// ---------------------------------------------------------------- f32 ----
-
-struct ConvDesc {
-  int n, h, w, c, kh, kw, o, pt, pl, ho, wo;
-  int act;
-  float alpha;
-  int tile_h, tile_w, tiles_x;
-  int ob, groups, cc;      // output channels per CTA, CH-groups, input chunk
-  int rows, cols;          // staged input region: tile + halo
-  int in_off, w_off;       // smem offsets (floats)
-};
-
-template <int CH, typename TIn>
-__global__ void __launch_bounds__(256)
-conv_single_kernel(const TIn* __restrict__ x, float* __restrict__ y,
-                   const float* __restrict__ wg, const float* __restrict__ scale,
-                   const float* __restrict__ offset, const __grid_constant__ ConvDesc d) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* in_s = smem + d.in_off;
-  float* w_s = smem + d.w_off;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int P = d.tile_h * d.tile_w;
-  const int n = blockIdx.z;
-  const int ob0 = blockIdx.y * d.ob;
-  const int ty0 = (blockIdx.x / d.tiles_x) * d.tile_h;
-  const int tx0 = (blockIdx.x % d.tiles_x) * d.tile_w;
-  // Thread -> (pixel of the tile, group of CH output channels); the pixel
-  // index runs fastest so that a warp shares its weights.
-  const int p = tid % P, g = tid / P;
-  const int py = p / d.tile_w, px = p - py * d.tile_w;
-  const int plane = d.rows * d.cols;
-  const int taps = d.kh * d.kw;
-
-  float acc[CH];
-#pragma unroll
-  for (int j = 0; j < CH; ++j) acc[j] = 0.f;
-
-  for (int c0 = 0; c0 < d.c; c0 += d.cc) {
-    const int ccn = min(d.cc, d.c - c0);
-    __syncthreads();  // the previous chunk is done with the buffers
-    for (int i = tid; i < plane * ccn; i += nthreads) {
-      const int ci = i % ccn, pix = i / ccn;
-      const int rr = pix / d.cols, cc = pix - rr * d.cols;
-      const int gy = ty0 - d.pt + rr, gx = tx0 - d.pl + cc;
-      float v = 0.f;
-      if (gy >= 0 && gy < d.h && gx >= 0 && gx < d.w)
-        v = to_float(x[(((size_t)n * d.h + gy) * d.w + gx) * d.c + c0 + ci]);
-      in_s[ci * plane + pix] = v;
-    }
-    // Weights of the chunk as [tap][ci][OB], zeros past o.
-    for (int i = tid; i < taps * ccn * d.ob; i += nthreads) {
-      const int j = i % d.ob, r = i / d.ob;
-      const int ci = r % ccn, tap = r / ccn;
-      const int oc = ob0 + j;
-      w_s[i] = oc < d.o ? wg[((size_t)tap * d.c + c0 + ci) * d.o + oc] : 0.f;
-    }
-    __syncthreads();
-    if (g < d.groups) {
-      const float* wp = w_s + g * CH;
-      for (int dy = 0; dy < d.kh; ++dy) {
-        for (int dx = 0; dx < d.kw; ++dx) {
-          const float* ip = in_s + (py + dy) * d.cols + px + dx;
-          const float* wt = wp + (dy * d.kw + dx) * ccn * d.ob;
-          for (int ci = 0; ci < ccn; ++ci) {
-            const float v = ip[ci * plane];
-            float wv[CH];
-            load_w<CH>(wt + ci * d.ob, wv);
-#pragma unroll
-            for (int j = 0; j < CH; ++j) acc[j] = fmaf(v, wv[j], acc[j]);
-          }
-        }
-      }
-    }
-  }
-
-  const int gy = ty0 + py, gx = tx0 + px;
-  if (g >= d.groups || gy >= d.ho || gx >= d.wo) return;
-  float* yo = y + (((size_t)n * d.ho + gy) * d.wo + gx) * d.o;
-#pragma unroll
-  for (int j = 0; j < CH; ++j) {
-    const int oc = ob0 + g * CH + j;
-    if (oc < d.o) yo[oc] = apply_act(fmaf(acc[j], scale[oc], offset[oc]), d.act, d.alpha);
-  }
-}
-
-template <int CH, typename TIn>
-int launch_f32(const void* x, void* y, const void* w, const float* scale,
-               const float* offset, const ConvDesc& d, size_t smem, cudaStream_t s) {
-  auto kern = conv_single_kernel<CH, TIn>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_y = (d.ho + d.tile_h - 1) / d.tile_h;
-  dim3 grid(d.tiles_x * tiles_y, (d.o + d.ob - 1) / d.ob, d.n);
-  const int threads = d.tile_h * d.tile_w * d.groups;
-  kern<<<grid, threads, smem, s>>>(static_cast<const TIn*>(x), static_cast<float*>(y),
-                                   static_cast<const float*>(w), scale, offset, d);
-  return (int)cudaGetLastError();
-}
-
-// --------------------------------------------------------------- bf16 ----
 
 #define SNN_TC_THREADS 256
 #define SNN_TC_BM 64  // output pixels per CTA: 4 warps of 16 rows, twice over N
@@ -182,13 +87,16 @@ struct TcDesc {
   int region;                // staged positions (imgs * rows * cols); a zero row follows
   int cc, cunits;            // input channels per chunk (multiple of 8), cc / 8
   int tg, groups, stages;    // taps per stage, tap groups, chunks * groups
-  int in_stride, w_stride;   // bf16 per staged input position / weight row
-  int w_rows;                // staged weight rows per stage (tg * cc, rounded up to 16)
+  int in_stride, w_stride;   // elements per staged input position / weight row
+  int w_rows;                // staged weight rows per stage (bf16: tg * cc rounded up to
+                             // 16; f32, n-major: NB)
   int in_off, in_buf, w_off, w_buf;  // smem bytes: offsets and one buffer's size
   int in_bufs, w_bufs;
   int vec_x, vec_w;          // 16-byte cp.async loads of x / w
   int w_int8;                // w is int8: upcast to bf16 (exact) as it is staged
 };
+
+// --------------------------------------------------------------- bf16 ----
 
 // NT: n8-tiles per warp (NB = 16 * NT channels per CTA).
 template <int NT, typename TIn>
@@ -445,6 +353,237 @@ int dispatch_tc(int nt, const void* x, void* y, const void* w, const float* scal
   }
 }
 
+// ---------------------------------------------------------------- f32 ----
+
+// NT: n8-tiles per warp (NB = 16 * NT channels per CTA). TIn: the input's
+// dtype; a bf16 input is exact in TF32 (lo = 0: two passes).
+template <int NT, typename TIn>
+__global__ void __launch_bounds__(SNN_TC_THREADS)
+conv_single_tf32_kernel(const TIn* __restrict__ x, float* __restrict__ y,
+                        const float* __restrict__ w, const float* __restrict__ scale,
+                        const float* __restrict__ offset, const __grid_constant__ TcDesc d) {
+  constexpr bool a_exact = std::is_same<TIn, __nv_bfloat16>::value;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int ob0 = blockIdx.y * (16 * NT);
+  int n0, ty0 = 0, tx0 = 0;
+  if (d.imgs > 1) {
+    n0 = blockIdx.x * d.imgs;
+  } else {
+    n0 = blockIdx.x / d.tiles_img;
+    const int t = blockIdx.x - n0 * d.tiles_img;
+    ty0 = (t / d.tiles_x) * d.tile_h;
+    tx0 = (t % d.tiles_x) * d.tile_w;
+  }
+  const int tile_px = d.tile_h * d.tile_w;
+  const int bm = d.imgs * tile_px;
+  const int plane = d.rows * d.cols;
+  const int taps = d.kh * d.kw;
+  const int c8 = (d.c + 7) / 8 * 8, k_row = taps * c8;  // the n-major weight's rows
+  auto in_buf = [&](int b) { return reinterpret_cast<float*>(smem + d.in_off + b * d.in_buf); };
+  auto w_buf = [&](int b) { return reinterpret_cast<float*>(smem + d.w_off + b * d.w_buf); };
+
+  // The zero row after each input region: what masked pixels read.
+  for (int i = tid; i < d.in_bufs * (d.in_stride / 4); i += SNN_TC_THREADS) {
+    const int b = i / (d.in_stride / 4), u = i - b * (d.in_stride / 4);
+    reinterpret_cast<float4*>(in_buf(b) + (size_t)d.region * d.in_stride)[u] =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // This lane's A row: pixel 16*wm + (lane & 15) of the CTA, as a staged
+  // position (-1: past the CTA's pixels).
+  int a_base = -1;
+  {
+    const int p = wm * 16 + (lane & 15);
+    if (p < bm) {
+      const int il = p / tile_px, rem = p - il * tile_px;
+      const int py = rem / d.tile_w, px = rem - py * d.tile_w;
+      a_base = il * plane + py * d.cols + px;
+    }
+  }
+
+  constexpr int NB = 16 * NT;
+  auto load_stage = [&](int s) {
+    const int ci = s / d.groups, grp = s - ci * d.groups;
+    const int c0 = ci * d.cc;
+    if (grp == 0) {  // the chunk's input region as f32, zero outside the images
+      float* dst = in_buf(ci % d.in_bufs);
+      if (d.vec_x) {  // f32 x, C % 4 == 0: four channels per copy
+        for (int i = tid; i < d.region * (d.cc / 4); i += SNN_TC_THREADS) {
+          const int pos = i / (d.cc / 4), u = i - pos * (d.cc / 4);
+          const int il = pos / plane, rem = pos - il * plane;
+          const int rr = rem / d.cols, cl = rem - rr * d.cols;
+          const int nn = n0 + il, gy = ty0 - d.pt + rr, gx = tx0 - d.pl + cl;
+          const int c = c0 + u * 4;
+          const bool ok = nn < d.n && gy >= 0 && gy < d.h && gx >= 0 && gx < d.w && c < d.c;
+          const TIn* src = ok ? x + (((size_t)nn * d.h + gy) * d.w + gx) * d.c + c : x;
+          cp_async16(dst + (size_t)pos * d.in_stride + u * 4, src, ok ? 16 : 0);
+        }
+      } else {
+        for (int i = tid; i < d.region * d.cc; i += SNN_TC_THREADS) {
+          const int pos = i / d.cc, e = i - pos * d.cc;
+          const int il = pos / plane, rem = pos - il * plane;
+          const int rr = rem / d.cols, cl = rem - rr * d.cols;
+          const int nn = n0 + il, gy = ty0 - d.pt + rr, gx = tx0 - d.pl + cl;
+          const int c = c0 + e;
+          float v = 0.f;
+          if (nn < d.n && gy >= 0 && gy < d.h && gx >= 0 && gx < d.w && c < d.c)
+            v = to_float(x[(((size_t)nn * d.h + gy) * d.w + gx) * d.c + c]);
+          dst[(size_t)pos * d.in_stride + e] = v;
+        }
+      }
+    }
+    // Weights of (chunk, tap group), n-major: row n = output channel ob0 + n,
+    // column tap_l * cc + c_l; zero past the taps, C8 and O.
+    float* dst = w_buf(s % d.w_bufs);
+    const int units = d.tg * d.cc / 4;  // 16-byte units of a staged row
+    for (int i = tid; i < NB * units; i += SNN_TC_THREADS) {
+      const int r = i / units, k = 4 * (i - r * units);
+      const int tap_l = k / d.cc, cl = k - tap_l * d.cc;
+      const int tap = grp * d.tg + tap_l, c = c0 + cl, oc = ob0 + r;
+      const bool ok = tap < taps && c < c8 && oc < d.o;
+      cp_async16(dst + (size_t)r * d.w_stride + k,
+                 ok ? w + (size_t)oc * k_row + (size_t)tap * c8 + c : w, ok ? 16 : 0);
+    }
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+
+  load_stage(0);
+  cp_async_commit();
+  for (int s = 0; s < d.stages; ++s) {
+    if (s + 1 < d.stages) load_stage(s + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // stage s has landed (this thread's copies)
+    __syncthreads();     // (everyone's)
+    const int ci = s / d.groups, grp = s - ci * d.groups;
+    const float* ib = in_buf(ci % d.in_bufs);
+    const float* wb = w_buf(s % d.w_bufs);
+    const int ntap = min(d.tg, taps - grp * d.tg);
+    const float* a_lane =
+        (a_base >= 0 ? ib + (size_t)a_base * d.in_stride : ib + (size_t)d.region * d.in_stride) +
+        4 * (lane >> 4);
+    // B rows: n row (lane & 7) (+8 for lanes 16-31) of the warp's tiles,
+    // float 4 ((lane >> 3) & 1) of the k8 step.
+    const float* b_lane = wb + (size_t)(wn * 8 * NT + (lane & 7) + 8 * (lane >> 4)) * d.w_stride +
+                          4 * ((lane >> 3) & 1);
+    int tap = grp * d.tg;
+    int dy = tap / d.kw, dx = tap - dy * d.kw;
+    for (int tl = 0; tl < ntap; ++tl) {
+      const float* ap = a_base >= 0 ? a_lane + (size_t)(dy * d.cols + dx) * d.in_stride : a_lane;
+      const float* bp = b_lane + tl * d.cc;
+      // The tap's sums: a_hi b_hi and the small passes in accumulators of
+      // their own (three dependent chains instead of one), added into acc
+      // after the tap with round-to-nearest f32 adds (the tensor cores'
+      // accumulation truncates: promoted per tap, its error stops growing
+      // with K).
+      float hh[NT][4], lo[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) hh[j][q] = lo[j][q] = 0.f;
+#pragma unroll 2
+      for (int u = 0; u < d.cunits; ++u) {  // one k8 step per unit of 8 channels
+        uint32_t a[4], ah[4], al[4];
+        ldmatrix_x4(a, ap + u * 8);
+        split_tf32(a, ah, al);
+        if constexpr (NT == 1) {
+          uint32_t b[2], bh[2], bl[2];
+          ldmatrix_x2(b, bp + u * 8);
+          split_tf32(b, bh, bl);
+          mma_tf32(lo[0], ah, bl[0], bl[1]);
+          if (!a_exact) mma_tf32(lo[0], al, bh[0], bh[1]);
+          mma_tf32(hh[0], ah, bh[0], bh[1]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < NT; j += 2) {
+            uint32_t b[4], bh[4], bl[4];
+            ldmatrix_x4(b, bp + (size_t)j * 8 * d.w_stride + u * 8);
+            split_tf32(b, bh, bl);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              mma_tf32(lo[j + h], ah, bl[2 * h], bl[2 * h + 1]);
+              if (!a_exact) mma_tf32(lo[j + h], al, bh[2 * h], bh[2 * h + 1]);
+              mma_tf32(hh[j + h], ah, bh[2 * h], bh[2 * h + 1]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][q] += hh[j][q] + lo[j][q];
+      if (++dx == d.kw) {
+        dx = 0;
+        ++dy;
+      }
+    }
+    __syncthreads();  // the buffers of stage s are free for stage s + 2
+  }
+
+  // Epilogue on the fragments: rows g and g + 8 of the warp's 16 pixels,
+  // columns 2t, 2t + 1 of each n8-tile.
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int p = wm * 16 + g + 8 * half;
+    if (p >= bm) continue;
+    const int il = p / tile_px, rem = p - il * tile_px;
+    const int py = rem / d.tile_w, px = rem - py * d.tile_w;
+    const int nn = n0 + il, gy = ty0 + py, gx = tx0 + px;
+    if (nn >= d.n || gy >= d.ho || gx >= d.wo) continue;
+    float* yo = y + (((size_t)nn * d.ho + gy) * d.wo + gx) * d.o;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int oc = ob0 + wn * 8 * NT + j * 8 + 2 * t;
+      if (oc >= d.o) continue;
+      const float v0 = apply_act(fmaf(acc[j][2 * half], scale[oc], offset[oc]), d.act, d.alpha);
+      if (oc + 1 < d.o) {
+        const float v1 =
+            apply_act(fmaf(acc[j][2 * half + 1], scale[oc + 1], offset[oc + 1]), d.act, d.alpha);
+        if ((d.o & 1) == 0) {
+          *reinterpret_cast<float2*>(yo + oc) = make_float2(v0, v1);
+        } else {
+          yo[oc] = v0;
+          yo[oc + 1] = v1;
+        }
+      } else {
+        yo[oc] = v0;
+      }
+    }
+  }
+}
+
+template <int NT, typename TIn>
+int launch_tf32(const void* x, void* y, const void* w, const float* scale, const float* offset,
+                const TcDesc& d, size_t smem, cudaStream_t s) {
+  auto kern = conv_single_tf32_kernel<NT, TIn>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int mtiles = d.imgs > 1 ? (d.n + d.imgs - 1) / d.imgs : d.n * d.tiles_img;
+  dim3 grid(mtiles, (d.o + 16 * NT - 1) / (16 * NT));
+  kern<<<grid, SNN_TC_THREADS, smem, s>>>(static_cast<const TIn*>(x), static_cast<float*>(y),
+                                          static_cast<const float*>(w), scale, offset, d);
+  return (int)cudaGetLastError();
+}
+
+template <typename TIn>
+int dispatch_tf32(int nt, const void* x, void* y, const void* w, const float* scale,
+                  const float* offset, const TcDesc& d, size_t smem, cudaStream_t s) {
+  switch (nt) {
+    case 1: return launch_tf32<1, TIn>(x, y, w, scale, offset, d, smem, s);
+    case 2: return launch_tf32<2, TIn>(x, y, w, scale, offset, d, smem, s);
+    case 4: return launch_tf32<4, TIn>(x, y, w, scale, offset, d, smem, s);
+    default: return launch_tf32<8, TIn>(x, y, w, scale, offset, d, smem, s);
+  }
+}
+
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // [off, off + need) within [lo, hi), 16-byte aligned.
@@ -452,9 +591,11 @@ inline bool fits(long long off, long long need, long long lo, long long hi) {
   return off % 16 == 0 && off >= lo && off + need <= hi;
 }
 
-int run_tc(const void* x, int x_bf16, void* y, const void* w, const float* scale,
-           const float* offset, TcDesc d, const int* g, cudaStream_t s) {
-  const int nb = g[G_NB], taps = d.kh * d.kw;
+// The wrapper's geometry checked and completed; the bf16 form or (f32) the
+// 3xTF32 form launched.
+int run(const void* x, int x_bf16, void* y, const void* w, const float* scale,
+        const float* offset, TcDesc d, const int* g, bool bf16, cudaStream_t s) {
+  const int nb = g[G_NB], taps = d.kh * d.kw, esz = bf16 ? 2 : 4;
   d.tile_h = g[G_TILE_H]; d.tile_w = g[G_TILE_W]; d.imgs = g[G_IMGS];
   d.cc = g[G_CC]; d.tg = g[G_TG];
   d.in_stride = g[G_IN_STRIDE]; d.w_stride = g[G_W_STRIDE]; d.w_rows = g[G_W_ROWS];
@@ -465,8 +606,14 @@ int run_tc(const void* x, int x_bf16, void* y, const void* w, const float* scale
     return -4;
   if (d.imgs > 1 && (d.tile_h != d.ho || d.tile_w != d.wo)) return -4;
   if (d.cc < 8 || d.cc % 8 || d.tg < 1 || d.tg > taps) return -4;
-  if (d.in_stride < d.cc || d.in_stride % 8 || d.w_stride < nb || d.w_stride % 8) return -4;
-  if (d.w_rows < d.tg * d.cc || d.w_rows % 16) return -4;
+  if (bf16) {  // weights k-major: rows of NB channels
+    if (d.in_stride < d.cc || d.in_stride % 8 || d.w_stride < nb || d.w_stride % 8) return -4;
+    if (d.w_rows < d.tg * d.cc || d.w_rows % 16) return -4;
+  } else {  // weights n-major: NB rows of the stage's k; 16-byte units
+    if (d.in_stride < d.cc || d.in_stride % 4 || d.w_stride < d.tg * d.cc || d.w_stride % 4)
+      return -4;
+    if (d.w_rows != nb || !aligned16(w)) return -4;
+  }
   const int chunks = (d.c + d.cc - 1) / d.cc;
   d.groups = (taps + d.tg - 1) / d.tg;
   d.stages = chunks * d.groups;
@@ -477,50 +624,20 @@ int run_tc(const void* x, int x_bf16, void* y, const void* w, const float* scale
   d.rows = d.tile_h + d.kh - 1;
   d.cols = d.tile_w + d.kw - 1;
   d.region = d.imgs * d.rows * d.cols;
-  d.in_buf = (d.region + 1) * d.in_stride * 2;
-  d.w_buf = d.w_rows * d.w_stride * 2;
+  d.in_buf = (d.region + 1) * d.in_stride * esz;
+  d.w_buf = d.w_rows * d.w_stride * esz;
   if (smem > SNN_MAX_SMEM || !fits(d.in_off, (long long)d.in_bufs * d.in_buf, 0, d.w_off) ||
       !fits(d.w_off, (long long)d.w_bufs * d.w_buf, d.in_off, smem))
     return -2;
+  if (!bf16) {
+    d.vec_x = !x_bf16 && d.c % 4 == 0 && aligned16(x);
+    return x_bf16 ? dispatch_tf32<__nv_bfloat16>(nb / 16, x, y, w, scale, offset, d, smem, s)
+                  : dispatch_tf32<float>(nb / 16, x, y, w, scale, offset, d, smem, s);
+  }
   d.vec_x = x_bf16 && d.c % 8 == 0 && aligned16(x);
   d.vec_w = !d.w_int8 && d.o % 8 == 0 && aligned16(w);
   return x_bf16 ? dispatch_tc<__nv_bfloat16>(nb / 16, x, y, w, scale, offset, d, smem, s)
                 : dispatch_tc<float>(nb / 16, x, y, w, scale, offset, d, smem, s);
-}
-
-int run_f32(const void* x, int x_bf16, void* y, const void* w, const float* scale,
-            const float* offset, const TcDesc& t, const int* g, cudaStream_t s) {
-  ConvDesc d;
-  d.n = t.n; d.h = t.h; d.w = t.w; d.c = t.c; d.kh = t.kh; d.kw = t.kw; d.o = t.o;
-  d.pt = t.pt; d.pl = t.pl; d.ho = t.ho; d.wo = t.wo; d.act = t.act; d.alpha = t.alpha;
-  d.tile_h = g[G_TILE_H]; d.tile_w = g[G_TILE_W];
-  d.ob = g[G_NB]; d.cc = g[G_CC];
-  const int ch = g[G_CH];
-  const long long smem = g[G_SMEM];
-  if (ch != 1 && ch != 4 && ch != 8) return -4;
-  if (g[G_IMGS] != 1 || d.ob < ch || d.ob % ch || d.cc < 1 || d.cc > d.c) return -4;
-  if (d.tile_h < 1 || d.tile_w < 1) return -4;
-  d.groups = d.ob / ch;
-  const int threads = d.tile_h * d.tile_w * d.groups;
-  if (threads > 256) return -4;  // __launch_bounds__
-  d.tiles_x = (d.wo + d.tile_w - 1) / d.tile_w;
-  d.rows = d.tile_h + d.kh - 1;
-  d.cols = d.tile_w + d.kw - 1;
-  d.in_off = 0;
-  const long long w_off = g[G_W_OFF];
-  if (smem > SNN_MAX_SMEM || !fits(0, 4LL * d.cc * d.rows * d.cols, 0, w_off) ||
-      !fits(w_off, 4LL * d.kh * d.kw * d.cc * d.ob, 0, smem))
-    return -2;
-  d.w_off = (int)(w_off / 4);
-  auto go = [&](auto tag) {
-    using TIn = decltype(tag);
-    switch (ch) {
-      case 8: return launch_f32<8, TIn>(x, y, w, scale, offset, d, smem, s);
-      case 4: return launch_f32<4, TIn>(x, y, w, scale, offset, d, smem, s);
-      default: return launch_f32<1, TIn>(x, y, w, scale, offset, d, smem, s);
-    }
-  };
-  return x_bf16 ? go(__nv_bfloat16()) : go(float());
 }
 
 }  // namespace
@@ -529,9 +646,10 @@ extern "C" {
 
 // Returns 0 on success, a negative code for arguments the kernel does not
 // take (see snn_conv_single_error), or the cudaError_t of the launch.
-// w: device HWIO (kh*kw*c*o) in the compute dtype, or int8 when w_int8
-// (bf16 compute only); scale, offset: device
-// f32 (o). geom: G_FIELDS ints, the wrapper's launch geometry (the fields
+// w: bf16 compute: device HWIO (kh*kw*c*o) bf16, or int8 when w_int8;
+// f32 compute: the n-major f32 weight (o rows of kh*kw*c8, c zero-padded
+// to a multiple of 8; kernels/conv.py nmajor_weight), 16-byte aligned.
+// scale, offset: device f32 (o). geom: G_FIELDS ints, the wrapper's launch geometry (the fields
 // of the enum above; kernels/conv.py ConvLaunch).
 int snn_conv_single(const void* x, int x_bf16, void* y, const void* w, int w_int8,
                     const float* scale, const float* offset, int n, int h,
@@ -550,8 +668,7 @@ int snn_conv_single(const void* x, int x_bf16, void* y, const void* w, int w_int
   d.wo = wd + pl + pr - kw + 1;
   if (d.ho < 1 || d.wo < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return compute_bf16 ? run_tc(x, x_bf16, y, w, scale, offset, d, geom, s)
-                      : run_f32(x, x_bf16, y, w, scale, offset, d, geom, s);
+  return run(x, x_bf16, y, w, scale, offset, d, geom, compute_bf16 != 0, s);
 }
 
 const char* snn_conv_single_error(int code) {
@@ -562,7 +679,7 @@ const char* snn_conv_single_error(int code) {
     case -3: return "shape outside the kernel's limits (c <= 128, o <= 128, kh*kw*c <= 4096), "
                     "or int8 weights under f32 activations";
     case -4: return "launch geometry outside the kernel (tile, channel block, chunk, taps "
-                    "per stage or buffers)";
+                    "per stage, strides or buffers), or an unaligned f32 weight";
     default: return code > 0 ? cudaGetErrorString((cudaError_t)code) : "unknown error";
   }
 }

@@ -29,10 +29,11 @@
 // 7x7, E up to 960) do about 2 FLOPs per weight per pixel and read Cin and
 // write Cout values per pixel, tens to hundreds of FLOPs per byte: with
 // the expanded tensor kept on chip they are bound by operations on the
-// tensor cores in bf16 (a few microseconds for a whole MobileNetV2 step)
-// and near the ridge in f32. What the design secures is the traffic: each
-// input pixel is read about once (plus a one-pixel halo), each output
-// written once, nothing else leaves the chip. What is left is latency:
+// tensor cores (a few microseconds for a whole MobileNetV2 step in bf16,
+// about 16 in f32's 3xTF32: three TF32 products at half the bf16 rate).
+// What the design secures is the traffic: each input pixel is read about
+// once (plus a one-pixel halo), each output written once, nothing else
+// leaves the chip. What is left is latency:
 // the dependent phases of each E chunk, the halo recompute and filling
 // 132 SMs with few tiles.
 //
@@ -74,10 +75,22 @@
 // own instantiation of the bf16 kernel, so that a block with bf16 weights
 // runs no int8 code.
 //
-// f32 (no TF32 on this path) keeps the CUDA cores: the expand as each warp
-// four pixels at a time with the input read as broadcast float4s, the
-// project as warp w owning pixels w, w+8, ... and lane l output channels
-// l, l+32, ....
+// f32 runs both products in 3xTF32 on the same tiles (mma.sync m16n8k8 tf32,
+// f32 accumulators; csrc/snn_mma.cuh): each operand split into a TF32 hi
+// and lo in registers after its fragment load, three passes per product,
+// about f32's accuracy (the JAX package runs f32 at HIGHEST precision).
+// ldmatrix has no 32-bit transpose, so w1 and w2 come n-major from the host
+// (w1n: E rows of Cin padded to 8, w2n: Cout rows of E padded to 32; made
+// once per operand set) and are staged as rows of an odd number of 16-byte
+// units, as the staged f32 tiles are. The form with int8 weights (its own
+// instantiation) reads the n-major int8 w1q / w2q of the A8W8 form and
+// upcasts them as they are staged: exact in TF32, so those products take
+// two passes. In the expand each pass sums in an accumulator of its own
+// (the chains of dependent products set its time). The
+// depthwise, e and d stay f32 (nothing rounded). The wrapper gives two
+// buffers of the chunk weights or, where its cost model finds that
+// cheaper or no tile holds two, one: the next chunk is then staged after
+// the current one.
 //
 // The launch geometry (tile, split of E, strides and the shared-memory
 // layout) is the wrapper's (kernels/invres.py pick_launch); this file
@@ -88,17 +101,18 @@
 #include "snn_mma.cuh"
 
 #define SNN_EC 32            // expanded channels per chunk (one per lane)
-#define SNN_MP 8             // pixels per warp (tile <= 64 pixels, 8 warps)
-#define SNN_KC 10            // output channels per lane (Cout <= 320)
+#define SNN_MAX_TILE 64      // pixels of a tile (4 warps of 16 rows)
+#define SNN_MAX_COUT 320
 #define SNN_THREADS 256
 #define SNN_ES 40            // bf16 per row of es, ds and w1s: 32 + 8
+#define SNN_ESF 36           // f32 per row of the f32 form's es, ds and staged w2: 32 + 4
 
 // Fields of the geometry array the wrapper passes (offsets and buffer
 // sizes in bytes, strides in elements).
 enum {
   G_TILE_H, G_TILE_W, G_SPLIT, G_XS_STRIDE, G_W2_STRIDE, G_XS_OFF, G_ES_OFF, G_DS_OFF,
   G_W1_OFF, G_WD_OFF, G_W2_OFF, G_RED_OFF, G_W1_BUF, G_WD_BUF, G_W2_BUF, G_SMEM,
-  G_Q_STRIDE, G_XQ_OFF, G_FIELDS
+  G_Q_STRIDE, G_XQ_OFF, G_BUFS, G_FIELDS
 };
 
 #define SNN_QROW 48          // bytes per row of the int8 d chunk and staged int8 w2: 32 + 16
@@ -114,11 +128,12 @@ struct InvResDesc {
   float alpha;
   int tile_h, tile_w, tiles_x;
   int split;      // CTAs of the cluster that share the tile's E (gridDim.z)
-  int xs_stride;  // staged input row: f32 cin rounded up to 4; bf16 >= cin rounded up to 16
-  int w2_stride;  // staged w2 row: f32 cout; bf16 >= cout rounded up to 8
+  int xs_stride;  // staged input row: f32 cin rounded up to 8, + 4; bf16 >= cin rounded up to 16
+  int w2_stride;  // staged w2 row: f32 SNN_ESF (n-major); bf16 >= cout rounded up to 8
   int xs_off, es_off, ds_off, w1_off, wd_off, w2_off, red_off;  // smem bytes
-  int w1_buf, wd_buf, w2_buf;  // bf16: bytes of one of the two buffers
-  int vec_x, vec_w1, vec_wd, vec_w2;  // bf16: 16-byte cp.async loads
+  int w1_buf, wd_buf, w2_buf;  // bytes of one buffer
+  int bufs;                    // buffers of the chunk weights: bf16 2, f32 1 or 2
+  int vec_x, vec_w1, vec_wd, vec_w2;  // 16-byte cp.async loads
   int q1, q2;                  // A8W8 expand / project (bf16 only)
   float inv_ax1, inv_ax2;      // 1/ax1, 1/ax2 (f32)
   int q_stride, xq_off;        // q1: bytes per row of the int8 input tile and of staged w1
@@ -129,12 +144,7 @@ __host__ __device__ __forceinline__ int round32(int v) { return (v + 31) & ~31; 
 
 __host__ __device__ __forceinline__ int round16(int v) { return (v + 15) & ~15; }
 
-// Element i of a weight held as f32 or, in the int8 form (W8) where i8 is
-// set, as int8, as f32 (exact).
-template <bool W8>
-__device__ __forceinline__ float weight_at(const void* w, int i8, size_t i) {
-  return W8 && i8 ? (float)static_cast<const int8_t*>(w)[i] : static_cast<const float*>(w)[i];
-}
+__host__ __device__ __forceinline__ int round8(int v) { return (v + 7) & ~7; }
 
 // The first n (<= 8; none where n <= 0) int8 values at p as 8 bf16 (exact),
 // zero past n.
@@ -144,216 +154,6 @@ __device__ __forceinline__ uint4 upcast_s8x8(const int8_t* p, int n) {
   for (int j = 0; j < 4; ++j)
     q[j] = pack_bf16x2(2 * j < n ? (float)p[2 * j] : 0.f, 2 * j + 1 < n ? (float)p[2 * j + 1] : 0.f);
   return make_uint4(q[0], q[1], q[2], q[3]);
-}
-
-// ---------------------------------------------------------------- f32 ----
-
-// W8: the int8 form (w1_i8 or w2_i8 set); without it no int8 code.
-template <bool W8>
-__global__ void __launch_bounds__(SNN_THREADS)
-invres_kernel(const float* __restrict__ x, float* __restrict__ y,
-              const void* __restrict__ w1, const float* __restrict__ s1,
-              const float* __restrict__ o1, const float* __restrict__ wd,
-              const float* __restrict__ sd, const float* __restrict__ od,
-              const void* __restrict__ w2, const float* __restrict__ s2,
-              const float* __restrict__ o2, const __grid_constant__ InvResDesc d) {
-  // w1, w2: f32, or int8 (w1_i8, w2_i8) upcast as staged.
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* xs = reinterpret_cast<float*>(smem_raw + d.xs_off);   // [HP][cin4]  input tile + halo
-  float* es = reinterpret_cast<float*>(smem_raw + d.es_off);   // [HP][EC]    expanded chunk
-  float* ds = reinterpret_cast<float*>(smem_raw + d.ds_off);   // [P][EC]     depthwise output chunk
-  float* w1s = reinterpret_cast<float*>(smem_raw + d.w1_off);  // [cin4][EC]
-  float* wds = reinterpret_cast<float*>(smem_raw + d.wd_off);  // [9][EC] depthwise taps of the chunk
-  float* vec = wds + 9 * SNN_EC;                               // [4][EC] s1, o1, sd, od of the chunk
-  float* w2s = reinterpret_cast<float*>(smem_raw + d.w2_off);  // [EC][cout]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n = blockIdx.y;
-  const int ty0 = (blockIdx.x / d.tiles_x) * d.tile_h;
-  const int tx0 = (blockIdx.x % d.tiles_x) * d.tile_w;
-  const int HC = d.tile_w + 2, HP = (d.tile_h + 2) * HC;
-  const int P = d.tile_h * d.tile_w;
-  const int cin = d.cin, cin4 = d.xs_stride, cout = d.cout;
-
-  // Input tile + one-pixel halo, zero outside the image and past cin.
-  for (int i = tid; i < HP * cin4; i += SNN_THREADS) {
-    const int ci = i % cin4, hp = i / cin4;
-    const int gy = ty0 - 1 + hp / HC, gx = tx0 - 1 + hp % HC;
-    float v = 0.f;
-    if (ci < cin && gy >= 0 && gy < d.h && gx >= 0 && gx < d.w)
-      v = x[(((size_t)n * d.h + gy) * d.w + gx) * cin + ci];
-    xs[i] = v;
-  }
-
-  float acc[SNN_MP][SNN_KC];
-#pragma unroll
-  for (int m = 0; m < SNN_MP; ++m)
-#pragma unroll
-    for (int k = 0; k < SNN_KC; ++k) acc[m][k] = 0.f;
-
-  // This CTA's slice of the E chunks.
-  const int chunks = (d.e + SNN_EC - 1) / SNN_EC;
-  const int rank = blockIdx.z;
-  const int c_end = (rank + 1) * chunks / d.split;
-  for (int c = rank * chunks / d.split; c < c_end; ++c) {
-    const int e0 = c * SNN_EC;
-    __syncthreads();  // xs staged; the previous chunk is done with the buffers
-    const int ej = e0 + lane;
-    const bool live = ej < d.e;
-    if (d.has_expand) {
-      for (int i = tid; i < cin4 * SNN_EC; i += SNN_THREADS) {
-        const int ci = i / SNN_EC, j = i - ci * SNN_EC;
-        w1s[i] = ci < cin && e0 + j < d.e ? weight_at<W8>(w1, d.w1_i8, (size_t)ci * d.e + e0 + j)
-                                          : 0.f;
-      }
-    }
-    // Rows 0-8: depthwise taps; 9-12: s1, o1, sd, od.
-    for (int i = tid; i < 13 * SNN_EC; i += SNN_THREADS) {
-      const int r = i / SNN_EC, ec = e0 + i - r * SNN_EC;
-      float v = 0.f;
-      if (ec < d.e) {
-        if (r < 9) v = wd[r * d.e + ec];
-        else if (r == 9) v = d.has_expand ? s1[ec] : 0.f;
-        else if (r == 10) v = d.has_expand ? o1[ec] : 0.f;
-        else v = r == 11 ? sd[ec] : od[ec];
-      }
-      wds[i] = v;
-    }
-    for (int i = tid; i < SNN_EC * cout; i += SNN_THREADS) {
-      const int j = i / cout, co = i - j * cout;
-      w2s[i] = e0 + j < d.e ? weight_at<W8>(w2, d.w2_i8, (size_t)(e0 + j) * cout + co) : 0.f;
-    }
-    __syncthreads();
-
-    // Expand over the halo tile: warp -> 4 pixels (hb + 8q), lane -> channel.
-    for (int hb = warp; hb < HP; hb += 4 * (SNN_THREADS / 32)) {
-      int hp[4];
-      bool inside[4], any = false;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        hp[q] = hb + 8 * q;
-        const int gy = ty0 - 1 + hp[q] / HC, gx = tx0 - 1 + hp[q] % HC;
-        inside[q] = hp[q] < HP && gy >= 0 && gy < d.h && gx >= 0 && gx < d.w;
-        any |= inside[q];
-      }
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (any && d.has_expand) {
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
-        const float* xp[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) xp[q] = xs + (hp[q] < HP ? hp[q] : 0) * cin4;
-        for (int ci = 0; ci < cin4; ci += 4) {
-          const float w0 = w1s[ci * SNN_EC + lane], w1v = w1s[(ci + 1) * SNN_EC + lane];
-          const float w2v = w1s[(ci + 2) * SNN_EC + lane], w3 = w1s[(ci + 3) * SNN_EC + lane];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float4 xv = *reinterpret_cast<const float4*>(xp[q] + ci);
-            s[q] = fmaf(xv.x, w0, s[q]);
-            s[q] = fmaf(xv.y, w1v, s[q]);
-            s[q] = fmaf(xv.z, w2v, s[q]);
-            s[q] = fmaf(xv.w, w3, s[q]);
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          v[q] = apply_act(fmaf(s[q], vec[lane], vec[SNN_EC + lane]), d.act_e, d.alpha);
-      } else if (any && live) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) v[q] = hp[q] < HP ? xs[hp[q] * cin4 + ej] : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (hp[q] < HP) es[hp[q] * SNN_EC + lane] = inside[q] && live ? v[q] : 0.f;
-    }
-    __syncthreads();
-
-    // Depthwise 3x3 over the tile, f32 taps held in registers.
-    {
-      float tap[9];
-#pragma unroll
-      for (int t = 0; t < 9; ++t) tap[t] = wds[t * SNN_EC + lane];
-      const float sdl = vec[2 * SNN_EC + lane], odl = vec[3 * SNN_EC + lane];
-      for (int p = warp; p < P; p += SNN_THREADS / 32) {
-        const int py = p / d.tile_w, px = p - py * d.tile_w;
-        const float* ep = es + (py * HC + px) * SNN_EC + lane;
-        float s = 0.f;
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
-            s = fmaf(ep[(dy * HC + dx) * SNN_EC], tap[3 * dy + dx], s);
-        const float v = apply_act(fmaf(s, sdl, odl), d.act_d, d.alpha);
-        ds[p * SNN_EC + lane] = live ? v : 0.f;
-      }
-    }
-    __syncthreads();
-
-    // Project: acc[m][k] += d[pixel warp+8m][:] . w2[:, lane+32k].
-    for (int j = 0; j < SNN_EC; ++j) {
-      float dv[SNN_MP], wv[SNN_KC];
-#pragma unroll
-      for (int m = 0; m < SNN_MP; ++m) {
-        const int p = warp + 8 * m;
-        dv[m] = p < P ? ds[p * SNN_EC + j] : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < SNN_KC; ++k) {
-        const int co = lane + 32 * k;
-        wv[k] = co < cout ? w2s[j * cout + co] : 0.f;
-      }
-#pragma unroll
-      for (int m = 0; m < SNN_MP; ++m)
-#pragma unroll
-        for (int k = 0; k < SNN_KC; ++k) acc[m][k] = fmaf(dv[m], wv[k], acc[m][k]);
-    }
-  }
-
-  // Epilogue of one output: scale/offset, residual, act_out, store.
-  auto finish = [&](int p, int co, float a) {
-    const int py = p / d.tile_w, px = p - py * d.tile_w;
-    const int gy = ty0 + py, gx = tx0 + px;
-    if (gy >= d.h || gx >= d.w) return;
-    float v = fmaf(a, s2[co], o2[co]);
-    if (d.residual) v += xs[((py + 1) * HC + px + 1) * cin4 + co];
-    y[(((size_t)n * d.h + gy) * d.w + gx) * cout + co] = apply_act(v, d.act_o, d.alpha);
-  };
-
-  if (d.split == 1) {
-#pragma unroll
-    for (int m = 0; m < SNN_MP; ++m) {
-      const int p = warp + 8 * m;
-      if (p >= P) continue;
-#pragma unroll
-      for (int k = 0; k < SNN_KC; ++k) {
-        const int co = lane + 32 * k;
-        if (co < cout) finish(p, co, acc[m][k]);
-      }
-    }
-    return;
-  }
-
-  // Split E: partial sums to shared memory, then each CTA of the cluster
-  // finishes every split-th output, adding the partials in rank order.
-  __syncthreads();  // the chunk buffers (which red overlays) are free
-  float* red = reinterpret_cast<float*>(smem_raw + d.red_off);  // [P][cout]
-#pragma unroll
-  for (int m = 0; m < SNN_MP; ++m) {
-    const int p = warp + 8 * m;
-    if (p >= P) continue;
-#pragma unroll
-    for (int k = 0; k < SNN_KC; ++k) {
-      const int co = lane + 32 * k;
-      if (co < cout) red[p * cout + co] = acc[m][k];
-    }
-  }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  for (int i = rank + d.split * tid; i < P * cout; i += d.split * SNN_THREADS) {
-    float a = 0.f;
-    for (int q = 0; q < d.split; ++q) a += cluster.map_shared_rank(red, q)[i];
-    finish(i / cout, i % cout, a);
-  }
-  cluster.sync();  // peers' shared memory stays alive until every read is done
 }
 
 // --------------------------------------------------------------- bf16 ----
@@ -731,6 +531,324 @@ invres_tc_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
   cluster.sync();  // peers' shared memory stays alive until every read is done
 }
 
+// ---------------------------------------------------------------- f32 ----
+
+// NT: the project's n8-tiles per warp, as in the bf16 form. W8: the int8
+// form (w1_i8 / w2_i8: int8 weights, upcast to f32 as they are staged and
+// exact in TF32, so their products take two passes); a kernel without it is
+// compiled without any int8 code.
+template <int NT, bool W8>
+__global__ void __launch_bounds__(SNN_THREADS, NT <= 8 ? 2 : 1)  // 2 CTAs per SM where they fit
+invres_tf32_kernel(const float* __restrict__ x, float* __restrict__ y,
+                   const void* __restrict__ w1v, const float* __restrict__ s1,
+                   const float* __restrict__ o1, const float* __restrict__ wd,
+                   const float* __restrict__ sd, const float* __restrict__ od,
+                   const void* __restrict__ w2v, const float* __restrict__ s2,
+                   const float* __restrict__ o2, const __grid_constant__ InvResDesc d) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // n-major weights: f32 w1n (E x cin8) and w2n (Cout x E32), or (W8) the
+  // int8 w1q (E x cin32) and w2q (Cout x E32), through the int8 pointers.
+  const float* w1 = static_cast<const float*>(w1v);
+  const float* w2 = static_cast<const float*>(w2v);
+  const int8_t* w1q = static_cast<const int8_t*>(w1v);
+  const int8_t* w2q = static_cast<const int8_t*>(w2v);
+  float* xs = reinterpret_cast<float*>(smem_raw + d.xs_off);  // [HP16][xs_stride] input tile + halo
+  float* es = reinterpret_cast<float*>(smem_raw + d.es_off);  // [HP16][ESF] expanded chunk
+  float* ds = reinterpret_cast<float*>(smem_raw + d.ds_off);  // [P16][ESF] depthwise output chunk
+  // d.bufs buffers each: w1 [EC][xs_stride] and w2 [cout8][ESF] n-major,
+  // taps and vectors [13][EC].
+  auto w1s = [&](int b) { return reinterpret_cast<float*>(smem_raw + d.w1_off + b * d.w1_buf); };
+  auto wds = [&](int b) { return reinterpret_cast<float*>(smem_raw + d.wd_off + b * d.wd_buf); };
+  auto w2s = [&](int b) { return reinterpret_cast<float*>(smem_raw + d.w2_off + b * d.w2_buf); };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = blockIdx.y;
+  const int ty0 = (blockIdx.x / d.tiles_x) * d.tile_h;
+  const int tx0 = (blockIdx.x % d.tiles_x) * d.tile_w;
+  const int HC = d.tile_w + 2, HP = (d.tile_h + 2) * HC, HP16 = round16(HP);
+  const int P = d.tile_h * d.tile_w, P16 = round16(P);
+  const int cin = d.cin, cin8 = round8(cin), cout = d.cout, xst = d.xs_stride;
+  const int nt_total = (cout + 7) / 8, e32 = round32(d.e);
+  const bool w1x = W8 && d.w1_i8, w2x = W8 && d.w2_i8;  // exact in TF32: two passes
+
+  // Input tile + one-pixel halo, zero outside the image, past cin and in
+  // the padding rows.
+  if (d.vec_x) {
+    for (int i = tid; i < HP16 * (cin8 / 4); i += SNN_THREADS) {
+      const int hp = i / (cin8 / 4), u = i - hp * (cin8 / 4);
+      const int gy = ty0 - 1 + hp / HC, gx = tx0 - 1 + hp % HC;
+      const bool ok = hp < HP && u * 4 < cin && gy >= 0 && gy < d.h && gx >= 0 && gx < d.w;
+      const float* src = ok ? x + (((size_t)n * d.h + gy) * d.w + gx) * cin + u * 4 : x;
+      cp_async16(xs + hp * xst + u * 4, src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < HP16 * cin8; i += SNN_THREADS) {
+      const int hp = i / cin8, ci = i - hp * cin8;
+      const int gy = ty0 - 1 + hp / HC, gx = tx0 - 1 + hp % HC;
+      const bool ok = hp < HP && ci < cin && gy >= 0 && gy < d.h && gx >= 0 && gx < d.w;
+      xs[hp * xst + ci] = ok ? x[(((size_t)n * d.h + gy) * d.w + gx) * cin + ci] : 0.f;
+    }
+  }
+  // The project reads 16-row tiles of ds: its rows past P stay zero.
+  for (int i = tid; i < (P16 - P) * SNN_ESF; i += SNN_THREADS) ds[P * SNN_ESF + i] = 0.f;
+
+  // A chunk's weights into buffer b, n-major, zero past E, cin and cout.
+  auto load_chunk = [&](int c, int b) {
+    const int e0 = c * SNN_EC;
+    if (d.has_expand) {  // rows e0.. of w1n: cin8 floats each
+      float* dst = w1s(b);
+      for (int i = tid; i < SNN_EC * (cin8 / 4); i += SNN_THREADS) {
+        const int j = i / (cin8 / 4), u = i - j * (cin8 / 4);
+        const bool ok = e0 + j < d.e;
+        if (w1x) {  // four int8 to four f32 (exact)
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (ok) {
+            const char4 q = *reinterpret_cast<const char4*>(w1q + (size_t)(e0 + j) * round32(cin) + 4 * u);
+            v = make_float4(q.x, q.y, q.z, q.w);
+          }
+          *reinterpret_cast<float4*>(dst + j * xst + 4 * u) = v;
+        } else {
+          cp_async16(dst + j * xst + 4 * u, ok ? w1 + (size_t)(e0 + j) * cin8 + 4 * u : w1,
+                     ok ? 16 : 0);
+        }
+      }
+    }
+    // Rows 0-8: depthwise taps; 9-12: s1, o1, sd, od.
+    float* wdst = wds(b);
+    auto wd_row = [&](int r) {
+      return r < 9 ? wd + r * d.e : r == 9 ? s1 : r == 10 ? o1 : r == 11 ? sd : od;
+    };
+    if (d.vec_wd) {
+      for (int i = tid; i < 13 * (SNN_EC / 4); i += SNN_THREADS) {
+        const int r = i / (SNN_EC / 4), u = i - r * (SNN_EC / 4), ec = e0 + u * 4;
+        const bool ok = ec < d.e && (r < 9 || r > 10 || d.has_expand);
+        cp_async16(wdst + i * 4, ok ? wd_row(r) + ec : wd, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < 13 * SNN_EC; i += SNN_THREADS) {
+        const int r = i / SNN_EC, ec = e0 + i - r * SNN_EC;
+        const bool ok = ec < d.e && (r < 9 || r > 10 || d.has_expand);
+        cp_async4(wdst + i, ok ? wd_row(r) + ec : wd, ok);
+      }
+    }
+    // The chunk's 32 columns of each row of w2n (zero past E there), zero
+    // rows past cout.
+    float* dst = w2s(b);
+    for (int i = tid; i < nt_total * 8 * (SNN_EC / 4); i += SNN_THREADS) {
+      const int r = i / (SNN_EC / 4), u = i - r * (SNN_EC / 4);
+      const bool ok = r < cout;
+      if (w2x) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ok) {
+          const char4 q = *reinterpret_cast<const char4*>(w2q + (size_t)r * e32 + e0 + 4 * u);
+          v = make_float4(q.x, q.y, q.z, q.w);
+        }
+        *reinterpret_cast<float4*>(dst + r * SNN_ESF + 4 * u) = v;
+      } else {
+        cp_async16(dst + r * SNN_ESF + 4 * u, ok ? w2 + (size_t)r * e32 + e0 + 4 * u : w2,
+                   ok ? 16 : 0);
+      }
+    }
+  };
+
+  // Project warps: WM of 16 pixels times WN over the n8-tiles of Cout.
+  const int WM = P16 / 16, WN = SNN_THREADS / 32 / WM;
+  const int wm = warp % WM, wn = warp / WM;
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+
+  // This CTA's slice of the E chunks; with one buffer, chunk c is loaded
+  // once chunk c - 1 is done with it.
+  const int chunks = (d.e + SNN_EC - 1) / SNN_EC;
+  const int rank = blockIdx.z;
+  const int c_begin = rank * chunks / d.split, c_end = (rank + 1) * chunks / d.split;
+  if (c_begin < c_end) load_chunk(c_begin, 0);
+  cp_async_commit();  // with xs
+  for (int c = c_begin; c < c_end; ++c) {
+    const int b = d.bufs == 2 ? (c - c_begin) & 1 : 0, e0 = c * SNN_EC;
+    if (d.bufs == 2) {
+      if (c + 1 < c_end) load_chunk(c + 1, b ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      if (c > c_begin) load_chunk(c, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk c (and xs) staged
+    const float* vec = wds(b) + 9 * SNN_EC;
+
+    // Expand over the halo tile on the tensor cores: warp item -> 16 rows
+    // x 16 channels, k8 steps over cin8; epilogue and mask on the fragments.
+    if (d.has_expand) {
+      const float* ap0 = xs + (lane & 15) * xst + 4 * (lane >> 4);
+      const float* bp0 = w1s(b) + ((lane & 7) + 8 * (lane >> 4)) * xst + 4 * ((lane >> 3) & 1);
+      for (int it = warp; it < (HP16 / 16) * 2; it += SNN_THREADS / 32) {
+        const int mt = it >> 1, nh = it & 1;
+        // Each pass in an accumulator of its own (a_hi b_hi, a_lo b_hi,
+        // a_hi b_lo): six independent chains of products, not two.
+        float a2[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        float la[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        float lb[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        const float* ap = ap0 + mt * 16 * xst;
+        const float* bp = bp0 + nh * 16 * xst;
+#pragma unroll 2
+        for (int k0 = 0; k0 < cin8; k0 += 8) {
+          uint32_t a[4], ah[4], al[4], bb[4], bh[4], bl[4];
+          ldmatrix_x4(a, ap + k0);
+          ldmatrix_x4(bb, bp + k0);
+          split_tf32(a, ah, al);
+          split_tf32(bb, bh, bl);
+#pragma unroll
+          for (int jt = 0; jt < 2; ++jt) {
+            if (!w1x) mma_tf32(lb[jt], ah, bl[2 * jt], bl[2 * jt + 1]);
+            mma_tf32(la[jt], al, bh[2 * jt], bh[2 * jt + 1]);
+            mma_tf32(a2[jt], ah, bh[2 * jt], bh[2 * jt + 1]);
+          }
+        }
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) a2[jt][q] += la[jt][q] + lb[jt][q];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = mt * 16 + g + 8 * half;
+          if (r >= HP) continue;
+          const int gy = ty0 - 1 + r / HC, gx = tx0 - 1 + r % HC;
+          const bool inside = gy >= 0 && gy < d.h && gx >= 0 && gx < d.w;
+#pragma unroll
+          for (int jt = 0; jt < 2; ++jt) {
+            const int j = nh * 16 + jt * 8 + 2 * t;
+            float v[2];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              v[q] = inside && e0 + j + q < d.e
+                         ? apply_act(fmaf(a2[jt][2 * half + q], vec[j + q], vec[SNN_EC + j + q]),
+                                     d.act_e, d.alpha)
+                         : 0.f;
+            }
+            *reinterpret_cast<float2*>(es + r * SNN_ESF + j) = make_float2(v[0], v[1]);
+          }
+        }
+      }
+    } else {  // t=1: e = x (zero outside the image already)
+      for (int i = tid; i < HP * SNN_EC; i += SNN_THREADS) {
+        const int r = i / SNN_EC, j = i - r * SNN_EC;
+        es[r * SNN_ESF + j] = e0 + j < d.e ? xs[r * xst + e0 + j] : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // Depthwise 3x3 over the tile on the CUDA cores, f32 taps in registers.
+    {
+      const float* wdb = wds(b);
+      float tap[9];
+#pragma unroll
+      for (int q = 0; q < 9; ++q) tap[q] = wdb[q * SNN_EC + lane];
+      const float sdl = vec[2 * SNN_EC + lane], odl = vec[3 * SNN_EC + lane];
+      const bool live = e0 + lane < d.e;
+      for (int p = warp; p < P; p += SNN_THREADS / 32) {
+        const int py = p / d.tile_w, px = p - py * d.tile_w;
+        const float* ep = es + (py * HC + px) * SNN_ESF + lane;
+        float s = 0.f;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) s = fmaf(ep[(dy * HC + dx) * SNN_ESF], tap[3 * dy + dx], s);
+        ds[p * SNN_ESF + lane] = live ? apply_act(fmaf(s, sdl, odl), d.act_d, d.alpha) : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // Project on the tensor cores: acc += d[16 pixels][32] . w2[32][n8-tiles],
+    // two k8 steps per B load.
+    if (wn < WN) {
+      const float* ap = ds + (wm * 16 + (lane & 15)) * SNN_ESF + 4 * (lane >> 4);
+      const float* w2b = w2s(b) + (lane & 7) * SNN_ESF + 4 * (lane >> 3);
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp) {
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          uint32_t a[4];
+          ldmatrix_x4(a, ap + 16 * kp + 8 * s);
+          split_tf32(a, ah[s], al[s]);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int jj = wn + WN * j;
+          if (jj < nt_total) {
+            uint32_t bb[4], bh[4], bl[4];
+            ldmatrix_x4(bb, w2b + jj * 8 * SNN_ESF + 16 * kp);
+            split_tf32(bb, bh, bl);
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              if (!w2x) mma_tf32(acc[j], ah[s], bl[2 * s], bl[2 * s + 1]);
+              mma_tf32(acc[j], al[s], bh[2 * s], bh[2 * s + 1]);
+              mma_tf32(acc[j], ah[s], bh[2 * s], bh[2 * s + 1]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the chunk's buffers are free
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // xs is staged even where this CTA had no chunk
+
+  // Epilogue of one output: scale/offset, residual, act_out, store.
+  auto finish = [&](int p, int co, float a) {
+    const int py = p / d.tile_w, px = p - py * d.tile_w;
+    const int gy = ty0 + py, gx = tx0 + px;
+    if (gy >= d.h || gx >= d.w) return;
+    float v = fmaf(a, s2[co], o2[co]);
+    if (d.residual) v += xs[((py + 1) * HC + px + 1) * xst + co];
+    y[(((size_t)n * d.h + gy) * d.w + gx) * cout + co] = apply_act(v, d.act_o, d.alpha);
+  };
+  // Fragment (j, q) of this thread: pixel wm*16 + g (+8 for q >= 2),
+  // channel 8*(wn + WN*j) + 2t (+1 for odd q).
+  auto each = [&](auto&& fn) {
+    if (wn >= WN) return;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int jj = wn + WN * j;
+      if (jj >= nt_total) continue;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int p = wm * 16 + g + 8 * (q >> 1), co = jj * 8 + 2 * t + (q & 1);
+        if (p < P && co < cout) fn(p, co, acc[j][q]);
+      }
+    }
+  };
+
+  if (d.split == 1) {
+    each(finish);
+    return;
+  }
+
+  // Split E: partial sums to shared memory, then each CTA of the cluster
+  // finishes every split-th output, adding the partials in rank order.
+  float* red = reinterpret_cast<float*>(smem_raw + d.red_off);  // [P][cout]
+  each([&](int p, int co, float a) { red[p * cout + co] = a; });
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int i = rank + d.split * tid; i < P * cout; i += d.split * SNN_THREADS) {
+    float part[8];  // every peer's partial read at once, then summed in rank order
+#pragma unroll
+    for (int q = 0; q < 8; ++q) part[q] = q < d.split ? cluster.map_shared_rank(red, q)[i] : 0.f;
+    float a = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (q < d.split) a += part[q];
+    finish(i / cout, i % cout, a);
+  }
+  cluster.sync();  // peers' shared memory stays alive until every read is done
+}
+
 template <typename T, typename K>
 int launch(K kern, const void* x, void* y, const void* const* ops, const InvResDesc& d,
            size_t smem, cudaStream_t stream) {
@@ -764,25 +882,25 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 
 // may overlay the per-chunk buffers, never the input tile)?
 // Under q1 the int8 input tile is held as well (the partial sums may
 // overlay it: the residual reads xs).
-bool layout_holds(const InvResDesc& d, int tile_px, int halo_px, bool tc, long long smem) {
-  const int esz = tc ? 2 : 4, bufs = tc ? 2 : 1;
-  const int rows = tc ? round16(halo_px) : halo_px, prow = tc ? round16(tile_px) : tile_px;
-  const int cin_k = tc ? round16(d.cin) : d.xs_stride, ecs = tc ? SNN_ES : SNN_EC;
+bool layout_holds(const InvResDesc& d, int tile_px, int halo_px, bool bf16, long long smem) {
+  const int esz = bf16 ? 2 : 4, ecs = bf16 ? SNN_ES : SNN_ESF, cout8 = (d.cout + 7) / 8 * 8;
+  const int rows = round16(halo_px), prow = round16(tile_px);
   const long long need[8] = {
       (long long)rows * d.xs_stride * esz,
       (long long)rows * ecs * esz,
       (long long)prow * ecs * esz,
-      d.has_expand ? (long long)bufs * (tc ? d.w1_buf : cin_k * SNN_EC * 4) : 0,
-      (long long)bufs * (tc ? d.wd_buf : 13 * SNN_EC * 4),
-      (long long)bufs * (tc ? d.w2_buf : SNN_EC * d.cout * 4),
+      d.has_expand ? (long long)d.bufs * d.w1_buf : 0,
+      (long long)d.bufs * d.wd_buf,
+      (long long)d.bufs * d.w2_buf,
       d.q1 ? (long long)rows * d.q_stride : 0,
       d.split > 1 ? (long long)tile_px * d.cout * 4 : 0};
   const long long off[8] = {d.xs_off, d.es_off, d.ds_off, d.w1_off, d.wd_off, d.w2_off, d.xq_off,
                             d.red_off};
-  const int w1_need = d.q1 ? SNN_EC * d.q_stride : cin_k * SNN_ES * 2;
-  const int w2_need = d.q2 ? (d.cout + 7) / 8 * 8 * SNN_QROW : SNN_EC * d.w2_stride * 2;
-  if (tc && ((d.has_expand && d.w1_buf < w1_need) || d.wd_buf < 13 * SNN_EC * 4 ||
-             d.w2_buf < w2_need))
+  const int w1_need = !bf16 ? SNN_EC * d.xs_stride * 4
+                      : d.q1 ? SNN_EC * d.q_stride : round16(d.cin) * SNN_ES * 2;
+  const int w2_need = !bf16 ? cout8 * SNN_ESF * 4
+                      : d.q2 ? cout8 * SNN_QROW : SNN_EC * d.w2_stride * 2;
+  if ((d.has_expand && d.w1_buf < w1_need) || d.wd_buf < 13 * SNN_EC * 4 || d.w2_buf < w2_need)
     return false;
   for (int i = 0; i < 8; ++i) {
     if (off[i] % 16 || off[i] < 0 || off[i] + need[i] > smem) return false;
@@ -802,23 +920,25 @@ extern "C" {
 
 // Returns 0 on success, a negative code for arguments the kernel does not
 // take (see snn_invres_error), or the cudaError_t of the launch.
-// ops: 9 device pointers w1 (cin x e, in x's dtype or int8 with bit 0 of
-// w8; under ax1 the n-major int8 w1q; unused without expand), s1, o1, wd
-// (9 x e), sd, od (f32), w2 (e x cout, in x's dtype or int8 with bit 1 of
-// w8; under ax2 the n-major int8 w2q), s2, o2 (f32). acts: act_e, act_d, act_o. geom: G_FIELDS ints, the
+// ops: 9 device pointers w1 (bf16: cin x e, bf16 or int8 with bit 0 of
+// w8, under ax1 the n-major int8 w1q; f32: the n-major w1n, or w1q with bit
+// 0 of w8; unused without expand), s1, o1, wd (9 x e), sd, od (f32), w2
+// (bf16: e x cout, bf16 or int8 with bit 1 of w8, under ax2 the n-major
+// int8 w2q; f32: the n-major w2n, or w2q with bit 1 of w8), s2, o2 (f32).
+// acts: act_e, act_d, act_o. geom: G_FIELDS ints, the
 // wrapper's launch geometry (kernels/invres.py InvResLaunch): the tile (at
 // most 8x8 pixels), the split of E over a cluster (1, 2, 4 or 8 CTAs), the
-// strides and the shared-memory layout; they change the speed, and the
-// split the order of the sum over E.
+// strides, the shared-memory layout and its buffers; they change the speed,
+// and the split the order of the sum over E.
 int snn_invres_block(const void* x, int is_bf16, void* y, const void* const* ops,
                      int n, int h, int w, int cin, int e, int cout,
                      int has_expand, int residual, const int* acts, float alpha,
                      float inv_ax1, float inv_ax2, int w8, const int* geom, void* stream) {
   const int tile_h = geom[G_TILE_H], tile_w = geom[G_TILE_W], split = geom[G_SPLIT];
   if (n < 1 || h < 1 || w < 1 || cin < 1 || e < 1 || cout < 1) return -1;
-  if (tile_h < 1 || tile_w < 1 || tile_h * tile_w > 8 * SNN_MP) return -1;
+  if (tile_h < 1 || tile_w < 1 || tile_h * tile_w > SNN_MAX_TILE) return -1;
   if (split != 1 && split != 2 && split != 4 && split != 8) return -4;
-  if (cout > 32 * SNN_KC || (!has_expand && e != cin) || (residual && cin != cout)) return -3;
+  if (cout > SNN_MAX_COUT || (!has_expand && e != cin) || (residual && cin != cout)) return -3;
   InvResDesc d;
   d.n = n; d.h = h; d.w = w; d.cin = cin; d.e = e; d.cout = cout;
   d.has_expand = has_expand; d.residual = residual;
@@ -832,6 +952,7 @@ int snn_invres_block(const void* x, int is_bf16, void* y, const void* const* ops
   d.w1_off = geom[G_W1_OFF]; d.wd_off = geom[G_WD_OFF]; d.w2_off = geom[G_W2_OFF];
   d.red_off = geom[G_RED_OFF];
   d.w1_buf = geom[G_W1_BUF]; d.wd_buf = geom[G_WD_BUF]; d.w2_buf = geom[G_W2_BUF];
+  d.bufs = geom[G_BUFS];
   d.q1 = inv_ax1 > 0.f; d.q2 = inv_ax2 > 0.f;
   d.inv_ax1 = inv_ax1; d.inv_ax2 = inv_ax2;
   d.q_stride = geom[G_Q_STRIDE]; d.xq_off = geom[G_XQ_OFF];
@@ -842,20 +963,20 @@ int snn_invres_block(const void* x, int is_bf16, void* y, const void* const* ops
                (d.q_stride / 16) % 2 == 0))
     return -4;
   if ((d.q1 && !aligned16(ops[0])) || (d.q2 && !aligned16(ops[6]))) return -4;
+  // f32: the n-major weights are read in 16-byte (int8: 4-byte) units.
+  if (!is_bf16 && ((has_expand && !aligned16(ops[0])) || !aligned16(ops[6]))) return -4;
+  if (d.bufs != 2 && (is_bf16 || d.bufs != 1)) return -4;
   const long long smem = geom[G_SMEM];
   const bool strides_ok =
       is_bf16 ? d.xs_stride >= round16(cin) && d.xs_stride % 8 == 0 &&
                  d.w2_stride >= (cout + 7) / 8 * 8 && d.w2_stride % 8 == 0
-           : d.xs_stride == ((cin + 3) & ~3) && d.w2_stride == cout;
+           : d.xs_stride == round8(cin) + 4 && d.w2_stride == SNN_ESF;
   if (!strides_ok) return -4;
   if (smem > SNN_MAX_SMEM ||
       !layout_holds(d, tile_h * tile_w, (tile_h + 2) * (tile_w + 2), is_bf16, smem))
     return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16)
-    return d.w1_i8 || d.w2_i8 ? launch<float>(invres_kernel<true>, x, y, ops, d, smem, s)
-                              : launch<float>(invres_kernel<false>, x, y, ops, d, smem, s);
-  d.vec_x = cin % 8 == 0 && aligned16(x);
+  d.vec_x = cin % (is_bf16 ? 8 : 4) == 0 && aligned16(x);
   d.vec_w1 = has_expand && e % 8 == 0 && aligned16(ops[0]);
   d.vec_wd = e % 4 == 0;
   for (int i = 1; i < 6; ++i) d.vec_wd = d.vec_wd && (aligned16(ops[i]) || (!has_expand && i < 3));
@@ -863,6 +984,17 @@ int snn_invres_block(const void* x, int is_bf16, void* y, const void* const* ops
   // The project's n8-tiles per warp: Cout / 8 over 8 / (pixel rows / 16) warps.
   const int wm = round16(tile_h * tile_w) / 16, wn = SNN_THREADS / 32 / wm;
   const int need = ((cout + 7) / 8 + wn - 1) / wn;
+  if (!is_bf16) {
+    auto go = [&](auto plain, auto i8form) {
+      return d.w1_i8 || d.w2_i8 ? launch<float>(i8form, x, y, ops, d, smem, s)
+                                : launch<float>(plain, x, y, ops, d, smem, s);
+    };
+    if (need <= 1) return go(invres_tf32_kernel<1, false>, invres_tf32_kernel<1, true>);
+    if (need <= 2) return go(invres_tf32_kernel<2, false>, invres_tf32_kernel<2, true>);
+    if (need <= 4) return go(invres_tf32_kernel<4, false>, invres_tf32_kernel<4, true>);
+    if (need <= 8) return go(invres_tf32_kernel<8, false>, invres_tf32_kernel<8, true>);
+    return go(invres_tf32_kernel<20, false>, invres_tf32_kernel<20, true>);
+  }
   auto go = [&](auto plain, auto i8form) {
     return d.q1 || d.q2 || d.w1_i8 || d.w2_i8 ? launch<bf16>(i8form, x, y, ops, d, smem, s)
                                               : launch<bf16>(plain, x, y, ops, d, smem, s);
@@ -882,8 +1014,8 @@ const char* snn_invres_error(int code) {
     case -3: return "shapes outside the kernel (cout <= 320; e == cin without expand; "
                     "cin == cout with a residual; A8W8 only under bf16)";
     case -4: return "launch geometry outside the kernel (split of E not 1, 2, 4 or 8, "
-                    "strides, int8 operands without an expand or unaligned, or a weight "
-                    "flagged int8 in both layouts)";
+                    "strides, buffers, int8 operands without an expand, unaligned n-major "
+                    "weights, or a weight flagged int8 in both layouts)";
     default: return code > 0 ? cudaGetErrorString((cudaError_t)code) : "unknown error";
   }
 }

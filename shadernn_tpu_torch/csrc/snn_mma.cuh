@@ -2,7 +2,8 @@
 // paths of conv_chain.cu, conv_single.cu and invres_block.cu: shared-memory
 // addresses, ldmatrix (plain and transposed), the bf16 m16n8k16 mma.sync
 // with f32 accumulators, the s8 m16n8k32 mma.sync with s32 accumulators,
-// the symmetric int8 quantizer, and cp.async with zero fill.
+// the tf32 m16n8k8 mma.sync and the split of f32 values into TF32 hi and
+// lo (3xTF32), the symmetric int8 quantizer, and cp.async with zero fill.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4*g + t):
 //   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
@@ -26,6 +27,24 @@
 // n-major ([n][k], k contiguous) and read without .trans, one 8-row matrix
 // per (n-tile, 16 k): lane l of an .x4 points at n row (l & 7) + 8 (l >> 4),
 // k byte 16 ((l >> 3) & 1), giving b0, b1 of one n-tile, then of the next.
+//
+// mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 (one 32-bit value per register):
+//   A (16x8, row-major): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]
+//   B (8x8, k x n):      b0 = B[t][g], b1 = B[t+4][g]
+//   C (16x8, f32):       as above.
+// An 8x8 b16 matrix of ldmatrix is 8 rows of four f32, and thread 4g+t
+// receives the f32 (g, t) of it: so A, f32 rows with k contiguous, is read
+// with the bf16 A addressing (lane l: row (l & 15), float 4 (l >> 4)), and
+// B, stored n-major as no 32-bit transpose exists, with the s8 B addressing
+// (lane l of an .x4: n row (l & 7) + 8 (l >> 4), float 4 ((l >> 3) & 1);
+// b0, b1 of one n-tile, then of the next).
+//
+// 3xTF32: v = hi + lo with hi = tf32(v) and lo = tf32(v - hi), both rounded
+// to nearest, ties away (as cvt.rna); v - hi is exact in f32 and hi + lo equals
+// v within 2^-22 |v|. A product is a_hi b_lo + a_lo b_hi + a_hi b_hi with f32
+// sums (the small terms first), about f32's accuracy; a_lo b_lo (2^-22
+// relative) is dropped. An operand exact in TF32 (an int8 weight, a bf16
+// input) has lo = 0, and its pass is skipped.
 
 #pragma once
 
@@ -75,6 +94,35 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16x8 tf32) * b (8x8 tf32), f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// f32 -> tf32 as cvt.rna.tf32.f32 rounds (to nearest, ties away from zero;
+// the low 13 bits zero), in two integer operations: nvcc expands cvt.rna
+// into about four, an Inf/NaN test among them, and the splits are most of
+// the f32 forms' instructions. Equal to cvt.rna for every finite value.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// N f32 fragment registers (bit patterns) split into their tf32 hi and lo.
+template <int N>
+__device__ __forceinline__ void split_tf32(const uint32_t (&v)[N], uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    hi[i] = tf32_rna(__uint_as_float(v[i]));
+    lo[i] = tf32_rna(__uint_as_float(v[i]) - __uint_as_float(hi[i]));
+  }
 }
 
 // c += a (16x32 s8) * b (32x8 s8), s32 accumulators: exact.

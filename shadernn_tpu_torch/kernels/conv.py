@@ -13,7 +13,10 @@ The function: x (N,H,W,C) cast to the compute dtype, an HWIO weight
 under bfloat16: the kernel upcasts it as it stages it, exactly, and its
 scale arrives folded into `scale`), a float32 sum, `act(acc * scale +
 offset)` in float32 with zero padding (pt, pb, pl, pr), the result
-rounded to the compute dtype. The engine runs on it every
+rounded to the compute dtype. Under float32 the kernel's products are
+3xTF32 on the tensor cores (about float32's accuracy; kernels/tf32.py is
+the plain model of that arithmetic) and read the weight n-major
+(`nmajor_weight`, made once per weight tensor). The engine runs on it every
 conv that AUTO gives the kernel but no chain takes: a chain of one, or the
 convs of a chain that the chain kernel's gate declines.
 
@@ -28,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import weakref
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -59,8 +63,7 @@ def conv2d_haloed_reference(
     return apply_activation(y, activation, alpha).to(dt).contiguous()
 
 
-TC_PIXELS = 64        # output pixels per CTA of the bf16 form
-SMEM_TARGET = 98304   # 96 KB: two CTAs per SM where a stage fits
+TC_PIXELS = 64        # output pixels per CTA
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,14 +73,13 @@ class ConvLaunch:
 
     tile_h: int
     tile_w: int
-    imgs: int       # bf16: whole images per CTA (then the tile is the image)
+    imgs: int       # whole images per CTA (then the tile is the image)
     nb: int         # output channels per CTA
     cc: int         # input channels per chunk
-    tg: int         # taps per stage (bf16)
-    ch: int         # output channels per thread (f32)
-    in_stride: int  # bf16 per staged input position
-    w_stride: int   # bf16 per staged weight row
-    w_rows: int     # staged weight rows per stage
+    tg: int         # taps per stage
+    in_stride: int  # elements per staged input position
+    w_stride: int   # elements per staged weight row
+    w_rows: int     # staged weight rows per stage (bf16: k rows; f32: nb, n-major)
     in_off: int
     in_bufs: int
     w_off: int
@@ -94,57 +96,45 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def _f32_launch(kh: int, kw: int, c: int, o: int, cc: Optional[int] = None) -> ConvLaunch:
-    """The f32 form: 256 threads of one output pixel and CH channels each
-    (at most 32 channels per CTA), the largest input-channel chunk within
-    96 KB (two CTAs per SM), else within 227 KB; `cc` forces the chunk."""
-    ch = 8 if o > 4 else (4 if o > 1 else 1)
-    ob = min(_round_up(o, ch), 32)
-    pixels = 256 // (ob // ch)
-    tile_w = 16 if pixels >= 128 else 8
-    tile_h = pixels // tile_w
-    rows, cols = tile_h + kh - 1, tile_w + kw - 1
-    per_c = _round_up(rows * cols, 4) + kh * kw * ob  # floats of one channel
-    budget = SMEM_TARGET // 4 if per_c <= SMEM_TARGET // 4 else MAX_SMEM_BYTES // 4
-    if cc is None:
-        cc = max(1, min(budget // per_c, c))
-    w_off = 4 * _round_up(cc * rows * cols, 4)
-    return ConvLaunch(tile_h, tile_w, 1, ob, cc, kh * kw, ch, 0, 0, 0, 0, 1, w_off, 1,
-                      w_off + 4 * kh * kw * cc * ob)
-
-
-def _tc_launch(c: int, kh: int, kw: int, th: int, tw: int, imgs: int, nb: int,
-               cc: int, tg: int) -> ConvLaunch:
-    """The bf16 form's shared memory: the input region(s) of a chunk, each
+def _stage_layout(c: int, kh: int, kw: int, th: int, tw: int, imgs: int, nb: int,
+                  cc: int, tg: int, bf16: bool) -> ConvLaunch:
+    """The shared memory of a CTA: the input region(s) of a chunk, each
     followed by a zero row, then the weights of a stage; rows padded to an
-    odd number of 16-byte units (ldmatrix without bank conflicts)."""
-    in_stride = cc + 8 if (cc // 8) % 2 == 0 else cc
-    w_stride = nb + 8 if (nb // 8) % 2 == 0 else nb
-    w_rows = _round_up(tg * cc, 16)
+    odd number of 16-byte units (ldmatrix without bank conflicts). bf16:
+    bf16 rows of cc channels (+ 8), weights k-major (tg * cc rows of nb).
+    f32: f32 rows of cc channels (+ 4), weights n-major (nb rows of tg * cc
+    floats, + 4), as ldmatrix has no 32-bit transpose."""
+    esz, pad = (2, 8) if bf16 else (4, 4)
+    in_stride = cc + pad if (cc // pad) % 2 == 0 else cc
+    if bf16:
+        w_stride = nb + 8 if (nb // 8) % 2 == 0 else nb
+        w_rows = _round_up(tg * cc, 16)
+    else:
+        w_stride, w_rows = tg * cc + 4, nb
     chunks, groups = -(-c // cc), -(-(kh * kw) // tg)
     in_bufs = 2 if chunks > 1 else 1
     w_bufs = 2 if chunks * groups > 1 else 1
     region = imgs * (th + kh - 1) * (tw + kw - 1)
-    w_off = in_bufs * (region + 1) * in_stride * 2
-    return ConvLaunch(th, tw, imgs, nb, cc, tg, 0, in_stride, w_stride, w_rows, 0, in_bufs,
-                      w_off, w_bufs, w_off + w_bufs * w_rows * w_stride * 2)
+    w_off = in_bufs * (region + 1) * in_stride * esz
+    return ConvLaunch(th, tw, imgs, nb, cc, tg, in_stride, w_stride, w_rows, 0, in_bufs,
+                      w_off, w_bufs, w_off + w_bufs * w_rows * w_stride * esz)
 
 
 @functools.lru_cache(maxsize=None)
 def launch_geometry(n: int, h: int, w: int, c: int, kh: int, kw: int, o: int,
                     pads: Tuple[int, int, int, int], bf16: bool, sms: int) -> ConvLaunch:
     """The launch of one conv (the kernel's only owner of it; `smem` over
-    MAX_SMEM_BYTES means the conv does not fit). bf16: 64 output pixels
-    per CTA (an 8x8 tile, or as many whole images as fit when an image has
-    at most 32 pixels); the smallest channel block of 16-128 that covers O,
-    halved while the grid has fewer CTAs than the card has SMs; every
-    input channel and every tap in one stage (a stage costs more than its
-    products at these sizes). Until the stage fits in 227 KB: fewer images
-    or a smaller chunk while the input region alone takes over a quarter
-    of it, else tap groups halved; at one tap, a smaller tile. Speed only:
-    the result does not depend on it."""
-    if not bf16:
-        return _f32_launch(kh, kw, c, o)
+    MAX_SMEM_BYTES means the conv does not fit), one rule for both forms:
+    64 output pixels per CTA (an 8x8 tile, or as many whole images as fit
+    when an image has at most 32 pixels); the smallest channel block of
+    16-128 that covers O, halved while the grid has fewer CTAs than the
+    card has SMs (f32: and while the halved grid still runs in one wave,
+    its larger stages holding fewer CTAs per SM: a sweep of the ResNet18
+    convs on an H100, PERF.md); every input channel and every tap in one
+    stage (a stage costs more than its products at these sizes). Until the
+    stage fits in 227 KB: fewer images or a smaller chunk while the input
+    region alone takes over a quarter of it, else tap groups halved; at
+    one tap, a smaller tile. Speed only: the result does not depend on it."""
     pt, pb, pl, pr = pads
     ho, wo = h + pt + pb - kh + 1, w + pl + pr - kw + 1
     if ho * wo <= TC_PIXELS // 2:
@@ -159,11 +149,15 @@ def launch_geometry(n: int, h: int, w: int, c: int, kh: int, kw: int, o: int,
     def mtiles():
         return -(-n // imgs) if imgs > 1 else n * -(-ho // th) * -(-wo // tw)
 
-    while nb > 16 and mtiles() * -(-o // nb) < sms:
+    def one_wave(nb_):  # f32: the grid of a block of nb_ channels runs in one wave
+        smem = _stage_layout(c, kh, kw, th, tw, imgs, nb_, _round_up(c, 8), kh * kw, False).smem
+        return mtiles() * -(-o // nb_) <= sms * max(1, MAX_SMEM_BYTES // smem)
+
+    while nb > 16 and mtiles() * -(-o // nb) < sms and (bf16 or one_wave(nb // 2)):
         nb //= 2
     cc, tg = _round_up(c, 8), kh * kw
     while True:
-        geo = _tc_launch(c, kh, kw, th, tw, imgs, nb, cc, tg)
+        geo = _stage_layout(c, kh, kw, th, tw, imgs, nb, cc, tg, bf16)
         if geo.smem <= MAX_SMEM_BYTES:
             return geo
         region_big = geo.w_off > MAX_SMEM_BYTES // 4
@@ -179,6 +173,26 @@ def launch_geometry(n: int, h: int, w: int, c: int, kh: int, kw: int, o: int,
             tw = -(-tw // 2)
         else:
             return geo
+
+
+# The f32 form's n-major weights, per HWIO weight tensor (by id, while it
+# lives): rebuilt when it is modified in place (its _version).
+_NMAJOR: dict = {}
+
+
+def nmajor_weight(w_hwio: torch.Tensor) -> torch.Tensor:
+    """The f32 form's weight: (O, kh*kw*C8) float32, row o holding w[:, :,
+    :, o] tap by tap with C zero-padded to a multiple of 8 (k contiguous:
+    ldmatrix has no 32-bit transpose). Made once per weight tensor."""
+    key = id(w_hwio)
+    hit = _NMAJOR.get(key)
+    if hit is None or hit[0] != w_hwio._version:
+        if hit is None:
+            weakref.finalize(w_hwio, _NMAJOR.pop, key, None)
+        kh, kw, c, o = w_hwio.shape
+        wn = torch.nn.functional.pad(w_hwio.float().permute(3, 0, 1, 2), (0, -c % 8))
+        hit = _NMAJOR[key] = (w_hwio._version, wn.reshape(o, -1).contiguous())
+    return hit[1]
 
 
 def _launch(x, w_hwio, scale, offset, pads, activation, alpha, dt) -> torch.Tensor:
@@ -210,19 +224,19 @@ def _launch(x, w_hwio, scale, offset, pads, activation, alpha, dt) -> torch.Tens
                     device=x.device)
     if n == 0:
         return y
-    geo = launch_geometry(n, h, w, c, kh, kw, o, (pt, pb, pl, pr), dt == torch.bfloat16,
-                          sm_count(x.device.index))
+    bf16 = dt == torch.bfloat16
+    geo = launch_geometry(n, h, w, c, kh, kw, o, (pt, pb, pl, pr), bf16, sm_count(x.device.index))
     if geo.smem > MAX_SMEM_BYTES:
         raise ValueError(f"conv k{kh}x{kw} {c}->{o} does not fit the kernel's shared memory")
-    w_int8 = w_hwio.dtype == torch.int8 and dt == torch.bfloat16
-    wf = (w_hwio if w_int8 else w_hwio.to(dt)).contiguous()
+    w_int8 = w_hwio.dtype == torch.int8 and bf16
+    wf = (w_hwio if w_int8 else w_hwio.to(dt)).contiguous() if bf16 else nmajor_weight(w_hwio)
     sf = scale.float().contiguous()
     of = offset.float().contiguous()
     lib = kernel_lib()
     rc = lib.snn_conv_single(
         x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(), wf.data_ptr(), int(w_int8),
         sf.data_ptr(), of.data_ptr(), n, h, w, c, kh, kw, o, pt, pb, pl, pr,
-        ACT_CODES[activation.lower()], float(alpha), int(dt == torch.bfloat16), geo.array,
+        ACT_CODES[activation.lower()], float(alpha), int(bf16), geo.array,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
@@ -255,10 +269,17 @@ def fused_conv2d_haloed(
 
 
 def smem_bytes(kh: int, kw: int, o: int) -> int:
-    """Shared memory of one CTA of the f32 form at one input channel per
-    chunk, the least it needs: the gate's term, the same for both dtypes
-    (the bf16 form fits every conv the gate admits, tests/test_torch_conv.py)."""
-    return _f32_launch(kh, kw, 1, o, cc=1).smem
+    """The gate's shared-memory term, the same for both forms: what the
+    kernel's first f32 form (CUDA cores, one output pixel and 1, 4 or 8
+    channels per thread, at most 32 channels per CTA) took at one input
+    channel per chunk, kept as that formula so that the gate admits the
+    convs it always admitted. Both forms fit every conv it admits
+    (tests/test_torch_conv.py)."""
+    ch = 8 if o > 4 else (4 if o > 1 else 1)
+    ob = min(_round_up(o, ch), 32)
+    tile_w = 16 if 256 // (ob // ch) >= 128 else 8
+    tile_h = 256 // (ob // ch) // tile_w
+    return 4 * (_round_up((tile_h + kh - 1) * (tile_w + kw - 1), 4) + kh * kw * ob)
 
 
 def single_conv_supported(node, in_channels: int,

@@ -11,7 +11,9 @@ without the TPU layout fields (b_tile, padded, row_chunk, wp, hp).
 
 Numerics of the JAX kernel, which the plain version and the kernel share:
 w1 and w2 in the compute dtype (the dtype of x), or int8, which the kernel
-reads as int8 and upcasts as it stages them (exact), the depthwise taps
+reads as int8 and upcasts as it stages them (exact); under float32 the
+kernel's two products are 3xTF32 on the tensor cores, about float32's
+accuracy (kernels/tf32.py is the plain model of that arithmetic); the depthwise taps
 kept float32 (int8 taps upcast; the per-op TORCH path casts them to the
 compute dtype, so under BF16 the two paths differ by design), every sum in
 float32, e and d rounded to the compute dtype, out-of-image taps exact
@@ -86,15 +88,17 @@ def _round_up(v: int, m: int) -> int:
 
 
 ES = 40  # bf16 per row of the bf16 form's es, ds and w1 chunk: 32 + 8
+ES_F32 = 36  # f32 per row of the f32 form's es, ds and staged w2: 32 + 4
 
 
 @dataclasses.dataclass(frozen=True)
 class InvResLaunch:
     """Launch geometry of one block on csrc/invres_block.cu, in the order
     of its G_* fields: the tile, the split of E over a cluster, the staged
-    rows' strides (elements) and the shared-memory layout (bytes; the bf16
-    form double-buffers w1, the taps and vectors, and w2; under ax1 it also
-    holds the quantized input tile `xq`, rows of `q_stride` bytes)."""
+    rows' strides (elements) and the shared-memory layout (bytes; `bufs`
+    buffers of w1, the taps and vectors, and w2: two in the bf16 form, two
+    or one in the f32 form; under ax1 it also holds the quantized input
+    tile `xq`, rows of `q_stride` bytes)."""
 
     tile_h: int
     tile_w: int
@@ -114,6 +118,7 @@ class InvResLaunch:
     smem: int
     q_stride: int = 0
     xq_off: int = 0
+    bufs: int = 2
 
     @functools.cached_property
     def array(self) -> ctypes.Array:
@@ -125,61 +130,78 @@ Q_ROW = 48  # bytes per row of the int8 d chunk and of the staged int8 w2: 32 + 
 
 
 def layout(spec: InvResSpec, tile_h: int, tile_w: int, split: int = 1,
-           bf16: bool = False) -> InvResLaunch:
+           bf16: bool = False, bufs: int = 2) -> InvResLaunch:
     """The shared memory of one CTA: the input tile with its halo, then the
     per-chunk buffers, then (ax1) the quantized input tile; the split-E
-    partial sums overlay all but the input tile. f32: rows of Cin rounded
-    up to 4 floats, one buffer each. bf16: the halo and pixel rows padded
-    to 16 (the tensor cores' tiles), Cin to 16 and Cout to 8, rows padded
-    to an odd number of 16-byte units (ldmatrix without bank conflicts),
-    two buffers of each chunk's weights. The int8 operands (ax1: the input
-    tile and w1 n-major, rows of Cin padded to 32 plus 16 bytes; ax2: w2
-    n-major, rows of the chunk's 32 bytes plus 16) take the same care."""
+    partial sums overlay all but the input tile. The halo and pixel rows
+    are padded to 16 (the tensor cores' tiles) and rows to an odd number of
+    16-byte units (ldmatrix without bank conflicts). bf16: Cin padded to 16
+    and Cout to 8, two buffers of each chunk's weights, w1 k-major. f32:
+    Cin padded to 8, `bufs` buffers, w1 and w2 n-major (E rows of Cin, Cout
+    rows of the chunk's 32: ldmatrix has no 32-bit transpose). The int8
+    operands (ax1: the input tile and w1 n-major, rows of Cin padded to 32
+    plus 16 bytes; ax2: w2 n-major, rows of the chunk's 32 bytes plus 16)
+    take the same care."""
     hp, p = (tile_h + 2) * (tile_w + 2), tile_h * tile_w
+    hp16, p16 = _round_up(hp, 16), _round_up(p, 16)
+    cout8 = _round_up(spec.cout, 8)
     q_stride = xq = 0
     if bf16:
-        cin16, cout8 = _round_up(spec.cin, 16), _round_up(spec.cout, 8)
+        assert bufs == 2, "the bf16 form double-buffers"
+        cin16 = _round_up(spec.cin, 16)
         xs_stride = cin16 + 8
         w2_stride = cout8 + 8 if (cout8 // 8) % 2 == 0 else cout8
         if spec.ax1:
             q_stride = _round_up(spec.cin, 32) + 16
-            xq = _round_up(hp, 16) * q_stride
+            xq = hp16 * q_stride
         w1_buf = (CHUNK_E * q_stride if spec.ax1 else cin16 * ES * 2) if spec.has_expand else 0
-        bufs = (w1_buf, 13 * CHUNK_E * 4,
-                cout8 * Q_ROW if spec.ax2 else CHUNK_E * w2_stride * 2)
-        sizes = (_round_up(hp, 16) * xs_stride * 2, _round_up(hp, 16) * ES * 2,
-                 _round_up(p, 16) * ES * 2, *(2 * b for b in bufs), xq)
+        bufs_b = (w1_buf, 13 * CHUNK_E * 4,
+                  cout8 * Q_ROW if spec.ax2 else CHUNK_E * w2_stride * 2)
+        sizes = (hp16 * xs_stride * 2, hp16 * ES * 2, p16 * ES * 2)
     else:
-        xs_stride, w2_stride = _round_up(spec.cin, 4), spec.cout
-        bufs = (0, 0, 0)
-        sizes = (hp * xs_stride * 4, hp * CHUNK_E * 4, p * CHUNK_E * 4,
-                 xs_stride * CHUNK_E * 4 if spec.has_expand else 0, 13 * CHUNK_E * 4,
-                 CHUNK_E * spec.cout * 4, 0)
+        xs_stride, w2_stride = _round_up(spec.cin, 8) + 4, ES_F32
+        bufs_b = (CHUNK_E * xs_stride * 4 if spec.has_expand else 0, 13 * CHUNK_E * 4,
+                  cout8 * ES_F32 * 4)
+        sizes = (hp16 * xs_stride * 4, hp16 * ES_F32 * 4, p16 * ES_F32 * 4)
     offs = [0]
-    for size in sizes:
+    for size in (*sizes, *(bufs * b for b in bufs_b), xq):
         offs.append(offs[-1] + size)
     red = p * spec.cout * 4 if split > 1 else 0
-    return InvResLaunch(tile_h, tile_w, split, xs_stride, w2_stride, *offs[:6], offs[1], *bufs,
-                        max(offs[7], offs[1] + red), q_stride, offs[6] if xq else 0)
+    return InvResLaunch(tile_h, tile_w, split, xs_stride, w2_stride, *offs[:6], offs[1], *bufs_b,
+                        max(offs[7], offs[1] + red), q_stride, offs[6] if xq else 0, bufs)
 
 
 def smem_bytes(spec: InvResSpec, tile_h: int, tile_w: int, split: int = 1,
-               bf16: bool = False) -> int:
+               bf16: bool = False, bufs: int = 2) -> int:
     """Dynamic shared memory of one CTA (`layout`)."""
-    return layout(spec, tile_h, tile_w, split, bf16).smem
+    return layout(spec, tile_h, tile_w, split, bf16, bufs).smem
+
+
+def gate_smem_bytes(spec: InvResSpec, tile_h: int, tile_w: int) -> int:
+    """The gate's shared-memory term at both dtypes: what the kernel's first
+    f32 form (CUDA cores, unsplit, one buffer: the input tile and halo in
+    rows of Cin rounded up to 4 floats, the expanded and depthwise chunks,
+    w1, the taps and vectors and w2 of a chunk) took at a tile, kept as
+    that formula so that the gate admits the blocks it always admitted and
+    both dtypes plan alike. Every layout pick_launch gives fits wherever
+    the gate admits (tests/test_torch_invres.py)."""
+    hp, p = (tile_h + 2) * (tile_w + 2), tile_h * tile_w
+    cin4 = _round_up(spec.cin, 4)
+    return 4 * (hp * cin4 + (hp + p) * CHUNK_E + (cin4 * CHUNK_E if spec.has_expand else 0)
+                + 13 * CHUNK_E + CHUNK_E * spec.cout)
 
 
 def kernel_takes(spec: InvResSpec) -> bool:
     """Does the CUDA kernel take this block (activations in its epilogue,
-    Cout <= 320, shared memory of the largest tile within 227 KB)? The
-    shared-memory term is the f32 layout's at both dtypes, so that both
-    plan alike; the bf16 layout fits wherever it does, and the A8W8 layout
-    at a 4x4 tile is checked too (tests/test_torch_invres.py)."""
+    Cout <= 320, the gate's shared-memory term of the largest tile within
+    227 KB: `gate_smem_bytes`)? The bf16 and f32 layouts fit wherever it
+    admits, and the A8W8 layout at a 4x4 tile is checked too
+    (tests/test_torch_invres.py)."""
     acts = (spec.act_expand, spec.act_dw, spec.act_out)
     return (
         all(str(a).lower() in ACT_CODES for a in acts)
         and spec.cout <= MAX_COUT
-        and smem_bytes(spec, min(MAX_TILE, spec.h), min(MAX_TILE, spec.w)) <= MAX_SMEM_BYTES
+        and gate_smem_bytes(spec, min(MAX_TILE, spec.h), min(MAX_TILE, spec.w)) <= MAX_SMEM_BYTES
         and (not (spec.ax1 or spec.ax2)
              or smem_bytes(spec, min(4, spec.h), min(4, spec.w), 1, True) <= MAX_SMEM_BYTES)
         # the project's int32 chunk sums add up exactly in float32 while
@@ -346,15 +368,53 @@ def invres_block_reference(x: torch.Tensor, ops: Dict[str, torch.Tensor],
     return apply_activation(y, spec.act_out, a).to(dt).contiguous()
 
 
+# SMs per GPC of a 132-SM H100 SXM as the f32 launch model assumes them:
+# the CTAs of a cluster run inside one GPC, so how many clusters run at
+# once depends on the GPCs' sizes. They vary from card to card; these fit
+# a sweep of the f32 form on an H100 (PERF.md). Other SM counts: GPCs of
+# about 16.
+_GPCS_132 = (18, 18, 18, 18, 16, 16, 14, 14)
+_F32_TILES = ((8, 8), (4, 8), (8, 4), (4, 4), (2, 8), (8, 2), (2, 4), (4, 2), (2, 2))
+
+
+def _gpcs(sms: int) -> Tuple[int, ...]:
+    if sms == 132:
+        return _GPCS_132
+    n = -(-sms // 16)
+    return tuple(sms // n + (i < sms % n) for i in range(n))
+
+
+def _f32_cost(spec: InvResSpec, n: int, sms: int, geo: InvResLaunch) -> float:
+    """Modelled time of the f32 form at one launch: waves of clusters (as
+    many run at once as the GPCs hold, at 2 CTAs per SM where shared memory
+    and registers allow, 1 for the widest project) x the SM's share of
+    CTAs^0.75 (two CTAs on an SM overlap little: a chunk's instructions,
+    most of them hi/lo splits, fill the SM's issue slots) x the CTA's
+    cost: its E chunks, each 16 + its pixels + 2 x (expand items per
+    warp) x (Cin / 8), plus 128 (staging and the epilogue); one buffer
+    costs 3% more. Fitted to a sweep of every tile, split and buffer count
+    of the MobileNetV2 224 (b8) and trained cls10 (b64) blocks on an H100
+    (tools/sweep_launch.py): its choices took 1.04x the best sum."""
+    th, tw, split = geo.tile_h, geo.tile_w, geo.split
+    p, hp = th * tw, (th + 2) * (tw + 2)
+    warps_n = 8 // -(-p // 16)  # the project's warps over Cout
+    nt = -(-(-(-spec.cout // 8)) // warps_n)
+    per_sm = min(1 if nt > 8 else 2, MAX_SMEM_BYTES // geo.smem)
+    clusters = n * -(-spec.h // th) * -(-spec.w // tw)
+    cap = sms * per_sm if split == 1 else sum(g * per_sm // split for g in _gpcs(sms))
+    waves = -(-clusters // cap)
+    share = max(1.0, min(clusters, cap) * split / sms)
+    items = -(-2 * -(-hp // 16) // 8) if spec.has_expand else 0
+    chunk = 16 + p + 2 * items * _round_up(spec.cin, 8) / 8
+    cost = waves * share ** 0.75 * (-(-spec.e // CHUNK_E // split) * chunk + 128)
+    return cost * (1.03 if geo.bufs == 1 else 1.0)
+
+
 @functools.lru_cache(maxsize=None)
 def pick_launch(spec: InvResSpec, n: int, sms: int, bf16: bool = False) -> InvResLaunch:
     """The launch of one block (the kernel's only owner of it). Speed only:
     the tile does not change the result, the split only the order of the
     sum over E.
-
-    f32: a tile of 8x8 output pixels per CTA, or smaller (down to 4x4)
-    while the grid has fewer CTAs than the card has SMs; then E split over
-    2, 4 or 8 CTAs of a cluster while it still has fewer.
 
     bf16: the tile (8x8, 4x8 or 4x4) and split with the least modelled
     time, waves x per-CTA cost. A wave is two CTAs per SM, or one where the
@@ -362,35 +422,33 @@ def pick_launch(spec: InvResSpec, n: int, sms: int, bf16: bool = False) -> InvRe
     pixels + 32 (a chunk is a chain of dependent phases, not of products),
     plus its cluster's reduction, pixels x Cout x split^2 / 1024. Fitted to
     a sweep of every tile and split of the MobileNetV2 224 blocks on an
-    H100 (PERF.md)."""
+    H100 (PERF.md).
+
+    f32: the tile (8x8 down to 2x2), split and buffer count of the least
+    `_f32_cost`."""
     chunks = -(-spec.e // CHUNK_E)
-    if bf16:
-        best = None
-        for th, tw in ((8, 8), (4, 8), (4, 4)):
+    best = None
+    for bufs in ((2,) if bf16 else (2, 1)):
+        for th, tw in (((8, 8), (4, 8), (4, 4)) if bf16 else _F32_TILES):
             th, tw = min(th, spec.h), min(tw, spec.w)
             p = th * tw
             ctas = n * -(-spec.h // th) * -(-spec.w // tw)
             for split in (1, 2, 4, 8):
-                geo = layout(spec, th, tw, split, True)
+                geo = layout(spec, th, tw, split, bf16, bufs)
                 if split > chunks or geo.smem > MAX_SMEM_BYTES:
                     continue
-                per_sm = min(2, MAX_SMEM_BYTES // geo.smem)
-                waves = -(-ctas * split // (per_sm * sms))
-                red = p * spec.cout * split * split / 1024 if split > 1 else 0
-                cost = waves * (-(-chunks // split) * (p + 32) + red)
+                if bf16:
+                    per_sm = min(2, MAX_SMEM_BYTES // geo.smem)
+                    waves = -(-ctas * split // (per_sm * sms))
+                    red = p * spec.cout * split * split / 1024 if split > 1 else 0
+                    cost = waves * (-(-chunks // split) * (p + 32) + red)
+                else:
+                    cost = _f32_cost(spec, n, sms, geo)
                 if best is None or cost < best[0]:
                     best = (cost, geo)
-        return best[1]
-    for th, tw in ((8, 8), (4, 8), (4, 4)):
-        th, tw = min(th, spec.h), min(tw, spec.w)
-        ctas = n * -(-spec.h // th) * -(-spec.w // tw)
-        if ctas >= sms:
-            break
-    split = 1
-    while (split < MAX_SPLIT and ctas * split < sms and 2 * split <= chunks
-           and smem_bytes(spec, th, tw, 2 * split) <= MAX_SMEM_BYTES):
-        split *= 2
-    return layout(spec, th, tw, split)
+    if best is None:
+        raise ValueError(f"no launch of the block kernel holds {spec} in 227 KB")
+    return best[1]
 
 
 _ORDER = ("w1", "s1", "o1", "wd", "sd", "od", "w2", "s2", "o2")
@@ -401,9 +459,11 @@ class InvResOperands(dict):
     kernel (w1, w2 in the compute dtype or int8, which the kernel upcasts
     as it stages them; under ax1 / ax2 int8 with their n-major copies w1q
     (E, Cin padded to 32) and w2q (Cout, E padded to 32) that the kernel
-    reads instead; the rest float32; contiguous, on one device), with the
-    kernel's pointer and activation arrays and `w8`, the int8 weights it
-    upcasts (bit 0 w1, bit 1 w2)."""
+    reads instead; under float32 the n-major copies the f32 form reads:
+    w1n (E, Cin padded to 8) and w2n (Cout, E padded to 32) float32, or
+    w1q / w2q of an int8 weight; the rest float32; contiguous, on one
+    device), with the kernel's pointer and activation arrays and `w8`, the
+    int8 weights it upcasts (bit 0 w1, bit 1 w2)."""
 
     spec: InvResSpec
     dtype: torch.dtype
@@ -441,19 +501,23 @@ def prepare_operands(ops: Dict[str, torch.Tensor], spec: InvResSpec,
         else:
             out[key] = t.float().contiguous()
     pad = torch.nn.functional.pad
-    if spec.ax1:
-        out["w1q"] = pad(out["w1"].t(), (0, -spec.cin % 32)).contiguous()
-    if spec.ax2:
-        out["w2q"] = pad(out["w2"].t(), (0, -spec.e % 32)).contiguous()
+    f32 = dtype == torch.float32
+    if spec.has_expand and (spec.ax1 or f32):  # E rows of Cin: 32 int8, 8 f32
+        i8 = out["w1"].dtype == torch.int8
+        out["w1q" if i8 else "w1n"] = pad(out["w1"].t(), (0, -spec.cin % (32 if i8 else 8))
+                                          ).contiguous()
+    if spec.ax2 or f32:  # Cout rows of E padded to 32
+        out["w2q" if out["w2"].dtype == torch.int8 else "w2n"] = pad(
+            out["w2"].t(), (0, -spec.e % 32)).contiguous()
     devices = {t.device for t in out.values()}
     if len(devices) != 1:
         raise ValueError(f"block operands on several devices: {sorted(map(str, devices))}")
     out.spec, out.dtype, out.device = spec, dtype, devices.pop()
     out.w8 = sum(bit for key, bit in (("w1", 1), ("w2", 2))
                  if key in out and key not in int8_keys and out[key].dtype == torch.int8)
-    # Without expand the kernel reads no w1/s1/o1: any valid pointer will do.
-    kernel_keys = [("w1q" if spec.ax1 else "w1") if k == "w1" else
-                   ("w2q" if spec.ax2 else "w2") if k == "w2" else k for k in _ORDER]
+    # The kernel reads the n-major copy of w1 / w2 where one was made.
+    # Without expand it reads no w1/s1/o1: any valid pointer will do.
+    kernel_keys = [next((c for c in (k + "q", k + "n") if c in out), k) for k in _ORDER]
     out.ptrs = (ctypes.c_void_p * 9)(*[out.get(k, out["wd"]).data_ptr() for k in kernel_keys])
     out.acts = (ctypes.c_int * 3)(*[ACT_CODES[str(a).lower()]
                                     for a in (spec.act_expand, spec.act_dw, spec.act_out)])

@@ -104,9 +104,10 @@ def _gate_before(k: int, o: int) -> int:
 
 def test_gate_admits_what_it_did_and_every_admitted_conv_fits():
     """The gate's answers are the same as before the bf16 form, and the
-    bf16 form's launch fits 227 KB for every conv the gate admits (any k,
-    C, O within the limits; small and large outputs, several images per
-    CTA), so that both dtypes plan alike."""
+    launch of both forms (bf16; f32, whose staged rows are twice as wide
+    and whose weights are n-major) fits 227 KB for every conv the gate
+    admits (any k, C, O within the limits; small and large outputs,
+    several images per CTA), so that both dtypes plan alike."""
     admitted = 0
     for k in range(1, 65):
         for o in (1, 3, 5, 8, 10, 16, 24, 33, 64, 100, 128):
@@ -117,24 +118,23 @@ def test_gate_admits_what_it_did_and_every_admitted_conv_fits():
                 if c < 1 or c > 128 or k * k * c > 4096:
                     continue
                 for out in (1, 4, 7, 33):
-                    geo = conv.launch_geometry(3, out + k - 1, out + k - 1, c, k, k, o,
-                                               (0, 0, 0, 0), True, 132)
-                    assert geo.smem <= conv.MAX_SMEM_BYTES, (k, c, o, out, geo)
+                    for bf16 in (True, False):
+                        geo = conv.launch_geometry(3, out + k - 1, out + k - 1, c, k, k, o,
+                                                   (0, 0, 0, 0), bf16, 132)
+                        assert geo.smem <= conv.MAX_SMEM_BYTES, (k, c, o, out, bf16, geo)
                     admitted += 1
     assert admitted > 1000
 
 
-def _tile_map(geo: conv.ConvLaunch, n, ho, wo, o, bf16):
+def _tile_map(geo: conv.ConvLaunch, n, ho, wo, o):
     """How often the kernel writes each output element, from its launch
-    geometry: the CTA -> (pixels, channels) map of csrc/conv_single.cu."""
+    geometry: the CTA -> (pixels, channels) map of csrc/conv_single.cu, the
+    same in both forms: grid (M tiles, channel blocks), a CTA holding 64
+    pixel rows."""
     count = np.zeros((n, ho, wo, o), np.int32)
     tiles_x, tiles_y = -(-wo // geo.tile_w), -(-ho // geo.tile_h)
-    if bf16:  # grid (M tiles, channel blocks); a CTA holds 64 pixel rows
-        m_tiles = -(-n // geo.imgs) if geo.imgs > 1 else n * tiles_x * tiles_y
-        ctas = [(bx, by) for bx in range(m_tiles) for by in range(-(-o // geo.nb))]
-    else:  # grid (tiles, channel blocks, images)
-        ctas = [(bz * tiles_x * tiles_y + bx, by) for bz in range(n)
-                for bx in range(tiles_x * tiles_y) for by in range(-(-o // geo.nb))]
+    m_tiles = -(-n // geo.imgs) if geo.imgs > 1 else n * tiles_x * tiles_y
+    ctas = [(bx, by) for bx in range(m_tiles) for by in range(-(-o // geo.nb))]
     tile_px = geo.tile_h * geo.tile_w
     for bx, by in ctas:
         if geo.imgs > 1:
@@ -192,10 +192,49 @@ def test_launch_geometry_of_every_planned_conv_fits_and_covers_the_output():
         for bf16 in (True, False):
             geo = conv.launch_geometry(n, h, w, c, k, k, o, pads, bf16, 132)
             assert geo.smem <= conv.MAX_SMEM_BYTES, geo
-            count = _tile_map(geo, n, ho, wo, o, bf16)
+            count = _tile_map(geo, n, ho, wo, o)
             assert count.min() == 1 and count.max() == 1, (n, h, w, c, k, o, bf16, geo)
             multi += geo.imgs > 1
     assert multi >= 2  # the 4x4 convs: several whole images per CTA
+
+
+def test_f32_stage_layout():
+    """The f32 form's shared memory: the input region as f32 rows of the
+    chunk's channels plus 4 floats and a zero row, then the weights n-major,
+    NB rows of (taps per stage x chunk) floats plus 4; every row an odd
+    number of 16-byte units. At the zoo-width ResNet18's 128->128 conv
+    (b8, 16x16): an 8x8 tile, one stage of every channel and tap, and 32
+    channels per CTA: 128 CTAs of 197 KB, one wave; the bf16 form's 16
+    (256 CTAs) would take two waves at one CTA per SM."""
+    geo = conv.launch_geometry(8, 16, 16, 128, 3, 3, 128, (1, 1, 1, 1), False, 132)
+    assert (geo.tile_h, geo.tile_w, geo.imgs, geo.nb, geo.cc, geo.tg) == (8, 8, 1, 32, 128, 9)
+    assert (geo.in_stride, geo.w_stride, geo.w_rows) == (132, 9 * 128 + 4, 32)
+    assert geo.w_off == (10 * 10 + 1) * 132 * 4
+    assert geo.smem == geo.w_off + 32 * (9 * 128 + 4) * 4 <= conv.MAX_SMEM_BYTES
+    assert conv.launch_geometry(8, 16, 16, 128, 3, 3, 128, (1, 1, 1, 1), True, 132).nb == 16
+    for n, h, w, c, k, o, pads in _planned_convs():
+        geo = conv.launch_geometry(n, h, w, c, k, k, o, pads, False, 132)
+        assert geo.w_rows == geo.nb and geo.cc % 8 == 0 and geo.w_stride >= geo.tg * geo.cc
+        for stride in (geo.in_stride, geo.w_stride):
+            assert (stride * 4) % 16 == 0 and (stride * 4 // 16) % 2 == 1, geo
+
+
+def test_nmajor_weight_is_made_once_per_weight_tensor():
+    """The f32 form reads the weight n-major: row o holds w[:, :, :, o] tap
+    by tap with C zero-padded to 8. It is made once per weight tensor and
+    made again when the tensor is modified in place."""
+    w = torch.arange(2 * 3 * 5 * 4, dtype=torch.float32).reshape(2, 3, 5, 4)
+    wn = conv.nmajor_weight(w)
+    assert wn.shape == (4, 2 * 3 * 8) and wn.dtype == torch.float32 and wn.is_contiguous()
+    rows = wn.reshape(4, 2, 3, 8)
+    assert torch.equal(rows[..., :5], w.permute(3, 0, 1, 2))
+    assert not rows[..., 5:].any()
+    assert conv.nmajor_weight(w) is wn
+    w[0, 0, 0, 0] = -1.0
+    again = conv.nmajor_weight(w)
+    assert again is not wn and again[0, 0].item() == -1.0
+    wb = w.to(torch.bfloat16)  # a bf16 weight under f32: its values, as f32
+    assert torch.equal(conv.nmajor_weight(wb), again.to(torch.bfloat16).float())
 
 
 def test_entry_point_rejects_other_devices():

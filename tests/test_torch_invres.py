@@ -148,24 +148,27 @@ def test_kernel_gates():
 
 
 def test_launch_choice_fills_the_card():
-    """f32: tiles shrink, then E splits over a cluster, while CTAs < SMs.
-    bf16: the tile and split of least modelled time (two CTAs per SM, E
-    chunks per CTA, the cluster's reduction)."""
+    """Both forms: the tile and split of least modelled time. bf16: two
+    CTAs per SM where the shared memory holds them, E chunks per CTA, the
+    cluster's reduction. f32: waves of clusters as the GPCs hold them, the
+    SM's share of CTAs, E chunks per CTA and the expand's items per warp
+    (kernels/invres.py _f32_cost); one buffer where that is cheaper."""
     def choice(spec, n, bf16=False):
         geo = invres.pick_launch(spec, n, 132, bf16)
-        assert geo.smem == invres.smem_bytes(spec, geo.tile_h, geo.tile_w, geo.split, bf16)
+        assert geo.smem == invres.smem_bytes(spec, geo.tile_h, geo.tile_w, geo.split, bf16,
+                                             geo.bufs)
         assert geo.smem <= invres.MAX_SMEM_BYTES
         return geo.tile_h, geo.tile_w, geo.split
 
     spec = invres.InvResSpec(7, 7, 160, 960, 160, True, True, "relu6", "relu6", "linear")
-    assert choice(spec, 8) == (4, 4, 8)
+    assert choice(spec, 8) == (4, 7, 8) and invres.pick_launch(spec, 8, 132).bufs == 1
     assert choice(spec, 256) == (7, 7, 1)
     mid = invres.InvResSpec(14, 14, 64, 384, 64, True, True, "relu6", "relu6", "linear")
-    assert choice(mid, 8) == (4, 4, 2)
+    assert choice(mid, 8) == (8, 8, 4)
     big = invres.InvResSpec(28, 28, 32, 192, 32, True, True, "relu6", "relu6", "linear")
-    assert choice(big, 8) == (4, 8, 1)
+    assert choice(big, 8) == (8, 8, 2)
     small_e = invres.InvResSpec(4, 4, 16, 48, 16, True, True, "relu6", "relu6", "linear")
-    assert choice(small_e, 1) == (4, 4, 2)  # no more splits than chunks
+    assert choice(small_e, 1) == (2, 2, 2)  # no more splits than chunks
     # bf16 on the MobileNetV2 224 b8 blocks: 256 CTAs each, a wide Cout
     # (320) splits less (its cluster reduction costs more), and a big batch
     # needs no split.
@@ -198,6 +201,107 @@ def test_bf16_layout_fits_wherever_the_gate_admits():
                         assert invres.smem_bytes(spec, 8, 8, split, True) <= invres.MAX_SMEM_BYTES
                     assert invres.pick_launch(spec, 8, 132, True).smem <= invres.MAX_SMEM_BYTES
     assert admitted > 100
+
+
+def _gate_before(spec, tile_h, tile_w):
+    """The block gate's shared-memory term as the kernel's first f32 form
+    laid it out (CUDA cores, one buffer; kernels/invres.py layout before
+    the f32 form moved to the tensor cores)."""
+    hp, p = (tile_h + 2) * (tile_w + 2), tile_h * tile_w
+    xs_stride = -(-spec.cin // 4) * 4
+    sizes = (hp * xs_stride * 4, hp * 32 * 4, p * 32 * 4,
+             xs_stride * 32 * 4 if spec.has_expand else 0, 13 * 32 * 4, 32 * spec.cout * 4)
+    return sum(sizes)
+
+
+def _gate_grid():
+    for cin in (1, 3, 8, 16, 24, 40, 96, 160, 256, 300, 320, 400, 512):
+        for e in sorted({cin, 2 * cin, 4 * cin, 6 * cin, 1024}):
+            for cout in (1, 8, 24, 96, 160, 320):
+                for has_expand in (True, False):
+                    if not has_expand and e != cin:
+                        continue
+                    for h, w in ((8, 8), (7, 7), (28, 28), (1, 1), (3, 13)):
+                        yield invres.InvResSpec(h, w, cin, e, cout, has_expand, False,
+                                                "relu6", "relu6", "linear")
+
+
+def test_gate_admits_what_it_did():
+    """The gate's shared-memory term is the first f32 layout's, kept as a
+    formula: kernel_takes admits exactly the blocks it admitted before the
+    f32 form moved to the tensor cores."""
+    admitted = declined = 0
+    for spec in _gate_grid():
+        th, tw = min(8, spec.h), min(8, spec.w)
+        assert invres.gate_smem_bytes(spec, th, tw) == _gate_before(spec, th, tw), spec
+        before = spec.cout <= 320 and _gate_before(spec, th, tw) <= invres.MAX_SMEM_BYTES
+        assert invres.kernel_takes(spec) == before, spec
+        admitted += before
+        declined += not before
+    assert admitted > 300 and declined > 20
+
+
+def _f32_layout_holds(spec, geo):
+    """csrc/invres_block.cu layout_holds for the f32 form: each buffer
+    16-byte aligned inside `smem`, no overlaps but the split-E partial sums
+    over the chunk buffers."""
+    hp16 = -(-(geo.tile_h + 2) * (geo.tile_w + 2) // 16) * 16
+    p16 = -(-geo.tile_h * geo.tile_w // 16) * 16
+    cout8 = -(-spec.cout // 8) * 8
+    assert geo.xs_stride == -(-spec.cin // 8) * 8 + 4 and geo.w2_stride == 36
+    assert geo.w1_buf >= (32 * geo.xs_stride * 4 if spec.has_expand else 0)
+    assert geo.wd_buf >= 13 * 32 * 4 and geo.w2_buf >= cout8 * 36 * 4
+    regions = [(geo.xs_off, hp16 * geo.xs_stride * 4), (geo.es_off, hp16 * 36 * 4),
+               (geo.ds_off, p16 * 36 * 4), (geo.w1_off, geo.bufs * geo.w1_buf),
+               (geo.wd_off, geo.bufs * geo.wd_buf), (geo.w2_off, geo.bufs * geo.w2_buf)]
+    if geo.split > 1:
+        regions.append((geo.red_off, geo.tile_h * geo.tile_w * spec.cout * 4))
+    for i, (off, size) in enumerate(regions):
+        assert off % 16 == 0 and off + size <= geo.smem <= invres.MAX_SMEM_BYTES, (spec, geo)
+        for j, (o2, s2) in enumerate(regions[:i]):
+            overlay = i == 6 and j > 0
+            assert overlay or not size or not s2 or off >= o2 + s2 or o2 >= off + size, geo
+
+
+def test_f32_layout_fits_wherever_the_gate_admits():
+    """Every block the gate admits has an f32 launch (tensor-core tiles,
+    n-major weights) whose layout holds its buffers in 227 KB: two buffers
+    of the chunk weights where a tile holds them, else one; at the batches
+    of the paths and at b1."""
+    one_buffer = admitted = 0
+    for spec in _gate_grid():
+        if not invres.kernel_takes(spec):
+            continue
+        admitted += 1
+        for n in (1, 8, 64):
+            geo = invres.pick_launch(spec, n, 132, False)
+            _f32_layout_holds(spec, geo)
+            assert geo.bufs in (1, 2) and geo.tile_h * geo.tile_w <= 64
+            one_buffer += geo.bufs == 1
+    assert admitted > 300 and one_buffer > 0
+
+
+def test_f32_prepared_operands_are_n_major(rng):
+    """Under float32 prepare_operands makes the n-major copies the f32 form
+    reads (w1n: E rows of Cin padded to 8; w2n: Cout rows of E padded to
+    32), and for int8 weights the int8 ones of the A8W8 layout (w1q, w2q,
+    flagged in w8); the kernel's pointers are theirs."""
+    _, ops = random_block(rng, 1, 4, 4, 12, 40, 20, True)
+    spec = invres.InvResSpec(4, 4, 12, 40, 20, True, False, "relu6", "relu6", "linear")
+    tops = {k: torch.from_numpy(v) for k, v in ops.items()}
+    prep = invres.prepare_operands(tops, spec, torch.float32)
+    assert prep["w1n"].shape == (40, 16) and prep["w2n"].shape == (20, 64)
+    assert torch.equal(prep["w1n"][:, :12], tops["w1"].t()) and not prep["w1n"][:, 12:].any()
+    assert torch.equal(prep["w2n"][:, :40], tops["w2"].t()) and not prep["w2n"][:, 40:].any()
+    assert prep.ptrs[0] == prep["w1n"].data_ptr() and prep.ptrs[6] == prep["w2n"].data_ptr()
+    assert prep.w8 == 0
+    q = lambda *s: torch.from_numpy(rng.integers(-127, 128, s).astype(np.int8))  # noqa: E731
+    prep8 = invres.prepare_operands(dict(tops, w1=q(12, 40), w2=q(40, 20)), spec, torch.float32)
+    assert prep8["w1q"].shape == (40, 32) and prep8["w2q"].shape == (20, 64)
+    assert prep8["w1q"].dtype == prep8["w2q"].dtype == torch.int8 and prep8.w8 == 3
+    assert prep8.ptrs[0] == prep8["w1q"].data_ptr() and prep8.ptrs[6] == prep8["w2q"].data_ptr()
+    bf = invres.prepare_operands(tops, spec, torch.bfloat16)  # the bf16 form: k-major w1, w2
+    assert not {"w1n", "w2n", "w1q", "w2q"} & set(bf) and bf.ptrs[0] == bf["w1"].data_ptr()
 
 
 def _tile_map(spec, geo, n):
@@ -465,3 +569,11 @@ def test_s8_layout_fits_wherever_the_gate_admits():
     assert admitted > 40
     assert not invres.kernel_takes(invres.InvResSpec(1, 1, 320, 1280, 320, True, False, "relu6",
                                                      "relu6", "linear", ax2=0.03))
+
+
+def test_launch_sweep_tool_needs_a_card():
+    """The sweep behind the f32 launch model (tools/sweep_launch.py) runs on
+    the card only: without one it says so and returns 2."""
+    from shadernn_tpu_torch.tools import sweep_launch
+
+    assert sweep_launch.main([]) == 2
