@@ -13,7 +13,14 @@ Phases, each of which raises on failure (exit code != 0):
               trained ResNet18's plan (b64), each bf16 case from an f32 and
               from a bf16 input; its edges: a dense-tap head at k9 (C = 1)
               and at C = 3, o = 32, 8 layers, an image smaller than one
-              tile at b1; the inverted-residual block
+              tile at b1; the chain's fp32 form (3xTF32) at every chain
+              of the FP32 plans read from the engines (ESPCN 540p b8, the
+              trained ResNet18's two at b64), every fp32 case also from a
+              bf16 input, the largest layer the gate admits (k9 C16 o32,
+              weights staged pass by pass), a k9 C32 head whose weights are
+              staged as f32 values and split in registers, 8 layers up to
+              o = 32, int8 weights (two passes) and |x| ~ 1e2 through a
+              linear chain with its error against float64; the inverted-residual block
               kernel at every block geometry of MobileNetV2 224 (b8), every
               block geometry of the trained model at its batch (b64) and a
               ragged 13x9 block, bf16 and fp32; the single-conv kernel at the
@@ -29,8 +36,12 @@ Phases, each of which raises on failure (exit code != 0):
               (160->960->320, linear) and the ragged one, int8 weights
               (the f32 form's two-pass instantiation), a block whose
               weights fit one buffer; the implicit-GEMM conv
-              kernel at the ResNet-wide shapes, 540p frames, even k with
-              asymmetric pads, stride 2 and int8 weights; the fused-matmul
+              kernel (bf16 and 3xTF32 on the tensor cores) at the
+              ResNet-wide shapes, 540p frames, even k with asymmetric
+              pads, stride 2 (also with asymmetric pads), C = 3 with O = 10,
+              K = 4096, channel blocks whose last is partial, int8
+              weights, and the two-input graph's conv in all
+              four operand forms (x f32 or bf16, w float or int8); the fused-matmul
               kernel at the classifier heads (softmax rows must sum to 1),
               a ragged shape, int8 weights (bf16 x too), M = 1, N = 1001,
               K = 1, many row and column blocks, and two softmax launches
@@ -90,7 +101,8 @@ Phases, each of which raises on failure (exit code != 0):
               classifier (b64), each beside its bf16 form, bound at the int8
               peak for s8 products; int8 weights in the chain's im2col entry
               at the trained ResNet18's chain (b64), the implicit-GEMM conv
-              at the two-input graph (b8) and the fused matmul at both
+              at the two-input graph (b8; also its fp32 form on the int8
+              weights) and the fused matmul at both
               ResNet18 heads, each beside its plain version and the library
               call on the weights cast to bf16. Every fp32 line also prints
               the bound in 3xTF32 (a third of the TF32 peak)
@@ -230,8 +242,11 @@ def main() -> int:
             args = rest.split("Ev", 1)[0] if rest.startswith("I") else ""
             targs = re.findall(r"Li(\d+)E", args) + (
                 ["bf16"] if "bfloat16" in args else
-                ["f32"] if re.search(r"(?:^I|E)f(?:E|L)", args) else []) + (
-                ["int8"] if "Lb1E" in args else [])
+                ["f32"] if re.search(r"(?:^I|E)f(?:E|L)", args) else [])
+            if ident == "conv_igemm_tc_kernel":  # <NT, F32>
+                targs.append("f32" if "Lb1E" in args else "bf16")
+            elif "Lb1E" in args:
+                targs.append("int8")
             kernel_name = ident + (f"<{','.join(targs)}>" if targs else "")
         elif "registers" in line or "spill" in line:
             log(f"[build] {kernel_name:<32} {line.strip()}")
@@ -268,17 +283,18 @@ def main() -> int:
         return nodes
 
     def case(label, nodes, cin, dt, tail, shape, entry, act_override=None):
-        """One chain against its plain version; at bf16 from an f32 input
-        (rounded on staging) and from a bf16 input (the engine's)."""
+        """One chain against its plain version, from an f32 input (bf16:
+        rounded on staging) and from a bf16 input (the bf16 engine's; the
+        fp32 form takes it exact in TF32, without its lo pass)."""
         specs = chain.build_chain_specs(nodes, cin, dt, act_override=act_override, tail=tail)
         assert specs is not None, f"{label}: the kernel's gate declined the chain"
         ops = on_dev(chain.chain_operands(nodes, dt))
         err = 0.0
-        for x_dt in ((f32, bf16) if dt == bf16 else (f32,)):
+        for x_dt in (f32, bf16):
             x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev, x_dt)
             got = getattr(chain, entry)(x, ops, specs, tail=tail, compute_dtype=dt)
             torch.cuda.synchronize()
-            tag = f" x {'bf16' if x_dt == bf16 else 'f32'}" if dt == bf16 else ""
+            tag = f" {'bf16' if dt == bf16 else 'fp32'} x {'bf16' if x_dt == bf16 else 'f32'}"
             err = max(err, held(label + tag, entry, got,
                                 chain.conv_chain_reference(x, ops, specs, tail, dt), dt))
         return err
@@ -317,6 +333,86 @@ def main() -> int:
         nodes = random_chain(cfg, cin)
         for dt in (bf16, f32):
             case(label, nodes, cin, dt, tail, shape, "fused_conv_chain")
+
+    # The chain's fp32 form (3xTF32): the ESPCN FP32 engine's own plan (its
+    # optimized graph folds the tanh into the last layer), with its launch
+    # geometry; the trained ResNet18's two chains run above. Then the
+    # form's edges: the largest layer the gate admits (its hi and lo weights
+    # staged pass by pass), a k9 C32 head under two more layers (its pass
+    # staged as f32 values, B split in registers), 8 layers up to o = 32, a
+    # C = 1 k5 head with a c1 tail, and inputs at |x| ~ 1e2 through a linear
+    # chain, whose error against float64 is printed beside the plain
+    # version's.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def f32_geometry(label, specs, shape):
+        g = chain.f32_launch_geometry(tuple(specs), *shape[:3], sms)
+        log(f"[kernel] {label}: f32 launch tile {g.tile_h}x{g.tile_w}, {g.threads} threads, "
+            f"{'weights resident' if g.w_all else 'weights staged per pass'}"
+            f"{' (f32 values, split in registers)' if any(l[10] for l in g.layers) else ''}, "
+            f"{g.grid} persistent CTAs, {g.smem} B shared memory")
+        return g
+
+    espcn_fp32 = Engine.from_json(ESPCN_TRAINED, EngineOptions(precision=Precision.FP32,
+                                                               batch_size=8), input_hw=(540, 960))
+    fwd = espcn_fp32.model.forward
+    assert list(fwd.chain_plan) == ["conv_1"], fwd.chain_plan
+    plan_specs = fwd.chain_specs["conv_1"]
+    plan_ops = on_dev(chain.chain_operands(
+        [espcn_fp32.graph.nodes[m] for m in fwd.chain_plan["conv_1"]], f32, plan_specs))
+    f32_geometry("espcn FP32 plan 540x960 b8", plan_specs, (8, 540, 960, 1))
+    f32_err = {"edges": 0.0, "espcn_plan": 0.0}
+    for x_dt in (f32, bf16):
+        x = torch.from_numpy(rng.random((8, 540, 960, 1), dtype=np.float32)).to(dev, x_dt)
+        got = chain.fused_conv_chain(x, plan_ops, plan_specs, compute_dtype=f32)
+        torch.cuda.synchronize()
+        f32_err["espcn_plan"] = max(f32_err["espcn_plan"], held(
+            f"espcn FP32 plan (tanh folded) 540x960 b8 fp32 x {'bf16' if x_dt == bf16 else 'f32'}",
+            "fused_conv_chain", got,
+            chain.conv_chain_reference(x, plan_ops, plan_specs, "none", f32), f32))
+    del espcn_fp32, fwd
+    for label, cfg, cin, tail, shape in (
+        ("largest layer k9 C16 o32 40x50 b2", [(9, 32, "relu")], 16, "none", (2, 40, 50, 16)),
+        ("k9 C32 head, f32 B split in registers 30x40 b2",
+         [(9, 4, "relu"), (3, 8, "tanh"), (3, 4, "linear")], 32, "none", (2, 30, 40, 32)),
+        ("8 layers to o32 29x37 b2", [(3, 8, "relu"), (3, 12, "silu"), (1, 16, "relu"),
+                                      (3, 9, "tanh"), (2, 17, "relu"), (3, 32, "relu"),
+                                      (3, 5, "sigmoid"), (3, 4, "gelu")], 2, "none",
+         (2, 29, 37, 2)),
+        ("C1 k5 head c1 tail 41x57 b2", [(5, 16, "relu"), (3, 8, "relu"), (3, 1, "sigmoid")], 1,
+         "c1", (2, 41, 57, 1)),
+    ):
+        nodes = random_chain(cfg, cin)
+        specs = chain.build_chain_specs(nodes, cin, f32, tail=tail)
+        assert specs is not None, label
+        f32_geometry(label, specs, shape)
+        f32_err["edges"] = max(f32_err["edges"], case(label, nodes, cin, f32, tail, shape,
+                                                      "fused_conv_chain"))
+
+    def chain_f64(x, ops, specs):
+        """A linear chain's output in float64 on the card."""
+        y = x.double()
+        for p, sp in zip(ops, specs):
+            yd = F.pad(y.permute(0, 3, 1, 2), (sp.pl, sp.pr, sp.pt, sp.pb))
+            y = F.conv2d(yd, p["w"].double().permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+            y = y * p["scale"].double() + p["offset"].double()
+        return y
+
+    lin = random_chain([(5, 16, "linear"), (3, 16, "linear"), (3, 4, "linear")], 1)
+    lin_specs = chain.build_chain_specs(lin, 1, f32)
+    lin_ops = on_dev(chain.chain_operands(lin, f32))
+    x = torch.from_numpy((100.0 * rng.standard_normal((2, 64, 96, 1))).astype(np.float32)).to(dev)
+    got = chain.fused_conv_chain(x, lin_ops, lin_specs, compute_dtype=f32)
+    torch.cuda.synchronize()
+    want = chain.conv_chain_reference(x, lin_ops, lin_specs, "none", f32)
+    f32_err["x1e2"] = held("espcn-shaped linear |x|~1e2 64x96 b2 fp32", "fused_conv_chain", got,
+                           want, f32)
+    exact = chain_f64(x, lin_ops, lin_specs)
+    scale = max(1.0, exact.abs().max().item())
+    chain_f64_errs = {k: (v.double() - exact).abs().max().item() / scale
+                      for k, v in (("kernel", got), ("plain", want))}
+    log(f"[kernel] espcn-shaped linear |x|~1e2 fp32: against float64, relative to max(1, "
+        f"max|y|): kernel {chain_f64_errs['kernel']:.2e}, plain {chain_f64_errs['plain']:.2e}")
 
     def seeded_batchnorm(g, gamma, seed=11):
         """BatchNorm statistics drawn from `seed` around `gamma`, as the
@@ -388,7 +484,6 @@ def main() -> int:
     block_cases = list(geoms.items()) + list(trained_geoms.items()) + [
         (geometry(ragged_spec) + " (ragged)", (ragged_spec, rops, 3)),
     ]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     launch_cfgs = {
         pname: sorted({(g.tile_h, g.tile_w, g.split) for g in (
             invres.pick_launch(spec, nb, sms, pname == "bf16") for _l, (spec, _o, nb) in block_cases)})
@@ -569,6 +664,20 @@ def main() -> int:
         ("two-input k3 c8->16 540x960", *TWO_INPUT, 1, (1, 1, 1, 1), "relu", False),
         ("stride 2 k3 c24->40 33x35", 4, 33, 35, 24, 3, 40, 2, (1, 1, 1, 1), "relu6", False),
         ("int8 w k3 c16->32 20x22", 2, 20, 22, 16, 3, 32, 1, (1, 1, 1, 1), "relu", True),
+        # The tensor-core form's edges: the two-input conv with int8 weights
+        # (with the float rows above, all four operand forms), stride 2 with
+        # asymmetric pads, C = 3 and O = 10 (padding in K and N), the largest
+        # K the gate admits (kh*kw*C = 4096: chunks and tap groups in f32).
+        ("int8 w two-input k3 c8->16 540x960", *TWO_INPUT, 1, (1, 1, 1, 1), "relu", True),
+        ("stride 2 asym pads k3 c16->24 31x29", 2, 31, 29, 16, 3, 24, 2, (0, 2, 1, 1), "gelu",
+         False),
+        ("C3 O10 k3 30x41", 2, 30, 41, 3, 3, 10, 1, (1, 1, 1, 1), "tanh", False),
+        ("k8 c64->128 24x24 (K 4096)", 2, 24, 24, 64, 8, 128, 1, (3, 4, 3, 4), "linear", False),
+        # 16-channel blocks whose last is partial: 40 = 16 + 16 + 8 (16-byte
+        # output pieces) and 20 = 16 + 4 (single elements).
+        ("k3 c16->40 64x96 (blocks 16, 16, 8)", 8, 64, 96, 16, 3, 40, 1, (1, 1, 1, 1), "relu",
+         False),
+        ("k3 c8->20 64x96 (blocks 16, 4)", 8, 64, 96, 8, 3, 20, 1, (1, 1, 1, 1), "sigmoid", False),
     ):
         for dt in (bf16, f32):
             x = tensor(rng.standard_normal((nb, h, w, c)), dt)
@@ -689,8 +798,8 @@ def main() -> int:
         return device_profile(lambda: eng.model(dev_inputs), steps)
 
     # The hand-written kernels' names, as the profiler gives them.
-    PORTED = re.compile(r"\b(conv_chain(_tc)?|conv_single(_tc|_tf32)?|invres(_tc|_tf32)?|"
-                        r"conv_igemm|matmul_fused)_kernel\b")
+    PORTED = re.compile(r"\b(conv_chain(_tc|_tf32)?|conv_single(_tc|_tf32)?|invres(_tc|_tf32)?|"
+                        r"conv_igemm(_tc)?|matmul_fused)_kernel\b")
 
     def busy_text(eng, inputs, p50):
         """Device time per step, the hand-written kernels' share of it and
@@ -1120,6 +1229,14 @@ def main() -> int:
     assert espcn_in_q[0] == 0 and all(espcn_in_q[1:]), espcn_in_q  # C = 1 head: bf16
     i8_err["chain_w8"], espcn_w8_specs, espcn_w8_ops = chain_held(
         "int8 w espcn 540x960 b8", espcn_w, "conv_1", (8, 540, 960, 1))
+    # The chain's fp32 form on the same int8 weights (exact in TF32: no lo,
+    # two passes).
+    x = torch.from_numpy(rng.random((8, 540, 960, 1), dtype=np.float32)).to(dev)
+    got = chain.fused_conv_chain(x, espcn_w8_ops, espcn_w8_specs, tail="d2s2", compute_dtype=f32)
+    torch.cuda.synchronize()
+    i8_err["chain_f32_w8"] = held(
+        "int8 w espcn 540x960 b8 fp32 (two passes)", "fused_conv_chain", got,
+        chain.conv_chain_reference(x, espcn_w8_ops, espcn_w8_specs, "d2s2", f32), f32)
     i8_err["chain_a8"], espcn_a8_specs, espcn_a8_ops = chain_held(
         f"a8 in_q {[round(q, 5) for q in espcn_in_q]} espcn 540x960 b8", espcn_c, "conv_1",
         (8, 540, 960, 1))
@@ -1914,6 +2031,20 @@ def main() -> int:
     log(f"[timing] conv2d_kernel_nhwc int8 weights two-input k3 c8->16 540x960 b8: {text_i8(t)} "
         f"bound {b_ms:.5f} ms ({b_by}; bf16 products); the bf16 form (float weights): kernel "
         f"{bf['ms']:.4f} ms (device {bf['device_ms']:.4f}) | {card}")
+    # The fp32 form on the same int8 weights (3xTF32, two passes): the
+    # library call on the weights cast to f32 (exact).
+    x = tensor(rng.random((nb_, h_, w_, c_)))
+    t = timed({"kernel": lambda: conv_igemm.conv2d_kernel_nhwc(x, *two_ops, stride=1, pads=same3,
+                                                                activation="relu"),
+               "plain": lambda: conv_igemm.conv2d_igemm_reference(x, *two_ops, 1, same3, "relu"),
+               "library": conv_yardstick(x, *two_ops, same3, "relu", f32)})
+    nbytes = (x.numel() + nb_ * h_ * w_ * o_) * 4 + two_ops[0].numel() + 8 * o_
+    b_ms, b_by = bound(flops, nbytes, f32)
+    b3, b3_text = tf32(2 / 3 * flops, nbytes, f32)  # two passes of three
+    i8_rows[("igemm", "int8 weights fp32")] = dict(**timing_keys_i8(t), bound_ms=b_ms,
+                                                  bound_by=b_by, **b3)
+    log(f"[timing] conv2d_kernel_nhwc fp32 with int8 weights two-input k3 c8->16 540x960 b8: "
+        f"{text_i8(t)} bound {b_ms:.5f} ms ({b_by}{b3_text}, two passes) | {card}")
     for tag, eng, m in (("resnet18 zoo fc", r18zoo_i8[0], 8), ("resnet18 cls10 fc", r18_c, 64)):
         fc_ops = tuple(t_.to(dev) for t_ in folded_operands(eng.graph.nodes["fc"], bf16))
         wq, sc, of = fc_ops
@@ -1949,8 +2080,15 @@ def main() -> int:
                      "engine_steps": {k: v for k, v in i8_steps.items() if "espcn" in k},
                      "planted_fault_in_q_halved_diff": fault_errs["chain_in_q_halved"]}},
         "fused_conv_chain": {
-            "forms": ["fp32 (ESPCN FP32, trained ResNet18 FP32)", "bf16 (trained ResNet18 BF16)",
+            "forms": ["fp32: 3xTF32 on mma.sync m16n8k8, a persistent grid, regions split into "
+                      "TF32 hi and lo by their producer (conv_chain_tf32_kernel; ESPCN FP32, "
+                      "trained ResNet18 FP32)",
+                      "fp32 with int8 weights: two passes",
+                      "bf16 (trained ResNet18 BF16)",
                       "bf16 with int8 weights (trained ResNet18 INT8)"],
+            "fp32_edges_max_abs_diff": f32_err,
+            "fp32_x1e2_vs_float64": chain_f64_errs,
+            "fp32_int8_weights_max_abs_diff": i8_err["chain_f32_w8"],
             "int8": {"launches": i8_launches("resnet18 cls10 b64 (logits) calibrated", "chains"),
                      "max_abs_err": i8_err["chain_w8"],
                      "resnet18_trained_chain": i8_rows[("chain", "resnet18 int8 weights")]}},
@@ -2062,7 +2200,11 @@ def main() -> int:
         "engine_check": {k: {"max_abs_diff": v["max_abs_diff"],
                              "planted_fault_diff": v["planted_fault_diff"]}
                          for k, v in two_stats.items()},
-        "forms": ["bf16", "fp32", "bf16 with int8 weights (two-input graph INT8)"],
+        "forms": ["bf16: mma.sync m16n8k16, a persistent grid (conv_igemm_tc_kernel<NT, false>)",
+                  "fp32: 3xTF32 on mma.sync m16n8k8 (conv_igemm_tc_kernel<NT, true>)",
+                  "bf16 with int8 weights, upcast as staged (two-input graph INT8)",
+                  "fp32 with int8 weights, upcast as staged: two passes"],
+        "fp32_int8": i8_rows[("igemm", "int8 weights fp32")],
         "int8": {"launches": i8_launches("two-input KERNEL weight-only", "conv2d_kernel_nhwc"),
                  "max_abs_err": i8_err["igemm_w8"],
                  **i8_rows[("igemm", "int8 weights")],

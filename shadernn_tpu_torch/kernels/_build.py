@@ -97,11 +97,11 @@ def kernel_lib() -> ctypes.CDLL:
             path, _ = build()
             lib = ctypes.CDLL(path)
             P, I = ctypes.c_void_p, ctypes.c_int
-            lib.snn_conv_chain.argtypes = [
+            lib.snn_conv_chain_f32.argtypes = [
                 P, I, P, P, ctypes.POINTER(I), ctypes.POINTER(ctypes.c_float),
-                I, I, I, I, I, I, I, P,
+                ctypes.POINTER(I), I, I, I, I, I, ctypes.POINTER(I), P,
             ]
-            lib.snn_conv_chain.restype = I
+            lib.snn_conv_chain_f32.restype = I
             lib.snn_conv_chain_tc.argtypes = [
                 P, I, P, P, ctypes.POINTER(I), ctypes.POINTER(ctypes.c_float),
                 ctypes.POINTER(ctypes.c_float), I, I, I, I, I, ctypes.POINTER(I), P,
@@ -119,8 +119,8 @@ def kernel_lib() -> ctypes.CDLL:
             ]
             lib.snn_invres_block.restype = I
             lib.snn_conv_igemm.argtypes = [
-                P, I, P, I, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
-                ctypes.c_float, I, P,
+                P, I, P, P, I, I, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
+                ctypes.c_float, ctypes.POINTER(I), P,
             ]
             lib.snn_conv_igemm.restype = I
             lib.snn_matmul_fused.argtypes = [

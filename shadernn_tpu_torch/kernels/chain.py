@@ -25,13 +25,18 @@ head), rounding half to even with 1/in_q a float32 constant. `a8_scales`
 is the plan: which layers get an `in_q`, and why the others do not.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-(tests) it runs `conv_chain_reference`. The bf16 form runs on the tensor
-cores with a launch geometry that this module owns (`launch_geometry`:
-the tile, the region strides, the shared-memory layout, which layers pack
-their taps densely) and weights packed here into the kernel's B images
-(`pack_params`); the C entry point checks the geometry and launches. The
-f32 form keeps its fixed 16 x 32 tile, whose shared memory is the gate's
-term (`smem_bytes`).
+(tests) it runs `conv_chain_reference`. Both forms run on the tensor cores
+with a launch geometry that this module owns (`launch_geometry` for bf16,
+`f32_launch_geometry` for f32: the tile, the region strides, the
+shared-memory layout, which layers pack their taps densely, whether the
+weights stay resident) and weights packed here into the kernel's B images
+(`pack_params`, `pack_params_f32`); the C entry point checks the geometry
+and launches. The f32 form is 3xTF32 (kernels/tf32.py is the plain model
+of that arithmetic): its B images come split into TF32 hi and lo, and
+each layer's epilogue writes the next layer's input split. The gate's
+shared-memory term (`smem_bytes`) is the layout of the first f32 form, on
+the CUDA cores with a fixed 16 x 32 tile, kept as a formula so that the
+gate admits what it always admitted.
 """
 
 from __future__ import annotations
@@ -44,14 +49,15 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from shadernn_tpu_torch.kernels.tf32 import tf32_split
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
 from shadernn_tpu_torch.ops.conv import (
     conv2d_nhwc_f32, conv2d_nhwc_int8, epilogue_scale_offset, quantize_act,
 )
 from shadernn_tpu_torch.ops.shape_ops import depth_to_space
 
-# Final-output pixels per CTA of the f32 form (rows, columns) and the
-# kernel's limits; they must agree with csrc/conv_chain.cu.
+# The tile of the gate's term (`smem_bytes`, rows, columns) and the
+# kernel's limits; the limits must agree with csrc/conv_chain.cu.
 TILE_H, TILE_W = 16, 32
 MAX_LAYERS = 8
 MAX_K = 9
@@ -107,9 +113,11 @@ def _halo(specs: Sequence[ChainLayerSpec]):
 
 def smem_bytes(specs: Sequence[ChainLayerSpec], tile_h: int = TILE_H,
                tile_w: int = TILE_W) -> int:
-    """Dynamic shared memory one CTA of the f32 form needs (its layout in
-    conv_chain.cu): staged weights and scale/offset, then two ping-pong
-    region buffers. The gate's term for both forms."""
+    """The gate's shared-memory term for both forms: what one CTA of the
+    first f32 form took (CUDA cores, channel-planar f32 regions, a 16 x 32
+    tile): staged weights and scale/offset, then two ping-pong region
+    buffers. Both tensor-core forms fit every chain it admits
+    (tests/test_torch_chain.py)."""
     a, b, lft, rgt = _halo(specs)
     floats = 0
     buf = [0, 0]
@@ -444,6 +452,215 @@ def pack_params(layer_params: List[dict], specs: Sequence[ChainLayerSpec]) -> to
     return torch.cat(chunks)
 
 
+# ----------------------------------------------------------------- f32 ----
+# The 3xTF32 form: the same implicit GEMM on mma.sync m16n8k8 tf32, every
+# region held as its TF32 hi and lo parts, B n-major and split on the host.
+
+F32_PASS = 2  # most n8-tiles of a pass (csrc/conv_chain.cu run_f32_layer NG)
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Layer:
+    """The tile-independent layout of one layer in the f32 form."""
+
+    dense: bool   # C < 8: taps packed densely, K = round8(k*k*C)
+    cs: int       # floats per staged input position: C (dense), or C padded to
+                  # units of 8 plus 4 (an odd number of 16-byte units: ldmatrix rows)
+    ksteps: int   # k8 steps of K
+    nt: int       # n8-tiles: o padded to 8
+    ostride: int  # floats per n-major B row: 8 * ksteps + 4 (an odd number of units)
+    kp: int       # k8 steps whose products sum before they join the f32 sums:
+                  # one tap (C / 8 units), dense 4 (32 K indices)
+
+    @property
+    def image_bytes(self) -> int:
+        """One B image (hi or lo) of the whole layer."""
+        return 8 * self.nt * self.ostride * 4
+
+    @property
+    def ktab_bytes(self) -> int:
+        """The table of K offsets: one per K index (dense), else one per k8 step."""
+        return 4 * (8 * self.ksteps if self.dense else self.ksteps)
+
+
+def f32_layers(specs: Sequence[ChainLayerSpec]) -> List[F32Layer]:
+    out = []
+    for s in specs:
+        units = -(-s.c // 8)
+        dense = s.c < 8
+        ksteps = -(-(s.k * s.k * s.c) // 8) if dense else s.k * s.k * units
+        out.append(F32Layer(dense, s.c if dense else 8 * units + 4, ksteps, -(-s.o // 8),
+                            8 * ksteps + 4, 4 if dense else units))
+    return out
+
+
+def f32_param_layout(specs: Sequence[ChainLayerSpec]) -> Tuple[List[Tuple[int, ...]], int]:
+    """Byte offsets of each layer's B hi image, B lo image, B image of f32
+    values and scale|offset (f32, nt * 8 each) in the f32 form's packed
+    parameters, and their total size."""
+    offs, cur = [], 0
+    for fl in f32_layers(specs):
+        offs.append(tuple(cur + i * fl.image_bytes for i in range(4)))
+        cur += 3 * fl.image_bytes + 64 * fl.nt
+    return offs, cur
+
+
+def pack_params_f32(layer_params: List[dict], specs: Sequence[ChainLayerSpec]):
+    """The f32 form's parameters as one byte tensor (`f32_param_layout`)
+    and, per layer, whether its B lo image is read. A layer's B image is
+    n-major: one row of `ostride` floats per output channel (zero rows past
+    o), K in the kernel's order (tap-major; C padded to 8 per unit unless
+    the layer packs its taps densely) padded to whole k8 steps, split into
+    its TF32 hi and lo images (kernels/tf32.py), then the f32 values
+    themselves (what a pass stages where hi and lo do not fit); int8
+    weights become float32 exactly and have no lo (b_lo 0: the pass is
+    skipped), as has any weight exact in TF32."""
+    chunks, b_lo = [], []
+    pad = torch.nn.functional.pad
+    for p, s, fl in zip(layer_params, specs, f32_layers(specs)):
+        w = p["w"].float()
+        if not fl.dense:
+            w = pad(w, (0, 0, 0, -s.c % 8))
+        w = w.reshape(-1, s.o).t()
+        w = pad(w, (0, fl.ostride - w.shape[1], 0, 8 * fl.nt - s.o))
+        hi, lo = tf32_split(w)
+        b_lo.append(int(bool(lo.any())))
+        so = torch.zeros((2, 8 * fl.nt), dtype=torch.float32, device=w.device)
+        so[0, :s.o] = p["scale"].float().reshape(-1)
+        so[1, :s.o] = p["offset"].float().reshape(-1)
+        chunks += [t.contiguous().view(torch.uint8).reshape(-1) for t in (hi, lo, w, so)]
+    return torch.cat(chunks), tuple(b_lo)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainF32Launch:
+    """Launch geometry of the f32 form, in the order of the CG_* fields of
+    csrc/conv_chain.cu, then CF_* per layer; byte offsets."""
+
+    tile_h: int
+    tile_w: int
+    threads: int
+    w_all: int        # 1: every layer's B images resident; 0: one buffer, staged per pass
+    buf0: int         # ping-pong regions (hi, then lo): layer l reads buf[l % 2]
+    buf1: int
+    smem: int
+    param_bytes: int
+    grid: int         # persistent CTAs: CTA b takes tiles b, b + grid, ...
+    raw_off: int      # the frame buffer: the next tile's input, fetched while one computes
+    # (cs, ostride, ng, w_off, ktab_off, pw, pw_lo, ps, reg, kp, b_raw, pw_raw) per
+    # layer; ng: n8-tiles per pass, reg: bytes of the layer's hi input region
+    # (its lo follows), b_raw: B staged as f32 values and split in registers
+    layers: Tuple[Tuple[int, ...], ...]
+
+    @functools.cached_property
+    def array(self) -> ctypes.Array:
+        fields = [self.tile_h, self.tile_w, self.threads, self.w_all, self.buf0, self.buf1,
+                  self.smem, self.param_bytes, self.grid, self.raw_off] + [
+                      v for l in self.layers for v in l]
+        return (ctypes.c_int * len(fields))(*fields)
+
+
+def _f32_launch(specs: Sequence[ChainLayerSpec], tile_h: int, tile_w: int, w_all: bool,
+                ng: int, threads: int = TC_THREADS, raw: bool = False) -> ChainF32Launch:
+    """Shared memory: each layer's table of K offsets, the B images (each
+    layer's hi and lo, or one buffer for the largest pass of `ng` n8-tiles,
+    hi then lo, or (`raw`) its f32 values alone), the two region buffers,
+    each holding its layers' hi and lo regions, then the frame buffer (the
+    input region as it arrives, f32 or bf16). `grid` is set by
+    `f32_launch_geometry`."""
+    fls = f32_layers(specs)
+    regs = regions(specs, tile_h, tile_w)
+    cur, ktab = 0, []
+    for fl in fls:
+        ktab.append(cur)
+        cur += _align(fl.ktab_bytes, 16)
+    cur = _align(cur)
+    w_off, ngs = [], [F32_PASS if w_all else min(ng, fl.nt) for fl in fls]
+    for fl in fls:
+        w_off.append(cur)
+        if w_all:
+            cur = _align(cur + 2 * fl.image_bytes)
+    if not w_all:
+        cur = _align(cur + max((1 if raw else 2) * 8 * g * fl.ostride * 4
+                               for g, fl in zip(ngs, fls)))
+    reg = [_align(4 * rows * cols * fl.cs, 16) for (rows, cols), fl in zip(regs, fls)]
+    need = [0, 0]
+    for l in range(len(fls)):
+        need[l % 2] = max(need[l % 2], 2 * reg[l])
+    buf0 = cur
+    buf1 = _align(buf0 + need[0])
+    raw_off = _align(buf1 + need[1])
+    offs, pbytes = f32_param_layout(specs)
+    return ChainF32Launch(
+        tile_h, tile_w, threads, int(w_all), buf0, buf1,
+        raw_off + 4 * regs[0][0] * regs[0][1] * specs[0].c, pbytes, 0, raw_off,
+        tuple((fl.cs, fl.ostride, ngs[l], w_off[l], ktab[l], *offs[l][:2], offs[l][3], reg[l],
+               fl.kp, int(raw), offs[l][2]) for l, fl in enumerate(fls)))
+
+
+def _f32_cost(specs: Sequence[ChainLayerSpec], geo: ChainF32Launch, n: int, ho: int, wo: int,
+              sms: int) -> float:
+    """Modelled time of an f32 launch, as `_tc_cost`: per m16 tile and k8
+    step three products per n8-tile, the A loads (hi and lo; a dense layer
+    gathers eight values) once per pass and a B load per two n8-tiles; an
+    epilogue per pixel and n8-tile; staging the input region."""
+    fls = f32_layers(specs)
+    regs = regions(specs, geo.tile_h, geo.tile_w)
+    work = 0.0
+    for l, (fl, lay) in enumerate(zip(fls, geo.layers)):
+        passes = -(-fl.nt // lay[2])
+        mt = -(-(regs[l + 1][0] * regs[l + 1][1]) // 16)
+        work += mt * (fl.ksteps * (3 * fl.nt + passes * (8 if fl.dense else 2) + -(-fl.nt // 2))
+                      + 8 * fl.nt)
+    work += regs[0][0] * regs[0][1] * max(1, fls[0].cs // 8) / 2
+    per_sm = _f32_per_sm(geo)
+    waves = -(-(n * -(-ho // geo.tile_h) * -(-wo // geo.tile_w)) // (sms * per_sm))
+    warps = per_sm * geo.threads // 32
+    return waves * work * per_sm / min(1.0, warps / 16 + 0.25)
+
+
+def _f32_per_sm(geo: ChainF32Launch) -> int:
+    """CTAs of the f32 form an SM holds: by shared memory, and by registers
+    (128 a thread under __launch_bounds__(512): 512 threads take them all)."""
+    return max(1, min(2 if geo.threads <= 256 else 1, SMEM_PER_SM // (geo.smem + 1024)))
+
+
+@functools.lru_cache(maxsize=None)
+def f32_launch_geometry(specs: Tuple[ChainLayerSpec, ...], n: int, h: int, w: int,
+                        sms: int) -> ChainF32Launch:
+    """The f32 launch of a chain (the kernel's only owner of it): the tile
+    of least modelled time (`_f32_cost`) among tiles of 1-64 rows and 8-128
+    columns, each cut to the output, whose shared memory fits with every
+    layer's B images resident, else staged pass by pass (two n8-tiles a
+    pass, one where two do not fit, and where one does not fit either, as
+    f32 values split in registers); at worst a 1 x 1 tile. 256 threads,
+    512 where a tile's shared memory leaves room for one CTA per SM. The
+    grid is one wave of persistent CTAs. Speed only: the result does not
+    depend on it."""
+    ho, wo = _out_hw(h, w, specs)
+    tiles = {(min(th, ho), min(tw, wo)) for th in (1, 2, 4, 8, 16, 32, 64)
+             for tw in (8, 16, 32, 64, 128) if th * tw <= 4096}
+    for w_all, modes in ((True, ((F32_PASS, False),)),
+                         (False, ((F32_PASS, False), (1, False), (1, True)))):
+        fits = []
+        for th, tw in tiles:
+            for ng, raw in modes:
+                g = _f32_launch(specs, th, tw, w_all, ng, TC_THREADS, raw)
+                if g.smem + 1024 > SMEM_PER_SM // 2:  # one CTA per SM: twice the warps
+                    g = _f32_launch(specs, th, tw, w_all, ng, 2 * TC_THREADS, raw)
+                if g.smem <= MAX_SMEM_BYTES:
+                    fits.append(g)
+                    break
+        if fits:
+            best = min(fits, key=lambda g: (_f32_cost(specs, g, n, ho, wo, sms),
+                                            -g.tile_h * g.tile_w))
+            break
+    else:
+        best = _f32_launch(specs, 1, 1, False, 1, TC_THREADS, True)
+    tiles = n * -(-ho // best.tile_h) * -(-wo // best.tile_w)
+    return dataclasses.replace(best, grid=min(tiles, sms * _f32_per_sm(best)))
+
+
 # Packed parameters, per first weight tensor (by id, while it lives) and
 # form: rebuilt when any operand tensor is replaced or modified in place
 # (its _version).
@@ -549,12 +766,11 @@ def _launch(x, layer_params, specs, tail, dt, entry) -> torch.Tensor:
                                    alphas, inv_q, len(specs), n, h, w, TAILS[tail], geo.array,
                                    stream)
     else:
-        params = _packed(layer_params, "f32", lambda: torch.cat([
-            t.float().reshape(-1) for p in layer_params
-            for t in (p["w"], p["scale"], p["offset"])]))
-        rc = lib.snn_conv_chain(x.data_ptr(), x_bf16, y.data_ptr(), params.data_ptr(), ints,
-                                alphas, len(specs), n, h, w, TAILS[tail], TILE_H, TILE_W,
-                                stream)
+        geo = f32_launch_geometry(tuple(specs), n, h, w, sm_count(x.device.index))
+        params, b_lo = _packed(layer_params, "f32", lambda: pack_params_f32(layer_params, specs))
+        rc = lib.snn_conv_chain_f32(x.data_ptr(), x_bf16, y.data_ptr(), params.data_ptr(), ints,
+                                    alphas, (ctypes.c_int * len(specs))(*b_lo), len(specs), n,
+                                    h, w, TAILS[tail], geo.array, stream)
     if rc != 0:
         raise RuntimeError(
             f"conv_chain launch failed ({rc}): {lib.snn_error_string(rc).decode()}"

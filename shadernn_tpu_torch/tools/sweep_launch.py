@@ -1,19 +1,24 @@
-"""Sweep the launch geometry of the float32 (3xTF32) forms of the block and
-single-conv kernels on the card, the measurement behind
-`kernels/invres.py` `_f32_cost` and the f32 channel-block rule of
-`kernels/conv.py` `launch_geometry`:
+"""Sweep the launch geometry of the float32 (3xTF32) forms of the block,
+single-conv and chain kernels and of the implicit-GEMM conv kernel on the
+card, the measurement behind `kernels/invres.py` `_f32_cost`, the f32
+channel-block rule of `kernels/conv.py` `launch_geometry`,
+`kernels/chain.py` `_f32_cost` and `kernels/conv_igemm.py`
+`launch_geometry`:
 
-    python -m shadernn_tpu_torch.tools.sweep_launch [--out FILE]
+    python -m shadernn_tpu_torch.tools.sweep_launch [--out FILE] [--only chain,igemm]
 
 For every block geometry of MobileNetV2 224 (b8) and the trained cls10
 model (b64), every tile, split of E and buffer count that fits; for the
 ResNet18 paths' single convs, the channel block, chunk, taps per stage and
-tile. Each configuration's device time per call from torch.profiler (the
-device's own events over 10 calls, the median of three profiles), one
-line each, then for each block
-geometry the time of pick_launch's choice against the sweep's best and
-the step-weighted ratio of the two. Needs one CUDA card; speed only, the
-results do not depend on the geometry.
+tile; for the FP32 chain plans (ESPCN 540p b8, the trained ResNet18's
+16->16->16 at 32x32 b64), every tile, thread count and weight staging
+that fits; for the implicit-GEMM conv at the two-input graph's shape and
+the ResNet-wide shapes, bf16 and f32, the warp layout, tile, ring depth
+and grid. Each configuration's device time per call from torch.profiler
+(the device's own events over 10 calls, the median of three profiles),
+one line each, then for each shape the time of the module's choice
+against the sweep's best. Needs one CUDA card; speed only, the results
+do not depend on the geometry.
 """
 
 from __future__ import annotations
@@ -87,7 +92,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the lines to this file")
+    ap.add_argument("--only", default="block,conv,chain,igemm",
+                    help="comma-separated kernels to sweep: block, conv (these two run together), chain, igemm")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         print("sweep_launch: no CUDA device", file=sys.stderr)
         return 2
@@ -101,6 +109,12 @@ def main(argv=None) -> int:
         lines.append(line)
 
     emit(f"card {torch.cuda.get_device_name(0)}, {sms} SMs")
+    if "chain" in only:
+        _sweep_chain(dev, sms, rng, emit)
+    if "igemm" in only:
+        _sweep_igemm(dev, sms, rng, emit)
+    if "block" not in only and "conv" not in only:
+        return _write(args.out, lines)
     blocks = {**_blocks(build_mobilenetv2(), 8, dev),
               **_blocks(parse_model_file(MOBILENETV2_TRAINED), 64, dev)}
     pick = invres.pick_launch
@@ -170,10 +184,144 @@ def main(argv=None) -> int:
                  f"{choice.cc} taps/stage {choice.tg} {mine}, best {_best(times):.5f} ms")
     finally:
         conv.launch_geometry = geometry
-    if args.out:
-        with open(args.out, "w") as f:
+    return _write(args.out, lines)
+
+
+def _write(out, lines) -> int:
+    if out:
+        with open(out, "w") as f:
             f.write("\n".join(lines) + "\n")
     return 0
+
+
+def _sweep_chain(dev, sms, rng, emit) -> None:
+    """The chain's f32 form at the FP32 plans' chains: every tile of 1-32
+    rows and 8-64 columns (at most 2048 pixels), 256 or 512 threads, the
+    weights resident or staged pass by pass, that fits; f32_launch_geometry's
+    choice against the best."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from shadernn_tpu_torch.kernels import chain
+
+    def specs_of(cfg, cin):
+        out, c = [], cin
+        for k, o, act in cfg:
+            out.append(chain.ChainLayerSpec(k, c, o, (k - 1) // 2, k // 2, (k - 1) // 2, k // 2,
+                                            act, 0.3))
+            c = o
+        return out
+
+    geometry = chain.f32_launch_geometry
+    try:
+        for label, cfg, cin, shape in (
+            ("espcn", [(5, 16, "relu"), (3, 16, "relu"), (3, 4, "tanh")], 1, (8, 540, 960)),
+            ("resnet18 cls10 16->16->16", [(3, 16, "relu"), (3, 16, "linear")], 16, (64, 32, 32)),
+        ):
+            specs = specs_of(cfg, cin)
+            n, h, w = shape
+            ops = [{"w": torch.from_numpy((rng.standard_normal((s.k, s.k, s.c, s.o))
+                                           / np.sqrt(s.k * s.k * s.c)).astype(np.float32)).to(dev),
+                    "scale": torch.ones(s.o, device=dev), "offset": torch.zeros(s.o, device=dev)}
+                   for s in specs]
+            x = torch.from_numpy(rng.random((n, h, w, cin), dtype=np.float32)).to(dev)
+            choice = geometry(tuple(specs), n, h, w, sms)
+            times = {}
+            for th, tw, threads, w_all in itertools.product(
+                    (4, 8, 16, 32), (8, 16, 32, 64), (256, 512), (True, False)):
+                th, tw = min(th, h), min(tw, w)
+                if th * tw > 2048 or (th, tw, threads, w_all) in times:
+                    continue
+                geo = chain._f32_launch(specs, th, tw, w_all, chain.F32_PASS, threads)
+                if geo.smem > chain.MAX_SMEM_BYTES:
+                    continue
+                tiles = n * -(-h // th) * -(-w // tw)
+                geo = dataclasses.replace(geo, grid=min(tiles, sms * chain._f32_per_sm(geo)))
+                chain.f32_launch_geometry = lambda *_a, geo=geo: geo
+                times[(th, tw, threads, w_all)] = device_ms(
+                    lambda: chain.fused_conv_chain(x, ops, specs, compute_dtype=torch.float32))
+                emit(f"chain f32 {label} {n}x{h}x{w} tile {th}x{tw} threads {threads} "
+                     f"{'resident' if w_all else 'staged'} smem {geo.smem} grid {geo.grid} "
+                     f"{times[(th, tw, threads, w_all)]:.5f} ms")
+            chain.f32_launch_geometry = geometry
+            key = (choice.tile_h, choice.tile_w, choice.threads, bool(choice.w_all))
+            mine = times.get(key)
+            mine = f"{mine:.5f} ms" if mine is not None else "not swept"
+            emit(f"chain f32 {label}: f32_launch_geometry tile {key[0]}x{key[1]} threads "
+                 f"{key[2]} {mine}, best {_best(times):.5f} ms")
+    finally:
+        chain.f32_launch_geometry = geometry
+
+
+def _sweep_igemm(dev, sms, rng, emit) -> None:
+    """The implicit-GEMM conv at the two-input graph's conv and the
+    ResNet-wide shapes, bf16 and f32: n8-tiles per warp 1-4, warps along M
+    1-8, near-square tiles of the CTA's pixels or half of them, ring depth
+    2 or 4, one or two CTAs per SM; launch_geometry's choice against the
+    best."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from shadernn_tpu_torch.kernels import conv_igemm
+
+    geometry = conv_igemm.launch_geometry
+    try:
+        for n, h, w, c, k, o in ((8, 540, 960, 8, 3, 16), (8, 32, 32, 64, 3, 64),
+                                 (8, 16, 16, 128, 3, 128)):
+            for dt in (torch.bfloat16, torch.float32):
+                f32 = dt == torch.float32
+                pads = (1, 1, 1, 1)
+                x = torch.from_numpy(rng.standard_normal((n, h, w, c)).astype(np.float32)).to(dev, dt)
+                wts = torch.from_numpy((rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c))
+                                       .astype(np.float32)).to(dev, dt)
+                one, zero = torch.ones(o, device=dev), torch.zeros(o, device=dev)
+                choice = geometry(n, h, w, c, k, k, o, 1, pads, f32, sms)
+                times = {}
+                for nt, wm, half, bufs, per_sm in itertools.product(
+                        (1, 2, 4), (1, 2, 4, 8), (False, True), (2, 4), (1, 2)):
+                    if 8 * nt * (8 // wm) > 2 * max(16, o):
+                        continue
+                    th, tw = conv_igemm._tile(32 * wm, h, w)
+                    if half:
+                        th = max(1, th // 2)
+                    cc, tg = -(-c // 8) * 8, k * k
+                    while True:  # as launch_geometry: the stage until it fits
+                        mt = n * -(-h // th) * -(-w // tw)
+                        geo = conv_igemm.layout(c, k, k, 1, nt, wm, th, tw, cc, tg, bufs, f32,
+                                                mt, sms)
+                        if geo.smem <= conv_igemm.MAX_SMEM_BYTES or tg == 1:
+                            break
+                        if cc > 8 and geo.w_off - geo.in_off > conv_igemm.MAX_SMEM_BYTES // 4:
+                            cc = -(-(cc // 2) // 8) * 8
+                        else:
+                            tg = -(-tg // 2)
+                    if geo.smem > conv_igemm.MAX_SMEM_BYTES:
+                        continue
+                    geo = dataclasses.replace(geo, grid=min(mt, sms * per_sm))
+                    cfg = (nt, wm, th, tw, geo.cc, geo.tg, bufs, geo.grid)
+                    if cfg in times:
+                        continue
+                    conv_igemm.launch_geometry = lambda *_a, geo=geo: geo
+                    times[cfg] = device_ms(lambda: conv_igemm.conv2d_kernel_nhwc(
+                        x, wts, one, zero, stride=1, pads=pads, activation="relu"))
+                    emit(f"igemm {'fp32' if f32 else 'bf16'} k{k} c{c}->{o} {h}x{w} b{n} nt {nt} "
+                         f"wm {wm} tile {th}x{tw} cc {geo.cc} taps/stage {geo.tg} bufs {bufs} "
+                         f"grid {geo.grid} smem {geo.smem} {times[cfg]:.5f} ms")
+                conv_igemm.launch_geometry = geometry
+                key = (choice.nt, choice.wm, choice.tile_h, choice.tile_w, choice.cc, choice.tg,
+                       choice.bufs, choice.grid)
+                mine = times.get(key)
+                mine = f"{mine:.5f} ms" if mine is not None else "not swept"
+                emit(f"igemm {'fp32' if f32 else 'bf16'} k{k} c{c}->{o} {h}x{w} b{n}: "
+                     f"launch_geometry nt {choice.nt} wm {choice.wm} tile {choice.tile_h}x"
+                     f"{choice.tile_w} bufs {choice.bufs} grid {choice.grid} {mine}, best "
+                     f"{_best(times):.5f} ms")
+    finally:
+        conv_igemm.launch_geometry = geometry
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ from shadernn_tpu.kernels.chain_pallas import fused_conv_chain as j_chain
 from shadernn_tpu.kernels.conv_pallas import from_haloed
 
 from shadernn_tpu_torch.kernels import chain
+from shadernn_tpu_torch.kernels.tf32 import tf32_split
 
 ESPCN_BODY = [(5, 16, "relu"), (3, 16, "relu"), (3, 4, "linear")]
 
@@ -124,7 +125,7 @@ def test_plan_declines_what_the_kernel_cannot_take(rng):
 
 
 def test_espcn_shared_memory_fits_two_ctas_per_sm():
-    """The f32 form's layout (the gate's term) fits two CTAs per SM; the
+    """The gate's term (the first f32 form's layout) fits two CTAs per SM; the
     bf16 form at ESPCN 540p b8 keeps 16 warps per SM: its 32 x 32 tile
     leaves room for one CTA, which then has 512 threads."""
     specs = [chain.ChainLayerSpec(5, 1, 16, 2, 2, 2, 2, "relu", 0.3),
@@ -478,3 +479,289 @@ def test_q8_packed_weights_follow_the_kernel_k_order(rng, c, o, k):
     got = a @ img[:o, :a.shape[1]].long().t()
     want = chain.conv2d_nhwc_int8(x, p["w"], (spec.pt, spec.pb, spec.pl, spec.pr))
     assert torch.equal(got.int(), want.reshape(42, o))
+
+
+# -- The f32 form (3xTF32) -------------------------------------------------------
+# Its launch geometry, its gate, its packed weights and a plain model of its
+# arithmetic. The kernel itself is held against its plain version on the card
+# (chip_smoke.py).
+
+# (chain, C in, (k, o) per layer, tail, admitted, smem_bytes): what
+# build_chain_specs admitted at the commit before the f32 form's redesign,
+# at both dtypes; the gate's term is unchanged.
+GATE_TABLE = [
+    ("espcn", 1, [(5, 16), (3, 16), (3, 4)], "d2s2", True, 98656),
+    ("espcn none", 1, [(5, 16), (3, 16), (3, 4)], "none", True, 98656),
+    ("k9 c16 o32", 16, [(9, 32)], "none", True, 227584),
+    ("k9 c16 o33", 16, [(9, 33)], "none", False, None),
+    ("k9 c32 o8", 32, [(9, 8)], "none", True, 205888),
+    ("k9 c32 o9", 32, [(9, 9)], "none", False, None),
+    ("k9 c32 o16", 32, [(9, 16)], "none", False, None),
+    ("k7 c32 o16", 32, [(7, 16)], "none", True, 207488),
+    ("k7 c32 o32", 32, [(7, 32)], "none", False, None),
+    ("k5 c32 o32", 32, [(5, 32)], "none", True, 194816),
+    ("k5 c32 o32 x2", 32, [(5, 32)] * 2, "none", False, None),
+    ("k3 c32 o32 x3", 32, [(3, 32)] * 3, "none", False, None),
+    ("k3 c32 o32 x8", 32, [(3, 32)] * 8, "none", False, None),
+    ("k9 c8 o8 x8", 8, [(9, 8)] * 8, "none", False, None),
+    ("k3 c8 o8 x8", 8, [(3, 8)] * 8, "none", True, 112256),
+    ("C1 k9 o32, k9 o1", 1, [(9, 32), (9, 1)], "c1", True, 150032),
+    ("C1 k9 o32, k9 o4", 1, [(9, 32), (9, 4)], "d2s2", True, 181152),
+    ("9 layers", 1, [(9, 8)] * 9, "none", False, None),
+    ("k10", 1, [(10, 8)], "none", False, None),
+    ("c1 tail, o 2", 4, [(3, 8), (3, 2)], "c1", False, None),
+    ("resnet18 16->16->16", 16, [(3, 16), (3, 16)], "none", True, 103936),
+    ("k1 c32 o32 x8", 32, [(1, 32)] * 8, "none", True, 165888),
+    ("k9 c24 o24", 24, [(9, 24)], "none", False, None),
+    ("k9 c24 o16", 24, [(9, 16)], "none", True, 216704),
+]
+
+
+@pytest.mark.parametrize("case", GATE_TABLE, ids=lambda c: c[0])
+def test_gate_admits_and_declines_what_it_did(case):
+    """The gate (build_chain_specs, its term smem_bytes) is untouched by the
+    f32 form's redesign: the same chains in, the same out, at both dtypes."""
+    _name, cin, cfg, tail, admitted, smem = case
+    for dt in (torch.float32, torch.bfloat16):
+        nodes = [FakeNode(k, o, "relu", None, None) for k, o in cfg]
+        specs = chain.build_chain_specs(nodes, cin, dt, tail=tail)
+        assert (specs is not None) == admitted
+        if admitted:
+            assert chain.smem_bytes(specs) == smem
+
+
+def _holds_f32(geo, specs):
+    """csrc/conv_chain.cu run_f32's checks: strides, passes, parameter
+    offsets, regions big enough, every buffer 16-byte aligned within the
+    shared memory asked for, and no two overlapping unless they take turns
+    (one ping-pong buffer's regions, the weights when staged pass by pass)."""
+    assert geo.smem <= chain.MAX_SMEM_BYTES and geo.threads % 32 == 0 and geo.threads <= 512
+    regs = chain.regions(specs, geo.tile_h, geo.tile_w)
+    ivs = []
+    for l, (s, fl, lay) in enumerate(zip(specs, chain.f32_layers(specs), geo.layers)):
+        cs, ostride, ng, w_off, ktab_off, pw, pw_lo, ps, reg, kp, b_raw, pw_raw = lay
+        units = -(-s.c // 8)
+        assert fl.dense == (s.c < 8)
+        if fl.dense:
+            assert cs == s.c and fl.ksteps == -(-(s.k * s.k * s.c) // 8)
+        else:
+            assert cs >= 8 * units and cs % 4 == 0 and (cs // 4) % 2 == 1
+            assert fl.ksteps == s.k * s.k * units
+        assert ostride >= 8 * fl.ksteps and ostride % 4 == 0 and (ostride // 4) % 2 == 1
+        assert 1 <= ng <= 2 and kp >= 1
+        image = 8 * fl.nt * ostride * 4
+        assert not (b_raw and geo.w_all)
+        for off in (pw, pw_lo, pw_raw):
+            assert off % 16 == 0 and 0 <= off and off + image <= geo.param_bytes
+        assert ps % 16 == 0 and ps + 64 * fl.nt <= geo.param_bytes
+        rows, cols = regs[l]
+        assert reg % 16 == 0 and reg >= 4 * rows * cols * cs
+        w_lo = image if geo.w_all else 8 * ng * ostride * 4
+        ivs.append((geo.buf1 if l % 2 else geo.buf0, 2 * reg, l % 2))
+        ivs.append((w_off, (1 if b_raw else 2) * w_lo, 10 + l if geo.w_all else 2))
+        ivs.append((ktab_off, fl.ktab_bytes, 20 + l))
+    rows, cols = regs[0]
+    ivs.append((geo.raw_off, 4 * rows * cols * specs[0].c, 30))  # the frame buffer
+    for i, (off, size, slot) in enumerate(ivs):
+        assert off % 16 == 0 and 0 <= off and off + size <= geo.smem, (i, off, size, geo.smem)
+        for off2, size2, slot2 in ivs[:i]:
+            assert slot == slot2 or off >= off2 + size2 or off2 >= off + size, (geo, ivs)
+
+
+def _covers_once_persistent(geo, specs, n, h, w):
+    """Every tile once: CTA b of the persistent grid takes tiles b, b +
+    grid, ..., and the tiles write each final output once."""
+    _covers_once(geo, specs, n, h, w)
+    ho, wo = chain._out_hw(h, w, specs)
+    tiles = n * -(-ho // geo.tile_h) * -(-wo // geo.tile_w)
+    assert 1 <= geo.grid <= tiles
+    seen = sorted(t for b in range(geo.grid) for t in range(b, tiles, geo.grid))
+    assert seen == list(range(tiles))
+
+
+@pytest.mark.parametrize("depth", range(1, 9))
+@pytest.mark.parametrize("tail", list(chain.TAILS))
+def test_f32_geometry_of_admitted_chains_fits_and_covers_each_output_once(depth, tail):
+    """k 1-9, C 1-32, o 1-32, random pads, every tail, images from 1x1 up to
+    540p and batches 1-64: the f32 launch fits 227 KB with the layout the
+    kernel checks, and its tiles write each final output exactly once."""
+    rng = np.random.default_rng(5000 + 1000 * depth + chain.TAILS[tail])
+    seen = 0
+    while seen < 12:
+        cin = int(rng.integers(1, 33))
+        specs = _random_admitted(rng, cin, depth, tail)
+        if specs is None:
+            continue
+        n = int(rng.choice([1, 3, 8, 64]))
+        h, w = (int(v) for v in rng.choice([1, 2, 5, 17, 32, 64, 101, 540], 2))
+        h += sum(s.k - 1 - s.pt - s.pb for s in specs)
+        w += sum(s.k - 1 - s.pl - s.pr for s in specs)
+        geo = chain.f32_launch_geometry(tuple(specs), n, h, w, 132)
+        _holds_f32(geo, specs)
+        _covers_once_persistent(geo, specs, n, h, w)
+        seen += 1
+
+
+# Chains at the gate's edges: the largest single layers it admits (their hi
+# and lo weights do not fit beside the regions: staged pass by pass), 8
+# layers, o = 32, k = 9, a C = 1 dense head, each tail.
+F32_EDGES = {
+    "k9 c16 o32": ([(9, 32)], 16, "none"),
+    "k9 c32 o8": ([(9, 8)], 32, "none"),
+    "k7 c32 o16": ([(7, 16)], 32, "none"),
+    "k5 c32 o32": ([(5, 32)], 32, "none"),
+    "k9 c24 o16": ([(9, 16)], 24, "none"),
+    "8 layers k3 c8": ([(3, 8)] * 8, 8, "none"),
+    "8 layers k1 o32": ([(1, 32)] * 8, 32, "none"),
+    "C1 k9 head, c1": ([(9, 32), (9, 1)], 1, "c1"),
+    "C1 k9 head, d2s2": ([(9, 32), (9, 4)], 1, "d2s2"),
+    "espcn": ([(5, 16), (3, 16), (3, 4)], 1, "d2s2"),
+}
+
+
+@pytest.mark.parametrize("name", list(F32_EDGES))
+def test_f32_geometry_at_the_gate_limits(name):
+    cfg, cin, tail = F32_EDGES[name]
+    nodes = [FakeNode(k, o, "relu", None, None) for k, o in cfg]
+    specs = chain.build_chain_specs(nodes, cin, torch.float32, tail=tail)
+    assert specs is not None
+    for n, h, w in ((8, 540, 960), (1, 3, 3), (64, 32, 32), (2, 37, 101)):
+        geo = chain.f32_launch_geometry(tuple(specs), n, h, w, 132)
+        _holds_f32(geo, specs)
+        _covers_once_persistent(geo, specs, n, h, w)
+    if name.startswith("k9 c16"):  # 2 x 166 KB of B: one pass at a time
+        assert not chain.f32_launch_geometry(tuple(specs), 8, 540, 960, 132).w_all
+
+
+@pytest.mark.parametrize("k", range(1, 10))
+def test_f32_geometry_of_every_admitted_single_layer(k):
+    """One layer of every k, C and o the gate admits (C and o at the unit
+    edges): the f32 launch fits and covers each output once."""
+    for c in (1, 2, 3, 7, 8, 9, 16, 24, 32):
+        for o in (1, 4, 8, 9, 16, 17, 24, 32):
+            spec = [chain.ChainLayerSpec(k, c, o, (k - 1) // 2, k // 2, (k - 1) // 2, k // 2,
+                                         "relu", 0.3)]
+            if chain.smem_bytes(spec) > chain.MAX_SMEM_BYTES:
+                continue
+            for n, h, w in ((8, 540, 960), (2, 5, 7)):
+                geo = chain.f32_launch_geometry(tuple(spec), n, h, w, 132)
+                _holds_f32(geo, spec)
+                _covers_once_persistent(geo, spec, n, h, w)
+
+
+def test_espcn_f32_geometry_keeps_every_weight_resident():
+    """ESPCN 540p b8 (the FP32 main path): 3,280 weights, hi and lo, stay
+    resident; the head packs its 25 taps into 4 k8 steps (K = 32, not 25
+    x 8); 16 channels pad to a pitch of 20 floats (5 units)."""
+    specs = [chain.ChainLayerSpec(5, 1, 16, 2, 2, 2, 2, "relu", 0.3),
+             chain.ChainLayerSpec(3, 16, 16, 1, 1, 1, 1, "relu", 0.3),
+             chain.ChainLayerSpec(3, 16, 4, 1, 1, 1, 1, "linear", 0.3)]
+    fls = chain.f32_layers(specs)
+    assert [(f.dense, f.cs, f.ksteps, f.nt, f.ostride, f.kp) for f in fls] == [
+        (True, 1, 4, 2, 36, 4), (False, 20, 18, 2, 148, 2), (False, 20, 18, 1, 148, 2)]
+    geo = chain.f32_launch_geometry(tuple(specs), 8, 540, 960, 132)
+    assert geo.w_all == 1
+    _holds_f32(geo, specs)
+
+
+@pytest.mark.parametrize("c,o,k,int8", [(1, 16, 5, False), (3, 20, 3, False), (16, 16, 3, False),
+                                        (12, 4, 2, False), (32, 32, 1, False), (24, 9, 4, False),
+                                        (16, 16, 3, True), (1, 16, 5, True)])
+def test_f32_packed_weights_follow_the_kernel_k_order(rng, c, o, k, int8):
+    """pack_params_f32 lays out each layer's B images n-major in the K order
+    the kernel walks (tap-major; channels padded to 8 unless C < 8): hi +
+    lo is the HWIO weight within 2^-22, both TF32, so that im2col rows in
+    that order times (hi + lo) is the convolution; scale and offset sit
+    behind them, zeros past o. An int8 weight has no lo (its pass is
+    skipped)."""
+    spec = chain.ChainLayerSpec(k, c, o, (k - 1) // 2, k // 2, (k - 1) // 2, k // 2, "linear", 0.3)
+    if int8:
+        w = torch.from_numpy(rng.integers(-127, 128, (k, k, c, o)).astype(np.int8))
+    else:
+        w = torch.from_numpy(rng.standard_normal((k, k, c, o)).astype(np.float32))
+    p = {"w": w, "scale": torch.from_numpy(rng.standard_normal(o).astype(np.float32)),
+         "offset": torch.from_numpy(rng.standard_normal(o).astype(np.float32))}
+    fl = chain.f32_layers([spec])[0]
+    packed, b_lo = chain.pack_params_f32([p], [spec])
+    [(pw, pw_lo, pw_raw, ps)], total = chain.f32_param_layout([spec])
+    assert packed.numel() == total and b_lo == (0 if int8 else 1,)
+    img = lambda off: packed[off:off + fl.image_bytes].view(torch.float32).reshape(  # noqa: E731
+        8 * fl.nt, fl.ostride)
+    hi, lo = img(pw), img(pw_lo)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().sum()) == 0  # TF32
+    assert not hi[o:].any() and not hi[:, 8 * fl.ksteps:].any() and (int8 or lo.any())
+    assert torch.equal(img(pw_raw), hi + lo) if int8 else torch.equal(tf32_split(img(pw_raw))[0], hi)
+    so = packed[ps:ps + 64 * fl.nt].view(torch.float32).reshape(2, 8 * fl.nt)
+    assert torch.equal(so[1, :o], p["offset"]) and not so[:, o:].any()
+    wf = w.double()
+    per_tap = c if fl.dense else 8 * -(-c // 8)
+    b = torch.zeros((8 * fl.ksteps, o), dtype=torch.float64)
+    for tap in range(k * k):
+        b[tap * per_tap:tap * per_tap + c] = wf[tap // k, tap % k]
+    full = (hi.double() + lo.double())[:o, :8 * fl.ksteps].t()
+    assert torch.all((full - b).abs() <= 2.0 ** -22 * b.abs())
+    x = torch.from_numpy(rng.standard_normal((1, 6, 7, c)).astype(np.float32))
+    xp = torch.nn.functional.pad(x, (0, 0, spec.pl, spec.pr, spec.pt, spec.pb)).double()
+    cols = []
+    for dy in range(k):
+        for dx in range(k):
+            patch = xp[0, dy:dy + 6, dx:dx + 7, :]
+            if not fl.dense:
+                patch = torch.nn.functional.pad(patch, (0, -c % 8))
+            cols.append(patch.reshape(42, -1))
+    a = torch.cat(cols, 1)
+    a = torch.nn.functional.pad(a, (0, 8 * fl.ksteps - a.shape[1]))
+    ref = sum(torch.einsum("hwc,co->hwo", xp[0, dy:dy + 6, dx:dx + 7], wf[dy, dx])
+              for dy in range(k) for dx in range(k))
+    assert torch.allclose((a @ full).reshape(6, 7, o), ref, atol=1e-5)
+
+
+def chain_3xtf32(x, layer_params, specs, tail):
+    """A plain model of the f32 form's arithmetic, layer by layer
+    (kernels/tf32.py): the frame split into TF32 hi and lo as it is staged
+    (a bf16 frame is exact: no lo), every layer a conv in 3xTF32 promoted
+    per tap, its epilogue in float32, its output zero outside the image and
+    split by the producer into the next layer's hi and lo."""
+    from shadernn_tpu_torch.kernels.tf32 import conv_3xtf32
+
+    hi, lo = tf32_split(x.float())
+    lo = None if x.dtype == torch.bfloat16 else lo
+    for p, s in zip(layer_params, specs):
+        acc = conv_3xtf32(hi, lo, p["w"].float(), 1, (s.pt, s.pb, s.pl, s.pr))
+        y = chain.apply_activation(acc * p["scale"].float() + p["offset"].float(), s.activation,
+                                   s.alpha)
+        hi, lo = tf32_split(y)
+    y = hi + lo  # the last layer writes y itself (hi + lo = y within 2^-22)
+    return chain.depth_to_space(y, 2) if tail == "d2s2" else y
+
+
+@pytest.mark.parametrize("x_bf16", [False, True], ids=["x_f32", "x_bf16"])
+@pytest.mark.parametrize("cfg,tail", [
+    (ESPCN_BODY, "none"),
+    ([(5, 16, "relu"), (3, 8, "relu"), (3, 1, "sigmoid")], "c1"),
+    ([(3, 12, "tanh"), (9, 4, "linear")], "d2s2"),
+])
+def test_f32_arithmetic_model_matches_plain_and_jax(rng, fp32_threshold, cfg, tail, x_bf16):
+    """The 3xTF32 model of the f32 form against the plain version
+    (chip_smoke.py's f32 tolerance, 1e-4 x max(1, max|plain|)) and against
+    the JAX im2col chain kernel in Pallas interpret mode (the fp32
+    threshold); from a bf16 frame (exact in TF32: two passes in the head)
+    against the plain version."""
+    nodes = make_nodes(rng, cfg, 1)
+    x = rng.random((2, 24, 40, 1), dtype=np.float32)
+    xt = torch.from_numpy(x)
+    if x_bf16:
+        xt = xt.to(torch.bfloat16)
+    specs = chain.build_chain_specs(nodes, 1, torch.float32, tail=tail)
+    ops = chain.chain_operands(nodes, torch.float32)
+    got = chain_3xtf32(xt, ops, specs, tail)
+    plain = chain.conv_chain_reference(xt, ops, specs, tail, torch.float32)
+    assert got.shape == plain.shape
+    assert (got - plain).abs().max().item() <= 1e-4 * max(1.0, plain.abs().max().item())
+    if x_bf16 or tail == "d2s2":
+        return
+    lp, jspecs = build_chain(nodes, 1, jnp.float32)
+    want = j_chain(jnp.asarray(x), lp, jspecs, interpret=True, tail=tail)
+    want = np.asarray(from_haloed(want) if tail == "none" else want, np.float32)
+    assert np.max(np.abs(got.numpy() - want)) <= fp32_threshold

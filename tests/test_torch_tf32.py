@@ -1,11 +1,14 @@
 """The split-TF32 (3xTF32) arithmetic of the float32 forms of the
-single-conv and block kernels (shadernn_tpu_torch.kernels.tf32, the plain
-model of csrc/snn_mma.cuh's split and product) against float32, float64
-and the JAX package, which runs float32 products at HIGHEST precision:
-at the largest K each kernel's gate admits (the single conv: kh*kw*C =
-4096 and 3200; the block: E = 960 with Cin 160 and Cout 320), at |x| ~ 1
-and ~ 1e2. The CUDA kernels themselves are held against their plain
-versions on the card by chip_smoke.py.
+single-conv, block, chain and implicit-GEMM conv kernels
+(shadernn_tpu_torch.kernels.tf32, the plain model of csrc/snn_mma.cuh's
+split and product) against float32, float64 and the JAX package, which
+runs float32 products at HIGHEST precision: at the largest K each
+kernel's gate admits (the single conv: kh*kw*C = 4096 and 3200; the
+block: E = 960 with Cin 160 and Cout 320; the implicit-GEMM conv: 4096;
+the chain: k9 with C 16 and 32), at |x| ~ 1 and ~ 1e2; and the chain's
+producer-side split, bit for bit the consumer's. The CUDA kernels
+themselves are held against their plain versions on the card by
+chip_smoke.py.
 
 Tolerance: chip_smoke.py's TOL_FP32, 1e-4 x max(1, max|reference|), which
 the kernels' float32 forms must hold; the model's error against float64
@@ -26,7 +29,7 @@ from shadernn_tpu.ops.conv import conv_run_pallas_chain
 from shadernn_tpu.ops.registry import RunCtx as JCtx
 
 from shadernn_tpu_torch.kernels import conv, invres
-from shadernn_tpu_torch.kernels.tf32 import matmul_3xtf32, tf32_round, tf32_split
+from shadernn_tpu_torch.kernels.tf32 import conv_3xtf32, matmul_3xtf32, tf32_round, tf32_split
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
 from shadernn_tpu_torch.ops.conv import conv2d_nhwc_f32
 
@@ -167,3 +170,88 @@ def test_block_f32_form_model_matches_plain_and_jax(mag):
     want = np.asarray(j_block(jnp.asarray(x), j["w1"], j["s1"], j["o1"], j["wd"], j["sd"],
                               j["od"], j["w2"], j["s2"], j["o2"], jspec, interpret=True))
     assert within(got.numpy(), plain.numpy()) and within(got.numpy(), want)
+
+
+# -- The f32 forms of the chain (csrc/conv_chain.cu) and the implicit-GEMM conv
+# (csrc/conv_igemm.cu): the producer-side split, and the largest K each gate
+# admits.
+
+def test_producer_split_gives_the_consumer_split_bits():
+    """The chain's epilogue writes each value's TF32 hi and lo; a consumer
+    splitting the value at its fragment load gets the same bits, and the
+    parts split again are themselves (hi is TF32, lo is TF32): the product
+    on the stored parts is bit for bit the product on the value."""
+    rng = np.random.default_rng(21)
+    y = torch.from_numpy((rng.standard_normal((2, 9, 11, 16)) * 10).astype(np.float32))
+    hi, lo = tf32_split(y)
+    assert torch.equal(tf32_split(hi)[0], hi) and not tf32_split(hi)[1].any()
+    assert torch.equal(tf32_split(lo)[0], lo)
+    w = torch.from_numpy(rng.standard_normal((3, 3, 16, 8)).astype(np.float32))
+    stored = conv_3xtf32(hi, lo, w, 1, (1, 1, 1, 1))
+    h2, l2 = tf32_split(y)
+    assert torch.equal(stored, conv_3xtf32(h2, l2, w, 1, (1, 1, 1, 1)))
+
+
+def _igemm_model(x, w, stride, pads):
+    """csrc/conv_igemm.cu's f32 sums: per tap the a_hi b_hi products in an
+    accumulator of their own, added into the f32 sums after the tap; the
+    small passes (a_hi b_lo + a_lo b_hi) in a third sum over all of K,
+    added at the epilogue."""
+    n, h, wd, c = x.shape
+    kh, kw, _, o = w.shape
+    pt, pb, pl, pr = pads
+    ho, wo = (h + pt + pb - kh) // stride + 1, (wd + pl + pr - kw) // stride + 1
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+    w_hi, w_lo = tf32_split(w)
+    acc = torch.zeros((n * ho * wo, o))
+    small = torch.zeros((n * ho * wo, o))
+    for dy in range(kh):
+        for dx in range(kw):
+            a = xp[:, dy:dy + (ho - 1) * stride + 1:stride, dx:dx + (wo - 1) * stride + 1:stride]
+            a_hi, a_lo = tf32_split(a.reshape(-1, c))
+            acc = acc + a_hi @ w_hi[dy, dx]
+            small = small + (a_hi @ w_lo[dy, dx] + a_lo @ w_hi[dy, dx])
+    return (acc + small).reshape(n, ho, wo, o)
+
+
+@pytest.mark.parametrize("mag", [1.0, 1e2], ids=["x~1", "x~1e2"])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_igemm_f32_model_at_the_largest_k(mag, stride):
+    """k8 c64 -> 128 (K = 4096, the implicit-GEMM gate's limit), strides 1
+    and 2, asymmetric pads: the kernel's sums against float64 (a tenth of
+    the tolerance), float32 and the JAX package's HIGHEST-precision conv."""
+    rng = np.random.default_rng(31 + stride)
+    k, c, o, pads = 8, 64, 128, (3, 4, 2, 5)
+    x = (mag * rng.standard_normal((1, 11, 12, c))).astype(np.float32)
+    w = (rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c)).astype(np.float32)
+    got = _igemm_model(torch.from_numpy(x), torch.from_numpy(w), stride, pads).numpy()
+    xd = F.pad(torch.from_numpy(x).double().permute(0, 3, 1, 2), (pads[2], pads[3], pads[0], pads[1]))
+    f64 = F.conv2d(xd, torch.from_numpy(w).double().permute(3, 2, 0, 1), stride=stride)
+    f64 = f64.permute(0, 2, 3, 1).numpy()
+    plain = conv2d_nhwc_f32(torch.from_numpy(x), torch.from_numpy(w), pads, stride).numpy()
+    highest = jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(w), (stride, stride),
+        ((pads[0], pads[1]), (pads[2], pads[3])), dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        precision=jax.lax.Precision.HIGHEST)
+    assert got.shape == f64.shape
+    assert within(got, f64, TOL_FP32 / 10) and within(got, plain)
+    assert within(got, np.asarray(highest))
+
+
+@pytest.mark.parametrize("k,c,o", [(9, 16, 32), (9, 32, 8)], ids=["k9c16o32", "k9c32o8"])
+def test_chain_f32_model_at_the_largest_k(k, c, o):
+    """The largest layers the chain's gate admits (K = 1296 and 2592), on
+    an input split by its producer: the per-tap promoted 3xTF32 conv
+    against float64 at |x| ~ 1e2 (a tenth of the tolerance) and the JAX
+    package's HIGHEST-precision conv."""
+    rng = np.random.default_rng(41 + c)
+    pads = ((k - 1) // 2, k // 2, (k - 1) // 2, k // 2)
+    x = (1e2 * rng.standard_normal((1, 10, 13, c))).astype(np.float32)
+    w = (rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c)).astype(np.float32)
+    hi, lo = tf32_split(torch.from_numpy(x))
+    got = conv_3xtf32(hi, lo, torch.from_numpy(w), 1, pads).numpy()
+    f64 = conv2d_nhwc_f32(torch.from_numpy(x).double(), torch.from_numpy(w).double(), pads).numpy()
+    highest = jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(w), (1, 1), ((pads[0], pads[1]), (pads[2], pads[3])),
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), precision=jax.lax.Precision.HIGHEST)
+    assert within(got, f64, TOL_FP32 / 10) and within(got, np.asarray(highest))
