@@ -106,6 +106,19 @@ Phases, each of which raises on failure (exit code != 0):
               ResNet18 heads, each beside its plain version and the library
               call on the weights cast to bf16. Every fp32 line also prints
               the bound in 3xTF32 (a third of the TF32 peak)
+  6. zoo      the rest of the model zoo through Engine.from_json, each trained
+              artifact at full width and depth (zoo_phase): SpatialDenoise
+              and AIDenoise at 1080x1920 b2 (BF16, FP32, INT8 weight-only;
+              one chain per step), U-Net 256 b8 (BF16, FP32; three chains and
+              one single conv), the five StyleTransfer styles at 512 b4 (FP32,
+              candy also BF16; two single convs), YOLOv3-tiny 256 b8 (FP32,
+              BF16; one single conv; head features and detections), each
+              against the TORCH forward with its launches held to its plans;
+              the JAX package's accuracy gates (denoiser PSNR at 96, style
+              PSNR at 64 and 512, YOLO mAP); [kernel] cases at every chain and
+              single conv of these plans with the models' weights; a planted
+              fault (U-Net's transposed-conv kernel flipped); [timing] rows
+              of each new launch shape
 Prints the `kernels` JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Imports no JAX and nothing of
 the JAX package. Exits non-zero without printing a result when no CUDA
@@ -1621,14 +1634,17 @@ def main() -> int:
         lib_ops = [(p["w"].to(dt).permute(3, 2, 0, 1).contiguous(memory_format=cl),
                     p["scale"].to(dt).reshape(1, -1, 1, 1),
                     p["offset"].to(dt).reshape(1, -1, 1, 1), sp) for p, sp in zip(ops, specs)]
-        assert all(sp.pt == sp.pb and sp.pl == sp.pr for sp in specs), specs
+
+        def conv_(y, w_, sp):  # asymmetric pads (a folded stride-2 head) padded first
+            if sp.pt == sp.pb and sp.pl == sp.pr:
+                return F.conv2d(y, w_, padding=(sp.pt, sp.pl))
+            return F.conv2d(F.pad(y, (sp.pl, sp.pr, sp.pt, sp.pb)), w_)
 
         def run():
             y = xl
             with full_precision():
                 for w_, sc_, of_, sp in lib_ops:
-                    y = apply_activation(F.conv2d(y, w_, padding=(sp.pt, sp.pl)) * sc_ + of_,
-                                         sp.activation, sp.alpha)
+                    y = apply_activation(conv_(y, w_, sp) * sc_ + of_, sp.activation, sp.alpha)
             y = y.permute(0, 2, 3, 1)
             return depth_to_space(y, 2) if tail == "d2s2" else y
         return run
@@ -2093,6 +2109,23 @@ def main() -> int:
                      "max_abs_err": i8_err["chain_w8"],
                      "resnet18_trained_chain": i8_rows[("chain", "resnet18 int8 weights")]}},
     }
+    # 6. zoo -------------------------------------------------------------------
+    zoo_out = zoo_phase(types.SimpleNamespace(
+        dev=dev, rng=rng, log=log, STEPS=STEPS, ENGINE_TOL=ENGINE_TOL, card=card, held=held,
+        timed=timed, busy_text=busy_text, reset_counts=reset_counts, read_counts=read_counts,
+        held_to_plans=held_to_plans, on_dev=on_dev, chain_library=chain_library,
+        conv_yardstick=conv_yardstick, bound=bound, tf32=tf32, timing_keys=timing_keys,
+        timing_text=timing_text))
+
+    def zoo_rows(entry):
+        """What the zoo phase ran on one entry: its launches per path (all
+        steps), [kernel] errors per form and [timing] rows per shape."""
+        return {"launches": {label: st["launches"][entry] for label, st in zoo_out["paths"].items()
+                             if entry in st["launches"]},
+                "max_abs_err": {k.split(" ", 1)[1]: v for k, v in zoo_out["max_abs_err"].items()
+                                if k.split(" ", 1)[0] == entry},
+                "timing": zoo_out["timing"].get(entry, {})}
+
     kernels = []
     for entry, replaces, prec in (
         ("fused_conv_chain_packed", "shadernn_tpu/kernels/chain_packed_pallas.py:121", "bf16"),
@@ -2114,6 +2147,7 @@ def main() -> int:
             "engine_step_p50_ms": main_stats[entry]["engine_p50_ms"],
             "engine_device_busy_ms": main_stats[entry]["device_busy_ms"],
             **chain_int8[entry],
+            "zoo": zoo_rows(entry),
         })
     r = block_rows["bf16"]
     kernels.append({
@@ -2178,6 +2212,7 @@ def main() -> int:
             max_abs_err=i8_err["single_w8"],
             top1={k: v["top1"] for k, v in i8_main.items() if "resnet18 cls10" in k},
             planted_fault_weight_scale_zeroed_diff=fault_errs["weight_scale_zeroed"]),
+        "zoo": zoo_rows("fused_conv2d_haloed"),
     })
     r = igemm_rows["bf16"]
     kernels.append({
@@ -2251,6 +2286,338 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def zoo_phase(h) -> dict:
+    """6. zoo: the rest of the model zoo through Engine.from_json on the
+    card, each trained artifact at full width and depth. `h` carries main's
+    helpers (held, timed, busy_text, held_to_plans, ...).
+
+    Main paths (counts set to 0 just before each, read just after, held to
+    the forward's plans): SpatialDenoise and AIDenoise at 1080x1920 b2
+    (BF16, FP32, INT8 weight-only; one chain per step), U-Net at 256x256
+    b8 (BF16, FP32; three chains and one single conv), the five 512x512
+    StyleTransfer styles at b4 (FP32; candy also BF16; two single convs),
+    YOLOv3-tiny at 256x256 b8 (FP32, BF16; one single conv; its raw head
+    features and its detections). Each against the port's TORCH forward
+    (0.01 fp32, 0.1 bf16/int8, times max(1, max|TORCH|); detections
+    matched box to box, utils/metrics.py detections_agree). The JAX
+    package's accuracy gates on the card: denoiser PSNR at 96x96,
+    StyleTransfer PSNR (the 64x64 default artifact, each style at 512),
+    YOLO mAP. [kernel] cases at every chain and single conv of these
+    plans, with the models' weights, at the plans' forms; a planted fault
+    (U-Net's up0 transposed-conv kernel flipped); [timing] rows of each
+    new launch shape."""
+    import numpy as np
+    import torch
+
+    from shadernn_tpu_torch import Engine, EngineOptions, Precision
+    from shadernn_tpu_torch.config import BackendKind
+    from shadernn_tpu_torch.graph.parser import parse_model_file
+    from shadernn_tpu_torch.kernels import chain, conv
+    from shadernn_tpu_torch.models import zoo
+    from shadernn_tpu_torch.ops.common import padding_offsets
+    from shadernn_tpu_torch.ops.conv import folded_operands
+    from shadernn_tpu_torch.tools.train_denoiser import noisy_pairs
+    from shadernn_tpu_torch.tools.train_styletransfer import style_target, synth_imgs
+    from shadernn_tpu_torch.tools.train_yolo import NUM_CLASSES, synth_scenes
+    from shadernn_tpu_torch.utils.metrics import detections_agree, mean_average_precision, psnr
+
+    dev, rng, log = h.dev, h.rng, h.log
+    bf16, f32 = torch.bfloat16, torch.float32
+    FP32, BF16, I8 = Precision.FP32, Precision.BF16, Precision.INT8
+    t_phase = time.perf_counter()
+
+    def engine(path, prec, batch, hw=None, backend=BackendKind.AUTO, outputs=None, edit=None):
+        g = parse_model_file(path, input_hw=hw)
+        if outputs:
+            g.output_names = list(outputs)
+        if edit:
+            edit(g)
+        return Engine.from_graph(g, EngineOptions(precision=prec, batch_size=batch,
+                                                  backend=backend))
+
+    def torch_forward(eng):
+        """The plain forward of an engine's (optimized, quantized) graph."""
+        return Engine.from_graph(eng.graph, EngineOptions(
+            precision=eng.options.precision, batch_size=eng.options.batch_size,
+            backend=BackendKind.TORCH), optimize=False)
+
+    def tol_of(prec):
+        return h.ENGINE_TOL["fp32" if prec == FP32 else "bf16"]
+
+    # The plans' launches as [kernel] and [timing] cases: (form, label) ->
+    # (kind, label, nodes, specs or None, tail, x shape, x dtype, compute
+    # dtype); the first engine that plans a shape at a form gives it.
+    cases = {}
+
+    def collect(eng, tag):
+        g, fwd = eng.graph, eng.model.forward
+        dt = eng.options.precision.activation_dtype
+        form = ("int8 w" if eng.options.precision == I8 else "bf16" if dt == bf16 else "fp32")
+        for head, members in fwd.chain_plan.items():
+            nodes = [g.nodes[m] for m in members if g.nodes[m].op == "Conv2D"]
+            src = g.nodes[nodes[0].inputs[0]]
+            tail = ("d2s2" if any(g.nodes[m].op == "Subpixel" for m in members)
+                    else "c1" if int(nodes[-1].attr("out_channels")) == 1 else "none")
+            shape = (eng.options.batch_size, src.out_spec.h, src.out_spec.w, src.out_spec.c)
+            label = (f"{tag} chain {head} k{'/'.join(str(n.attr('kernel_size')) for n in nodes)} "
+                     f"{src.out_spec.c}->{'->'.join(str(n.attr('out_channels')) for n in nodes)} "
+                     f"{tail} {shape[1]}x{shape[2]} b{shape[0]}")
+            cases.setdefault((form, label), ("chain", label, nodes, fwd.chain_specs[head], tail,
+                                             shape, f32 if src.op == "InputLayer" else dt, dt))
+        for name_ in fwd.single_conv_plan:
+            node = g.nodes[name_]
+            s_ = g.nodes[node.inputs[0]].out_spec
+            shape = (eng.options.batch_size, s_.h, s_.w, s_.c)
+            label = (f"{tag} {name_} k{node.attr('kernel_size')} {s_.c}->"
+                     f"{node.attr('out_channels')} {shape[1]}x{shape[2]} b{shape[0]}")
+            # The forward casts a model input to the compute dtype first.
+            cases.setdefault((form, label), ("single", label, [node], None, None, shape, dt, dt))
+
+    def drive(label, eng, feeds, want, ref=None):
+        """One main path: the steps of `feeds` with the counts set to 0 just
+        before and read just after, held to the plans (per step `want`, the
+        kernels that launch) and to the TORCH forward on the first feed, on
+        every output; step p50 and device busy. Returns (outputs, stats)."""
+        fwd = eng.model.forward
+        h.reset_counts()
+        outs = [eng.run(f) for f in feeds]
+        counts = h.read_counts()
+        per_step = h.held_to_plans(fwd, counts, len(feeds))
+        launched = {k: v for k, v in per_step.items() if v}
+        ref = ref or torch_forward(eng)
+        want_out = ref.run(feeds[0])
+        errs, tols, dets = {}, {}, {}
+        for key, w_ in want_out.items():
+            if eng.graph.nodes[key].op == "YOLO":  # matched box to box, at every precision
+                dets[key] = detections_agree(outs[0][key].cpu().numpy(), w_.cpu().numpy(),
+                                             tol_of(eng.options.precision))
+                if eng.options.precision != FP32:  # rows of near-equal scores may swap
+                    continue
+            errs[key] = (outs[0][key].float() - w_.float()).abs().max().item()
+            tols[key] = tol_of(eng.options.precision) * max(1.0, w_.float().abs().max().item())
+        bench = eng.benchmark(feeds[0], loops=20)
+        busy_ms, kernels_ms, text = h.busy_text(eng, feeds[0], bench["p50_ms"])
+        log(f"[zoo] {label}: launches per step {launched} ({len(feeds)} steps; plan "
+            f"{ {k: len(v) for k, v in fwd.chain_plan.items()} } chains, singles "
+            f"{fwd.single_conv_plan}) vs TORCH forward "
+            + ", ".join(f"{k} max_abs_diff {errs[k]:.3e} tol {tols[k]:.3g}" for k in errs)
+            + "".join(f", {k} detections matched box to box {v}" for k, v in dets.items())
+            + f"; device step p50 {bench['p50_ms']:.3f} ms; {text}")
+        assert launched == want, f"{label}: launches {launched}, want {want}"
+        for o in outs:
+            assert all(torch.isfinite(v).all().item() for v in o.values()), label
+        for k in errs:
+            assert errs[k] <= tols[k], f"{label}: {k} disagrees with the TORCH forward"
+        return outs, {"launches_per_step": launched, "detections": dets,
+                      "launches": {k: v for k, v in counts.items() if v}, "steps": len(feeds),
+                      "max_abs_diff": errs, "step_p50_ms": bench["p50_ms"],
+                      "device_busy_ms": busy_ms, "kernels_device_ms": kernels_ms}
+
+    paths, gates = {}, {}
+
+    # The denoisers at the runner's 1080x1920 luma, b2.
+    frames = {"input": rng.random((2, 1080, 1920, 1), dtype=np.float32)}
+    for name_, path in (("spatialdenoise", zoo.SPATIALDENOISE_TRAINED),
+                        ("aidenoise", zoo.AIDENOISE_TRAINED)):
+        for prec in (BF16, FP32, I8):
+            eng = engine(path, prec, 2, (1080, 1920))
+            label = f"{name_} 1080x1920 b2 {prec.value}" + (" weight-only" if prec == I8 else "")
+            outs, st = drive(label, eng, [frames] * h.STEPS, {"chains": 1})
+            assert tuple(outs[0][eng.graph.output_names[0]].shape) == (2, 1080, 1920, 1)
+            paths[label] = st
+            collect(eng, name_)
+            del eng, outs
+
+    # U-Net at 256x256 b8: a planted fault (up0's kernel flipped, as if the
+    # transposed conv were computed without its flip) must fail the check.
+    unet_x = {"input": rng.random((8, 256, 256, 1), dtype=np.float32)}
+    for prec in (BF16, FP32):
+        eng = engine(zoo.UNET_TRAINED, prec, 8, (256, 256))
+        ref = torch_forward(eng)
+        outs, st = drive(f"unet 256x256 b8 {prec.value}", eng, [unet_x] * h.STEPS,
+                         {"chains": 3, "fused_conv2d_haloed": 1}, ref)
+        collect(eng, "unet")
+
+        def flip_up0(g):
+            w_ = g.nodes["up0"].params["weight"]
+            g.nodes["up0"].params["weight"] = np.ascontiguousarray(w_[::-1, ::-1])
+
+        want = ref.run(unet_x)["head"]
+        tol = tol_of(prec) * max(1.0, want.abs().max().item())
+        faulty = engine(zoo.UNET_TRAINED, prec, 8, (256, 256), edit=flip_up0)
+        err_fault = (faulty.run(unet_x)["head"] - want).abs().max().item()
+        log(f"[zoo] unet 256x256 b8 {prec.value} planted fault (up0's kernel flipped) moves the "
+            f"output by {err_fault:.3e} (tol {tol:.3g}) {'caught' if err_fault > tol else 'MISSED'}")
+        assert err_fault > tol, "the U-Net check misses a flipped transposed-conv kernel"
+        st["planted_fault_up0_flipped_diff"] = err_fault
+        paths[f"unet 256x256 b8 {prec.value}"] = st
+        del eng, ref, faulty, outs
+
+    # StyleTransfer, each style's 512x512 artifact at b4 on the JAX gate's
+    # images (synth_imgs from seed 99): PSNR against the style's target at
+    # its floor and >= the identity's + 1 dB; candy's BF16 within 1 dB.
+    floor_db = {"candy": 20.0, "mosaic": 16.0, "pointilism": 15.0, "rain-princess": 16.0,
+                "udnie": 16.0}
+    style_x = synth_imgs(np.random.default_rng(99), 4, s=512)
+    for style in zoo.STYLES:
+        target = style_target(style_x, style=style)
+        for prec in (FP32, BF16) if style == "candy" else (FP32,):
+            eng = engine(zoo.STYLE512_TRAINED[style], prec, 4)
+            label = f"styletransfer-{style} 512x512 b4 {prec.value}"
+            outs, st = drive(label, eng, [{"input": style_x}] * h.STEPS,
+                             {"fused_conv2d_haloed": 2})
+            y = np.clip(outs[-1]["head"].float().cpu().numpy(), 0, 1)
+            st["psnr_db"], st["identity_psnr_db"] = psnr(y, target), psnr(style_x, target)
+            paths[label] = st
+            collect(eng, "styletransfer")
+            del eng, outs
+        db32 = paths[f"styletransfer-{style} 512x512 b4 fp32"]["psnr_db"]
+        id_db = paths[f"styletransfer-{style} 512x512 b4 fp32"]["identity_psnr_db"]
+        log(f"[zoo] gate styletransfer-{style} 512: PSNR {db32:.2f} dB (floor {floor_db[style]}, "
+            f"identity {id_db:.2f} + 1)")
+        assert db32 >= floor_db[style] and db32 >= id_db + 1.0, (style, db32, id_db)
+        gates[f"styletransfer-{style} 512 fp32 psnr_db"] = db32
+    db16 = paths["styletransfer-candy 512x512 b4 bf16"]["psnr_db"]
+    db32 = gates["styletransfer-candy 512 fp32 psnr_db"]
+    log(f"[zoo] gate styletransfer-candy 512 BF16: PSNR {db16:.2f} dB (FP32 {db32:.2f} - 1)")
+    assert db16 >= db32 - 1.0, (db32, db16)
+    gates["styletransfer-candy 512 bf16 psnr_db"] = db16
+
+    # YOLOv3-tiny at 256x256 b8 on the JAX gate's 32 scenes (seed 424242),
+    # four steps; the raw head features and the detections both held.
+    scene_rng = np.random.default_rng(424242)
+    scenes = [synth_scenes(scene_rng, 8) for _ in range(4)]
+    feeds = [{"input": x_} for x_, _ in scenes]
+    gts = [g_ for _, gt in scenes for g_ in gt]
+    for prec in (FP32, BF16):
+        eng = engine(zoo.YOLOV3_TINY_TRAINED, prec, 8, outputs=("head1", "head2", "yolo"))
+        label = f"yolov3-tiny 256x256 b8 {prec.value}"
+        outs, st = drive(label, eng, feeds, {"fused_conv2d_haloed": 1})
+        dets = [d[d[:, 1] > 0] for o in outs for d in o["yolo"].float().cpu().numpy()]
+        st["map"] = mean_average_precision(dets, gts, NUM_CLASSES)
+        log(f"[zoo] gate {label}: mAP {st['map']:.4f} on 32 scenes"
+            + (" (gate 0.5)" if prec == FP32 else ""))
+        paths[label] = st
+        collect(eng, "yolov3-tiny")
+        del eng, outs
+    assert paths["yolov3-tiny 256x256 b8 fp32"]["map"] >= 0.5, paths["yolov3-tiny 256x256 b8 fp32"]
+    gates["yolov3-tiny fp32 map"] = paths["yolov3-tiny 256x256 b8 fp32"]["map"]
+    gates["yolov3-tiny bf16 map"] = paths["yolov3-tiny 256x256 b8 bf16"]["map"]
+
+    # The denoisers' gates at 96x96 on noisy_pairs(seed 20260820): FP32 PSNR
+    # over the noisy input's + 3 dB and over 26 dB; BF16 within 1 dB of it,
+    # INT8 (weight-only) within 1.5 dB.
+    x96, y96 = noisy_pairs(np.random.default_rng(20260820), 8, 96)
+    p_noisy = psnr(x96, y96)
+    for name_, path in (("spatialdenoise", zoo.SPATIALDENOISE_TRAINED),
+                        ("unet", zoo.UNET_TRAINED), ("aidenoise", zoo.AIDENOISE_TRAINED)):
+        db = {prec.value: psnr(engine(path, prec, 8, (96, 96)).run_single(x96), y96)
+              for prec in (FP32, BF16, I8)}
+        log(f"[zoo] gate {name_} 96x96: PSNR fp32 {db['fp32']:.2f} dB (noisy {p_noisy:.2f} + 3, "
+            f"26), bf16 {db['bf16']:.2f} (fp32 - 1), int8 {db['int8']:.2f} (fp32 - 1.5)")
+        assert db["fp32"] > p_noisy + 3.0 and db["fp32"] > 26.0, (name_, db, p_noisy)
+        assert db["bf16"] > db["fp32"] - 1.0 and db["int8"] > db["fp32"] - 1.5, (name_, db)
+        gates[f"{name_} 96 psnr_db"] = db
+    gates["noisy input psnr_db"] = p_noisy
+
+    # The default StyleTransfer artifact at 64x64, b4: PSNR over 8 images
+    # (seed 424242) >= the identity's + 1 dB and >= 20 dB; BF16 within 1 dB
+    # over the first 4.
+    def style64(prec, n):
+        eng = engine(zoo.STYLETRANSFER_TRAINED, prec, 4, (64, 64))
+        img_rng = np.random.default_rng(424242)
+        net, ident = [], []
+        for _ in range(n // 4):
+            x_ = synth_imgs(img_rng, 4, s=64)
+            t_ = style_target(x_)
+            net.append(psnr(np.clip(eng.run_single(x_).float().cpu().numpy(), 0, 1), t_))
+            ident.append(psnr(x_, t_))
+        return float(np.mean(net)), float(np.mean(ident))
+
+    db32, id_db = style64(FP32, 8)
+    db32_4, _ = style64(FP32, 4)
+    db16_4, _ = style64(BF16, 4)
+    log(f"[zoo] gate styletransfer 64x64: PSNR {db32:.2f} dB (identity {id_db:.2f} + 1, 20); "
+        f"BF16 {db16_4:.2f} (FP32 {db32_4:.2f} - 1)")
+    assert db32 >= id_db + 1.0 and db32 >= 20.0, (db32, id_db)
+    assert db16_4 >= db32_4 - 1.0, (db32_4, db16_4)
+    gates["styletransfer 64 psnr_db"] = {"fp32": db32, "identity": id_db, "bf16_4": db16_4,
+                                         "fp32_4": db32_4}
+
+    # [kernel]: every chain and single conv of the plans above, with the
+    # models' weights, at the plans' forms: bf16 and int8 weights from an f32
+    # and a bf16 input, fp32 likewise (3xTF32; exact bf16 input, two passes).
+    errs = {}
+    for (form, label), (kind, _l, nodes, specs, tail, shape, _x_dt, dt) in cases.items():
+        for x_dt in (f32, bf16):
+            x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev, x_dt)
+            tag = f"{label} {form} x {'bf16' if x_dt == bf16 else 'f32'}"
+            if kind == "chain":
+                ops = h.on_dev(chain.chain_operands(nodes, dt, specs))
+                entry = "fused_conv_chain_packed" if tail in ("c1", "d2s2") else "fused_conv_chain"
+                got = getattr(chain, entry)(x, ops, specs, tail=tail, compute_dtype=dt)
+                torch.cuda.synchronize()
+                want = chain.conv_chain_reference(x, ops, specs, tail, dt)
+            else:
+                node = nodes[0]
+                wts, sc, of = (t_.to(dev) for t_ in folded_operands(node, dt))
+                pads = padding_offsets(node.attr("padding", "same"), int(node.attr("kernel_size")))
+                act, alpha = str(node.attr("activation", "linear")), float(node.attr("leaky_alpha", 0.3))
+                entry = "fused_conv2d_haloed"
+                got = conv.fused_conv2d_haloed(x, wts, sc, of, pads, act, alpha, dt)
+                torch.cuda.synchronize()
+                want = conv.conv2d_haloed_reference(x, wts, sc, of, pads, act, alpha, dt)
+            errs[(entry, form)] = max(errs.get((entry, form), 0.0), h.held(tag, entry, got, want, dt))
+    log(f"[zoo] {2 * len(cases)} [kernel] cases at the zoo plans' launches")
+
+    # [timing]: each launch shape at its form: kernel, plain version and the
+    # library call (channels_last F.conv2d + epilogue, cuDNN), with the
+    # bound from this run's shapes.
+    rows = {}
+    for (form, label), (kind, _l, nodes, specs, tail, shape, x_dt, dt) in cases.items():
+        x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev, x_dt)
+        if kind == "chain":
+            ops = h.on_dev(chain.chain_operands(nodes, dt, specs))
+            entry = "fused_conv_chain_packed" if tail in ("c1", "d2s2") else "fused_conv_chain"
+            t = h.timed({
+                "kernel": lambda: getattr(chain, entry)(x, ops, specs, tail=tail, compute_dtype=dt),
+                "plain": lambda: chain.conv_chain_reference(x, ops, specs, tail, dt),
+                "library": h.chain_library(x, ops, specs, tail, dt),
+            })
+            n_, h_, w_, _ = shape
+            flops = 2.0 * n_ * h_ * w_ * sum(sp.k * sp.k * sp.c * sp.o for sp in specs)
+            out_el = n_ * h_ * w_ * specs[-1].o  # d2s2: o = 4 values per input pixel
+            nbytes = x.numel() * x.element_size() + out_el * (2 if dt == bf16 else 4) + sum(
+                p["w"].numel() * p["w"].element_size() + 8 * p["scale"].numel() for p in ops)
+        else:
+            node = nodes[0]
+            wts, sc, of = (t_.to(dev) for t_ in folded_operands(node, dt))
+            pads = padding_offsets(node.attr("padding", "same"), int(node.attr("kernel_size")))
+            act, alpha = str(node.attr("activation", "linear")), float(node.attr("leaky_alpha", 0.3))
+            entry = "fused_conv2d_haloed"
+            t = h.timed({
+                "kernel": lambda: conv.fused_conv2d_haloed(x, wts, sc, of, pads, act, alpha, dt),
+                "plain": lambda: conv.conv2d_haloed_reference(x, wts, sc, of, pads, act, alpha, dt),
+                "library": h.conv_yardstick(x, wts, sc, of, pads, act, dt),
+            })
+            kh, kw, c_, o_ = wts.shape
+            n_, h_, w_, _ = shape
+            ho, wo = h_ + pads[0] + pads[1] - kh + 1, w_ + pads[2] + pads[3] - kw + 1
+            flops = 2.0 * n_ * ho * wo * kh * kw * c_ * o_
+            nbytes = (x.numel() * x.element_size() + n_ * ho * wo * o_ * (2 if dt == bf16 else 4)
+                      + wts.numel() * wts.element_size() + 8 * o_)
+        b_ms, b_by = h.bound(flops, nbytes, dt)
+        b3, b3_text = h.tf32(flops, nbytes, dt)
+        row = dict(**h.timing_keys(t), bound_ms=b_ms, bound_by=b_by, **b3)
+        rows.setdefault(entry, {})[f"{label} {form}"] = row
+        log(f"[timing] {entry} {form} {label}: {h.timing_text(t)} bound {b_ms:.5f} ms ({b_by}; "
+            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB{b3_text}) | {h.card}")
+    log(f"[zoo] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": paths, "gates": gates, "timing": rows,
+            "max_abs_err": {f"{e} {form}": v for (e, form), v in errs.items()},
+            "kernel_cases": 2 * len(cases)}
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@ shadernn_tpu/graph/builder.py, for the ops this package registers).
 
 Weight placeholders are drawn exactly as the JAX package draws them
 (numpy `default_rng(seed)`, `_rand` below), so one seed gives bit-identical
-weights in both packages. Conv weights are HWIO.
+weights in both packages. Conv and deconv weights are HWIO, depthwise
+HW1(C*m), dense (in, units).
 """
 
 from __future__ import annotations
@@ -140,6 +141,44 @@ class GraphBuilder:
             )
         )
 
+    def deconv(
+        self,
+        x: str,
+        filters: int,
+        kernel_size: int,
+        stride: int = 1,
+        padding="same",
+        activation: str = "linear",
+        use_bias: bool = True,
+        weight: Optional[np.ndarray] = None,
+        name: Optional[str] = None,
+    ) -> str:
+        name = self._name("deconv", name)
+        cin = self.channels(x)
+        params = {
+            "weight": weight
+            if weight is not None
+            else self._rand(kernel_size, kernel_size, cin, filters)
+        }
+        if use_bias:
+            params["bias"] = np.zeros(filters, np.float32)
+        return self._add(
+            Node(
+                name,
+                "Conv2DTranspose",
+                [x],
+                {
+                    "kernel_size": kernel_size,
+                    "stride": stride,
+                    "padding": padding,
+                    "activation": activation,
+                    "use_bias": use_bias,
+                    "out_channels": filters,
+                },
+                params,
+            )
+        )
+
     def maxpool(self, x: str, pool: int, stride: Optional[int] = None, padding="valid", name=None) -> str:
         return self._add(
             Node(self._name("maxpool", name), "MaxPooling2D", [x],
@@ -168,14 +207,38 @@ class GraphBuilder:
             Node(self._name("bn", name), "BatchNormalization", [x],
                  {"epsilon": epsilon, "activation": activation}, params))
 
+    def instancenorm(self, x: str, gamma=None, beta=None, epsilon: float = 1e-5,
+                     activation: str = "linear", name=None) -> str:
+        c = self.channels(x)
+        params = {
+            "gamma": np.ones(c, np.float32) if gamma is None else np.asarray(gamma, np.float32),
+            "beta": np.zeros(c, np.float32) if beta is None else np.asarray(beta, np.float32),
+        }
+        return self._add(
+            Node(self._name("in", name), "InstanceNormalization", [x],
+                 {"epsilon": epsilon, "activation": activation}, params))
+
     def add(self, xs: Sequence[str], activation: str = "linear", name=None) -> str:
         return self._add(
             Node(self._name("add", name), "Add", list(xs), {"activation": activation}))
+
+    def concat(self, xs: Sequence[str], name=None) -> str:
+        return self._add(Node(self._name("concat", name), "Concatenate", list(xs), {}))
 
     def activation(self, x: str, kind: str, alpha: float = 0.3, name=None) -> str:
         return self._add(
             Node(self._name("act", name), "Activation", [x],
                  {"activation": kind, "leaky_alpha": alpha}))
+
+    def unary(self, x: str, op_type: str, op_value: float = 1.0, name=None) -> str:
+        return self._add(
+            Node(self._name("unary", name), "Unary", [x],
+                 {"op_type": op_type, "op_value": op_value}))
+
+    def upsample(self, x: str, scale: int = 2, interpolation: str = "nearest", name=None) -> str:
+        return self._add(
+            Node(self._name("upsample", name), "UpSampling2D", [x],
+                 {"scale": scale, "interpolation": interpolation}))
 
     def pad(self, x: str, t: int, b: int, l: int, r: int, mode="constant", value=0.0, name=None) -> str:
         return self._add(
@@ -201,6 +264,17 @@ class GraphBuilder:
         return self._add(
             Node(name, "Dense", [x],
                  {"units": units, "activation": activation, "use_bias": use_bias}, params))
+
+    def yolo(self, xs: Sequence[str], num_classes: int = 1, net_hw=(416, 416),
+             max_detections: int = 100, anchors=None, masks=None, name=None) -> str:
+        from shadernn_tpu_torch.ops.yolo import YOLOV3_TINY_ANCHORS, YOLOV3_TINY_MASKS
+
+        return self._add(
+            Node(self._name("yolo", name), "YOLO", list(xs),
+                 {"num_classes": num_classes, "net_hw": net_hw,
+                  "max_detections": max_detections,
+                  "anchors": anchors or YOLOV3_TINY_ANCHORS,
+                  "masks": masks or YOLOV3_TINY_MASKS}))
 
     # -- finish ------------------------------------------------------------
     def build(self, outputs: Optional[Sequence[str]] = None, batch_size: int = 1) -> Graph:

@@ -9,7 +9,7 @@ shadernn_tpu_torch/kernels instead.
 # Import op modules for registration side effects.
 from shadernn_tpu_torch.ops import registry  # noqa: F401
 from shadernn_tpu_torch.ops import (  # noqa: F401
-    conv, dense, elementwise, normalize, pool, shape_ops,
+    conv, dense, elementwise, normalize, pool, shape_ops, yolo,
 )
 
 get_op = registry.get_op

@@ -1,5 +1,5 @@
-"""Conv2D and SeparableConv2D (depthwise) on NHWC tensors with HWIO weights
-(counterpart of shadernn_tpu/ops/conv.py; Conv2DTranspose comes later).
+"""Conv2D, SeparableConv2D (depthwise) and Conv2DTranspose on NHWC tensors
+with HWIO weights (counterpart of shadernn_tpu/ops/conv.py).
 Weights are float (`weight`) or int8 with per-output-channel scales
 (`weight_q`, `weight_scale`; quant/quantize.py).
 
@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from shadernn_tpu_torch.config import BackendKind
 from shadernn_tpu_torch.graph.ir import Node, TensorSpec, Transform, transform_output_dims
-from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
+from shadernn_tpu_torch.ops.common import apply_activation, is_same_padding, padding_offsets
 from shadernn_tpu_torch.ops.registry import OpDef, RunCtx, register
 from shadernn_tpu_torch.utils import get_logger
 
@@ -344,4 +344,64 @@ class SeparableConv2D(OpDef):
         w = layer_weight(node, ctx, x.dtype, x.device, 0.0)  # (k, k, 1, C*mult)
         y = conv2d_nhwc_f32(x, w, _conv_pads(node), int(node.attr("stride", 1)),
                             groups=x.shape[-1])
+        return _epilogue(node, y.to(x.dtype))
+
+
+def conv_transpose_padding(k: int, s: int, same: bool) -> Tuple[int, int]:
+    """(before, after) zero padding of the stride-dilated input that
+    `lax.conv_transpose` takes for a "SAME" or "VALID" transposed conv, per
+    spatial dimension (lax's own rule: "SAME" is asymmetric)."""
+    if same:
+        pad_len = k + s - 2
+        pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+    else:
+        pad_len = k + s - 2 + max(k - s, 0)
+        pad_a = k - 1
+    return pad_a, pad_len - pad_a
+
+
+def conv_transpose2d_nhwc_f32(x: torch.Tensor, w_hwio: torch.Tensor, stride: int,
+                              same: bool) -> torch.Tensor:
+    """float32 transposed convolution of NHWC `x` with HWIO `w_hwio` (I = x's
+    channels), the function of the JAX op: `lax.conv_transpose` of the
+    spatially flipped kernel, i.e. the scatter y[i*s + a] += x[i] * w[a]
+    (`F.conv_transpose2d` without padding gives all of it, (H-1)*s + k rows)
+    seen through lax's window: it starts k - 1 - pad_a rows in, which is
+    a crop, or zero rows where negative, and spans (H-1)*s + 1 + pad_a +
+    pad_b - k + 1 rows. Returns NHWC float32."""
+    kh, kw = int(w_hwio.shape[0]), int(w_hwio.shape[1])
+    with full_precision():
+        y = F.conv_transpose2d(x.float().permute(0, 3, 1, 2), w_hwio.float().permute(2, 3, 0, 1),
+                               stride=stride)
+    pads = []
+    for k, n_in, full in ((kw, x.shape[2], y.shape[3]), (kh, x.shape[1], y.shape[2])):
+        pad_a, pad_b = conv_transpose_padding(k, stride, same)
+        start, size = k - 1 - pad_a, (n_in - 1) * stride + pad_a + pad_b - k + 2
+        pads += [-start, start + size - full]
+    return F.pad(y, pads).permute(0, 2, 3, 1)
+
+
+@register("Conv2DTranspose", "Deconvolution")
+class Conv2DTranspose(OpDef):
+    """Transposed convolution with the Conv2D epilogue. out = s*H ("same")
+    or s*H + (k - s) otherwise. HWIO weight (I = input channels, O = output
+    channels), in the Keras/torch gradient-of-conv orientation; float or
+    int8 (dequantized as get_weight does). Sums in float32 on the compute-
+    dtype values, then rounded, as the JAX op's preferred_element_type=
+    float32 does; TORCH on every backend (the JAX op has no Pallas
+    branch)."""
+
+    def infer(self, node: Node, in_specs: Sequence[TensorSpec]) -> TensorSpec:
+        s = in_specs[0]
+        k, st = int(node.attr("kernel_size")), int(node.attr("stride", 1))
+        tr = 0.0 if is_same_padding(node.attr("padding", "same")) else float(k - st)
+        t = Transform(scale_w=float(st), scale_h=float(st), translate_w=tr, translate_h=tr)
+        h, w = transform_output_dims(t, in_specs)
+        return s.with_shape((s.n, h, w, int(node.attr("out_channels"))))
+
+    def run(self, node: Node, xs: List, ctx: RunCtx):
+        x = xs[0]
+        w = layer_weight(node, ctx, x.dtype, x.device, 0.0)
+        y = conv_transpose2d_nhwc_f32(x, w, int(node.attr("stride", 1)),
+                                      is_same_padding(node.attr("padding", "same")))
         return _epilogue(node, y.to(x.dtype))

@@ -1,5 +1,12 @@
-"""Shape/layout ops: Flatten, Pad (ZeroPadding2D), Subpixel, SpaceToDepth
-(counterparts of shadernn_tpu/ops/shape_ops.py).
+"""Shape/layout ops: Flatten, UpSampling2D, Pad (ZeroPadding2D), Subpixel,
+SpaceToDepth (counterparts of shadernn_tpu/ops/shape_ops.py).
+
+UpSampling2D's bilinear mode is `jax.image.resize(method="bilinear")`'s
+function: half-pixel centres, with the weights of taps outside the image
+dropped and the rest renormalized. For an integer upscale that is
+`F.interpolate(mode="bilinear", align_corners=False)`, which clamps the
+source coordinate at the borders instead (the same values: a clamped tap
+lands on the edge pixel that renormalization weights 1).
 
 Subpixel keeps TF depth_to_space channel order,
 channel = (py*r + px)*co + c, which is what the Keras ESPCN uses.
@@ -14,7 +21,7 @@ from typing import List, Sequence
 import numpy as np
 import torch.nn.functional as F
 
-from shadernn_tpu_torch.graph.ir import Node, TensorSpec
+from shadernn_tpu_torch.graph.ir import Node, TensorSpec, Transform, transform_output_dims
 from shadernn_tpu_torch.ops.common import padding_offsets
 from shadernn_tpu_torch.ops.registry import OpDef, RunCtx, register
 
@@ -30,6 +37,32 @@ class Flatten(OpDef):
 
     def run(self, node: Node, xs: List, ctx: RunCtx):
         return xs[0].reshape(xs[0].shape[0], -1)
+
+
+@register("UpSampling2D", "Upsample")
+class UpSampling2D(OpDef):
+    """Nearest or bilinear resize by an integer scale (transform: scale,
+    scale, 0, 0). Bilinear interpolates in float32 and rounds to x's dtype
+    once; jax.image.resize runs in x's dtype (bfloat16 under BF16), so the
+    two differ there by bfloat16 roundings only."""
+
+    def infer(self, node: Node, in_specs: Sequence[TensorSpec]) -> TensorSpec:
+        s = in_specs[0]
+        f = float(node.attr("scale", 2))
+        h, w = transform_output_dims(Transform(scale_w=f, scale_h=f), in_specs)
+        return s.with_shape((s.n, h, w, s.c))
+
+    def run(self, node: Node, xs: List, ctx: RunCtx):
+        x = xs[0]
+        f = int(node.attr("scale", 2))
+        interp = str(node.attr("interpolation", "nearest")).lower()
+        if interp == "nearest":
+            return x.repeat_interleave(f, dim=1).repeat_interleave(f, dim=2)
+        if interp in ("bilinear", "linear"):
+            y = F.interpolate(x.permute(0, 3, 1, 2).float(), scale_factor=f, mode="bilinear",
+                              align_corners=False, antialias=False)
+            return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+        raise ValueError(f"unknown interpolation {interp!r}")
 
 
 @register("ZeroPadding2D", "Pad", "Padding")

@@ -65,9 +65,11 @@ def test_build_espcn_matches_jax(seed):
 
 
 def test_list_models():
-    assert P.list_models() == ["espcn", "mobilenetv2", "resnet18"]
+    from shadernn_tpu.models import list_models as jlist
+
+    assert P.list_models() == jlist() and len(P.list_models()) == 13
     with pytest.raises(KeyError):
-        P.build_model("unet")
+        P.build_model("vgg16")
 
 
 @pytest.mark.parametrize("input_hw", [None, (36, 64)])
