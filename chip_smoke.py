@@ -119,6 +119,24 @@ Phases, each of which raises on failure (exit code != 0):
               single conv of these plans with the models' weights; a planted
               fault (U-Net's transposed-conv kernel flipped); [timing] rows
               of each new launch shape
+  7. serve    the serving layer (serve_phase): ESPCN 2x (trained) at 540p b8
+              BF16 under StreamingEngine, 4 producer threads x 64 frames of
+              raw uint8 luma through the on-device ingest and the same
+              frames as float32, each at max_inflight 1 and 4: stats()
+              (throughput, p50/p99 latency, fetch ms, fill, padding) beside
+              the step-only rate and one batch's download alone; every
+              served frame against Engine.run of the same normalized frame,
+              one chain launch per served batch, the overlap from the
+              batches' timestamps, two frames' outputs swapped as a planted
+              fault. YOLOv3-tiny (trained) 256x256 b8 BF16 served: 32 scenes,
+              detections box to box against Engine.run, mAP >= 0.45, one
+              single-conv launch per batch. ExportedEngine (ESPCN BF16 and
+              FP32 b8: outputs, plans, launches; the BF16 one served for 64
+              frames, "ready in"), InferenceProcessor and Engine.classify
+              against Engine.run, trace_benchmark within 5% of phase 4's
+              busy time, device_benchmark, the per-layer report at the
+              card's peaks, NV12 and 1080p -> 540p ingest on the card,
+              run_model(image_path=) where Pillow is installed
 Prints the `kernels` JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Imports no JAX and nothing of
 the JAX package. Exits non-zero without printing a result when no CUDA
@@ -146,17 +164,6 @@ TOL_FP32 = 1e-4  # summation order only
 TOL_BF16 = 0.03
 ENGINE_TOL = {"bf16": 0.1, "fp32": 0.01}  # tests/conftest.py thresholds
 
-# Published peaks (dense) per card: bytes/s, bf16 FLOP/s, f32 FLOP/s on
-# the CUDA cores, TF32 FLOP/s on the tensor cores. The fp32 forms of the
-# single-conv and block kernels run 3xTF32 (three TF32 products per f32
-# product, about f32's accuracy): their work is bounded at a third of the
-# TF32 peak, printed beside the CUDA-core bound.
-PEAKS = {
-    "H100 SXM": (3.35e12, 989e12, 67e12, 495e12),
-    "H100 PCIe": (2.0e12, 756e12, 51e12, 378e12),
-}
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -167,11 +174,6 @@ def smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def peaks_for(name: str):
-    key = "H100 PCIe" if "PCIe" in name else "H100 SXM"
-    return key, PEAKS[key]
 
 
 class _Node:
@@ -217,6 +219,8 @@ def main() -> int:
     from shadernn_tpu_torch.quant.calibrate import calibrate_activations
     from shadernn_tpu_torch.tools.train_resnet18 import synth_cls
     from shadernn_tpu_torch.utils.metrics import psnr
+    from shadernn_tpu_torch.utils.profiler import peaks_for
+    from shadernn_tpu_torch.utils.trace_profile import HAND_WRITTEN, device_profile
 
     dev = torch.device("cuda", 0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -229,7 +233,11 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} nvcc '{nvcc}'")
     log(f"[env] {card} | devices {torch.cuda.device_count()}")
-    peak_key, (peak_bw, peak_bf16, peak_f32, peak_tf32) = peaks_for(name)
+    # The card's published dense peaks (utils/profiler.py PEAKS). The fp32
+    # forms of the kernels run 3xTF32 (three TF32 products per f32 product,
+    # about f32's accuracy): their work is bounded at a third of the TF32
+    # peak, printed beside the CUDA-core bound.
+    peak_key, (peak_bw, peak_bf16, peak_f32, peak_tf32, peak_int8) = peaks_for(name)
 
     # 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -774,45 +782,12 @@ def main() -> int:
     def read_counts():
         return {k: v for counts in counters for k, v in counts.items()}
 
-    def device_profile(fn, reps=10):
-        """Device time per call of fn from torch.profiler: the durations of
-        the device's own events (kernels, copies, fills) over `reps` calls
-        after one warm call, divided by reps; and the top events by it.
-        Only device events are summed: a CPU op's device time repeats its
-        kernels'. Now and then a profile records no device event at all: it
-        is then taken again, up to three times; (0.0, []) where it still
-        sees none."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        per = {}
-        for _attempt in range(3):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-            for ev in prof.key_averages():
-                if ev.device_type != DeviceType.CUDA:
-                    continue
-                t = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
-                if t > 0:
-                    per[ev.key] = per.get(ev.key, 0.0) + t / 1e3 / reps
-            if per:
-                break
-        top = sorted(per.items(), key=lambda kv: -kv[1])
-        return sum(per.values()), top
-
     def device_busy(eng, inputs, steps=5):
         """Device time per engine step (inputs already on the card) and the
         top device events by it."""
         dev_inputs = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
         return device_profile(lambda: eng.model(dev_inputs), steps)
 
-    # The hand-written kernels' names, as the profiler gives them.
-    PORTED = re.compile(r"\b(conv_chain(_tc|_tf32)?|conv_single(_tc|_tf32)?|invres(_tc|_tf32)?|"
-                        r"conv_igemm(_tc)?|matmul_fused)_kernel\b")
 
     def busy_text(eng, inputs, p50):
         """Device time per step, the hand-written kernels' share of it and
@@ -821,7 +796,7 @@ def main() -> int:
         names the top events."""
         busy_ms, top_kernels = device_busy(eng, inputs)
         idle = f"{1 - busy_ms / p50:.3f}" if busy_ms else "not measured"
-        ported = sum(v for k, v in top_kernels if PORTED.search(k))
+        ported = sum(v for k, v in top_kernels if HAND_WRITTEN.search(k))
         return busy_ms, ported, (f"torch.profiler: device busy {busy_ms:.3f} ms per step (hand-written "
                          f"kernels {ported:.3f} ms, TORCH layers and the rest "
                          f"{busy_ms - ported:.3f} ms), idle share {idle} of the p50 step; top "
@@ -1907,7 +1882,6 @@ def main() -> int:
     # with the folded f32 scale in the epilogue, the same function. No
     # library call computes the a8 / A8W8 forms (cuDNN takes no int8
     # activations there): library null.
-    PEAK_INT8 = 1979e12
 
     def timing_keys_i8(t):
         lib = t.get("library", (None, None))
@@ -1923,7 +1897,7 @@ def main() -> int:
 
 
     def bound_i8(flops_bf16, flops_int8, nbytes):
-        t_ops = (flops_bf16 / peak_bf16 + flops_int8 / PEAK_INT8) * 1e3
+        t_ops = (flops_bf16 / peak_bf16 + flops_int8 / peak_int8) * 1e3
         t_bytes = nbytes / peak_bw * 1e3
         return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -2117,6 +2091,12 @@ def main() -> int:
         conv_yardstick=conv_yardstick, bound=bound, tf32=tf32, timing_keys=timing_keys,
         timing_text=timing_text))
 
+    # 7. serve ----------------------------------------------------------------
+    serve_out = serve_phase(types.SimpleNamespace(
+        dev=dev, log=log, card=card, reset_counts=reset_counts, read_counts=read_counts,
+        held_to_plans=held_to_plans,
+        espcn_busy_ms=main_stats["fused_conv_chain_packed"]["device_busy_ms"]))
+
     def zoo_rows(entry):
         """What the zoo phase ran on one entry: its launches per path (all
         steps), [kernel] errors per form and [timing] rows per shape."""
@@ -2148,6 +2128,16 @@ def main() -> int:
             "engine_device_busy_ms": main_stats[entry]["device_busy_ms"],
             **chain_int8[entry],
             "zoo": zoo_rows(entry),
+            **({"serve": {
+                "launches_per_batch": 1,
+                "configuration": "ESPCN 2x (trained) 540p b8 BF16 under StreamingEngine: 4 "
+                                 "streams x 64 frames, uint8 ingest and float32, max_inflight "
+                                 "1 and 4; the exported engine served for 64 frames",
+                "runs": serve_out["espcn"]["rows"],
+                "step_only_fps": serve_out["espcn"]["step_only_fps"],
+                "download_ms": serve_out["espcn"]["download_ms"],
+                "exported": serve_out["exported"]}} if entry == "fused_conv_chain_packed"
+               else {}),
         })
     r = block_rows["bf16"]
     kernels.append({
@@ -2213,6 +2203,10 @@ def main() -> int:
             top1={k: v["top1"] for k, v in i8_main.items() if "resnet18 cls10" in k},
             planted_fault_weight_scale_zeroed_diff=fault_errs["weight_scale_zeroed"]),
         "zoo": zoo_rows("fused_conv2d_haloed"),
+        "serve": {"launches_per_batch": 1,
+                  "configuration": "YOLOv3-tiny (trained) 256x256 b8 BF16 under "
+                                   "StreamingEngine, 32 scenes (seed 7)",
+                  **serve_out["yolo"]},
     })
     r = igemm_rows["bf16"]
     kernels.append({
@@ -2619,6 +2613,364 @@ def zoo_phase(h) -> dict:
             "max_abs_err": {f"{e} {form}": v for (e, form), v in errs.items()},
             "kernel_cases": 2 * len(cases)}
 
+
+
+def serve_phase(h) -> dict:
+    """7. serve: the serving layer on the card. `h` carries main's helpers
+    (log, reset_counts, read_counts, held_to_plans) and phase 4's device
+    busy time of the ESPCN BF16 b8 engine.
+
+    ESPCN 2x (trained) at 540p b8 BF16 under StreamingEngine: 4 producer
+    threads x 64 frames, raw uint8 luma through ingest and the same frames
+    as float32 without it, each at max_inflight 1 and 4. A timed run (the
+    consumer drops each result) gives stats(); a checked run (the consumer
+    keeps them) holds every served frame against Engine.run of the same
+    normalized frame (TOL_BF16) and its chain launches to batches_run; two
+    frames' outputs swapped in one batch must fail that check. Beside them:
+    the step-only rate (8 / Engine.benchmark p50), one batch's download
+    alone (CUDA events), and the overlap from the timeline (batch k+1
+    dispatched before batch k drained). YOLOv3-tiny (trained) 256x256 b8
+    BF16 under the service: 32 scenes (seed 7), detections box to box
+    against Engine.run, mAP >= 0.45, one single-conv launch per batch.
+    ExportedEngine: ESPCN BF16 and FP32 b8 exported and reloaded (output,
+    plans, one chain launch per step), the BF16 one served for 64 frames
+    ("ready in": load to first result). InferenceProcessor (use_pallas) and
+    Engine.classify against Engine.run; trace_benchmark within 5% of phase
+    4's busy time, device_benchmark, the per-layer report at the card's
+    peaks; NV12 -> RGB and a 1080p -> 540p bilinear ingest on the card
+    against the host and the CPU; run_model(image_path=) on a PNG where
+    Pillow is installed."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from shadernn_tpu_torch import Engine, EngineOptions, Precision
+    from shadernn_tpu_torch.engine.deploy import ExportedEngine, export_engine
+    from shadernn_tpu_torch.engine.processor import InferenceProcessor, InitializationParameters
+    from shadernn_tpu_torch.engine.streaming import StreamingEngine
+    from shadernn_tpu_torch.image import color
+    from shadernn_tpu_torch.image.ingest import ingest_frames, nv12_to_rgb_device
+    from shadernn_tpu_torch.kernels import chain, conv
+    from shadernn_tpu_torch.models import zoo
+    from shadernn_tpu_torch.tools.train_yolo import NUM_CLASSES, synth_scenes
+    from shadernn_tpu_torch.utils.metrics import detections_agree, mean_average_precision
+    from shadernn_tpu_torch.utils.profiler import print_report, profile_layers
+    from shadernn_tpu_torch.utils.trace_profile import complete
+
+    log, dev = h.log, h.dev
+    rng = np.random.default_rng(20261017)
+    BF16, FP32 = Precision.BF16, Precision.FP32
+    t_phase = time.perf_counter()
+    out = {}
+    STOP_S = 300.0
+
+    def served(svc, frames, keep=True, streams=4, producers=None):
+        """Serve (stream, frame, data) from one producer thread per stream
+        (or `producers` threads, frames dealt round robin); {(stream,
+        frame): Result} if keep, else {} (the consumer drops each result),
+        and the first result's monotonic time."""
+        got, first = {}, []
+
+        def on_result(r):
+            if not first:
+                first.append(time.monotonic())
+            if keep:
+                got[(r.stream_id, r.frame_id)] = r
+
+        svc.on_result = on_result
+        errors = []
+
+        n_threads = producers or streams
+
+        def produce(t):
+            try:
+                for j, (sid, fid, data) in enumerate(frames):
+                    if (j if producers else sid) % n_threads == t:
+                        svc.submit(sid, fid, data)
+            except BaseException as e:  # re-raised below
+                errors.append(e)
+
+        svc.start()
+        try:
+            threads = [threading.Thread(target=produce, args=(t,)) for t in range(n_threads)]
+            for p in threads:
+                p.start()
+            for p in threads:
+                p.join(STOP_S)
+                assert not p.is_alive(), "a producer did not finish"
+        finally:
+            svc.stop(drain=True, timeout=STOP_S)
+        if errors:
+            raise errors[0]
+        assert svc.stats()["frames_done"] >= len(frames)
+        return got, (first[0] if first else None)
+
+    def overlap_share(svc):
+        """The share of k for which batch k+1 was dispatched before batch k
+        drained, and the host's mean ms per batch staging the frames into
+        pinned memory and queuing the copies and the step."""
+        tl = svc.timeline
+        share = sum(tl[k + 1][2] < tl[k][3] for k in range(len(tl) - 1)) / max(len(tl) - 1, 1)
+        return share, (1e3 * float(np.mean([h - s for s, h, _, _ in tl])),
+                       1e3 * float(np.mean([d - h for _, h, d, _ in tl])))
+
+    def stats_text(st):
+        return (f"throughput {st['throughput_fps']:.1f} fps, latency p50 "
+                f"{st['p50_latency_ms']:.3f} ms p99 {st['p99_latency_ms']:.3f} ms, mean fetch "
+                f"{st['mean_fetch_ms']:.3f} ms, avg fill {st['avg_fill']:.2f}, padded "
+                f"{st['padded_frames']}, batches {st['batches_run']}")
+
+    # -- ESPCN 540p b8 BF16 under the service ------------------------------------
+    eng = Engine.from_json(zoo.ESPCN_TRAINED, EngineOptions(precision=BF16, batch_size=8))
+    name_out = eng.graph.output_names[0]
+    n_streams, per_stream = 4, 64
+    raw = rng.integers(0, 256, (n_streams * per_stream, 540, 960, 1), dtype=np.uint8)
+    norm = raw.astype(np.float32) * np.float32(1 / 255.0)  # ingest's arithmetic on the host
+    ids = [(i % n_streams, i // n_streams) for i in range(len(raw))]
+    index = {k: i for i, k in enumerate(ids)}
+    eng.run_single(norm[:8])  # prepared operands, on the default stream
+    bench = eng.benchmark({"input": norm[:8]}, loops=20)
+    step_fps = 8 / (bench["p50_ms"] / 1e3)
+    y = eng.run_single(norm[:8])
+    host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    host.copy_(y, non_blocking=True)
+    t0.record()
+    for _ in range(10):
+        host.copy_(y, non_blocking=True)
+    t1.record()
+    t1.synchronize()
+    download_ms = t0.elapsed_time(t1) / 10
+    log(f"[serve] espcn 540p b8 bf16: step p50 {bench['p50_ms']:.4f} ms (step-only rate "
+        f"{step_fps:.1f} fps); one batch's download alone (8x1080x1920x1 f32, "
+        f"{y.numel() * 4 / 1e6:.1f} MB, device to pinned host) {download_ms:.4f} ms "
+        f"({y.numel() * 4 / download_ms / 1e6:.1f} GB/s) | {h.card}")
+    del y, host
+
+    # The in-situ profile before the services: after them, a profile of this
+    # engine recorded 19 of 20 launches of its kernel, three times in a row
+    # (PERF.md section 7).
+    tb = eng.trace_benchmark({"input": norm[:8]}, steps=20)
+    db = eng.device_benchmark({"input": norm[:8]}, iters=50, repeats=3)
+    busy4 = h.espcn_busy_ms
+    rel = abs(tb["device_ms_per_step"] - busy4) / busy4
+    log(f"[serve] trace_benchmark espcn bf16 b8: device {tb['device_ms_per_step']:.4f} ms per "
+        f"step ({tb['frames_per_sec']:.1f} fps; every launch recorded: "
+        f"{complete(tb['report'])}) against phase 4's busy {busy4:.4f} ms: "
+        f"{100 * rel:.2f}% apart; device_benchmark mean {db['mean_ms']:.4f} ms p50 "
+        f"{db['p50_ms']:.4f} ({db['frames_per_sec']:.1f} fps) | {h.card}")
+    log(tb["report"].table(top=8))
+    assert rel <= 0.05, "trace_benchmark disagrees with phase 4's busy time"
+    log(print_report(profile_layers(eng, {"input": norm[:8]}, iters=10)))
+    out["trace_benchmark"] = {k: v for k, v in tb.items() if k != "report"}
+    out["device_benchmark"] = db
+
+    def check(got, want_ids):
+        """Max-abs-diff of every served frame against Engine.run of the same
+        normalized frame, batch by batch in frame order."""
+        err = 0.0
+        for b in range(0, len(want_ids), 8):
+            keys = want_ids[b:b + 8]
+            ref = eng.run_single(norm[[index[k] for k in keys]])
+            srv = torch.from_numpy(np.stack([got[k].outputs[name_out] for k in keys])).to(dev)
+            err = max(err, (srv - ref).abs().max().item())
+        return err
+
+    serve_rows = {}
+    for kind, ingest, data in (("uint8 ingest", {"means": (0.0,), "norms": (1 / 255.0,)}, raw),
+                               ("float32", None, norm)):
+        frames = [(s, f, data[index[(s, f)]]) for s, f in ids]
+        # warm: the service's pinned host pool and the ingest step's first launches
+        served(StreamingEngine(eng, ingest=ingest, max_inflight=4), frames, keep=False)
+        for inflight in (1, 4):
+            svc = StreamingEngine(eng, ingest=ingest, max_inflight=inflight)
+            served(svc, frames, keep=False)
+            st, (share, (stage_ms, queue_ms)) = svc.stats(), overlap_share(svc)
+            svc = StreamingEngine(eng, ingest=ingest, max_inflight=inflight)
+            h.reset_counts()
+            got, _ = served(svc, frames, keep=True)
+            counts = h.read_counts()
+            chk = svc.stats()
+            assert sorted(got) == sorted(ids), "a frame was lost or served twice"
+            assert counts["fused_conv_chain_packed"] == chk["batches_run"], (counts, chk)
+            assert sum(counts.values()) == chk["batches_run"], counts
+            err = check(got, ids)
+            label = f"{kind} inflight {inflight}"
+            log(f"[serve] espcn 540p b8 bf16 {label}: {stats_text(st)}; host per batch: "
+                f"staging {stage_ms:.3f} ms, queuing {queue_ms:.3f} ms; batch k+1 dispatched "
+                f"before batch k drained for {share:.2f} of k | checked run: {len(got)} "
+                f"frames vs Engine.run max_abs_diff {err:.3e} tol {TOL_BF16}, chain launches "
+                f"{counts['fused_conv_chain_packed']} = batches {chk['batches_run']} | {h.card}")
+            assert err <= TOL_BF16, f"{label}: a served frame disagrees with Engine.run"
+            serve_rows[label] = dict(st, overlap_share=share, host_staging_ms=stage_ms,
+                                     host_queuing_ms=queue_ms, max_abs_diff=err,
+                                     launches=counts["fused_conv_chain_packed"],
+                                     batches=chk["batches_run"])
+            if kind == "uint8 ingest" and inflight == 4:
+                assert share >= 0.5, f"no overlap at max_inflight=4: {share:.2f}"
+                a, b = ids[0], ids[1]  # planted fault: two frames of one batch swapped
+                ra, rb = got[a], got[b]
+                got[a], got[b] = rb, ra
+                fault = check(got, ids)
+                log(f"[serve] planted fault (frames {a} and {b} swapped in one batch): "
+                    f"max_abs_diff {fault:.3e} tol {TOL_BF16} "
+                    f"{'caught' if fault > TOL_BF16 else 'MISSED'}")
+                assert fault > TOL_BF16, "the swapped frames were not caught"
+            del got
+            if inflight == 4:
+                # the same frames from one producer thread: the dispatcher
+                # then shares the interpreter's lock with one thread, not four
+                svc = StreamingEngine(eng, ingest=ingest, max_inflight=4)
+                served(svc, frames, keep=False, producers=1)
+                st1, (share1, (stage1, queue1)) = svc.stats(), overlap_share(svc)
+                log(f"[serve] espcn 540p b8 bf16 {kind} inflight 4, one producer thread: "
+                    f"{stats_text(st1)}; host per batch: staging {stage1:.3f} ms, queuing "
+                    f"{queue1:.3f} ms; overlap {share1:.2f} | {h.card}")
+                serve_rows[f"{kind} inflight 4, one producer"] = dict(
+                    st1, overlap_share=share1, host_staging_ms=stage1, host_queuing_ms=queue1)
+    out["espcn"] = {"rows": serve_rows, "step_p50_ms": bench["p50_ms"], "step_only_fps": step_fps,
+                    "download_ms": download_ms}
+
+    # -- ExportedEngine ------------------------------------------------------------
+    exported = {}
+    with tempfile.TemporaryDirectory(prefix="snn_export_") as tmp:
+        for prec in (BF16, FP32):
+            src = eng if prec is BF16 else Engine.from_json(
+                zoo.ESPCN_TRAINED, EngineOptions(precision=FP32, batch_size=8))
+            tol = TOL_BF16 if prec is BF16 else TOL_FP32
+            path = export_engine(src, os.path.join(tmp, prec.value))
+            exp = ExportedEngine(path)
+            h.reset_counts()
+            outs = [exp.run_single(norm[:8]) for _ in range(3)]
+            counts = h.read_counts()
+            want = src.run_single(norm[:8])
+            err = (outs[-1] - want).abs().max().item()
+            plans = {k: getattr(exp.model.forward, k) for k in ("chain_plan", "single_conv_plan")}
+            assert plans["chain_plan"] == src.model.forward.chain_plan
+            h.held_to_plans(exp.model.forward, counts, 3)
+            assert sum(counts.values()) == 3 and err <= tol, (counts, err)
+            log(f"[serve] exported espcn {prec.value} b8: vs its engine max_abs_diff {err:.3e} "
+                f"(tol {tol}), plans equal {plans}, launches {counts} over 3 steps")
+            row = {"max_abs_diff": err, "launches": counts, "plans": plans}
+            del exp, outs
+            if prec is BF16:
+                t_load = time.monotonic()
+                svc = StreamingEngine(ExportedEngine(path))
+                frames = [(i % 4, i // 4, norm[i]) for i in range(64)]
+                got, t_first = served(svc, frames)
+                ready = t_first - t_load
+                err_s = 0.0
+                for b in range(0, 64, 8):
+                    ref = src.run_single(norm[b:b + 8])
+                    srv = np.stack([got[(i % 4, i // 4)].outputs[name_out] for i in range(b, b + 8)])
+                    err_s = max(err_s, (torch.from_numpy(srv).to(dev) - ref).abs().max().item())
+                row.update(ready_in_s=ready, served=svc.stats(), served_max_abs_diff=err_s)
+                log(f"[serve] exported espcn bf16 served 64 frames: ready in {ready:.3f} s "
+                    f"(load to first result), {stats_text(svc.stats())}, every frame vs "
+                    f"Engine.run max_abs_diff {err_s:.3e} tol {TOL_BF16}")
+                assert err_s <= TOL_BF16
+            exported[prec.value] = row
+    out["exported"] = exported
+
+    # -- processor, classify, benchmarks ----------------------------------------
+    proc = InferenceProcessor()
+    proc.initialize(InitializationParameters(model_path=zoo.ESPCN_TRAINED, precision=BF16,
+                                             batch_size=8, use_pallas=True, max_loops=10))
+    proc.pre_process({"input": norm[:8]})
+    res = proc.process()
+    keng = Engine.from_json(zoo.ESPCN_TRAINED, EngineOptions(
+        precision=BF16, batch_size=8, backend=proc.engine.options.backend))
+    perr = (res["outputs"][name_out] - keng.run_single(norm[:8])).abs().max().item()
+    log(f"[serve] InferenceProcessor espcn bf16 b8 use_pallas: mean {res['mean_ms']:.4f} ms "
+        f"(stdev {res['stdev_ms']:.4f}, {res['loops']} loops after 5), vs Engine.run "
+        f"max_abs_diff {perr:.3e}")
+    assert perr <= TOL_BF16, perr
+    out["processor"] = {"mean_ms": res["mean_ms"], "max_abs_diff": perr}
+
+    cls = Engine.from_json(zoo.MOBILENETV2_TRAINED, EngineOptions(precision=BF16, batch_size=64))
+    xc = rng.random((64, 32, 32, 3), dtype=np.float32)
+    agree = (cls.classify(xc) == torch.argmax(cls.run_single(xc), -1).cpu().numpy()).mean()
+    log(f"[serve] Engine.classify trained MobileNetV2 b64 bf16: equal to argmax of run for "
+        f"{agree:.4f} of the images")
+    assert agree == 1.0
+    out["classify_agree"] = float(agree)
+
+    # -- YOLOv3-tiny under the service --------------------------------------------
+    yolo = Engine.from_json(zoo.YOLOV3_TINY_TRAINED, EngineOptions(precision=BF16, batch_size=8))
+    xs, gts = synth_scenes(np.random.default_rng(7), 32)
+    yolo.run_single(xs[:8])
+    h.reset_counts()
+    svc = StreamingEngine(yolo)
+    got, _ = served(svc, [(0, i, xs[i]) for i in range(len(xs))], streams=1)
+    counts = h.read_counts()
+    st = svc.stats()
+    h.held_to_plans(yolo.model.forward, counts, st["batches_run"])
+    assert counts["fused_conv2d_haloed"] == st["batches_run"] > 0, counts
+    yname = yolo.graph.output_names[0]
+    dets = np.stack([got[(0, i)].outputs[yname] for i in range(len(xs))])
+    ref = np.concatenate([yolo.run_single(xs[b:b + 8]).float().cpu().numpy()
+                          for b in range(0, len(xs), 8)])
+    worst = detections_agree(dets, ref, ENGINE_TOL["bf16"], nms_iou=0.45)
+    m = mean_average_precision([d[d[:, 1] > 0] for d in dets], gts, NUM_CLASSES)
+    log(f"[serve] yolov3-tiny 256 b8 bf16 served 32 scenes: {stats_text(st)}; vs Engine.run "
+        f"{worst}; mAP {m:.4f} (gate 0.45); single-conv launches {counts['fused_conv2d_haloed']}"
+        f" = batches {st['batches_run']} | {h.card}")
+    assert m >= 0.45, m
+    out["yolo"] = {"stats": st, "map": m, "detections": worst,
+                   "launches": counts["fused_conv2d_haloed"]}
+
+    # -- device ingest --------------------------------------------------------------
+    hh, ww = 1080, 1920
+    yp = rng.integers(0, 256, (2, hh, ww), dtype=np.uint8)
+    uv = rng.integers(0, 256, (2, hh // 2, ww // 2, 2), dtype=np.uint8)
+    rgb = nv12_to_rgb_device(torch.from_numpy(yp).to(dev), torch.from_numpy(uv).to(dev))
+    host_rgb = np.stack([color.nv12_to_rgb(np.concatenate([yp[i].reshape(-1), uv[i].reshape(-1)]),
+                                           hh, ww) for i in range(2)])
+    nv_err = float(np.abs(rgb.cpu().numpy() - host_rgb.astype(np.float32)).max())
+    frames = rng.integers(0, 256, (2, hh, ww, 3), dtype=np.uint8)
+    on_card = ingest_frames(torch.from_numpy(frames).to(dev), target_hw=(540, 960),
+                            dtype_name="float32").cpu()
+    on_cpu = ingest_frames(torch.from_numpy(frames), target_hw=(540, 960), dtype_name="float32")
+    rs_err = (on_card - on_cpu).abs().max().item()
+    log(f"[serve] device ingest: NV12 2x1080x1920 -> RGB vs host nv12_to_rgb max diff {nv_err:.4f} "
+        f"levels (host truncates to uint8; limit 1); 2x1080x1920x3 uint8 -> 540x960 bilinear vs "
+        f"the CPU max diff {rs_err:.3e} (limit 1e-4)")
+    assert nv_err <= 1.0 + 1e-3 and rs_err <= 1e-4, (nv_err, rs_err)
+    out["ingest"] = {"nv12_max_diff_levels": nv_err, "resize_max_diff": rs_err}
+
+    # -- run_model(image_path=) ----------------------------------------------------
+    try:
+        import PIL  # noqa: F401
+        has_pil = True
+    except ImportError:
+        has_pil = False
+    luma = rng.integers(0, 256, (540, 960, 1), dtype=np.uint8)
+    if has_pil:
+        from shadernn_tpu_torch.image.image import Image
+        from shadernn_tpu_torch.models.runners import run_model
+
+        with tempfile.TemporaryDirectory(prefix="snn_png_") as tmp:
+            png = os.path.join(tmp, "frame.png")
+            Image(luma, color.ColorFormat.R8).save(png)
+            res = run_model("espcn", image_path=png, precision=BF16, inner_loops=3)
+        log(f"[serve] run_model('espcn', image_path=<540x960 PNG>): output "
+            f"{res['output_shape']}, p50 {res['stats']['p50_ms']:.4f} ms")
+        assert res["output_shape"] == (1, 1080, 1920, 1)
+        out["run_model_png"] = True
+    else:
+        log("[serve] Pillow is not installed on this machine: run_model(image_path=) and the "
+            "PNG decode are not run here (the CPU tests cover them); the same 540x960 frame "
+            "goes to ingest as a uint8 array instead")
+        x1 = ingest_frames(torch.from_numpy(luma[None]).to(dev), dtype_name="float32")
+        e1 = Engine.from_json(zoo.ESPCN_TRAINED, EngineOptions(precision=BF16, batch_size=1))
+        y1 = e1.run_single(x1)
+        ref1 = e1.run_single(luma[None].astype(np.float32) * np.float32(1 / 255.0))
+        assert tuple(y1.shape) == (1, 1080, 1920, 1) and (y1 - ref1).abs().max().item() == 0.0
+        out["run_model_png"] = False
+    log(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

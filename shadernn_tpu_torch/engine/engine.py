@@ -121,6 +121,74 @@ class Engine:
         (in_name,) = self.graph.input_names
         return self.run({in_name: x})[self.graph.output_names[0]]
 
+    def classify(self, x) -> np.ndarray:
+        """Argmax postprocess of the first output (reference CLASSIFICATION
+        path, core.cpp:228), on the host."""
+        return torch.argmax(self.run_single(x), dim=-1).cpu().numpy()
+
+    def device_benchmark(self, inputs: Dict[str, object], iters: int = 50,
+                         repeats: int = 3) -> dict:
+        """Device throughput: `iters` steps queued back to back on inputs
+        already on the device, one window of CUDA events around them and one
+        sync (the host clock on the CPU), `repeats` windows after one warm
+        step. Eager PyTorch does not merge repeated steps, so the inputs are
+        not perturbed as the JAX package's fori_loop must. Host dispatch can
+        still bound a small model here: the window ends when the last step
+        ends, and if the host queues steps slower than the card runs them,
+        the card waits. A CUDA graph of the step is ROADMAP A1."""
+        self._check_inputs(inputs)
+        dev_inputs = self._to_device(inputs)
+        cuda = self.model.device.type == "cuda"
+        self.model(dev_inputs)  # warm: prepared operands, the kernels' first launch
+        self._sync()
+        times = []
+        for _ in range(repeats):
+            if cuda:
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for _ in range(iters):
+                    self.model(dev_inputs)
+                t1.record()
+                t1.synchronize()
+                times.append(t0.elapsed_time(t1) / 1e3)
+            else:
+                s = time.perf_counter()
+                for _ in range(iters):
+                    self.model(dev_inputs)
+                times.append(time.perf_counter() - s)
+        batch = next(iter(dev_inputs.values())).shape[0]
+        per_iter = min(times) / iters
+        p50 = sorted(times)[len(times) // 2] / iters
+        return {
+            "mean_ms": 1e3 * per_iter,
+            "p50_ms": 1e3 * p50,
+            "p50_ms_per_frame": 1e3 * p50 / batch,
+            "frames_per_sec": batch / per_iter,
+            "iters": iters,
+            "batch": batch,
+        }
+
+    def trace_benchmark(self, inputs: Dict[str, object], steps: int = 20) -> dict:
+        """In-situ device time per step from a torch.profiler run of `steps`
+        steps queued back to back (utils/trace_profile.py): the sum of the
+        device's own events, the busy time per step. The parsed per-kernel
+        report is under "report"."""
+        from shadernn_tpu_torch.utils.trace_profile import trace_report
+
+        self._check_inputs(inputs)
+        report = trace_report(self, inputs, steps=steps)
+        batch = next(iter(inputs.values())).shape[0]
+        ms = report.e2e_us / 1e3
+        return {
+            "device_ms_per_step": ms,
+            "device_ms_per_frame": ms / batch,
+            "frames_per_sec": batch / (ms / 1e3) if ms else 0.0,
+            "steps": report.steps,
+            "batch": batch,
+            "report": report,
+        }
+
     # -- reporting ---------------------------------------------------------
     def time_report(self) -> str:
         return self.stats.report(warmup=self.options.warmup_loops)

@@ -2,10 +2,10 @@
 reference's run{ESPCN,Resnet18,...} functions as data-driven configs
 (input geometry and preprocessing) and one `run_model` entry point.
 
-`run_model` runs a seeded frame through `Engine.benchmark` and the
-model's postprocess. Its `image_path` (loading and preprocessing an image)
-and `dump_dir` (per-layer dumps) options need modules the port does not
-have yet, and raise NotImplementedError.
+`run_model` runs an image (`image_path`, loaded and preprocessed at the
+runner's geometry) or a seeded frame through `Engine.benchmark` and the
+model's postprocess. Its `dump_dir` (per-layer dumps) option needs a module
+the port does not have yet, and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 
 from shadernn_tpu_torch.config import BackendKind, EngineOptions, Precision
 from shadernn_tpu_torch.engine.engine import Engine
+from shadernn_tpu_torch.image.image import load_and_preprocess
 from shadernn_tpu_torch.models.zoo import STYLES, build_model
 
 
@@ -105,22 +106,24 @@ def run_model(
     dump_dir: Optional[str] = None,
     device: str = "cuda",
 ) -> dict:
-    """Build -> run -> postprocess on a seeded random frame (the reference
-    unit tests' RandomMat pattern): the benchmark's statistics, the output
-    shape, and the class index (classifiers) or the detections with a
-    positive score of the first frame (detectors)."""
-    if image_path:
-        raise NotImplementedError(
-            "run_model(image_path=...) needs the image loading and preprocessing "
-            "module, not ported yet (ROADMAP A5)")
+    """Load -> preprocess -> run -> postprocess, like the reference's
+    processModel flow (modelInference.cpp:26-60), on the image at
+    `image_path` or, without one, a seeded random frame (the reference unit
+    tests' RandomMat pattern): the benchmark's statistics, the output shape,
+    and the class index (classifiers) or the detections with a positive
+    score of the first frame (detectors)."""
     if dump_dir:
         raise NotImplementedError(
             "run_model(dump_dir=...) needs the layer-dump reader, not ported yet "
             "(ROADMAP A6)")
     cfg = RUNNERS[name]
     eng = make_engine(name, precision, backend, batch_size, device=device)
-    x = np.random.default_rng(7767517).random(
-        (batch_size, cfg.height, cfg.width, cfg.channels), dtype=np.float32)
+    if image_path:
+        x = load_and_preprocess(image_path, cfg.height, cfg.width, cfg.means, cfg.norms,
+                                luma_only=cfg.luma_only, batch=batch_size)
+    else:
+        x = np.random.default_rng(7767517).random(
+            (batch_size, cfg.height, cfg.width, cfg.channels), dtype=np.float32)
     stats = eng.benchmark({eng.graph.input_names[0]: x}, loops=inner_loops)
     out = eng.run_single(x).float().cpu().numpy()
     result = {"stats": stats, "output_shape": tuple(out.shape)}

@@ -296,6 +296,12 @@ class Conv2D(OpDef):
         h, w = transform_output_dims(t, in_specs)
         return s.with_shape((s.n, h, w, int(node.attr("out_channels"))))
 
+    def flops(self, node: Node, in_specs: Sequence[TensorSpec]) -> int:
+        o = self.infer(node, in_specs)
+        k = int(node.attr("kernel_size"))
+        cin = in_specs[0].c * (len(in_specs) if len(in_specs) > 1 else 1)
+        return 2 * o.n * o.h * o.w * k * k * cin * o.c
+
     def run(self, node: Node, xs: List, ctx: RunCtx):
         # Multi-input conv: extra inputs are channel-concatenated first.
         x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
@@ -338,6 +344,11 @@ class SeparableConv2D(OpDef):
         t = Transform(scale_w=1 / st, scale_h=1 / st, translate_w=tr, translate_h=tr)
         h, w = transform_output_dims(t, in_specs)
         return s.with_shape((s.n, h, w, s.c * int(node.attr("multiplier", 1))))
+
+    def flops(self, node: Node, in_specs: Sequence[TensorSpec]) -> int:
+        o = self.infer(node, in_specs)
+        k = int(node.attr("kernel_size"))
+        return 2 * o.n * o.h * o.w * k * k * o.c
 
     def run(self, node: Node, xs: List, ctx: RunCtx):
         x = xs[0]
@@ -398,6 +409,11 @@ class Conv2DTranspose(OpDef):
         t = Transform(scale_w=float(st), scale_h=float(st), translate_w=tr, translate_h=tr)
         h, w = transform_output_dims(t, in_specs)
         return s.with_shape((s.n, h, w, int(node.attr("out_channels"))))
+
+    def flops(self, node: Node, in_specs: Sequence[TensorSpec]) -> int:
+        s = in_specs[0]
+        k = int(node.attr("kernel_size"))
+        return 2 * s.n * s.h * s.w * k * k * s.c * int(node.attr("out_channels"))
 
     def run(self, node: Node, xs: List, ctx: RunCtx):
         x = xs[0]

@@ -36,6 +36,13 @@ class Dense(OpDef):
         s = in_specs[0]
         return s.with_shape((s.n, int(node.attr("units"))))
 
+    def flops(self, node: Node, in_specs: Sequence[TensorSpec]) -> int:
+        s = in_specs[0]
+        feat = 1
+        for d in s.shape[1:]:
+            feat *= d
+        return 2 * s.n * feat * int(node.attr("units"))
+
     def run(self, node: Node, xs: List, ctx: RunCtx):
         x = xs[0]
         if ctx.backend == BackendKind.KERNEL:

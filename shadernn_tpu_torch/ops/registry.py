@@ -37,6 +37,7 @@ class OpDef:
       infer(node, in_specs) -> TensorSpec   (shape propagation)
       run(node, xs, ctx) -> torch.Tensor    (compute body; NHWC tensors in
                                              node.inputs order)
+    and, where the op multiplies, flops(node, in_specs) -> int.
     """
 
     op_name: str = ""
@@ -46,6 +47,10 @@ class OpDef:
 
     def run(self, node: Node, xs: List, ctx: RunCtx):
         raise NotImplementedError
+
+    def flops(self, node: Node, in_specs: Sequence[TensorSpec]) -> int:
+        """Multiply-adds x 2 of one call (0 for ops that do none)."""
+        return 0
 
 
 _REGISTRY: Dict[str, OpDef] = {}

@@ -17,6 +17,15 @@ def _np(a) -> np.ndarray:
     return np.asarray(a)
 
 
+def top1_accuracy(logits: np.ndarray, labels: np.ndarray) -> float:
+    return float(np.mean(np.argmax(logits, axis=-1) == labels))
+
+
+def topk_accuracy(logits: np.ndarray, labels: np.ndarray, k: int = 5) -> float:
+    topk = np.argsort(-logits, axis=-1)[:, :k]
+    return float(np.mean(np.any(topk == labels[:, None], axis=1)))
+
+
 def psnr(a, b, max_val: float = 1.0) -> float:
     """Peak signal-to-noise ratio in dB (super-resolution gate)."""
     mse = float(np.mean((_np(a).astype(np.float64) - _np(b).astype(np.float64)) ** 2))
@@ -107,7 +116,9 @@ def match_detections(dets: np.ndarray, ref: np.ndarray) -> dict:
     `ref` (score > 0), by descending score, takes the unmatched kept row of
     its class in `dets` that overlaps it most. Returns the kept counts, the
     rows left unmatched on either side and the highest score among them,
-    the least IoU of a match and the largest score difference of one.
+    the least IoU of a match and the largest score difference of one; and
+    under "lost", each unmatched row's (score, IoU with the row of its class
+    that overlaps it most among the higher-scored rows of its own output).
     Unlike a row-by-row difference it does not depend on the order of
     near-equal scores."""
     dets, ref = (np.asarray(d, np.float32) for d in (dets, ref))
@@ -116,35 +127,47 @@ def match_detections(dets: np.ndarray, ref: np.ndarray) -> dict:
     used = np.zeros(len(a), bool)
     lost, min_iou, max_dscore = [], 1.0, 0.0
     iou = _box_iou(b[:, 2:6], a[:, 2:6]) if len(a) and len(b) else np.zeros((len(b), len(a)))
+
+    def overlap_above(rows, k):
+        higher = rows[(rows[:, 0] == rows[k, 0]) & (rows[:, 1] > rows[k, 1])]
+        return float(_box_iou(rows[k:k + 1, 2:6], higher[:, 2:6]).max()) if len(higher) else 0.0
+
     for i in range(len(b)):
         cand = np.where((a[:, 0] == b[i, 0]) & ~used)[0]
         if not len(cand):
-            lost.append(float(b[i, 1]))
+            lost.append((float(b[i, 1]), overlap_above(b, i)))
             continue
         j = cand[np.argmax(iou[i, cand])]
         used[j] = True
         min_iou = min(min_iou, float(iou[i, j]))
         max_dscore = max(max_dscore, float(abs(a[j, 1] - b[i, 1])))
-    lost += [float(v) for v in a[~used, 1]]
+    lost += [(float(a[j, 1]), overlap_above(a, j)) for j in np.where(~used)[0]]
     return {"kept": len(a), "kept_ref": len(b), "unmatched": len(lost),
-            "max_unmatched_score": max(lost, default=0.0), "min_iou": min_iou,
-            "max_score_diff": max_dscore}
+            "max_unmatched_score": max((s for s, _ in lost), default=0.0), "min_iou": min_iou,
+            "max_score_diff": max_dscore, "lost": lost}
 
 
-def detections_agree(dets, ref, tol: float, score_threshold: float = 0.35) -> dict:
+def detections_agree(dets, ref, tol: float, score_threshold: float = 0.35,
+                     nms_iou: float = None) -> dict:
     """`match_detections` of each image of a batch, held to a precision's
     tolerance `tol`: matched rows within `tol` in score and at IoU >= 1 -
     tol; a row without a match only where its score is within `tol` of the
-    cutoff (such a row may fall either side of it). Returns the worst
-    figures over the batch; raises AssertionError where they fail."""
+    cutoff (such a row may fall either side of it) or, given the NMS
+    threshold `nms_iou`, where its overlap with a higher-scored row of its
+    class is within `tol` of that threshold (one rounding may keep or
+    suppress it). Returns the worst figures over the batch; raises
+    AssertionError where they fail."""
     ms = [match_detections(d, r) for d, r in zip(np.asarray(dets), np.asarray(ref))]
+    lost = [x for m in ms for x in m["lost"]]
     worst = {"kept": sum(m["kept"] for m in ms), "kept_ref": sum(m["kept_ref"] for m in ms),
              "unmatched": sum(m["unmatched"] for m in ms),
              "max_unmatched_score": max(m["max_unmatched_score"] for m in ms),
              "min_iou": min(m["min_iou"] for m in ms),
-             "max_score_diff": max(m["max_score_diff"] for m in ms)}
-    if not (worst["max_score_diff"] <= tol and worst["min_iou"] >= 1.0 - tol
-            and worst["max_unmatched_score"] <= score_threshold + tol):
+             "max_score_diff": max(m["max_score_diff"] for m in ms),
+             "nms_ties": sum(1 for s, o in lost if s > score_threshold + tol)}
+    allowed = all(s <= score_threshold + tol
+                  or (nms_iou is not None and abs(o - nms_iou) <= tol) for s, o in lost)
+    if not (worst["max_score_diff"] <= tol and worst["min_iou"] >= 1.0 - tol and allowed):
         raise AssertionError(f"detections disagree beyond tol {tol}: {worst}")
     return worst
 

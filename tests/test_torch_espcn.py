@@ -144,6 +144,9 @@ def test_default_device_needs_cuda():
 def test_package_imports_no_jax():
     code = (
         "import sys, shadernn_tpu_torch as p\n"
+        "import shadernn_tpu_torch.engine.streaming, shadernn_tpu_torch.engine.deploy\n"
+        "import shadernn_tpu_torch.engine.processor, shadernn_tpu_torch.image\n"
+        "import shadernn_tpu_torch.utils.profiler, shadernn_tpu_torch.utils.trace_profile\n"
         "p.build_model('espcn', h=8, w=8)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'shadernn_tpu' or m.startswith('shadernn_tpu.')]\n"

@@ -354,7 +354,7 @@ def test_run_model_postprocess():
     eng = make_engine("styletransfer-candy", P.Precision.BF16, device="cpu")
     assert eng.graph.nodes["input"].out_spec.shape == (1, 224, 224, 3)
     assert eng.model.forward.single_conv_plan == ["stem_conv", "head"]
-    with pytest.raises(NotImplementedError, match="A5"):
-        run_model("espcn", image_path="frame.png", device="cpu")
+    with pytest.raises(FileNotFoundError):  # image_path is loaded (test_torch_serving.py)
+        run_model("espcn", image_path="no_such_frame.png", device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
         run_model("espcn", dump_dir="dumps", device="cpu")
