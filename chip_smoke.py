@@ -137,6 +137,22 @@ Phases, each of which raises on failure (exit code != 0):
               busy time, device_benchmark, the per-layer report at the
               card's peaks, NV12 and 1080p -> 540p ingest on the card,
               run_model(image_path=) where Pillow is installed
+  8. io       model I/O and the demo CLI (io_phase): the trained ESPCN 540p
+              b8 (BF16, FP32), MobileNetV2 cls10 b64 BF16 and ResNet18 cls10
+              b64 BF16 forced to KERNEL through export_onnx -> parse_onnx ->
+              convert_onnx_graph -> Engine.from_graph, and those four and
+              StyleTransfer-candy 512 b4 FP32 through save_model (inline and
+              decoupled) -> Engine.from_json, each held to the native engine:
+              the same launches per step, the output bit-equal where the
+              weights are, else within ENGINE_TOL; step p50 of both and the
+              imported step's device ms per launch. ESPCN's layer dumps at
+              540p b8 (BF16, FP32): 3 single-conv launches a step and no
+              chain, every layer against the TORCH backend's dump, a
+              perturbed layer as a planted fault, the dump-mode step beside
+              the chained one; run_model(dump_dir=) files read back equal
+              and reported equal by tools/compare.py. The demo CLI on the
+              card: `list` as a subprocess; run, profile, stream and serve
+              (cold export, then a warm start) through main()
 Prints the `kernels` JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Imports no JAX and nothing of
 the JAX package. Exits non-zero without printing a result when no CUDA
@@ -2097,6 +2113,41 @@ def main() -> int:
         held_to_plans=held_to_plans,
         espcn_busy_ms=main_stats["fused_conv_chain_packed"]["device_busy_ms"]))
 
+    # 8. io ---------------------------------------------------------------------
+    io_out = io_phase(types.SimpleNamespace(
+        dev=dev, log=log, card=card, reset_counts=reset_counts, read_counts=read_counts,
+        held_to_plans=held_to_plans))
+    kernel_ids = {"fused_conv_chain_packed": "conv_chain", "fused_conv_chain": "conv_chain",
+                  "fused_conv2d_haloed": "conv_single", "fused_invres_block": "invres",
+                  "fused_matmul": "matmul_fused"}
+
+    def io_rows(entry):
+        """What the io phase ran on one entry: per path its launches per
+        step and (ONNX-imported paths, the dump-mode forward) the device ms
+        per launch from torch.profiler."""
+        def ms_of(row):
+            ms = {k: v for k, v in row.get("device_ms_per_launch", {}).items()
+                  if k.startswith(kernel_ids[entry])}
+            return next(iter(ms.values())) if len(ms) == 1 else ms or None
+
+        rows = {}
+        for kind in ("onnx", "serialize"):
+            for label, row in io_out[kind].items():
+                if row["launches_per_step"].get(entry):
+                    rows[f"{kind} {label}"] = {
+                        "launches_per_step": row["launches_per_step"][entry],
+                        "max_abs_diff_vs_native": row["max_abs_diff"],
+                        **({"device_ms_per_launch": ms_of(row),
+                            "step_p50_ms": row["step_p50_ms"]} if kind == "onnx" else {})}
+        if entry == "fused_conv2d_haloed":
+            for prec, row in io_out["dumps"].items():
+                if isinstance(row, dict):
+                    rows[f"dump-mode espcn 540p b8 {prec}"] = {
+                        "launches_per_step": 3, "device_ms_per_launch": ms_of(row),
+                        "dump_step_p50_ms": row["dump_step_p50_ms"],
+                        "chained_step_p50_ms": row["chained_step_p50_ms"]}
+        return rows
+
     def zoo_rows(entry):
         """What the zoo phase ran on one entry: its launches per path (all
         steps), [kernel] errors per form and [timing] rows per shape."""
@@ -2128,6 +2179,7 @@ def main() -> int:
             "engine_device_busy_ms": main_stats[entry]["device_busy_ms"],
             **chain_int8[entry],
             "zoo": zoo_rows(entry),
+            "io": io_rows(entry),
             **({"serve": {
                 "launches_per_batch": 1,
                 "configuration": "ESPCN 2x (trained) 540p b8 BF16 under StreamingEngine: 4 "
@@ -2170,6 +2222,7 @@ def main() -> int:
            "planted_fault_ax2_doubled_diff": fault_errs["block_ax2_doubled"],
            "engine_steps": {k: v for k, v in i8_steps.items() if "mobilenetv2" in k},
            "top1": {k: v["top1"] for k, v in i8_main.items() if "mobilenetv2 cls10" in k}},
+        "io": io_rows("fused_invres_block"),
     })
     r = conv_rows["bf16"]
     kernels.append({
@@ -2203,6 +2256,7 @@ def main() -> int:
             top1={k: v["top1"] for k, v in i8_main.items() if "resnet18 cls10" in k},
             planted_fault_weight_scale_zeroed_diff=fault_errs["weight_scale_zeroed"]),
         "zoo": zoo_rows("fused_conv2d_haloed"),
+        "io": io_rows("fused_conv2d_haloed"),
         "serve": {"launches_per_batch": 1,
                   "configuration": "YOLOv3-tiny (trained) 256x256 b8 BF16 under "
                                    "StreamingEngine, 32 scenes (seed 7)",
@@ -2274,6 +2328,7 @@ def main() -> int:
                  **i8_rows[("matmul", "resnet18 zoo fc")],
                  "resnet18_cls10_fc": i8_rows[("matmul", "resnet18 cls10 fc")],
                  "engine_max_abs_diff": i8_main["resnet18 zoo KERNEL weight-only"]["max_abs_diff"]},
+        "io": io_rows("fused_matmul"),
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -2970,6 +3025,304 @@ def serve_phase(h) -> dict:
         assert tuple(y1.shape) == (1, 1080, 1920, 1) and (y1 - ref1).abs().max().item() == 0.0
         out["run_model_png"] = False
     log(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def io_phase(h) -> dict:
+    """8. io: model I/O and the demo CLI on the card. `h` carries main's
+    helpers (log, reset_counts, read_counts, held_to_plans).
+
+    ONNX round trip at full width: each trained model saved as ONNX by
+    export_onnx, read back by parse_onnx and convert_onnx_graph, and run by
+    Engine.from_graph beside the native engine (Engine.from_json of the
+    artifact): ESPCN 2x 540p b8 at BF16 and FP32, MobileNetV2 cls10 b64 BF16,
+    ResNet18 cls10 b64 BF16 with every node forced to KERNEL. The launches
+    per step (counts set to 0 just before, read just after) equal the native
+    engine's and its plans'; the output equals the native one bit for bit
+    where the folded weights are the same, else within ENGINE_TOL times
+    max(1, max|native|); the step p50 of both (Engine.benchmark: CUDA
+    events, 20 steps after 5) and the imported step's device ms per kernel
+    launch (torch.profiler). Serialization round trip: save_model inline and
+    decoupled, Engine.from_json, held the same way, for the same four and
+    StyleTransfer-candy 512 b4 FP32. Layer dumps: a dump-mode forward of the
+    trained ESPCN 540p b8 (tools/dump_reader.py layer_outputs) at BF16 and
+    FP32 launches the single-conv kernel 3 times a step and no chain; every
+    layer within ENGINE_TOL of the TORCH backend's dump; a perturbed layer
+    must fail; the dump-mode step's p50 beside the chained step's. Then
+    run_model(dump_dir=) at b1 writes the files, read_dump reads them back
+    equal to the in-memory dumps and compare.main reports them equal. The
+    demo CLI: `list` as a subprocess; run, profile, stream and serve (an
+    export on the first start, then a warm start on the same directory)
+    in-process through main(), on cuda, their printed lines parsed."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from shadernn_tpu_torch import Engine, EngineOptions, Precision
+    from shadernn_tpu_torch.config import BackendKind
+    from shadernn_tpu_torch.demo import main as demo_main
+    from shadernn_tpu_torch.graph.parser import parse_model_file
+    from shadernn_tpu_torch.graph.serialize import save_model
+    from shadernn_tpu_torch.models import zoo
+    from shadernn_tpu_torch.models.runners import make_engine, run_model
+    from shadernn_tpu_torch.tools import compare, dump_reader
+    from shadernn_tpu_torch.tools.convert import convert_onnx_graph
+    from shadernn_tpu_torch.tools.onnx_export import export_onnx
+    from shadernn_tpu_torch.tools.onnx_reader import parse_onnx
+    from shadernn_tpu_torch.utils.trace_profile import profile_steps
+
+    log, dev, card = h.log, h.dev, h.card
+    BF16, FP32 = Precision.BF16, Precision.FP32
+    AUTO, KERNEL = BackendKind.AUTO, BackendKind.KERNEL
+    rng = np.random.default_rng(20261018)
+    t_phase = time.perf_counter()
+    out = {"onnx": {}, "serialize": {}, "dumps": {}, "cli": {}}
+    steps = 3
+
+    frames = rng.random((8, 540, 960, 1), dtype=np.float32)
+    images = rng.random((64, 32, 32, 3), dtype=np.float32)
+    styles = rng.random((4, 512, 512, 3), dtype=np.float32)
+    # label: (artifact, precision, backend, batch, input, launches per step)
+    configs = {
+        "espcn 540p b8 bf16": (zoo.ESPCN_TRAINED, BF16, AUTO, 8, frames,
+                               {"fused_conv_chain_packed": 1}),
+        "espcn 540p b8 fp32": (zoo.ESPCN_TRAINED, FP32, AUTO, 8, frames,
+                               {"fused_conv_chain": 1}),
+        "mobilenetv2 cls10 b64 bf16": (zoo.MOBILENETV2_TRAINED, BF16, AUTO, 64, images,
+                                       {"fused_invres_block": 13, "fused_conv2d_haloed": 1}),
+        "resnet18 cls10 b64 bf16 KERNEL": (zoo.RESNET18_TRAINED, BF16, KERNEL, 64, images,
+                                           {"fused_conv_chain": 2, "fused_conv2d_haloed": 10,
+                                            "fused_matmul": 1}),
+        "styletransfer-candy 512 b4 fp32": (zoo.STYLE512_TRAINED["candy"], FP32, AUTO, 4, styles,
+                                            {"fused_conv2d_haloed": 2}),
+    }
+
+    def options(label):
+        _, prec, backend, batch, _, _ = configs[label]
+        return EngineOptions(precision=prec, backend=backend, batch_size=batch)
+
+    def counted(eng, x):
+        """Per-step launches of `steps` steps (every count set to 0 just
+        before them and read just after, held to the engine's plans), the
+        first and the last step's output."""
+        name = eng.graph.input_names[0]
+        feed = {name: torch.from_numpy(x).to(dev)}
+        eng.model(feed)  # the operands, prepared once
+        torch.cuda.synchronize()
+        h.reset_counts()
+        ys = [eng.model(feed)[eng.graph.output_names[0]] for _ in range(steps)]
+        torch.cuda.synchronize()
+        counts = h.read_counts()
+        h.held_to_plans(eng.model.forward, counts, steps)
+        return {k: v // steps for k, v in counts.items() if v}, ys[0], ys[-1]
+
+    def same_weights(a, b):
+        pa = [t for d in a.model.params.values() for t in d.values()]
+        pb = [t for d in b.model.params.values() for t in d.values()]
+        return len(pa) == len(pb) and all(
+            x.shape == y.shape and torch.equal(x, y) for x, y in zip(pa, pb))
+
+    natives = {}
+
+    def native(label):
+        if label not in natives:
+            eng = Engine.from_json(configs[label][0], options(label))
+            launches, y0, y = counted(eng, configs[label][4])
+            natives[label] = (eng, launches, y, (y - y0).abs().max().item())
+        return natives[label]
+
+    def held(kind, label, other):
+        """`other` (imported or reloaded) against the native engine: the
+        launches per step, the output, bit for bit where the weights are the
+        same (and the native engine repeats itself), else within the limit."""
+        eng, want_launches, want, self_diff = native(label)
+        launches, _, got = counted(other, configs[label][4])
+        assert launches == want_launches == configs[label][5], (
+            kind, label, launches, want_launches)
+        err = (got.float() - want.float()).abs().max().item()
+        bit = same_weights(eng, other) and self_diff == 0.0
+        prec = configs[label][1].value
+        tol = 0.0 if bit else ENGINE_TOL[prec] * max(1.0, want.float().abs().max().item())
+        ok = err <= tol and bool(torch.isfinite(got.float()).all())
+        log(f"[io] {kind} {label}: launches per step {launches} = native's; vs native "
+            f"max_abs_diff {err:.3e} ({'bit-equal expected' if bit else f'tol {tol:.3e}'}; the "
+            f"native engine's own steps differ by {self_diff:.3e}) {'ok' if ok else 'FAIL'}")
+        assert ok, f"{kind} {label}: the output disagrees with the native engine's"
+        return {"launches_per_step": launches, "max_abs_diff": err, "bit_equal_expected": bit,
+                "native_step_to_step_diff": self_diff}
+
+    # -- ONNX round trip at full width ----------------------------------------
+    for label in list(configs)[:4]:
+        g = parse_model_file(configs[label][0])
+        g.infer_shapes()
+        data = export_onnx(g)
+        imported = convert_onnx_graph(parse_onnx(data))
+        n_nodes = (len(g.nodes), len(imported.nodes))
+        eng = Engine.from_graph(imported, options(label))
+        row = held("onnx", label, eng)
+        x = configs[label][4]
+        p50 = {"native": [], "imported": []}
+        for _ in range(2):  # alternated: the host's share of a step varies between calls
+            for k, e in (("native", native(label)[0]), ("imported", eng)):
+                p50[k].append(e.benchmark({e.graph.input_names[0]: x}, loops=25)["p50_ms"])
+        feed = {eng.graph.input_names[0]: torch.from_numpy(x).to(dev)}
+        rep = profile_steps(lambda: eng.model(feed), 5, dev)
+        ms = {o.name: o.us / o.count / 1e3 for o in rep.ops if o.category == "hand-written"}
+        log(f"[io] onnx {label}: {len(data) / 1e6:.2f} MB of ONNX, {n_nodes[0]} -> {n_nodes[1]} "
+            f"nodes; step p50 (two calls each, alternated) native "
+            f"{' / '.join(f'{v:.4f}' for v in p50['native'])} ms, imported "
+            f"{' / '.join(f'{v:.4f}' for v in p50['imported'])} ms; "
+            f"imported device ms per launch {ms} | {card}")
+        out["onnx"][label] = dict(row, step_p50_ms=p50, device_ms_per_launch=ms,
+                                  onnx_bytes=len(data), nodes=n_nodes)
+        del eng
+
+    # -- serialization round trip ----------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="snn_io_") as tmp:
+        for label in configs:
+            for decouple in (False, True):
+                path = os.path.join(tmp, f"m{len(out['serialize'])}.json")
+                save_model(parse_model_file(configs[label][0]), path, decouple=decouple)
+                saved = path[:-5] + "_layers.json" if decouple else path
+                eng = Engine.from_json(saved, options(label))
+                kind = "decoupled" if decouple else "inline"
+                out["serialize"][f"{label} {kind}"] = held(f"save_model {kind}", label, eng)
+                del eng
+    for label in list(natives):
+        del natives[label]
+    torch.cuda.empty_cache()
+
+    # -- layer dumps -------------------------------------------------------------
+    for prec in (BF16, FP32):
+        eng = Engine.from_json(zoo.ESPCN_TRAINED, EngineOptions(precision=prec, batch_size=8))
+        feed = {"input": frames}
+        dump_reader.layer_outputs(eng, feed)  # operands prepared, kernels loaded
+        torch.cuda.synchronize()
+        h.reset_counts()
+        for _ in range(steps):
+            dumps = dump_reader.layer_outputs(eng, feed)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in h.read_counts().items() if v}
+        assert counts == {"fused_conv2d_haloed": 3 * steps}, counts
+        teng = Engine.from_json(zoo.ESPCN_TRAINED, EngineOptions(
+            precision=prec, batch_size=8, backend=BackendKind.TORCH))
+        ref = dump_reader.layer_outputs(teng, feed)
+        assert sorted(dumps) == sorted(ref) == ["conv_1", "conv_2", "conv_3", "subpixel"]
+
+        def worst(d):
+            """(layer, max_abs_diff, tol) of the layer furthest over its
+            limit against the TORCH dump."""
+            rows = []
+            for k in ref:
+                tol = ENGINE_TOL[prec.value] * max(1.0, ref[k].abs().max().item())
+                rows.append((k, (d[k] - ref[k]).abs().max().item(), tol))
+            return max(rows, key=lambda r: r[1] / r[2])
+
+        layer, err, tol = worst(dumps)
+        planted = dict(dumps)
+        planted["conv_2"] = dumps["conv_2"].clone()
+        planted["conv_2"][3, 200, 400, 7] += 4 * tol
+        f_layer, f_err, f_tol = worst(planted)
+        dump_eng = Engine.from_json(zoo.ESPCN_TRAINED, EngineOptions(
+            precision=prec, batch_size=8, dump_outputs=True))
+        p50_dump = dump_eng.benchmark(feed, loops=25)["p50_ms"]
+        p50_chain = eng.benchmark(feed, loops=25)["p50_ms"]
+        dfeed = {"input": torch.from_numpy(frames).to(dev)}
+        rep = profile_steps(lambda: dump_eng.model(dfeed), 3, dev)
+        ms = {o.name: o.us / o.count / 1e3 for o in rep.ops if o.category == "hand-written"}
+        log(f"[io] dumps espcn 540p b8 {prec.value}: single-conv launches {counts} over {steps} "
+            f"dump forwards, no chain; every layer vs the TORCH dump: worst {layer} "
+            f"max_abs_diff {err:.3e} tol {tol:.3e} {'ok' if err <= tol else 'FAIL'}; planted "
+            f"fault (conv_2 perturbed by {4 * tol:.3e}): {f_layer} {f_err:.3e} "
+            f"{'caught' if f_err > f_tol else 'MISSED'}; dump-mode step p50 {p50_dump:.4f} ms "
+            f"(device ms per launch {ms}) against the chained step {p50_chain:.4f} ms | {card}")
+        assert err <= tol, f"dump {prec.value}: {layer} disagrees with the TORCH dump"
+        assert f_err > f_tol, "the perturbed dump was not caught"
+        out["dumps"][prec.value] = {"launches_per_step": {"fused_conv2d_haloed": 3},
+                                    "max_abs_diff": err, "worst_layer": layer,
+                                    "planted_fault_diff": f_err, "dump_step_p50_ms": p50_dump,
+                                    "chained_step_p50_ms": p50_chain,
+                                    "device_ms_per_launch": ms}
+        del dumps, ref, planted, eng, teng, dump_eng, dfeed
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="snn_dumps_") as tmp:
+        res = run_model("espcn", dump_dir=tmp, batch_size=1)
+        x1 = np.random.default_rng(7767517).random((1, 540, 960, 1), dtype=np.float32)
+        mem = dump_reader.to_host(dump_reader.layer_outputs(make_engine("espcn"), {"input": x1}))
+        assert sorted(res["dumps"]) == sorted(mem), (sorted(res["dumps"]), sorted(mem))
+        rcs = {}
+        for layer, path in res["dumps"].items():
+            back = dump_reader.read_dump(path)
+            assert back.dtype == np.float32 and np.array_equal(back, mem[layer]), layer
+            np.save(os.path.join(tmp, f"mem_{layer}.npy"), mem[layer])
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                rcs[layer] = compare.main([path, os.path.join(tmp, f"mem_{layer}.npy"),
+                                           "--threshold", "0"])
+            assert rcs[layer] == 0 and "PASS" in text.getvalue(), (layer, text.getvalue())
+        log(f"[io] run_model('espcn', dump_dir=, batch_size=1): {len(res['dumps'])} files, "
+            f"read_dump equal to the in-memory dumps, compare.main rc {rcs}")
+        out["dumps"]["run_model_files"] = len(res["dumps"])
+
+    # -- the demo CLI ---------------------------------------------------------------
+    listed = subprocess.run([sys.executable, "-m", "shadernn_tpu_torch.demo", "list"], cwd=REPO,
+                            capture_output=True, text=True, timeout=300, check=True).stdout
+    assert "espcn" in listed and "540x960x1" in listed, listed
+    device_line = f"device: cuda ({torch.cuda.get_device_name(0)})"
+
+    def cli(argv):
+        """One command through main(): its stdout, its launches (counts set
+        to 0 just before, read just after) and its seconds."""
+        buf = io.StringIO()
+        h.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            demo_main(argv)
+        torch.cuda.synchronize()
+        text = buf.getvalue()
+        assert device_line in text, (argv, text)
+        return text, {k: v for k, v in h.read_counts().items() if v}, time.perf_counter() - t0
+
+    def stats_of(text):
+        return json.loads(text[text.index("{"):])
+
+    text, counts, secs = cli(["run", "espcn", "--precision", "bf16", "--inner-loops", "5"])
+    m = re.search(r"latency mean ([\d.]+) ms  p50 ([\d.]+) ms  throughput ([\d.]+) frames/s", text)
+    assert m and counts.get("fused_conv_chain_packed", 0) >= 5, (text, counts)
+    out["cli"]["run"] = {"p50_ms": float(m.group(2)), "launches": counts, "seconds": secs}
+    log(f"[io] demo run espcn --precision bf16 --inner-loops 5: {m.group(0)}; launches {counts}; "
+        f"{secs:.2f} s | {card}")
+    text, counts, secs = cli(["profile", "espcn"])
+    assert "Total GPU runtime" in text, text
+    total = re.search(r"Total GPU runtime: ([\d.]+) ms", text).group(1)
+    out["cli"]["profile"] = {"total_ms": float(total), "launches": counts, "seconds": secs}
+    log(f"[io] demo profile espcn: per-layer table, total {total} ms; launches {counts}; "
+        f"{secs:.2f} s")
+    text, counts, secs = cli(["stream", "espcn", "--frames", "64", "--batch", "8"])
+    st = stats_of(text)
+    assert st["frames_done"] == 64 and counts == {"fused_conv_chain_packed": st["batches_run"]}, (
+        st, counts)
+    out["cli"]["stream"] = dict(st, launches=counts, seconds=secs)
+    log(f"[io] demo stream espcn --frames 64 --batch 8: {st['frames_done']} frames, "
+        f"{st['throughput_fps']:.1f} fps, p50 {st['p50_latency_ms']:.3f} ms; launches {counts}")
+    with tempfile.TemporaryDirectory(prefix="snn_serve_") as tmp:
+        for start in ("cold", "warm"):
+            text, counts, secs = cli(["serve", "espcn", "--frames", "64", "--batch", "8",
+                                      "--export-dir", os.path.join(tmp, "espcn")])
+            ready = re.search(r"serving ready in ([\d.]+)s \(exported; model espcn, batch 8\)", text)
+            st = stats_of(text)
+            assert ready and ("exported engine to" in text) == (start == "cold"), (start, text)
+            assert st["frames_done"] == 64, (start, st)
+            assert counts.get("fused_conv_chain_packed", 0) == st["batches_run"] + 1, counts
+            out["cli"][f"serve {start}"] = dict(st, ready_in_s=float(ready.group(1)),
+                                                launches=counts, seconds=secs)
+            log(f"[io] demo serve espcn --frames 64 --batch 8 ({start} start): "
+                f"{ready.group(0)}; {st['frames_done']} frames done, "
+                f"{st['throughput_fps']:.1f} fps; launches {counts} | {card}")
+    log(f"[io] phase {time.perf_counter() - t_phase:.1f} s")
     return out
 
 if __name__ == "__main__":

@@ -12,5 +12,6 @@ __version__ = "0.1.0"
 
 from shadernn_tpu_torch.config import BackendKind, EngineOptions, Precision  # noqa: F401
 from shadernn_tpu_torch.engine.engine import Engine  # noqa: F401
+from shadernn_tpu_torch.engine.processor import InferenceProcessor  # noqa: F401
 from shadernn_tpu_torch.graph.ir import Graph, Node, TensorSpec  # noqa: F401
 from shadernn_tpu_torch.models.zoo import build_model, list_models  # noqa: F401

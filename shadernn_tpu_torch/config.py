@@ -75,6 +75,8 @@ class EngineOptions:
     # Return every layer's output under "__dumps__" (disables chain fusion
     # so intermediates are observable).
     dump_outputs: bool = False
+    # Where tools/dump_reader.py's dump_layers writes them by default.
+    dump_dir: str = "layer_dumps"
     # "float32" (default) or "activation" (keep the compute dtype).
     output_dtype: Optional[str] = "float32"
     # Benchmark bookkeeping: leading loops excluded from the stats.

@@ -6,6 +6,7 @@ timing statistics.
 from __future__ import annotations
 
 import os
+import statistics
 import time
 from typing import Dict, Optional, Union
 
@@ -194,10 +195,10 @@ class Engine:
         return self.stats.report(warmup=self.options.warmup_loops)
 
     def benchmark(self, inputs: Dict[str, object], loops: int = 20) -> dict:
-        """Run `loops` steps on inputs already on the device; mean/p50
-        latency and frames/s excluding the first `warmup_loops`. On the card
-        each step is timed with CUDA events; on the CPU with the host
-        clock."""
+        """Run `loops` steps on inputs already on the device; mean/p50/min
+        latency, its standard deviation and frames/s excluding the first
+        `warmup_loops`. On the card each step is timed with CUDA events; on
+        the CPU with the host clock."""
         self._check_inputs(inputs)
         dev_inputs = self._to_device(inputs)
         cuda = self.model.device.type == "cuda"
@@ -221,12 +222,13 @@ class Engine:
         t = sorted(secs[warmup:])
         mean = sum(t) / len(t) if t else 0.0
         batch = next(iter(dev_inputs.values())).shape[0]
+        stdev = statistics.stdev(t) if len(t) > 1 else 0.0
         return {
             "mean_ms": 1e3 * mean,
             "p50_ms": 1e3 * t[len(t) // 2] if t else 0.0,
             "min_ms": 1e3 * t[0] if t else 0.0,
+            "stdev_ms": 1e3 * stdev,
             "frames_per_sec": batch / mean if mean else 0.0,
             "loops": len(t),
             "batch": batch,
-            "clock": "cuda_events" if cuda else "host",
         }

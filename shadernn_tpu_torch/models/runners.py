@@ -4,8 +4,8 @@ reference's run{ESPCN,Resnet18,...} functions as data-driven configs
 
 `run_model` runs an image (`image_path`, loaded and preprocessed at the
 runner's geometry) or a seeded frame through `Engine.benchmark` and the
-model's postprocess. Its `dump_dir` (per-layer dumps) option needs a module
-the port does not have yet, and raises NotImplementedError.
+model's postprocess; with `dump_dir`, it also writes every layer's output
+there (tools/dump_reader.py, the JAX package's layout).
 """
 
 from __future__ import annotations
@@ -111,11 +111,8 @@ def run_model(
     `image_path` or, without one, a seeded random frame (the reference unit
     tests' RandomMat pattern): the benchmark's statistics, the output shape,
     and the class index (classifiers) or the detections with a positive
-    score of the first frame (detectors)."""
-    if dump_dir:
-        raise NotImplementedError(
-            "run_model(dump_dir=...) needs the layer-dump reader, not ported yet "
-            "(ROADMAP A6)")
+    score of the first frame (detectors); with `dump_dir`, under "dumps" the
+    path of each layer's dump (<dump_dir>/<model>/<layer>.npy)."""
     cfg = RUNNERS[name]
     eng = make_engine(name, precision, backend, batch_size, device=device)
     if image_path:
@@ -132,4 +129,8 @@ def run_model(
     elif cfg.model_type == "detection":
         dets = out[0]
         result["detections"] = dets[dets[:, 1] > 0]
+    if dump_dir:
+        from shadernn_tpu_torch.tools.dump_reader import dump_layers
+
+        result["dumps"] = dump_layers(eng, {eng.graph.input_names[0]: x}, dump_dir)
     return result

@@ -77,6 +77,16 @@ for _i, _style in enumerate(STYLES):
     _BUILDERS[f"styletransfer-{_style}"] = _style_builder(_style, 7767517 + _i)
 
 
+def register_model(name: str):
+    """Decorator: add a builder to the zoo under `name`."""
+
+    def deco(fn):
+        _BUILDERS[name] = fn
+        return fn
+
+    return deco
+
+
 def build_model(name: str, **kwargs) -> Graph:
     if name not in _BUILDERS:
         raise KeyError(f"unknown model {name!r}; available: {sorted(_BUILDERS)}")

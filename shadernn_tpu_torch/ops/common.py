@@ -59,6 +59,13 @@ def is_same_padding(padding: PadSpec) -> bool:
     return False
 
 
+def conv_output_hw(
+    h: int, w: int, k: int, stride: int, pads: Tuple[int, int, int, int]
+) -> Tuple[int, int]:
+    t, b, l, r = pads
+    return ((h + t + b - k) // stride + 1, (w + l + r - k) // stride + 1)
+
+
 def apply_activation(x: torch.Tensor, kind: str, alpha: float = 0.3) -> torch.Tensor:
     """Fused activation epilogue; vocabulary and default leaky alpha (0.3)
     follow the reference. gelu is the tanh approximation (jax.nn.gelu's

@@ -70,6 +70,11 @@ def register(name: str, *aliases: str) -> Callable:
     return deco
 
 
+def canonical_op(name: str) -> str:
+    """Resolve an op-type alias to its canonical registry name."""
+    return _ALIASES.get(name, name)
+
+
 def get_op(name: str) -> OpDef:
     canonical = _ALIASES.get(name, name)
     if canonical not in _REGISTRY:
@@ -78,3 +83,7 @@ def get_op(name: str) -> OpDef:
             f"(aliases: {sorted(_ALIASES)})"
         )
     return _REGISTRY[canonical]
+
+
+def all_ops() -> List[str]:
+    return sorted(_REGISTRY)

@@ -7,6 +7,7 @@ accuracy gates on the trained weights."""
 
 import glob
 import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ from shadernn_tpu_torch.graph import fusion as pfusion
 from shadernn_tpu_torch.graph.parser import parse_model_file as pparse
 from shadernn_tpu_torch.models import zoo
 from shadernn_tpu_torch.models.runners import RUNNERS, make_engine, run_model
+from shadernn_tpu_torch.tools.dump_reader import read_dump
 from shadernn_tpu_torch.utils.metrics import detections_agree, psnr
 
 from test_torch_graph import assert_same_graph
@@ -356,5 +358,12 @@ def test_run_model_postprocess():
     assert eng.model.forward.single_conv_plan == ["stem_conv", "head"]
     with pytest.raises(FileNotFoundError):  # image_path is loaded (test_torch_serving.py)
         run_model("espcn", image_path="no_such_frame.png", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        run_model("espcn", dump_dir="dumps", device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:  # the layer dumps, read back
+        dumped = run_model("espcn", precision=P.Precision.FP32, inner_loops=1, dump_dir=tmp,
+                           device="cpu")["dumps"]
+        assert sorted(dumped) == ["conv_1", "conv_2", "conv_3", "subpixel"]
+        (model_dir,) = {os.path.dirname(p) for p in dumped.values()}  # <dump_dir>/<model>
+        assert os.path.dirname(model_dir) == tmp
+        out = read_dump(dumped["subpixel"])
+        assert out.shape == (1, 1080, 1920, 1) and out.dtype == np.float32
+        assert np.array_equal(read_dump(dumped["conv_1"]), np.load(dumped["conv_1"]))
