@@ -153,6 +153,23 @@ Phases, each of which raises on failure (exit code != 0):
               and reported equal by tools/compare.py. The demo CLI on the
               card: `list` as a subprocess; run, profile, stream and serve
               (cold export, then a warm start) through main()
+  9. train    the six trainers (tools/train_*.py) at the JAX defaults
+              (train_phase): ResNet18 base 16 b128, MobileNetV2 w0.5 32x32
+              b128, the three denoisers 64 b16, StyleTransfer 64 b32,
+              YOLOv3-tiny 256 b16, ESPCN patch 64 b32. Step 0's loss and
+              every gradient on the card (TF32 off) against the same step
+              on the CPU, each tensor within 1e-4 of the largest, a scaled
+              gradient as a planted fault, TF32 in the backward printed
+              beside it; 5 steps with finite losses, step ms apart from the
+              host's batch-making, no hand-written kernel launched. ResNet18's
+              whole run (600 steps) to held-out top-1 >= 0.95, exported to
+              build/trained/ and reloaded at BF16 AUTO b64: launches held to
+              its plans, output within ENGINE_TOL of the TORCH forward
+ 10. accuracy the port's accuracy report on the card (accuracy_phase) into
+              build/accuracy/Accuracy.md: exit 0, every row held to
+              docs/Accuracy.md (trained rows within 0.1 dB / 0.02 top-1 /
+              0.03 mAP, zoo rows above the JAX gates), the chain kernel in
+              both forms, the single-conv and the block kernels launched
 Prints the `kernels` JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Imports no JAX and nothing of
 the JAX package. Exits non-zero without printing a result when no CUDA
@@ -2117,6 +2134,35 @@ def main() -> int:
     io_out = io_phase(types.SimpleNamespace(
         dev=dev, log=log, card=card, reset_counts=reset_counts, read_counts=read_counts,
         held_to_plans=held_to_plans))
+    # 9. train --------------------------------------------------------------------
+    phase_h = types.SimpleNamespace(
+        dev=dev, log=log, card=card, reset_counts=reset_counts, read_counts=read_counts,
+        held_to_plans=held_to_plans)
+    train_out = train_phase(phase_h)
+
+    # 10. accuracy -------------------------------------------------------------------
+    acc_out = accuracy_phase(phase_h)
+
+    def trained_rows(entry):
+        """Where phases 9 and 10 launched this entry: the trained-on-the-card
+        ResNet18 reloaded at BF16 AUTO, and the accuracy report's engines."""
+        rows = {}
+        r18 = train_out["resnet18"]
+        if r18["reloaded_launches"].get(entry):
+            rows["train"] = {
+                "configuration": "ResNet18 (base 16) trained 600 steps on the card, exported "
+                                 "and reloaded through Engine.from_json at BF16 AUTO b64, 4 steps",
+                "launches": r18["reloaded_launches"][entry],
+                "launches_per_step": r18["reloaded_launches"][entry] // r18["reloaded_steps"],
+                "max_abs_diff_vs_torch": r18["reloaded_max_abs_diff"],
+                "top1": r18["reloaded_top1"]}
+        if acc_out["launches"].get(entry):
+            rows["accuracy"] = {
+                "configuration": "tools/accuracy_report.py main: the zoo at FP32/BF16/INT8 b1 and "
+                                 "every trained artifact, AUTO (the ESPCN A8W8 row KERNEL)",
+                "launches": acc_out["launches"][entry], "rc": acc_out["rc"]}
+        return rows
+
     kernel_ids = {"fused_conv_chain_packed": "conv_chain", "fused_conv_chain": "conv_chain",
                   "fused_conv2d_haloed": "conv_single", "fused_invres_block": "invres",
                   "fused_matmul": "matmul_fused"}
@@ -2180,6 +2226,7 @@ def main() -> int:
             **chain_int8[entry],
             "zoo": zoo_rows(entry),
             "io": io_rows(entry),
+            **trained_rows(entry),
             **({"serve": {
                 "launches_per_batch": 1,
                 "configuration": "ESPCN 2x (trained) 540p b8 BF16 under StreamingEngine: 4 "
@@ -2223,6 +2270,7 @@ def main() -> int:
            "engine_steps": {k: v for k, v in i8_steps.items() if "mobilenetv2" in k},
            "top1": {k: v["top1"] for k, v in i8_main.items() if "mobilenetv2 cls10" in k}},
         "io": io_rows("fused_invres_block"),
+        **trained_rows("fused_invres_block"),
     })
     r = conv_rows["bf16"]
     kernels.append({
@@ -2257,6 +2305,7 @@ def main() -> int:
             planted_fault_weight_scale_zeroed_diff=fault_errs["weight_scale_zeroed"]),
         "zoo": zoo_rows("fused_conv2d_haloed"),
         "io": io_rows("fused_conv2d_haloed"),
+        **trained_rows("fused_conv2d_haloed"),
         "serve": {"launches_per_batch": 1,
                   "configuration": "YOLOv3-tiny (trained) 256x256 b8 BF16 under "
                                    "StreamingEngine, 32 scenes (seed 7)",
@@ -2292,6 +2341,7 @@ def main() -> int:
                  "max_abs_err": i8_err["igemm_w8"],
                  **i8_rows[("igemm", "int8 weights")],
                  "engine_max_abs_diff": i8_main["two-input KERNEL weight-only"]["max_abs_diff"]},
+        **trained_rows("conv2d_kernel_nhwc"),
     })
     r = matmul_rows[("resnet18 fc 8x512x10", "bf16")]
     kernels.append({
@@ -2329,6 +2379,7 @@ def main() -> int:
                  "resnet18_cls10_fc": i8_rows[("matmul", "resnet18 cls10 fc")],
                  "engine_max_abs_diff": i8_main["resnet18 zoo KERNEL weight-only"]["max_abs_diff"]},
         "io": io_rows("fused_matmul"),
+        **trained_rows("fused_matmul"),
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -3324,6 +3375,239 @@ def io_phase(h) -> dict:
                 f"{st['throughput_fps']:.1f} fps; launches {counts} | {card}")
     log(f"[io] phase {time.perf_counter() - t_phase:.1f} s")
     return out
+
+# Step 0's gradients, card against CPU: each tensor's max-abs-diff within
+# this share of the model's largest gradient magnitude. fp32 sums in another
+# order give up to 3e-5 (StyleTransfer 64 b32, whose InstanceNorm betas take
+# their gradient as a small difference of large terms: 6e-3 of their own
+# magnitude, the JAX package against the port on the CPU alike); TF32 in
+# the backward gives about 1e-3 of a tensor's own magnitude.
+GRAD_TOL = 1e-4
+
+
+def train_phase(h) -> dict:
+    """9. train: the six trainers (tools/train_*.py) on the card at the JAX
+    defaults' width, batch and size. `h` carries main's helpers (log,
+    reset_counts, read_counts, held_to_plans).
+
+    For each: step 0's loss and every gradient on the card (TF32 off for
+    the whole step, tools/optim.py no_tf32) against the same step of the
+    port on the CPU from the same parameters and batch, each tensor within
+    GRAD_TOL of the model's largest gradient magnitude (see GRAD_TOL; TF32
+    in the backward is printed beside it); a planted fault (the largest
+    gradient scaled by 1 + 10 GRAD_TOL) must fail that check. Then 5 optimizer steps on fresh batches with finite losses, the
+    host's batch-making ms apart from the step ms (CUDA-synchronized), and
+    no hand-written kernel launched (the trainers run on TORCH: cuDNN,
+    cuBLAS). Then ResNet18's whole default run (600 steps, base 16, b128):
+    held-out top-1 >= 0.95, exported into build/trained/ (git-ignored) and
+    reloaded through Engine.from_json at BF16 AUTO, b64: launches per step
+    held to its plans (counts set to 0 just before, read just after),
+    output within ENGINE_TOL of the TORCH BF16 forward, top-1 >= 0.95."""
+    import numpy as np
+    import torch
+
+    from shadernn_tpu_torch import Engine, EngineOptions, Precision
+    from shadernn_tpu_torch.config import BackendKind
+    from shadernn_tpu_torch.tools import (
+        train_denoiser, train_espcn, train_mobilenetv2, train_resnet18, train_styletransfer,
+        train_yolo,
+    )
+
+    log, card, dev = h.log, h.card, str(h.dev)
+    t_phase = time.perf_counter()
+    out = {"trainers": {}}
+
+    def sync():
+        if dev.startswith("cuda"):
+            torch.cuda.synchronize()
+    trainers = {
+        "resnet18 base16 b128": lambda d: train_resnet18.setup(600, 16, 128, device=d),
+        "mobilenetv2 w0.5 32x32 b128": lambda d: train_mobilenetv2.setup(700, 0.5, 128, device=d),
+        "spatialdenoise 64 b16": lambda d: train_denoiser.setup(500, "spatialdenoise", 16, 64, d),
+        "unet 64 b16": lambda d: train_denoiser.setup(500, "unet", 16, 64, d),
+        "aidenoise 64 b16": lambda d: train_denoiser.setup(500, "aidenoise", 16, 64, d),
+        "styletransfer 64 b32": lambda d: train_styletransfer.setup(400, 32, 64, device=d),
+        "yolov3-tiny 256 b16": lambda d: train_yolo.setup(500, 16, 256, device=d),
+        "espcn patch64 b32": lambda d: train_espcn.setup(3000, 32, 64, device=d),
+    }
+
+    def grad_error(got, want):
+        """(worst tensor, its max-abs-diff over the model's largest gradient
+        magnitude, the same over its own)."""
+        gmax = max(float(g.abs().max()) for d in want.values() for g in d.values())
+        diff = {f"{n}.{k}": (float((got[n][k].detach().cpu() - g).abs().max()),
+                             float(g.abs().max()))
+                for n, d in want.items() for k, g in d.items()}
+        worst = max(diff, key=lambda t: diff[t][0])
+        err, own = diff[worst]
+        return worst, err / gmax, err / max(own, 1e-30)
+
+    def tf32_backward_grads(s, batch):
+        """Step 0's gradients with TF32 allowed in the backward (the forward's
+        convs keep theirs off): what the trainer's no_tf32 keeps out."""
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+                loss = s.loss(s.params, *batch)
+                gs = torch.autograd.grad(loss, [t for _, _, t in s.state.trained])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        got = {}
+        for (n, k, _), g in zip(s.state.trained, gs):
+            got.setdefault(n, {})[k] = g
+        return got
+
+    for label, make in trainers.items():
+        s, c = make(dev), make("cpu")
+        with torch.no_grad():
+            for n, d in s.params.items():
+                for k, t in d.items():
+                    c.params[n][k].copy_(t.cpu())
+        rng = np.random.default_rng(7)
+        t0 = time.perf_counter()
+        batch = s.batch(rng)
+        data_ms = (time.perf_counter() - t0) * 1e3
+        h.reset_counts()
+        dev_batch = s.to_device(batch)
+        loss_g, g_g = s.state.grads(s.loss, *dev_batch)
+        sync()
+        t0 = time.perf_counter()
+        loss_c, g_c = c.state.grads(c.loss, *c.to_device(batch))
+        cpu_s = time.perf_counter() - t0
+        loss_err = abs(float(loss_g) - float(loss_c)) / max(abs(float(loss_c)), 1e-12)
+        worst, err, err_own = grad_error(g_g, g_c)
+        # the planted fault: the largest gradient scaled by 1 + 10 GRAD_TOL
+        n0, k0 = max(((n, k) for n, d in g_c.items() for k in d),
+                     key=lambda nk: float(g_c[nk[0]][nk[1]].abs().max()))
+        planted = {n: dict(d) for n, d in g_g.items()}
+        planted[n0][k0] = g_g[n0][k0] * (1 + 10 * GRAD_TOL)
+        _, planted_err, _ = grad_error(planted, g_c)
+        tf32_worst, tf32_err, tf32_own = grad_error(tf32_backward_grads(s, dev_batch), g_c)
+        ok = err <= GRAD_TOL and loss_err <= 1e-5 and planted_err > GRAD_TOL
+        log(f"[train] {label}: step 0 loss card {float(loss_g):.6f} cpu {float(loss_c):.6f} "
+            f"(rel {loss_err:.2e}); gradients of {len(s.state.trained)} tensors, worst {worst} "
+            f"{err:.3e} of the largest gradient ({err_own:.3e} of its own; tol {GRAD_TOL:.0e}) "
+            f"{'ok' if err <= GRAD_TOL else 'FAIL'}; planted fault ({n0}.{k0} scaled by "
+            f"1 + {10 * GRAD_TOL:.0e}) {planted_err:.3e} "
+            f"{'caught' if planted_err > GRAD_TOL else 'MISSED'}; with TF32 in the backward "
+            f"{tf32_err:.3e} ({tf32_worst}, {tf32_own:.3e} of its own); the CPU step "
+            f"{cpu_s:.2f} s")
+        assert ok, f"{label}: step 0 on the card disagrees with the CPU, or the fault was missed"
+        del c, g_c, g_g, planted
+        losses, data, step = [], [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            b = s.to_device(s.batch(rng))
+            t1 = time.perf_counter()
+            losses.append(float(s.state.step(s.loss, *b)))
+            sync()
+            data.append((t1 - t0) * 1e3)
+            step.append((time.perf_counter() - t1) * 1e3)
+        counts = {k: v for k, v in h.read_counts().items() if v}
+        step_ms = statistics.median(step[1:])
+        log(f"[train] {label}: {STEPS} steps, losses {' '.join(f'{v:.5f}' for v in losses)}; "
+            f"step {step_ms:.2f} ms (median of steps 2-{STEPS}, synchronized; the first "
+            f"{step[0]:.1f}), host batch-making {statistics.median(data):.2f} ms a batch; "
+            f"hand-written kernel launches {counts or 'none'} | {card}")
+        assert all(np.isfinite(losses)), losses
+        assert not counts, f"{label}: the trainer launched hand-written kernels: {counts}"
+        out["trainers"][label] = {
+            "step0_loss": float(loss_g), "step0_loss_rel_err": loss_err,
+            "step0_grad_worst": worst, "step0_grad_rel_err": err, "step0_grad_own_err": err_own,
+            "planted_fault_rel_err": planted_err, "tf32_backward_rel_err": tf32_err,
+            "tf32_backward_own_err": tf32_own,
+            "losses": losses, "step_ms": step_ms, "first_step_ms": step[0],
+            "batch_ms": statistics.median(data), "first_batch_ms": data_ms,
+            "cpu_step0_s": cpu_s}
+        del s
+
+    # ResNet18's whole default run, its export and the reload on the kernels.
+    stats = {}
+    t0 = time.perf_counter()
+    graph, m, params = train_resnet18.train(
+        device=dev, log=lambda msg: log(f"[train] resnet18 {msg}"), stats=stats)
+    acc = train_resnet18.evaluate(graph, m, params)
+    n_steps = stats["steps"]
+    log(f"[train] resnet18 base16 b128: {n_steps} steps in {stats['wall_s']:.1f} s (host "
+        f"batch-making {stats['data_s']:.1f} s, the rest "
+        f"{1e3 * (stats['wall_s'] - stats['data_s']) / n_steps:.2f} ms a step); held-out top-1 "
+        f"{acc:.4f} (gate 0.95) | {card}")
+    assert acc >= 0.95, f"ResNet18 trained on the card: top-1 {acc} < 0.95"
+    path = train_resnet18.export(graph, params, train_resnet18.OUT_DIR,
+                                 log=lambda msg: log(f"[train] resnet18 {msg}"))
+    layers = path[:-len(".json")] + "_layers.json"
+    del m, params
+    eng = Engine.from_json(layers, EngineOptions(precision=Precision.BF16, batch_size=64,
+                                                 device=dev))
+    ref = Engine.from_json(layers, EngineOptions(precision=Precision.BF16, batch_size=64,
+                                                 backend=BackendKind.TORCH, device=dev))
+    x, y = train_resnet18.synth_cls(np.random.default_rng(424242), 256)
+    eng.run_single(x[:64])
+    h.reset_counts()
+    probs = [eng.run_single(x[i:i + 64]) for i in range(0, 256, 64)]
+    counts = h.read_counts()
+    per_step = h.held_to_plans(eng.model.forward, counts, 4)
+    want = [ref.run_single(x[i:i + 64]) for i in range(0, 256, 64)]
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(probs, want))
+    tol = ENGINE_TOL["bf16"] * max(1.0, max(b.float().abs().max().item() for b in want))
+    top1 = float(np.mean(torch.cat(probs).argmax(-1).cpu().numpy() == y))
+    log(f"[train] resnet18 exported to {os.path.relpath(layers, REPO)}, reloaded at BF16 AUTO "
+        f"b64: launches per step {per_step} (held to its plans); vs the TORCH BF16 forward "
+        f"max_abs_diff {err:.3e} tol {tol:.1e} {'ok' if err <= tol else 'FAIL'}; top-1 "
+        f"{top1:.4f}")
+    assert err <= tol and top1 >= 0.95, (err, tol, top1)
+    out["resnet18"] = {"steps": n_steps, "wall_s": stats["wall_s"], "data_s": stats["data_s"],
+                       "top1": acc, "reloaded_top1": top1, "reloaded_max_abs_diff": err,
+                       "reloaded_launches_per_step": {k: v for k, v in per_step.items() if v},
+                       "reloaded_launches": {k: v for k, v in counts.items() if v},
+                       "reloaded_steps": 4,
+                       "seconds": time.perf_counter() - t0}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] phase {out['seconds']:.1f} s")
+    return out
+
+
+def accuracy_phase(h) -> dict:
+    """10. accuracy: the port's accuracy report (tools/accuracy_report.py
+    main) on the card into build/accuracy/Accuracy.md (git-ignored), every
+    count set to 0 just before and read just after. It must exit 0, and
+    every row holds to docs/Accuracy.md (written by the JAX package on the
+    CPU; accuracy_report.check_against: trained rows within 0.1 dB PSNR,
+    0.02 top-1 and 0.03 mAP; zoo rows above the JAX gates, bf16 PSNR > 35
+    dB and int8 > 30 dB, classifiers' probabilities within 0.1). The AUTO
+    engines of the report launch the chain kernel in both forms, the
+    single-conv kernel and the block kernel; each must launch."""
+    import contextlib
+    import io
+
+    from shadernn_tpu_torch.tools import accuracy_report
+
+    log, card = h.log, h.card
+    t_phase = time.perf_counter()
+    path = os.path.join(REPO, "build", "accuracy", "Accuracy.md")
+    h.reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = accuracy_report.main(["--out", path, "--device", str(h.dev)])
+    counts = {k: v for k, v in h.read_counts().items() if v}
+    got = open(path).read()
+    want = open(os.path.join(REPO, "docs", "Accuracy.md")).read()
+    g, w = accuracy_report.read_report(got), accuracy_report.read_report(want)
+    for section, rows in w.items():
+        log(f"[accuracy] {section}: " + "; ".join(
+            f"{label} {g.get(section, {}).get(label)} (docs {vals})"
+            for label, vals in rows.items()))
+    bad = accuracy_report.check_against(got, want)
+    secs = time.perf_counter() - t_phase
+    log(f"[accuracy] main rc {rc}; rows off their limits: {bad or 'none'}; kernel launches "
+        f"{counts}; phase {secs:.1f} s | {card}")
+    assert rc == 0 and not bad, f"accuracy report: rc {rc}, {bad}"
+    for entry in ("fused_conv_chain_packed", "fused_conv_chain", "fused_conv2d_haloed",
+                  "fused_invres_block"):
+        assert counts.get(entry), f"the report's engines never launched {entry}: {counts}"
+    return {"rc": rc, "launches": counts, "seconds": secs, "rows": g}
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -69,14 +69,16 @@ def conv_output_hw(
 def apply_activation(x: torch.Tensor, kind: str, alpha: float = 0.3) -> torch.Tensor:
     """Fused activation epilogue; vocabulary and default leaky alpha (0.3)
     follow the reference. gelu is the tanh approximation (jax.nn.gelu's
-    default)."""
+    default). relu6 is max then min, as jnp.clip computes it: the same
+    values as a clamp, and at exactly 0 or 6 the same gradient as JAX's
+    (half of it, where a clamp passes all of it)."""
     kind = (kind or "linear").lower()
     if kind in ("linear", "", "none", "identity"):
         return x
     if kind == "relu":
         return torch.relu(x)
     if kind == "relu6":
-        return torch.clamp(x, 0.0, 6.0)
+        return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), 6.0))
     if kind in ("leakyrelu", "leaky_relu", "leaky relu"):
         return torch.where(x >= 0, x, alpha * x)
     if kind == "tanh":

@@ -62,6 +62,11 @@ def conv2d_nhwc_f32(x: torch.Tensor, w_hwio: torch.Tensor, pads, stride: int = 1
     groups=C (depthwise) `w_hwio` is (k, k, 1, C*m) and output channel o
     reads input channel o // m, as XLA's feature_group_count does."""
     t, b, l, r = pads
+    if w_hwio.shape[0] == w_hwio.shape[1] == 1 and stride > 1 and not any(pads):
+        # A 1x1 conv at stride s reads every s-th pixel: run it on that
+        # subsample at stride 1, the same sums. (PyTorch's CPU backward of
+        # a channels-last strided 1x1 conv corrupts the heap, torch 2.13.)
+        x, stride = x[:, ::stride, ::stride], 1
     xin = F.pad(x.float().permute(0, 3, 1, 2), (l, r, t, b))
     with full_precision():
         y = F.conv2d(xin, w_hwio.float().permute(3, 2, 0, 1), stride=stride, groups=groups)

@@ -1,19 +1,36 @@
-"""The content images and the procedural stylizations that the repo's
-StyleTransfer artifacts are trained and scored on (copies of
-`synth_imgs`, `STYLES` and `style_target` from
-shadernn_tpu/tools/train_styletransfer.py, so that the port scores a
-trained model without importing the JAX package). Training itself is not
-ported.
+"""Train the style-transfer network to a fixed procedural stylization and
+export it (counterpart of shadernn_tpu/tools/train_styletransfer.py).
 
-The same generator state gives bit-identical images and targets in both
+With no VGG for a perceptual loss and no style images, the network is fit
+to a deterministic procedural target per style (`style_target`: a color
+remap, a tanh tone curve, Sobel-edge strokes and, for some styles, a soft
+posterization), which doubles as the ground truth of a true metric:
+output-vs-target PSNR on held-out images, which must beat the identity.
+Training runs through the port's FP32 TORCH forward (instance norm,
+stride-2 transposed convs, the residual chain) with the JAX trainer's
+recipe: the MSE loss, Adam under warmup_cosine(peak_lr, min(30, steps //
+4), steps) with a global-norm clip of 1.0, every parameter trained, an
+optional warm start from an artifact read by the port's own parser. The
+network is fully convolutional: `export` rebuilds it at the serving size.
+
+`synth_imgs`, `STYLES` and `style_target` are copies of the JAX ones: the
+same generator state gives bit-identical images and targets in both
 packages.
+
+Usage: python -m shadernn_tpu_torch.tools.train_styletransfer [--steps 400]
+       [--style candy] [--hw 64] [--batch 32] [--export-hw N] [--name NAME]
+       [--init-from PATH] [--peak-lr 1e-3] [--out DIR] [--device cuda|cpu]
 """
 
 from __future__ import annotations
 
+import argparse
+import os
+
 import numpy as np
 
-from shadernn_tpu_torch.tools.train_resnet18 import synth_cls
+from shadernn_tpu_torch.tools.train_espcn import mse_loss
+from shadernn_tpu_torch.tools.train_resnet18 import OUT_DIR, synth_cls
 
 
 def synth_imgs(rng: np.random.Generator, n: int, s: int = 64) -> np.ndarray:
@@ -113,3 +130,138 @@ def style_target(x: np.ndarray, style: str = "candy") -> np.ndarray:
     edges = np.minimum(np.sqrt(gx**2 + gy**2) * 2.5, 1.0)
     y = y * (1.0 - p["edge"] * edges[..., None])
     return np.clip(y, 0, 1).astype(np.float32)
+
+
+def build_trainable(batch: int, hw: int = 64, device: str = "cuda"):
+    from shadernn_tpu_torch.config import BackendKind, EngineOptions, Precision
+    from shadernn_tpu_torch.engine.compile import compile_graph
+    from shadernn_tpu_torch.models.zoo import build_model
+
+    graph = build_model("styletransfer", h=hw, w=hw)
+    m = compile_graph(graph, EngineOptions(precision=Precision.FP32, backend=BackendKind.TORCH,
+                                           batch_size=batch, device=device))
+    return graph, m
+
+
+def warm_start(params, path: str) -> int:
+    """Copy every tensor of `params` that the artifact at `path` has (the
+    weights are resolution-independent). Returns the number copied."""
+    import torch
+
+    from shadernn_tpu_torch.graph.parser import parse_model_file
+
+    src = parse_model_file(path)
+    loaded = 0
+    with torch.no_grad():
+        for name, d in params.items():
+            if name in src.nodes:
+                for k, t in d.items():
+                    if k in src.nodes[name].params:
+                        t.copy_(torch.as_tensor(np.asarray(src.nodes[name].params[k], np.float32)))
+                        loaded += 1
+    return loaded
+
+
+def setup(steps: int = 400, batch: int = 32, hw: int = 64, style: str = "candy",
+          init_from: str = None, peak_lr: float = 1e-3, device: str = "cuda", log=print):
+    from shadernn_tpu_torch.tools.optim import Setup, TrainState, warmup_cosine
+
+    graph, m = build_trainable(batch, hw, device)
+    if init_from:
+        # warm start from an existing artifact (a sibling style or a
+        # lower-resolution fit): skips the slow climb out of the identity basin
+        log(f"warm-start: {warm_start(m.params, init_from)} tensors from {init_from}")
+    state = TrainState(m.params, warmup_cosine(peak_lr, min(30, steps // 4), steps), clip=1.0)
+
+    def one_batch(rng):
+        x = synth_imgs(rng, batch, s=hw)
+        return x, style_target(x, style=style)
+
+    return Setup(graph, m, mse_loss(m, graph), state, one_batch)
+
+
+def train(steps: int = 400, batch: int = 32, seed: int = 0, log=print, hw: int = 64,
+          style: str = "candy", init_from: str = None, peak_lr: float = 1e-3,
+          device: str = "cuda", stats=None):
+    from shadernn_tpu_torch.tools.optim import fit
+
+    s = setup(steps, batch, hw, style, init_from, peak_lr, device, log)
+    fit(s, steps, np.random.default_rng(seed), log, every=25, metric="mse", fmt=".5f",
+        stats=stats)
+    return s.graph, s.model, s.params
+
+
+def evaluate(graph, m, params, n=64, seed=777, batch=32, hw: int = 64, style: str = "candy"):
+    """Held-out PSNR of (network output vs style target), and of the
+    identity mapping (input vs target) as the must-beat floor."""
+    import torch
+
+    from shadernn_tpu_torch.utils.metrics import psnr
+
+    rng = np.random.default_rng(seed)
+    net_db, id_db = [], []
+    for _ in range(max(n // batch, 1)):
+        x = synth_imgs(rng, batch, s=hw)
+        t = style_target(x, style=style)
+        with torch.no_grad():
+            out = m.forward(params, {graph.input_names[0]: torch.from_numpy(x).to(m.device)})
+        y = out[graph.output_names[0]].float().cpu().numpy()
+        net_db.append(psnr(np.clip(y, 0, 1), t))
+        id_db.append(psnr(x, t))
+    return float(np.mean(net_db)), float(np.mean(id_db))
+
+
+def export(graph, params, out_dir: str, hw: int = 224, log=print,
+           name: str = "styletransfer_trained"):
+    """Re-build at the serving input size (fully convolutional, instance
+    norm: the weights are resolution-independent) with the trained weights."""
+    from shadernn_tpu_torch.graph.serialize import save_model
+    from shadernn_tpu_torch.models.zoo import build_model
+    from shadernn_tpu_torch.tools.optim import write_back
+
+    g_out = build_model("styletransfer", h=hw, w=hw)
+    write_back(g_out, params)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{name}.json")
+    save_model(g_out, path, decouple=True)
+    log(f"saved {path} (+ _layers.json/_weights.bin)")
+    return path
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=400)
+    ap.add_argument("--out", default=OUT_DIR)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--style", default="candy", choices=sorted(STYLES))
+    ap.add_argument("--hw", type=int, default=64,
+                    help="train and gate resolution: the learned mapping does not "
+                    "transfer across scales (instance-norm statistics are "
+                    "content-scale dependent), so train at the serving resolution")
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--export-hw", type=int, default=None,
+                    help="artifact input size (default: 224 for the candy@64 "
+                    "artifact, else --hw)")
+    ap.add_argument("--name", default=None,
+                    help="artifact base name (default: styletransfer_trained for "
+                    "candy@64, else styletransfer_<style><hw>_trained)")
+    ap.add_argument("--init-from", default=None,
+                    help="warm-start weights from an existing artifact (_layers.json path)")
+    ap.add_argument("--peak-lr", type=float, default=1e-3)
+    args = ap.parse_args(argv)
+    graph, m, params = train(args.steps, batch=args.batch, hw=args.hw, style=args.style,
+                             init_from=args.init_from, peak_lr=args.peak_lr,
+                             device=args.device)
+    net_db, id_db = evaluate(graph, m, params, batch=args.batch, hw=args.hw, style=args.style)
+    print(f"held-out PSNR vs target ({args.style}@{args.hw}): "
+          f"net {net_db:.2f} dB, identity {id_db:.2f} dB")
+    name = args.name or (
+        "styletransfer_trained" if (args.style, args.hw) == ("candy", 64)
+        else f"styletransfer_{args.style}{args.hw}_trained"
+    )
+    export_hw = args.export_hw or (224 if name == "styletransfer_trained" else args.hw)
+    export(graph, params, args.out, hw=export_hw, name=name)
+
+
+if __name__ == "__main__":
+    main()

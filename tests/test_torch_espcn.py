@@ -149,12 +149,14 @@ def test_package_imports_no_jax():
         "import shadernn_tpu_torch.utils.profiler, shadernn_tpu_torch.utils.trace_profile\n"
         "import shadernn_tpu_torch.graph.serialize, shadernn_tpu_torch.demo\n"
         "from shadernn_tpu_torch.tools import onnx_reader, onnx_export, convert, dump_reader\n"
-        "from shadernn_tpu_torch.tools import compare\n"
+        "from shadernn_tpu_torch.tools import compare, optim, accuracy_report\n"
+        "from shadernn_tpu_torch.tools import train_espcn, train_resnet18, train_mobilenetv2\n"
+        "from shadernn_tpu_torch.tools import train_denoiser, train_styletransfer, train_yolo\n"
         "p.build_model('espcn', h=8, w=8)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'shadernn_tpu' or m.startswith('shadernn_tpu.')]\n"
         "assert not bad, bad\n"
-        "heavy = [m for m in sys.modules if m.split('.')[0] in ('keras', 'tensorflow', 'h5py')]\n"
+        "heavy = [m for m in sys.modules if m.split('.')[0] in ('keras', 'tensorflow', 'h5py', 'optax', 'PIL')]\n"
         "assert not heavy, heavy\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
