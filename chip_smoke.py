@@ -170,6 +170,18 @@ Phases, each of which raises on failure (exit code != 0):
               docs/Accuracy.md (trained rows within 0.1 dB / 0.02 top-1 /
               0.03 mAP, zoo rows above the JAX gates), the chain kernel in
               both forms, the single-conv and the block kernels launched
+ 11. parallel the sharded engines (parallel_phase) on logical meshes of the
+              card: ESPCN 2x (trained) 540p b8 AUTO at BF16 (2,2,2) and
+              (1,2,4), FP32 and INT8 weight-only (2,2,2), 24 implicit-GEMM
+              conv launches a step (one per shard and kernel conv), within
+              ENGINE_TOL of the single-device engine and of the
+              TORCH-sharded run; MobileNetV2 224 b8 (2,4,1) and (1,2,2),
+              ResNet18 zoo b8 (1,1,4), StyleTransfer-candy 512 b4 (1,1,4),
+              YOLOv3-tiny 256 b8 FP32 (1,1,2) against their single-device
+              engines; [kernel] cases at every sharded launch shape; a
+              wrong halo fill and a reversed TP gather must be caught; the
+              2-process multihost smoke on the card; the executor's
+              overhead over 1-8 logical shards; [timing] rows
 Prints the `kernels` JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Imports no JAX and nothing of
 the JAX package. Exits non-zero without printing a result when no CUDA
@@ -2143,6 +2155,12 @@ def main() -> int:
     # 10. accuracy -------------------------------------------------------------------
     acc_out = accuracy_phase(phase_h)
 
+    # 11. parallel ---------------------------------------------------------------------
+    par_out = parallel_phase(types.SimpleNamespace(
+        dev=dev, log=log, card=card, STEPS=STEPS, ENGINE_TOL=ENGINE_TOL, held=held,
+        reset_counts=reset_counts, read_counts=read_counts, conv_yardstick=conv_yardstick,
+        bound=bound, tf32=tf32, time_ms=time_ms, busy_text=busy_text))
+
     def trained_rows(entry):
         """Where phases 9 and 10 launched this entry: the trained-on-the-card
         ResNet18 reloaded at BF16 AUTO, and the accuracy report's engines."""
@@ -2317,8 +2335,8 @@ def main() -> int:
         "route": "cuda",
         "source": "shadernn_tpu_torch/csrc/conv_igemm.cu",
         "replaces": "shadernn_tpu/kernels/conv_pallas.py:58",
-        "launches": two_stats["bf16"]["launches"],
-        "max_abs_err": igemm_err,
+        "launches": two_stats["bf16"]["launches"] + par_out["launches"],
+        "max_abs_err": max(igemm_err, par_out["max_abs_err"]),
         "max_abs_diff": igemm_err,
         **r,
         "shape": "bf16 8x540x960x(3+5) -> 8x540x960x16, k3 (the two-input conv graph)",
@@ -2342,6 +2360,17 @@ def main() -> int:
                  **i8_rows[("igemm", "int8 weights")],
                  "engine_max_abs_diff": i8_main["two-input KERNEL weight-only"]["max_abs_diff"]},
         **trained_rows("conv2d_kernel_nhwc"),
+        "parallel": {
+            "configuration": "phase 11: sharded engines on logical meshes of the card (one "
+                             "device per shard), B5 launched once per shard for each kernel "
+                             "conv; launches above include these",
+            "launches": par_out["launches"],
+            "paths": par_out["paths"],
+            "max_abs_err": par_out["max_abs_err"],
+            "timing": par_out["timing"],
+            "planted_faults_diff": par_out["faults"],
+            "multihost": par_out["multihost"],
+            "logical_shards": par_out["scaling"]},
     })
     r = matmul_rows[("resnet18 fc 8x512x10", "bf16")]
     kernels.append({
@@ -3607,6 +3636,287 @@ def accuracy_phase(h) -> dict:
                   "fused_invres_block"):
         assert counts.get(entry), f"the report's engines never launched {entry}: {counts}"
     return {"rc": rc, "launches": counts, "seconds": secs, "rows": g}
+
+
+def parallel_phase(h) -> dict:
+    """11. parallel: the port's sharded engines (shadernn_tpu_torch/parallel/)
+    on logical meshes of the card (one device named once per shard). Under a
+    mesh the chain and block planners stay off, as in the JAX package, and
+    each Conv2D that AUTO gives the kernel launches the implicit-GEMM conv
+    (B5) once per shard, on halo-extended rows, O-sliced under TP.
+
+    Main paths (counts set to 0 just before each, read just after): ESPCN 2x
+    (trained) 540p b8 AUTO at BF16 (2,2,2) and (1,2,4), FP32 (2,2,2) and
+    INT8 weight-only (2,2,2): 24 B5 launches a step and nothing else, the
+    output within ENGINE_TOL of the single-device engine (the chain kernel)
+    and of the TORCH-sharded run; MobileNetV2 224 b8 BF16 at (2,4,1) and
+    (1,2,2) (dw_conv TP), ResNet18 zoo b8 at (1,1,4) (halo convs, gap),
+    StyleTransfer-candy 512 b4 at (1,1,4) (instnorm; its k9 convs on B5),
+    YOLOv3-tiny 256 b8 FP32 at (1,1,2) (pool_halo, the head's gather; its
+    stem on B5; raw head features and detections box to box), each within
+    ENGINE_TOL of its single-device engine and B5 launched
+    shards x kernel convs a step. [kernel] cases at every distinct B5 launch
+    of these paths against conv2d_igemm_reference; planted faults (a conv
+    halo's edge fill 1.0 instead of the zero padding; a TP gather's shard
+    order reversed) must be caught; run_multihost_smoke(2, "cuda") (two
+    processes on the card, gloo for control only); measure_scaling over 1,
+    2, 4, 8 logical shards: the executor's overhead on one card, not
+    scaling; [timing] rows of the ESPCN sharded launch shapes."""
+    import numpy as np
+    import torch
+
+    from shadernn_tpu_torch import Engine, EngineOptions, Precision
+    from shadernn_tpu_torch.config import BackendKind, ShardingOptions
+    from shadernn_tpu_torch.graph.parser import parse_model_file
+    from shadernn_tpu_torch.kernels import conv_igemm
+    from shadernn_tpu_torch.models import zoo
+    from shadernn_tpu_torch.parallel import spmd
+    from shadernn_tpu_torch.parallel.mesh import make_mesh
+    from shadernn_tpu_torch.parallel.scaling import measure_scaling, run_multihost_smoke
+    from shadernn_tpu_torch.utils.metrics import detections_agree
+    from shadernn_tpu_torch.utils.trace_profile import complete, profile_steps
+
+    dev, log, card = h.dev, h.log, h.card
+    bf16, f32 = torch.bfloat16, torch.float32
+    FP32, BF16, I8 = Precision.FP32, Precision.BF16, Precision.INT8
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(11)
+    out = {"paths": {}, "timing": {}, "max_abs_err": 0.0, "faults": {}}
+
+    def tol_of(prec):
+        return h.ENGINE_TOL["fp32" if prec == FP32 else "bf16"]
+
+    def sharded(graph_fn, prec, batch, mesh, backend=BackendKind.AUTO):
+        d, m, s = mesh
+        sh = ShardingOptions(data=d, model=m, spatial=s)
+        return Engine.from_graph(graph_fn(), EngineOptions(
+            precision=prec, batch_size=batch, sharding=sh, backend=backend),
+            mesh=make_mesh(sh, [dev] * (d * m * s)))
+
+    def single(graph_fn, prec, batch):
+        return Engine.from_graph(graph_fn(), EngineOptions(precision=prec, batch_size=batch))
+
+    def step_p50(eng, x, n=10):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            eng.run_single(x)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    # Every distinct B5 launch of the main paths, kept once for the
+    # [kernel] cases and the [timing] rows.
+    shapes, path_of = {}, {}
+    current = {"label": ""}
+    real = conv_igemm.conv2d_kernel_nhwc
+
+    def recording(x, w, scale, offset, *, stride=1, pads=(0, 0, 0, 0), activation="linear",
+                  alpha=0.3):
+        key = (tuple(x.shape), tuple(w.shape), str(x.dtype).split(".")[-1],
+               str(w.dtype).split(".")[-1], int(stride), tuple(int(p) for p in pads),
+               str(activation))
+        if key not in shapes:
+            shapes[key] = (x.clone(), w.clone(), scale.clone(), offset.clone(), alpha)
+            path_of[key] = current["label"]
+        return real(x, w, scale, offset, stride=stride, pads=pads, activation=activation,
+                    alpha=alpha)
+
+    def drive(label, eng, x, want, torch_want=None, steps=h.STEPS):
+        """One main path: `steps` steps with the counts set to 0 just before
+        and read just after; B5 launched shards x kernel convs a step and
+        nothing else; every output against `want` (and `torch_want`), the
+        outputs of the same engine unsharded: within ENGINE_TOL x max(1,
+        max|want|), YOLO detections box to box (utils/metrics.py
+        detections_agree; rows of near-equal score may swap)."""
+        fwd = eng.model.forward
+        mesh = eng.model.mesh
+        tol = tol_of(eng.options.precision)
+        eng.run({"input": x})  # warm: prepared operands
+        current["label"] = label
+        conv_igemm.conv2d_kernel_nhwc = recording
+        try:
+            h.reset_counts()
+            ys = [eng.run({"input": x}) for _ in range(steps)]
+            counts = {k: v for k, v in h.read_counts().items() if v}
+        finally:
+            conv_igemm.conv2d_kernel_nhwc = real
+        per_step = mesh.size * len(fwd.kernel_conv_plan)
+        assert counts == ({"conv2d_kernel_nhwc": per_step * steps} if per_step else {}), (
+            label, counts, per_step)
+        errs, ok = {}, True
+        for name, w_ in want.items():
+            y = ys[-1][name].float()
+            assert bool(torch.isfinite(y).all()) and y.shape == w_.shape, (label, name, y.shape)
+            if eng.graph.nodes[name].op == "YOLO":
+                errs[f"{name} boxes"] = detections_agree(y.cpu().numpy(),
+                                                         w_.float().cpu().numpy(), tol)
+                continue
+            scale = max(1.0, w_.float().abs().max().item())
+            for ref_name, ref in (("single-device", want), ("torch-sharded", torch_want)):
+                if ref is not None:
+                    err = (y - ref[name].float()).abs().max().item()
+                    errs[f"{name} vs {ref_name}"] = err
+                    ok = ok and err <= tol * scale
+        p50 = step_p50(eng, x)
+        out["paths"][label] = {"launches": counts.get("conv2d_kernel_nhwc", 0),
+                               "launches_per_step": per_step, "steps": steps,
+                               "max_abs_diff": errs, "step_p50_ms": p50,
+                               "plan": eng.model.spmd_plan.summary()}
+        log(f"[parallel] {label}: B5 {per_step}/step ({mesh.size} shards x "
+            f"{len(fwd.kernel_conv_plan)} convs), plan {eng.model.spmd_plan.summary()}, "
+            f"max_abs_diff " + ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+                                         for k, v in errs.items())
+            + f" (tol {tol} x max(1, max|out|)), step p50 {p50:.3f} ms "
+            f"{'ok' if ok else 'FAIL'} | {card}")
+        assert ok, f"{label}: sharded output disagrees"
+
+    # ESPCN 2x (trained) 540p b8 ----------------------------------------------
+    def espcn():
+        return parse_model_file(zoo.ESPCN_TRAINED)
+
+    x8 = rng.random((8, 540, 960, 1), dtype=np.float32)
+    for prec, mesh in ((BF16, (2, 2, 2)), (BF16, (1, 2, 4)), (FP32, (2, 2, 2)), (I8, (2, 2, 2))):
+        ref = single(espcn, prec, 8)
+        want = ref.run({"input": x8})
+        ref_p50 = step_p50(ref, x8)
+        torch_eng = sharded(espcn, prec, 8, mesh, backend=BackendKind.TORCH)
+        eng = sharded(espcn, prec, 8, mesh)
+        assert sorted(eng.model.forward.kernel_conv_plan) == ["conv_1", "conv_2", "conv_3"]
+        label = f"espcn 540p b8 {prec.value} {'x'.join(map(str, mesh))}"
+        drive(label, eng, x8, want, torch_eng.run({"input": x8}))
+        busy, ported, text = h.busy_text(eng, {"input": x8}, out["paths"][label]["step_p50_ms"])
+        out["paths"][label].update(single_step_p50_ms=ref_p50, device_busy_ms=busy,
+                                   b5_device_ms=ported)
+        log(f"[parallel] {label}: single-device step p50 {ref_p50:.3f} ms (the chain kernel); "
+            f"sharded {text} | {card}")
+        if (prec, mesh) == (BF16, (2, 2, 2)):
+            planted_eng, planted_want = eng, next(iter(want.values()))
+        del ref, torch_eng, eng
+
+    # The rest of the zoo, one mode each ----------------------------------------
+    def mnv2():
+        return zoo.build_model("mobilenetv2")
+
+    def yolo():  # its raw head features as outputs too
+        g = parse_model_file(zoo.YOLOV3_TINY_TRAINED)
+        g.output_names = ["head1", "head2", "yolo"]
+        return g
+
+    # YOLOv3-tiny at FP32: at BF16 its head features reach |x| ~ 1e2, where
+    # one bf16 rounding (0.5) moves a logit enough to move a box past the
+    # detections' 0.1 (sharded or not: another summation order suffices).
+    zoo_paths = (
+        ("mobilenetv2 224 b8", BF16, mnv2, 8, (224, 224, 3), [(2, 4, 1), (1, 2, 2)]),
+        ("resnet18 zoo b8", BF16, lambda: zoo.build_model("resnet18"), 8, (32, 32, 3),
+         [(1, 1, 4)]),
+        ("styletransfer-candy 512 b4", BF16,
+         lambda: zoo.build_model("styletransfer-candy", h=512, w=512), 4, (512, 512, 3),
+         [(1, 1, 4)]),
+        ("yolov3-tiny 256 b8", FP32, yolo, 8, (256, 256, 3), [(1, 1, 2)]),
+    )
+    for name, prec, fn, batch, hwc, meshes in zoo_paths:
+        x = rng.random((batch, *hwc), dtype=np.float32)
+        want = single(fn, prec, batch).run({"input": x})
+        for mesh in meshes:
+            drive(f"{name} {prec.value} {'x'.join(map(str, mesh))}",
+                  sharded(fn, prec, batch, mesh), x, want, steps=2)
+
+    # [kernel]: every distinct B5 launch against its plain version -------------------
+    for (xs, ws, xdt, wdt, st, pads, act), (x, w, sc, of, alpha) in shapes.items():
+        label = f"B5 sharded {xs}->{ws[-1]} k{ws[0]} {xdt} w {wdt} pads {pads}"
+        got = real(x, w, sc, of, stride=st, pads=pads, activation=act, alpha=alpha)
+        want = conv_igemm.conv2d_igemm_reference(x, w, sc, of, st, pads, act, alpha)
+        out["max_abs_err"] = max(out["max_abs_err"], h.held(
+            label, "conv2d_kernel_nhwc", got, want, bf16 if x.dtype == bf16 else f32))
+
+    # Planted faults: each must be caught -----------------------------------------------
+    tol = tol_of(BF16) * max(1.0, planted_want.float().abs().max().item())
+    halo = spmd.Collectives.halo
+    gather = spmd.Collectives.gather
+
+    def wrong_fill(self, vals, axis, up, dn, fill=0.0):
+        return halo(self, vals, axis, up, dn, 1.0 if fill == 0.0 else fill)
+
+    def reversed_tp(self, vals, axis, dim):
+        if axis != "model":
+            return gather(self, vals, axis, dim)
+        return self._reduce(vals, axis, lambda parts: torch.cat(parts[::-1], dim=dim))
+
+    for fault, patch in (("halo edge fill 1.0", ("halo", wrong_fill)),
+                         ("TP gather reversed", ("gather", reversed_tp))):
+        setattr(spmd.Collectives, *patch)
+        try:
+            y = planted_eng.run_single(x8).float()
+        finally:
+            spmd.Collectives.halo, spmd.Collectives.gather = halo, gather
+        diff = (y - planted_want.float()).abs().max().item()
+        out["faults"][fault] = diff
+        log(f"[parallel] planted fault ({fault}) on espcn 540p b8 bf16 2x2x2: max_abs_diff "
+            f"{diff:.3e} > tol {tol:.1e}: {'caught' if diff > tol else 'MISSED'}")
+        assert diff > tol, f"planted fault not caught: {fault}"
+
+    # Multi-process hosts: 2 processes on the card ----------------------------------------
+    t0 = time.perf_counter()
+    rc = run_multihost_smoke(2, device="cuda", timeout=300)
+    out["multihost"] = {"rc": rc, "seconds": time.perf_counter() - t0}
+    log(f"[parallel] run_multihost_smoke(2, cuda): rc {rc}, "
+        f"{out['multihost']['seconds']:.1f} s")
+    assert rc == 0, "multihost smoke failed"
+
+    # The executor's overhead on one card ---------------------------------------------------
+    recs = measure_scaling("espcn", (1, 2, 4, 8), per_device_batch=2, precision=BF16,
+                           iters=10, devices=[dev] * 8, build_kwargs={"h": 540, "w": 960})
+    out["scaling"] = recs
+    for r in recs:
+        log(f"[parallel] logical shards {r['devices']} (one card; the executor's overhead, not "
+            f"scaling): b{r['batch']} {r['mean_ms']:.3f} ms/step {r['frames_per_sec']:.1f} "
+            f"frames/s, efficiency {r['efficiency']:.3f} | {card}")
+
+    # [timing]: the ESPCN sharded launch shapes ---------------------------------------------
+    # Device ms only from a profile that saw every launch (else None: "not
+    # measured"); the event ms of back-to-back calls beside it.
+    def timed(fns):
+        res = {}
+        for k, fn in fns.items():
+            rep = profile_steps(fn, 10, dev)
+            res[k] = (h.time_ms(fn), rep.e2e_us / 1e3 if complete(rep) else None)
+        return res
+
+    def ms_text(v):
+        return "not measured" if v is None else f"{v:.4f}"
+
+    for key, (x, w, sc, of, alpha) in shapes.items():
+        xs, ws, xdt, wdt, st, pads, act = key
+        if not path_of[key].startswith("espcn"):
+            continue
+        label = f"{'x'.join(map(str, xs))}->{ws[-1]} k{ws[0]} {xdt} w {wdt} ({path_of[key]})"
+        dt = bf16 if x.dtype == bf16 else f32
+        t = timed({
+            "kernel": lambda: real(x, w, sc, of, stride=st, pads=pads, activation=act),
+            "plain": lambda: conv_igemm.conv2d_igemm_reference(x, w, sc, of, st, pads, act),
+            "library": h.conv_yardstick(x, w.to(dt), sc, of, pads, act, dt)})
+        n, hh, ww, c = xs
+        kh, kw, _, o = ws
+        ho, wo = hh + pads[0] + pads[1] - kh + 1, ww + pads[2] + pads[3] - kw + 1
+        flops = 2.0 * n * ho * wo * kh * kw * c * o
+        nbytes = x.numel() * x.element_size() + n * ho * wo * o * x.element_size() \
+            + w.numel() * w.element_size() + 8 * o
+        b_ms, b_by = h.bound(flops, nbytes, dt)
+        b3, b3_text = h.tf32(flops, nbytes, dt)
+        out["timing"][label] = dict(
+            ms=t["kernel"][0], plain_ms=t["plain"][0], library_ms=t["library"][0],
+            device_ms=t["kernel"][1], plain_device_ms=t["plain"][1],
+            library_device_ms=t["library"][1], bound_ms=b_ms, bound_by=b_by, **b3)
+        log(f"[timing] conv2d_kernel_nhwc sharded {label}: " + " ".join(
+            f"{k if k != 'library' else 'cudnn'} {v[0]:.4f} ms (device {ms_text(v[1])})"
+            for k, v in t.items())
+            + f" bound {b_ms:.5f} ms ({b_by}; {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB"
+            f"{b3_text}) | {card}")
+    out["launches"] = sum(p["launches"] for p in out["paths"].values())
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[parallel] phase {out['seconds']:.1f} s; B5 launches on the sharded paths "
+        f"{out['launches']}")
+    return out
 
 
 if __name__ == "__main__":

@@ -3,9 +3,11 @@
 Mirrors `shadernn_tpu/config.py`: `Precision` picks the activation dtype,
 `BackendKind` picks, per layer, between plain PyTorch ops (TORCH, the
 analog of the JAX package's XLA path) and the hand-written CUDA kernels
-(KERNEL, the analog of its Pallas path), and `EngineOptions` carries the
-creation-time options that the compile step reads. Sharding, layout and
-buffer-donation options belong to later slices of the port.
+(KERNEL, the analog of its Pallas path), `ShardingOptions` lays a model
+over a (data, model, spatial) mesh of devices (parallel/), and
+`EngineOptions` carries the creation-time options that the compile step
+reads. The JAX package's XLA-only layout and buffer-donation options have
+no counterpart here.
 """
 
 from __future__ import annotations
@@ -45,6 +47,30 @@ class BackendKind(enum.Enum):
 
 CHAIN_FORMATS = ("auto", "packed", "im2col")
 CHAIN_A8 = ("auto", "off")
+SPMD_MODES = ("shard_map", "gspmd")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingOptions:
+    """How to lay the model out over a device mesh (parallel/mesh.py):
+    `data` for batch/frame parallelism, `model` for channel (tensor)
+    parallelism and `spatial` for H partitioning with halo exchange. Each
+    count is the number of ways that axis is cut; 1 = off."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    spatial_axis: str = "spatial"
+    data: int = 1
+    model: int = 1
+    spatial: int = 1
+
+    @property
+    def total_devices(self) -> int:
+        return self.data * self.model * self.spatial
+
+    @property
+    def is_sharded(self) -> bool:
+        return self.total_devices > 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +87,13 @@ class EngineOptions:
     # Per-layer backend override: node name -> BackendKind.
     backend_overrides: Optional[dict] = None
     batch_size: int = 1
+    sharding: ShardingOptions = dataclasses.field(default_factory=ShardingOptions)
+    # How a sharded graph runs (parallel/sharding.py): "shard_map", the
+    # explicit SPMD executor with the kernels kept per shard; or "gspmd",
+    # the same executor under the two restrictions XLA's auto-partitioner
+    # puts on the JAX package's result (TORCH on every shard, no TP under
+    # SP).
+    spmd_mode: str = "shard_map"
     # Which entry point a planned conv chain goes through: "auto"/"packed"
     # take `fused_conv_chain_packed` for c1/d2s2 tails and `fused_conv_chain`
     # otherwise; "im2col" always takes `fused_conv_chain`. On Hopper both
@@ -90,6 +123,8 @@ class EngineOptions:
             )
         if self.chain_a8 not in CHAIN_A8:
             raise ValueError(f"chain_a8 {self.chain_a8!r} not in {CHAIN_A8}")
+        if self.spmd_mode not in SPMD_MODES:
+            raise ValueError(f"spmd_mode {self.spmd_mode!r} not in {SPMD_MODES}")
 
     def backend_for(self, node_name: str) -> BackendKind:
         if self.backend_overrides and node_name in self.backend_overrides:

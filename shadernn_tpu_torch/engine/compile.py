@@ -514,8 +514,96 @@ class CompiledModel:
         }
 
 
-def compile_graph(graph: Graph, options: Optional[EngineOptions] = None) -> CompiledModel:
-    """Shape-infer, move params to the device and plan the forward."""
+@dataclasses.dataclass
+class ShardedModel(CompiledModel):
+    """A model sharded over a mesh (parallel/spmd.py): `params` and the
+    forward's inputs and outputs are lists indexed like `mesh.coords`, None
+    at the shards another process owns. Called with global inputs it splits
+    them by the plan's input specs (batch over data, H over spatial,
+    replicated over model) and returns the assembled global outputs on
+    `device`, the mesh's first device; on a mesh that spans processes it
+    returns this process's shards' outputs instead (`step`)."""
+
+    mesh: object = None
+    spmd_plan: object = None
+
+    def __call__(self, inputs: Dict[str, torch.Tensor]):
+        outs = self.step(self.params, self.split_inputs(inputs))
+        if all(self.mesh.is_local(c) for c in self.mesh.coords):
+            return self.assemble(outs)
+        return outs
+
+    def step(self, params: List, shard_inputs: List) -> List:
+        return self.forward(params, shard_inputs)
+
+    def split_inputs(self, inputs: Dict[str, torch.Tensor]) -> List:
+        """Each local shard's slice of the global inputs, on its device."""
+        from shadernn_tpu_torch.parallel.mesh import shard_index
+
+        out = []
+        for coord in self.mesh.coords:
+            if not self.mesh.is_local(coord):
+                out.append(None)
+                continue
+            dev = self.mesh.device_at(coord)
+            out.append({
+                name: t[shard_index(self.spmd_plan.input_specs[name], self.mesh, coord,
+                                    tuple(t.shape))].to(dev)
+                for name, t in inputs.items()})
+        return out
+
+    def assemble(self, outs: List) -> dict:
+        """The global outputs on `device` from every shard's outputs."""
+        from shadernn_tpu_torch.parallel.mesh import P, owns_slice, shard_index
+
+        coords = self.mesh.coords
+        first = next(o for o in outs if o is not None)
+
+        def whole(spec, parts):
+            part = next(t for t in parts if t is not None)
+            shape = list(part.shape)
+            for dim, axis in enumerate(spec):
+                if axis is not None:
+                    shape[dim] *= self.mesh.shape[axis]
+            g = torch.empty(shape, dtype=part.dtype, device=self.device)
+            for coord, t in zip(coords, parts):
+                if t is not None and owns_slice(spec, self.mesh, coord):
+                    g[shard_index(spec, self.mesh, coord, shape)] = t.to(self.device)
+            return g
+
+        res = {name: whole(self.spmd_plan.output_specs[name],
+                           [None if o is None else o[name] for o in outs])
+               for name in self.graph.output_names}
+        if "__dumps__" in first:
+            sh = self.options.sharding
+            res["__dumps__"] = {
+                name: whole(P(sh.data_axis) if sh.data > 1 and
+                            self.graph.nodes[name].out_spec.shape[0] % sh.data == 0 else P(),
+                            [None if o is None else o["__dumps__"][name] for o in outs])
+                for name in first["__dumps__"]}
+        return res
+
+    def load_params(self, params: Params) -> None:
+        """Install global parameters (as weights.params_from_numpy gives
+        them), cut onto the shards by the plan."""
+        from shadernn_tpu_torch.weights import shard_params
+
+        cur = extract_params(self.graph)
+        if set(params) != set(cur) or any(
+                set(params[n]) != set(d) or any(tuple(params[n][k].shape) != v.shape
+                                                for k, v in d.items())
+                for n, d in cur.items()):
+            raise ValueError("params do not match the engine's nodes, names and shapes")
+        self.params = shard_params({n: {k: v.cpu() for k, v in d.items()}
+                                    for n, d in params.items()}, self.spmd_plan, self.mesh)
+
+
+def compile_graph(graph: Graph, options: Optional[EngineOptions] = None,
+                  mesh=None) -> CompiledModel:
+    """Shape-infer, move params to the device and plan the forward. Under a
+    `mesh` (parallel/mesh.py) the graph is sharded over it
+    (parallel/sharding.py shard_compiled); the mesh's devices must be of
+    the type `options.device` names."""
     options = options or EngineOptions()
     device = resolve_device(options)
     if any(n.out_spec is None for n in graph.nodes.values()):
@@ -523,6 +611,13 @@ def compile_graph(graph: Graph, options: Optional[EngineOptions] = None) -> Comp
     # Int8 activations: each quantized consumer takes its producer's
     # calibrated scale (a no-op unless calibrate_activations ran).
     propagate_input_scales(graph)
+    if mesh is not None:
+        if mesh.device_type != device.type:
+            raise ValueError(f"mesh on {mesh.device_type} devices, but EngineOptions.device "
+                             f"is {options.device!r}")
+        from shadernn_tpu_torch.parallel.sharding import shard_compiled
+
+        return shard_compiled(graph, options, extract_params(graph), mesh)
     params = params_from_numpy(extract_params(graph), device)
     forward = build_forward(graph, options)
     input_specs = {n: graph.nodes[n].out_spec.shape for n in graph.input_names}

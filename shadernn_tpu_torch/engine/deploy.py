@@ -30,7 +30,7 @@ from typing import Dict
 
 import numpy as np
 
-from shadernn_tpu_torch.config import BackendKind, EngineOptions, Precision
+from shadernn_tpu_torch.config import BackendKind, EngineOptions, Precision, ShardingOptions
 from shadernn_tpu_torch.engine.compile import compile_graph
 from shadernn_tpu_torch.engine.engine import Engine
 from shadernn_tpu_torch.graph.ir import Graph, Node, TensorSpec
@@ -47,6 +47,8 @@ def _encode(v):
     they come back as they were."""
     if isinstance(v, enum.Enum):
         return _encode(v.value)
+    if isinstance(v, ShardingOptions):
+        return dataclasses.asdict(v)
     if isinstance(v, np.ndarray):
         return {"__ndarray__": v.tolist(), "dtype": str(v.dtype)}
     if isinstance(v, np.generic):
@@ -77,7 +79,10 @@ def _plans(forward) -> dict:
 
 
 def export_engine(engine, path: str) -> str:
-    """Save the engine's planned graph, weights and options to `path`."""
+    """Save the engine's planned graph, weights and options to `path` (a
+    single-device engine's: a sharded one is rebuilt over its mesh)."""
+    if getattr(engine.model, "mesh", None) is not None:
+        raise ValueError("export_engine takes a single-device engine, not a sharded one")
     os.makedirs(path, exist_ok=True)
     graph = engine.graph
     nodes = [
@@ -119,6 +124,7 @@ def _options(recorded: dict, device: str) -> EngineOptions:
     kw["backend"] = BackendKind(kw["backend"])
     if kw.get("backend_overrides"):
         kw["backend_overrides"] = {k: BackendKind(v) for k, v in kw["backend_overrides"].items()}
+    kw["sharding"] = ShardingOptions(**kw.get("sharding", {}))
     kw["device"] = device
     return EngineOptions(**kw)
 

@@ -28,6 +28,11 @@ class Engine:
     Usage:
         eng = Engine.from_graph(graph, EngineOptions(precision=Precision.BF16))
         out = eng.run({"input": frames})     # frames: (N, H, W, C)
+
+    With `mesh=` (parallel/mesh.py) and `EngineOptions.sharding` the engine
+    is sharded over the mesh's devices (parallel/spmd.py): the entry points
+    take the global frames, split them across the shards, and return the
+    assembled global outputs on the mesh's first device.
     """
 
     def __init__(self, model: CompiledModel):
@@ -40,6 +45,7 @@ class Engine:
         cls,
         graph: Graph,
         options: Optional[EngineOptions] = None,
+        mesh=None,
         optimize: bool = True,
     ) -> "Engine":
         options = options or EngineOptions()
@@ -53,13 +59,14 @@ class Engine:
 
             quantize_graph_weights(graph)
         logger.info("\n%s", graph.summary())
-        return cls(compile_graph(graph, options))
+        return cls(compile_graph(graph, options, mesh=mesh))
 
     @classmethod
     def from_json(
         cls,
         path: Union[str, os.PathLike],
         options: Optional[EngineOptions] = None,
+        mesh=None,
         input_hw: Optional[tuple] = None,
     ) -> "Engine":
         """Load a ShaderNN-format model artifact (JSON or _layers.json +
@@ -67,7 +74,7 @@ class Engine:
         frame size (the weights are size-agnostic)."""
         from shadernn_tpu_torch.graph.parser import parse_model_file
 
-        return cls.from_graph(parse_model_file(path, input_hw=input_hw), options)
+        return cls.from_graph(parse_model_file(path, input_hw=input_hw), options, mesh=mesh)
 
     # -- execution ---------------------------------------------------------
     @property
@@ -105,8 +112,11 @@ class Engine:
         return out
 
     def _sync(self) -> None:
-        if self.model.device.type == "cuda":
-            torch.cuda.synchronize(self.model.device)
+        """Wait for the engine's devices: every device of its mesh."""
+        mesh = getattr(self.model, "mesh", None)
+        for dev in mesh.local_devices if mesh is not None else [self.model.device]:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def run(self, inputs: Dict[str, object]) -> Dict[str, torch.Tensor]:
         """One engine step over a batch of frames, timed on the host clock,

@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from shadernn_tpu_torch.config import BackendKind, EngineOptions, Precision
+from shadernn_tpu_torch.config import BackendKind, EngineOptions, Precision, ShardingOptions
 from shadernn_tpu_torch.engine.engine import Engine
 from shadernn_tpu_torch.image.image import load_and_preprocess
 from shadernn_tpu_torch.models.zoo import STYLES, build_model
@@ -83,17 +83,23 @@ def make_engine(
     batch_size: int = 1,
     model_path: Optional[str] = None,
     device: str = "cuda",
+    mesh=None,
 ) -> Engine:
     """The runner's engine: its model built at the runner's geometry, or
-    the artifact at `model_path`."""
+    the artifact at `model_path`; sharded over `mesh` (parallel/mesh.py)
+    along its (data, model, spatial) shape where one is given."""
     cfg = RUNNERS[name]
+    sharding = ShardingOptions()
+    if mesh is not None:
+        sharding = ShardingOptions(**mesh.shape)
+        device = mesh.device_type
     options = EngineOptions(precision=precision, backend=backend, batch_size=batch_size,
-                            device=device)
+                            device=device, sharding=sharding)
     if model_path:
-        return Engine.from_json(model_path, options)
+        return Engine.from_json(model_path, options, mesh=mesh)
     graph = build_model(cfg.model, h=cfg.height, w=cfg.width, channels=cfg.channels,
                         **cfg.build_kwargs)
-    return Engine.from_graph(graph, options)
+    return Engine.from_graph(graph, options, mesh=mesh)
 
 
 def run_model(
@@ -105,16 +111,18 @@ def run_model(
     inner_loops: int = 10,
     dump_dir: Optional[str] = None,
     device: str = "cuda",
+    mesh=None,
 ) -> dict:
     """Load -> preprocess -> run -> postprocess, like the reference's
     processModel flow (modelInference.cpp:26-60), on the image at
     `image_path` or, without one, a seeded random frame (the reference unit
     tests' RandomMat pattern): the benchmark's statistics, the output shape,
     and the class index (classifiers) or the detections with a positive
-    score of the first frame (detectors); with `dump_dir`, under "dumps" the
+    score of the first frame (detectors); with `mesh`, sharded over its
+    devices; with `dump_dir`, under "dumps" the
     path of each layer's dump (<dump_dir>/<model>/<layer>.npy)."""
     cfg = RUNNERS[name]
-    eng = make_engine(name, precision, backend, batch_size, device=device)
+    eng = make_engine(name, precision, backend, batch_size, device=device, mesh=mesh)
     if image_path:
         x = load_and_preprocess(image_path, cfg.height, cfg.width, cfg.means, cfg.norms,
                                 luma_only=cfg.luma_only, batch=batch_size)

@@ -152,6 +152,8 @@ def test_package_imports_no_jax():
         "from shadernn_tpu_torch.tools import compare, optim, accuracy_report\n"
         "from shadernn_tpu_torch.tools import train_espcn, train_resnet18, train_mobilenetv2\n"
         "from shadernn_tpu_torch.tools import train_denoiser, train_styletransfer, train_yolo\n"
+        "from shadernn_tpu_torch.parallel import mesh, halo, spmd, sharding, multihost\n"
+        "from shadernn_tpu_torch.parallel import scaling, dryrun\n"
         "p.build_model('espcn', h=8, w=8)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'shadernn_tpu' or m.startswith('shadernn_tpu.')]\n"
