@@ -182,6 +182,28 @@ Phases, each of which raises on failure (exit code != 0):
               wrong halo fill and a reversed TP gather must be caught; the
               2-process multihost smoke on the card; the executor's
               overhead over 1-8 logical shards; [timing] rows
+ 12. pipeline the last modules (pipeline_phase): the native host runtime
+              built from the checkout by the host compiler, each function
+              bit-equal to its numpy version on the trained ESPCN's and
+              MobileNetV2's weight streams and a 1080p NV12/NV21 frame,
+              1,000 frames through its ring across two threads, the trained
+              ESPCN loaded through it; PipelinedEngine (one CUDA stream per
+              stage): ESPCN 2x (trained) 540p b8 AUTO at BF16 and FP32, 4
+              stages on [cuda:0] * 4, micro_batch 2, 12 implicit-GEMM conv
+              launches a step, within ENGINE_TOL of Engine.run and of a
+              TORCH pipeline; PP x DP (2 stages of [cuda:0, cuda:0]); U-Net
+              256 b8 (skips cross stages); throughput_stats and the dry
+              run's overlap gate; reversed micro-batches as a planted fault;
+              ElasticEngine (ESPCN 540p b8 BF16, data 4 on [cuda:0] * 4): an
+              injected failure on entry 3 (data 4 -> 2, B5 12 -> 6 per
+              engine step), shrunk to one entry (the chain kernel once per
+              bucket), and real device-side hangs (torch.cuda._sleep, watchdog
+              0.2 s): ~1 s surfaced as StepTimeout, then a completed step; ~1 s
+              recovered inside run(); one that outlasts every deadline, where
+              run() must give up in bounded time); [kernel]
+              cases at every B5 and B1 launch shape of these paths; [timing]
+              rows (the pipelined step beside the single-device one, device
+              busy, idle share; B5 at the pipeline's shapes)
 Prints the `kernels` JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Imports no JAX and nothing of
 the JAX package. Exits non-zero without printing a result when no CUDA
@@ -2161,6 +2183,12 @@ def main() -> int:
         reset_counts=reset_counts, read_counts=read_counts, conv_yardstick=conv_yardstick,
         bound=bound, tf32=tf32, time_ms=time_ms, busy_text=busy_text))
 
+    # 12. pipeline --------------------------------------------------------------------
+    pipe_out = pipeline_phase(types.SimpleNamespace(
+        dev=dev, log=log, card=card, STEPS=STEPS, ENGINE_TOL=ENGINE_TOL, held=held,
+        reset_counts=reset_counts, read_counts=read_counts, conv_yardstick=conv_yardstick,
+        bound=bound, tf32=tf32, time_ms=time_ms))
+
     def trained_rows(entry):
         """Where phases 9 and 10 launched this entry: the trained-on-the-card
         ResNet18 reloaded at BF16 AUTO, and the accuracy report's engines."""
@@ -2227,13 +2255,15 @@ def main() -> int:
         ("fused_conv_chain", "shadernn_tpu/kernels/chain_pallas.py:79", "fp32"),
     ):
         r = rows[(entry, 8)]
+        elastic = entry == "fused_conv_chain_packed"
         kernels.append({
             "name": f"conv_chain.{entry}",
             "route": "cuda",
             "source": "shadernn_tpu_torch/csrc/conv_chain.cu",
             "replaces": replaces,
-            "launches": main_stats[entry]["launches"],
-            "max_abs_err": errs[(prec, 8)],
+            "launches": main_stats[entry]["launches"] + (
+                pipe_out["launches"][entry] if elastic else 0),
+            "max_abs_err": max(errs[(prec, 8)], pipe_out["max_abs_err"][entry] if elastic else 0),
             "max_abs_diff": errs[(prec, 8)],
             **r,
             "shape": f"{prec} 8x540x960x1",
@@ -2255,6 +2285,15 @@ def main() -> int:
                 "download_ms": serve_out["espcn"]["download_ms"],
                 "exported": serve_out["exported"]}} if entry == "fused_conv_chain_packed"
                else {}),
+            **({"elastic": {
+                "configuration": "phase 12: ElasticEngine shrunk to one entry of [cuda:0] * 4: a "
+                                 "single-device engine, ESPCN 540p BF16 in buckets of 2; the "
+                                 "hangs on a one-device ElasticEngine at b2; launches above "
+                                 "include these",
+                "launches_per_engine_step": 1,
+                "runs": {k: v for k, v in pipe_out["elastic"].items()
+                         if k not in ("data 4", "data 2")}}}
+               if elastic else {}),
         })
     r = block_rows["bf16"]
     kernels.append({
@@ -2330,13 +2369,17 @@ def main() -> int:
                   **serve_out["yolo"]},
     })
     r = igemm_rows["bf16"]
+    paths = {k: v for k, v in pipe_out["pipeline"].items()
+             if isinstance(v, dict) and "launches_per_step" in v}
     kernels.append({
         "name": "conv_igemm.conv2d_kernel_nhwc",
         "route": "cuda",
         "source": "shadernn_tpu_torch/csrc/conv_igemm.cu",
         "replaces": "shadernn_tpu/kernels/conv_pallas.py:58",
-        "launches": two_stats["bf16"]["launches"] + par_out["launches"],
-        "max_abs_err": max(igemm_err, par_out["max_abs_err"]),
+        "launches": (two_stats["bf16"]["launches"] + par_out["launches"]
+                     + pipe_out["launches"]["conv2d_kernel_nhwc"]),
+        "max_abs_err": max(igemm_err, par_out["max_abs_err"],
+                           pipe_out["max_abs_err"]["conv2d_kernel_nhwc"]),
         "max_abs_diff": igemm_err,
         **r,
         "shape": "bf16 8x540x960x(3+5) -> 8x540x960x16, k3 (the two-input conv graph)",
@@ -2371,6 +2414,24 @@ def main() -> int:
             "planted_faults_diff": par_out["faults"],
             "multihost": par_out["multihost"],
             "logical_shards": par_out["scaling"]},
+        "pipeline": {
+            "configuration": "phase 12: PipelinedEngine, one stream per stage on cuda:0, B5 at "
+                             "each kernel conv of each micro-batch; launches above include "
+                             "these",
+            "launches_per_step": {k: v["launches_per_step"] for k, v in paths.items()},
+            "paths": paths,
+            "throughput_stats": pipe_out["pipeline"][
+                "throughput_stats espcn 540p b8 bf16 4 stages"],
+            "dryrun": pipe_out["pipeline"]["dryrun"],
+            "planted_fault_reversed_diff": pipe_out["pipeline"]["planted_fault_reversed_diff"],
+            "timing": pipe_out["timing"]},
+        "elastic": {
+            "configuration": "phase 12: ElasticEngine, ESPCN 540p b8 BF16, ShardingOptions(data=4) "
+                             "on [cuda:0] * 4, then entry 3 failed (data 2)",
+            "launches_per_engine_step": {k: v["launches_per_engine_step"]
+                                         for k, v in pipe_out["elastic"].items()
+                                         if "conv2d_kernel_nhwc" in v.get("launches", {})},
+            "runs": {k: pipe_out["elastic"][k] for k in ("data 4", "data 2")}},
     })
     r = matmul_rows[("resnet18 fc 8x512x10", "bf16")]
     kernels.append({
@@ -3918,6 +3979,575 @@ def parallel_phase(h) -> dict:
         f"{out['launches']}")
     return out
 
+
+def pipeline_phase(h) -> dict:
+    """12. pipeline: the last modules of the port on the card. The native
+    host runtime (shadernn_tpu_torch/native.py: its C++ built here by the
+    host compiler), pipeline parallelism (parallel/pipeline.py) and elastic
+    recovery (parallel/elastic.py). A pipeline stage runs the graph node by
+    node on its own CUDA stream, each Conv2D that AUTO gives the kernel on
+    the implicit-GEMM conv (B5); the elastic engine's sharded engines launch
+    B5 once per shard and kernel conv, and once shrunk to one device the
+    chain kernel (B1) once per bucket.
+
+    native: each function bit-equal to its numpy version on the trained
+    ESPCN's and the trained MobileNetV2's weight streams (the repacks,
+    int8 quantization) and on a 1080p NV12/NV21 frame; 1,000 540p frames
+    through the ring from a producer thread to a consumer thread, in order;
+    write_dump's bytes; Engine.from_json of the trained ESPCN through the
+    library. pipeline (counts set to 0 just before each path, read just
+    after): ESPCN 2x (trained) 540p b8 AUTO at BF16 and FP32, 4 stages on
+    [cuda:0] * 4, micro_batch 2: 12 B5 launches a step and nothing else,
+    within ENGINE_TOL of the single-device Engine.run (the chain kernel) and
+    of a TORCH-backend pipeline; PP x DP, 2 stages of [cuda:0, cuda:0] at
+    micro_batch 4 (12 B5 a step); U-Net (trained) 256 b8 BF16, 4 stages
+    (its skips cross stages), held to its engine; throughput_stats and the
+    dry run's pipeline gate (parallel/dryrun.py pipeline_dryrun); a planted
+    fault (micro-batches reassembled in reverse order) must be caught.
+    elastic: ESPCN 540p b8 BF16 with ShardingOptions(data=4) on [cuda:0] *
+    4 (12 B5 a step); inject_failure(device=3): the replayed step within
+    ENGINE_TOL of Engine.run, data 4 -> 2, 6 B5 per engine step (12 for the
+    8 frames in two buckets); entries 1 and 2 marked failed and one more
+    failure: a single-device engine, one B1 per bucket; a real device-side
+    hang (torch.cuda._sleep of about 1 s queued after the step, watchdog
+    0.2 s): StepTimeout, the probe passes once the sleep drains, the leaked
+    waiter is reaped and the next step completes; the same hang on a
+    one-device ElasticEngine with the default max_rebuilds, recovered inside
+    run() (the rebuild, under the watchdog, waits for the sleep); and a sleep
+    longer than every deadline, where each rebuild's upload waits behind it:
+    run() must raise StepTimeout or RuntimeWedged while the sleep still runs,
+    within the step's deadline, a rebuild deadline per rebuild and one
+    probe's, and every stuck thread returns once it ends. [kernel] cases at every
+    distinct B5 and B1 launch of these paths; [timing] rows: the pipelined
+    step p50 beside the single-device step, device busy, idle share, and B5
+    at the pipeline's launch shapes."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from shadernn_tpu_torch import Engine, EngineOptions, Precision, native
+    from shadernn_tpu_torch.config import BackendKind, ShardingOptions
+    from shadernn_tpu_torch.graph.parser import parse_model_file
+    from shadernn_tpu_torch.kernels import chain, conv_igemm
+    from shadernn_tpu_torch.models import zoo
+    from shadernn_tpu_torch.parallel.dryrun import CUDA_GATE_HW, pipeline_dryrun
+    from shadernn_tpu_torch.parallel.elastic import (
+        ElasticEngine, RuntimeWedged, StepTimeout,
+    )
+    from shadernn_tpu_torch.parallel.pipeline import PipelinedEngine
+    from shadernn_tpu_torch.utils.trace_profile import HAND_WRITTEN, device_profile
+
+    dev, log, card = h.dev, h.log, h.card
+    bf16, f32 = torch.bfloat16, torch.float32
+    FP32, BF16 = Precision.FP32, Precision.BF16
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12)
+    out = {"native": {}, "pipeline": {}, "elastic": {}, "timing": {}, "max_abs_err": {},
+           "launches": {"conv2d_kernel_nhwc": 0, "fused_conv_chain_packed": 0}}
+
+    def tol_of(prec):
+        return h.ENGINE_TOL["fp32" if prec == FP32 else "bf16"]
+
+    # native -------------------------------------------------------------------
+    t0 = time.perf_counter()
+    native.build(force=True)
+    out["native"]["build_s"] = time.perf_counter() - t0
+    streams = {"espcn": parse_model_file(zoo.ESPCN_TRAINED),
+               "mobilenetv2": parse_model_file(zoo.MOBILENETV2_TRAINED)}
+    checked = {"repack_oihw_to_hwio": 0, "repack_dw_to_hw1o": 0, "quantize_int8": 0}
+    for g in streams.values():
+        for node in g.nodes.values():
+            w = node.params.get("weight")
+            if w is None or np.ndim(w) != 4:
+                continue
+            w = np.asarray(w, np.float32)
+            kh, kw, i, o = w.shape
+            if node.op == "Conv2D":  # the artifact's OIHW stream
+                flat = np.ascontiguousarray(w.transpose(3, 2, 0, 1)).reshape(-1)
+                got = native.repack_oihw_to_hwio(flat, o, i, kh, kw)
+                want = native.repack_oihw_to_hwio_plain(flat, o, i, kh, kw)
+                name = "repack_oihw_to_hwio"
+            else:  # depthwise: per output channel kh x kw
+                flat = np.ascontiguousarray(w[:, :, 0, :].transpose(2, 0, 1)).reshape(-1)
+                got = native.repack_dw_to_hw1o(flat, o, kh, kw)
+                want = native.repack_dw_to_hw1o_plain(flat, o, kh, kw)
+                name = "repack_dw_to_hw1o"
+            assert np.array_equal(got, want) and np.array_equal(got, w), (name, node.name)
+            q, s = native.quantize_int8(w)
+            q_, s_ = native.quantize_int8_plain(w)
+            assert np.array_equal(q, q_) and np.array_equal(s, s_), node.name
+            checked[name] += 1
+            checked["quantize_int8"] += 1
+    fy = rng.integers(0, 256, (1080, 1920), dtype=np.uint8)
+    fuv = rng.integers(0, 256, (540, 960, 2), dtype=np.uint8)
+    for nv21 in (False, True):
+        t0 = time.perf_counter()
+        got = native.nv12_to_rgb(fy, fuv, nv21=nv21)
+        ms = (time.perf_counter() - t0) * 1e3
+        assert np.array_equal(got, native.nv12_to_rgb_plain(fy, fuv, nv21=nv21)), nv21
+        out["native"][f"{'nv21' if nv21 else 'nv12'}_to_rgb_1080p_ms"] = ms
+    checked["nv12_to_rgb"] = 2
+    dump_dir = os.path.join(REPO, "build", "native")
+    w_stream = np.asarray(streams["espcn"].nodes["conv_2"].params["weight"])
+    for fn, name in ((native.write_dump, "dump.bin"), (native.write_dump_plain, "plain.bin")):
+        fn(os.path.join(dump_dir, name), w_stream)
+    with open(os.path.join(dump_dir, "dump.bin"), "rb") as a, \
+            open(os.path.join(dump_dir, "plain.bin"), "rb") as b:
+        assert a.read() == b.read() == w_stream.astype("<f4").tobytes()
+    for name in ("dump.bin", "plain.bin"):
+        os.remove(os.path.join(dump_dir, name))
+    checked["write_dump"] = 1
+    # The ring: 1,000 540p luma frames (the first 8 bytes carry the index).
+    n_frames, slot = 1000, 540 * 960
+    ring = native.NativeFrameRing(capacity=8, slot_bytes=slot)
+    frames = rng.integers(0, 256, (16, slot), dtype=np.uint8)
+    seen, bad = [], []
+
+    def producer():
+        for i in range(n_frames):
+            f = frames[i % 16].copy()
+            f[:8] = np.frombuffer(np.int64(i).tobytes(), np.uint8)
+            while not ring.push(f):
+                pass
+
+    def consumer():
+        while len(seen) < n_frames:
+            f = ring.pop()
+            if f is None:
+                continue
+            i = int(f[:8].view(np.int64)[0])
+            seen.append(i)
+            if f.size != slot or not np.array_equal(f[8:], frames[i % 16][8:]):
+                bad.append(i)
+
+    threads = [threading.Thread(target=consumer), threading.Thread(target=producer)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    ring_s = time.perf_counter() - t0
+    assert not any(t.is_alive() for t in threads) and seen == list(range(n_frames)) and not bad
+    ring.close()
+    out["native"]["ring_frames_per_s"] = n_frames / ring_s
+    calls = {"n": 0}
+    real_repack = native.repack_oihw_to_hwio
+
+    def counted_repack(*a):
+        calls["n"] += 1
+        return real_repack(*a)
+
+    native.repack_oihw_to_hwio = counted_repack
+    try:
+        loaded = Engine.from_json(zoo.ESPCN_TRAINED, EngineOptions(precision=BF16, batch_size=8))
+    finally:
+        native.repack_oihw_to_hwio = real_repack
+    assert calls["n"] == 3, calls
+    out["native"]["checked"] = checked
+    log(f"[pipeline] native: built in {out['native']['build_s']:.1f} s "
+        f"({native.LIB_PATH}); bit-equal to the numpy versions: {checked} (the trained "
+        f"ESPCN's and MobileNetV2's weight streams; a 1080p frame: NV12 "
+        f"{out['native']['nv12_to_rgb_1080p_ms']:.2f} ms, NV21 "
+        f"{out['native']['nv21_to_rgb_1080p_ms']:.2f} ms); ring: {n_frames} 540p frames "
+        f"from a producer thread to a consumer thread in order, "
+        f"{out['native']['ring_frames_per_s']:.0f} frames/s; Engine.from_json of the trained "
+        f"ESPCN through the library ({calls['n']} repacks) | {card}")
+
+    # Every distinct B5 and B1 launch of the paths below, kept once for the
+    # [kernel] cases and the [timing] rows.
+    shapes, chains, path_of = {}, {}, {}
+    current = {"label": ""}
+    real_b5, real_b1 = conv_igemm.conv2d_kernel_nhwc, chain.fused_conv_chain_packed
+
+    def recording_b5(x, w, scale, offset, *, stride=1, pads=(0, 0, 0, 0), activation="linear",
+                     alpha=0.3):
+        key = (tuple(x.shape), tuple(w.shape), str(x.dtype).split(".")[-1],
+               str(w.dtype).split(".")[-1], int(stride), tuple(int(p) for p in pads),
+               str(activation))
+        if key not in shapes:
+            shapes[key] = (x.clone(), w.clone(), scale.clone(), offset.clone(), alpha)
+            path_of[key] = current["label"]
+        return real_b5(x, w, scale, offset, stride=stride, pads=pads, activation=activation,
+                       alpha=alpha)
+
+    def recording_b1(x, layer_params, specs, *, tail="none", compute_dtype=None):
+        key = (tuple(x.shape), str(x.dtype).split(".")[-1], tail)
+        if key not in chains:
+            chains[key] = (x.clone(), layer_params, specs, tail, compute_dtype)
+            path_of[key] = current["label"]
+        return real_b1(x, layer_params, specs, tail=tail, compute_dtype=compute_dtype)
+
+    conv_igemm.conv2d_kernel_nhwc = recording_b5
+    chain.fused_conv_chain_packed = recording_b1
+
+    def counted(label, fn):
+        """fn() with every kernel's count set to 0 just before and read just
+        after: (its result, the counts launched)."""
+        current["label"] = label
+        h.reset_counts()
+        res = fn()
+        return res, {k: v for k, v in h.read_counts().items() if v}
+
+    def err_of(label, y, want, prec):
+        y = y.float()
+        assert bool(torch.isfinite(y).all()) and y.shape == want.shape, (label, y.shape)
+        tol = tol_of(prec) * max(1.0, want.float().abs().max().item())
+        err = (y - want.float()).abs().max().item()
+        assert err <= tol, f"{label}: max_abs_diff {err} > {tol}"
+        return err, tol
+
+    def p50_ms(fn, n=10):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    try:
+        # pipeline: ESPCN 2x (trained) 540p b8 -----------------------------------
+        def espcn():
+            return parse_model_file(zoo.ESPCN_TRAINED)
+
+        x8 = rng.random((8, 540, 960, 1), dtype=np.float32)
+        x8_dev = torch.from_numpy(x8).to(dev)
+        wants = {}
+        for prec in (BF16, FP32):
+            ref = Engine.from_graph(espcn(), EngineOptions(precision=prec, batch_size=8))
+            want = wants[prec] = ref.run_single(x8_dev).float()
+            tpipe = PipelinedEngine(espcn(), EngineOptions(precision=prec,
+                                                           backend=BackendKind.TORCH),
+                                    devices=[dev] * 4, micro_batch=2)
+            torch_want = tpipe.run({"input": x8})[tpipe.graph.output_names[0]]
+            pipe = PipelinedEngine(espcn(), EngineOptions(precision=prec), devices=[dev] * 4,
+                                   micro_batch=2)
+            name = pipe.graph.output_names[0]
+            label = current["label"] = f"espcn 540p b8 {prec.value} 4 stages mb2"
+            pipe.run({"input": x8})  # warm: the TORCH layers' weights
+            ys, counts = counted(label, lambda: [pipe.run({"input": x8})
+                                                 for _ in range(h.STEPS)])
+            assert counts == {"conv2d_kernel_nhwc": 12 * h.STEPS}, (label, counts)
+            err, tol = err_of(label, ys[-1][name], want, prec)
+            err_t, _ = err_of(label, ys[-1][name], torch_want, prec)
+            step = lambda: pipe.run({"input": x8_dev})  # noqa: E731
+            p50, ref_p50 = p50_ms(step), p50_ms(lambda: ref.run_single(x8_dev))
+            busy, top = device_profile(lambda: pipe._wait(pipe.dispatch({"input": x8_dev})), 5,
+                                       dev)
+            ported = sum(v for k, v in top if HAND_WRITTEN.search(k))
+            out["pipeline"][label] = dict(
+                launches=counts["conv2d_kernel_nhwc"], launches_per_step=12, steps=h.STEPS,
+                stages=[[n.name for n in s.nodes] for s in pipe.stages],
+                max_abs_diff_vs_engine=err, max_abs_diff_vs_torch_pipeline=err_t, tol=tol,
+                step_p50_ms=p50, single_device_step_p50_ms=ref_p50, device_busy_ms=busy,
+                b5_device_ms=ported, idle_share=1 - busy / p50 if busy else None)
+            out["launches"]["conv2d_kernel_nhwc"] += counts["conv2d_kernel_nhwc"]
+            log(f"[pipeline] {label}: stages {out['pipeline'][label]['stages']}, B5 12/step, "
+                f"max_abs_diff vs Engine.run {err:.3e}, vs the TORCH pipeline {err_t:.3e} (tol "
+                f"{tol:.1e}) ok | {card}")
+            log(f"[timing] pipeline {label}: step p50 {p50:.3f} ms (inputs on the card, host "
+                f"clock to a synchronize) against the single-device step {ref_p50:.3f} ms (the "
+                f"chain kernel); device busy {busy:.3f} ms per step (B5 {ported:.3f} ms), idle "
+                f"share {1 - busy / p50:.3f}; top " + "; ".join(
+                    f"{k[:50]} {v:.3f} ms" for k, v in top[:4]) + f" | {card}")
+            if prec == BF16:
+                planted = (pipe, want, tol)
+            del ref, tpipe
+
+        # PP x DP: 2 stages, each a data sub-mesh of [cuda:0, cuda:0] ----------------
+        pipe = PipelinedEngine(espcn(), EngineOptions(precision=BF16),
+                               devices=[[dev, dev]] * 2, micro_batch=4)
+        label = current["label"] = "espcn 540p b8 bf16 2 stages x [cuda:0, cuda:0] mb4"
+        pipe.run({"input": x8})
+        ys, counts = counted(label, lambda: [pipe.run({"input": x8}) for _ in range(h.STEPS)])
+        assert counts == {"conv2d_kernel_nhwc": 12 * h.STEPS}, (label, counts)
+        err, tol = err_of(label, ys[-1][pipe.graph.output_names[0]], wants[BF16], BF16)
+        out["pipeline"][label] = dict(launches=counts["conv2d_kernel_nhwc"], launches_per_step=12,
+                                      steps=h.STEPS, max_abs_diff_vs_engine=err, tol=tol)
+        out["launches"]["conv2d_kernel_nhwc"] += counts["conv2d_kernel_nhwc"]
+        log(f"[pipeline] {label}: B5 12/step (3 convs x 2 shards x 2 micro-batches), "
+            f"max_abs_diff vs Engine.run {err:.3e} (tol {tol:.1e}) ok | {card}")
+        del pipe
+
+        # U-Net (trained) 256 b8: the skips cross stages --------------------------------
+        def unet():
+            return parse_model_file(zoo.UNET_TRAINED, input_hw=(256, 256))
+
+        xu = rng.random((8, 256, 256, 1), dtype=np.float32)
+        ref = Engine.from_graph(unet(), EngineOptions(precision=BF16, batch_size=8))
+        want = ref.run_single(xu).float()
+        pipe = PipelinedEngine(unet(), EngineOptions(precision=BF16), devices=[dev] * 4,
+                               micro_batch=2)
+        assert any(set(s.consumes) - {n.name for n in pipe.stages[s.index - 1].nodes}
+                   for s in pipe.stages[1:]), "no U-Net value skips a stage"
+        kernel_convs = sum(ctx.backend == BackendKind.KERNEL
+                           for s in pipe.stages for _n, _v, ctx in s.steps[0])
+        label = current["label"] = "unet 256 b8 bf16 4 stages mb2"
+        pipe.run({"input": xu})
+        ys, counts = counted(label, lambda: [pipe.run({"input": xu}) for _ in range(2)])
+        assert counts == ({"conv2d_kernel_nhwc": kernel_convs * 4 * 2} if kernel_convs else {}), (
+            label, counts, kernel_convs)
+        err, tol = err_of(label, ys[-1][pipe.graph.output_names[0]], want, BF16)
+        p50, ref_p50 = p50_ms(lambda: pipe.run({"input": xu})), p50_ms(lambda: ref.run_single(xu))
+        out["pipeline"][label] = dict(launches=counts.get("conv2d_kernel_nhwc", 0),
+                                      launches_per_step=kernel_convs * 4, steps=2,
+                                      max_abs_diff_vs_engine=err, tol=tol, step_p50_ms=p50,
+                                      single_device_step_p50_ms=ref_p50)
+        out["launches"]["conv2d_kernel_nhwc"] += counts.get("conv2d_kernel_nhwc", 0)
+        log(f"[pipeline] {label}: stages consume {[s.consumes for s in pipe.stages]}, B5 "
+            f"{kernel_convs * 4}/step ({kernel_convs} kernel convs x 4 micro-batches), "
+            f"max_abs_diff vs Engine.run {err:.3e} (tol {tol:.1e}) ok; step p50 {p50:.3f} ms "
+            f"against {ref_p50:.3f} single-device (host clock, frames from the host) | {card}")
+        del ref, pipe
+
+        # throughput_stats on the card and the dry run's pipeline gate ---------------------
+        pipe, want, tol = planted
+        stats = [pipe.throughput_stats({"input": x8_dev}, iters=3) for _ in range(3)]
+        out["pipeline"]["throughput_stats espcn 540p b8 bf16 4 stages"] = stats
+        for st in stats:
+            log(f"[pipeline] throughput_stats espcn 540p b8 bf16, 4 stages on one card, frames "
+                f"on the card: "
+                f"speedup {st['speedup']}, schedule_inversions {st['schedule_inversions']}, "
+                f"dispatch_fraction {st['dispatch_fraction']}, serial {st['serial_s'] * 1e3:.3f} "
+                f"ms, pipelined {st['pipelined_s'] * 1e3:.3f} ms, bubble model "
+                f"{st['bubble_fraction_model']}, overlap_efficiency "
+                f"{st['overlap_efficiency']} | {card}")
+        current["label"] = "dry run"
+        dry = pipeline_dryrun([dev] * 8)
+        out["pipeline"]["dryrun"] = dry
+        log(f"[pipeline] dry run (pipeline half, 8 logical devices: 4 stages x 2-device data "
+            f"sub-meshes, ESPCN BF16 b16 mb2): at 16x32 {dry['16x32']}; the gate (speedup > "
+            f"1.15 or schedule_inversions > 0) held at {'x'.join(map(str, CUDA_GATE_HW))}: "
+            f"speedup {dry['speedup']}, schedule_inversions {dry['schedule_inversions']}, "
+            f"dispatch_fraction {dry['dispatch_fraction']} | {card}")
+
+        # Planted fault: micro-batches reassembled in reverse order ---------------------------
+        inflight = pipe.dispatch({"input": x8})
+        y = torch.cat([e[pipe.graph.output_names[0]].float() for e in reversed(inflight)])
+        diff = (y - want).abs().max().item()
+        out["pipeline"]["planted_fault_reversed_diff"] = diff
+        log(f"[pipeline] planted fault (micro-batches reassembled in reverse order): "
+            f"max_abs_diff {diff:.3e} > tol {tol:.1e}: {'caught' if diff > tol else 'MISSED'} "
+            f"| {card}")
+        assert diff > tol, "planted fault not caught: reversed micro-batches"
+        del pipe, planted, inflight
+
+        # elastic: ESPCN 540p b8 BF16, data=4 on [cuda:0] * 4 ---------------------------------
+        want = wants[BF16]
+        ee = ElasticEngine(espcn, EngineOptions(precision=BF16, batch_size=8,
+                                                sharding=ShardingOptions(data=4)),
+                           devices=[dev] * 4)
+        name = ee.engine.graph.output_names[0]
+        current["label"] = "elastic data 4"
+        ee.run({"input": x8})  # warm
+
+        def elastic_step(label, x=x8, w=want):
+            res, counts = counted(label, lambda: ee.run({"input": x}))
+            err, tol = err_of(label, res[name], w, BF16)
+            for k, v in counts.items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            return counts, err, tol
+
+        rows = out["elastic"]
+        counts, err, tol = elastic_step("elastic data 4")
+        assert counts == {"conv2d_kernel_nhwc": 12}, counts
+        rows["data 4"] = dict(data=4, launches=counts, launches_per_engine_step=12,
+                              max_abs_diff=err)
+        ee.inject_failure(device=3)
+        counts, err, tol = elastic_step("elastic after inject_failure(device=3)")
+        assert ee.data_parallel_degree == 2 and ee.excluded_ids == {3}, ee.excluded_ids
+        assert counts == {"conv2d_kernel_nhwc": 12}, counts  # 2 buckets x 2 shards x 3 convs
+        rows["data 2"] = dict(data=2, excluded=sorted(ee.excluded_ids), launches=counts,
+                              launches_per_engine_step=6, buckets=2, max_abs_diff=err)
+        ee.mark_failed(1)
+        ee.mark_failed(2)
+        ee.inject_failure()
+        counts, err, tol = elastic_step("elastic, one entry left")
+        assert ee.data_parallel_degree == 1 and ee.healthy_ids() == [0]
+        assert counts == {"fused_conv_chain_packed": 4}, counts  # one B1 per bucket of 2
+        rows["data 1"] = dict(data=1, excluded=sorted(ee.excluded_ids), launches=counts,
+                              launches_per_engine_step=1, buckets=4, max_abs_diff=err)
+        log(f"[pipeline] elastic espcn 540p b8 bf16 on [cuda:0] * 4: data 4 B5 12/step; "
+            f"inject_failure(device=3) -> data 2, entry 3 excluded, B5 6 per engine step x 2 "
+            f"buckets; entries 1, 2 failed + one failure -> one device, B1 once per bucket x 4; "
+            f"max_abs_diff vs Engine.run "
+            + ", ".join(f"{k} {v['max_abs_diff']:.3e}" for k, v in rows.items())
+            + f" (tol {tol:.1e}) ok | {card}")
+
+        # A real device-side hang: a ~1 s sleep queued after the step --------------------------
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(10_000_000)
+        b.record()
+        b.synchronize()
+        cycles_per_ms = 1e7 / a.elapsed_time(b)
+
+        def hang_after_step(engine, ms):
+            """Queue a sleep of `ms` after each step of `engine`, on the step's
+            stream; the list gets an event recorded after each sleep."""
+            forward, ends = engine.model.forward, []
+
+            def hung(params, inputs):
+                res = forward(params, inputs)
+                torch.cuda._sleep(int(cycles_per_ms * ms))
+                ends.append(torch.cuda.Event())
+                ends[-1].record()
+                return res
+
+            engine.model.forward = hung
+            return ends
+
+        hang_after_step(ee.engine, 1000)
+        ee.step_timeout_s, max_rebuilds = 0.2, ee._max_rebuilds
+        ee._max_rebuilds = ee.rebuilds  # surface the timeout
+        t0 = time.perf_counter()
+        try:
+            ee.run({"input": x8[:2]})
+            raise AssertionError("the hung step was not caught")
+        except StepTimeout as e:
+            caught_s = time.perf_counter() - t0
+            timeout_msg = str(e)
+        leaked = len(ee._leaked)
+        assert leaked == 1 and ee.healthy_ids() == [0], (leaked, ee.excluded_ids)
+        ee._max_rebuilds = max_rebuilds
+        t0 = time.perf_counter()
+        counts, err, _ = elastic_step("elastic after the hang", x8[:2], want[:2])
+        next_s = time.perf_counter() - t0
+        assert not [th for th in ee._leaked if th.is_alive()], ee._leaked
+        assert counts == {"fused_conv_chain_packed": 1}, counts
+        rows["hang"] = dict(sleep_ms=1000.0, step_timeout_s=0.2, caught_after_s=caught_s,
+                            leaked_waiters=leaked, next_step_s=next_s, max_abs_diff=err)
+        log(f"[pipeline] elastic hang: torch.cuda._sleep(~1 s) after the step, watchdog 0.2 s: "
+            f"StepTimeout ({timeout_msg}) raised {caught_s:.3f} s after the call (watchdog, "
+            f"then the probe of entry 0 on a stream of its own: passed, no entry excluded), 1 "
+            f"leaked waiter, ended by the next step; next step {next_s:.3f} s (the rebuild "
+            f"included, under the watchdog: its upload waits for the sleep to drain), "
+            f"max_abs_diff {err:.3e} ok | {card}")
+        del ee
+
+        # The same hang with recovery on (default max_rebuilds, one device): run() times the
+        # step out, rebuilds under the watchdog (the upload waits for the sleep) and replays.
+        x2, want2 = x8[:2], want[:2]
+        ee = ElasticEngine(espcn, EngineOptions(precision=BF16, batch_size=2), devices=[dev],
+                           step_timeout_s=0.2)
+        ee.run({"input": x2})  # warm
+        hang_after_step(ee.engine, 1000)
+        t0 = time.perf_counter()
+        res, counts = counted("elastic, a 1 s hang recovered", lambda: ee.run({"input": x2}))
+        recovered_s = time.perf_counter() - t0
+        err, _ = err_of("elastic, a 1 s hang recovered", res[name], want2, BF16)
+        assert (ee.failures, ee.rebuilds, ee.excluded_ids) == (1, 1, set()), ee.excluded_ids
+        assert counts == {"fused_conv_chain_packed": 2}, counts  # the hung step, the replay
+        out["launches"]["fused_conv_chain_packed"] += 2
+        rows["hang recovered"] = dict(sleep_ms=1000.0, step_timeout_s=0.2,
+                                      max_rebuilds=ee._max_rebuilds, run_s=recovered_s,
+                                      launches=counts, max_abs_diff=err)
+        del ee
+
+        # A hang that outlasts every deadline, default max_rebuilds: each rebuild's upload waits
+        # behind it, so each rebuild times out too, and run() must give up in bounded time.
+        ee = ElasticEngine(espcn, EngineOptions(precision=BF16, batch_size=2), devices=[dev],
+                           step_timeout_s=0.2)
+        ee.run({"input": x2})  # warm
+        recovery = ee._recovery_deadline()
+        # The longest path: the step's deadline, a rebuild deadline per rebuild, and one probe
+        # that times out (it excludes the device, and run() gives up at once); 2 s for the host.
+        bound_s = ee.step_timeout_s + (ee._max_rebuilds + 1) * recovery + 2.0
+        sleep_s = bound_s + 3.0
+        ends = hang_after_step(ee.engine, sleep_s * 1e3)
+        t0 = time.perf_counter()
+        try:
+            ee.run({"input": x2})
+            raise AssertionError("the endless hang was not caught")
+        except (StepTimeout, RuntimeWedged) as e:
+            gave_up_s, gave_up = time.perf_counter() - t0, type(e).__name__
+        still_hung = not ends[0].query()
+        stuck = len(ee._leaked)
+        assert still_hung, "the sleep ended before run() gave up"
+        assert gave_up_s < bound_s, (gave_up_s, bound_s)
+        attempts = (ee.failures, ee.rebuilds)
+        ends[0].synchronize()
+        for th in ee._leaked:
+            th.join(60)
+        assert not [th for th in ee._leaked if th.is_alive()], "a stuck thread never returned"
+        after = {}
+        if ee.healthy_ids():  # the probes passed: the next step completes
+            res, counts = counted("elastic after the endless hang",
+                                  lambda: ee.run({"input": x2}))
+            after = dict(launches=counts,
+                         max_abs_diff=err_of("elastic after the endless hang", res[name],
+                                             want2, BF16)[0])
+            assert counts == {"fused_conv_chain_packed": 1}, counts
+            out["launches"]["fused_conv_chain_packed"] += 1
+        rows["endless hang"] = dict(sleep_s=sleep_s, step_timeout_s=0.2,
+                                    recovery_deadline_s=recovery,
+                                    max_rebuilds=ee._max_rebuilds, raised=gave_up,
+                                    gave_up_after_s=gave_up_s, bound_s=bound_s,
+                                    failures=attempts[0], rebuilds=attempts[1],
+                                    stuck_threads=stuck, excluded=sorted(ee.excluded_ids),
+                                    next_step=after)
+        log(f"[pipeline] elastic hang recovered (default max_rebuilds {ee._max_rebuilds}, "
+            f"one device): a ~1 s sleep after the step, watchdog 0.2 s; run() returned in "
+            f"{recovered_s:.3f} s (a timeout, the probe, a rebuild under the watchdog, the "
+            f"replay), B1 twice, max_abs_diff {rows['hang recovered']['max_abs_diff']:.3e} ok | "
+            f"{card}")
+        log(f"[pipeline] elastic endless hang: a {sleep_s:.1f} s sleep after the step, "
+            f"watchdog 0.2 s, recovery deadline {recovery:.1f} s, max_rebuilds "
+            f"{ee._max_rebuilds}: {gave_up} after {gave_up_s:.3f} s (bound {bound_s:.1f} s) "
+            f"with the sleep still running, {attempts[0]} failures, {attempts[1]} rebuilds, "
+            f"{stuck} stuck threads, all returned once the sleep ended; next step "
+            f"{after or 'not run: the probe excluded the device'} | {card}")
+        del ee
+    finally:
+        conv_igemm.conv2d_kernel_nhwc, chain.fused_conv_chain_packed = real_b5, real_b1
+
+    # [kernel]: every distinct B5 and B1 launch of these paths against its plain version
+    out["max_abs_err"] = {"conv2d_kernel_nhwc": 0.0, "fused_conv_chain_packed": 0.0}
+    for (xs, ws, xdt, wdt, st, pads, act), (x, w, sc, of, alpha) in shapes.items():
+        label = f"B5 {xs}->{ws[-1]} k{ws[0]} {xdt} w {wdt}"
+        got = real_b5(x, w, sc, of, stride=st, pads=pads, activation=act, alpha=alpha)
+        ref = conv_igemm.conv2d_igemm_reference(x, w, sc, of, st, pads, act, alpha)
+        out["max_abs_err"]["conv2d_kernel_nhwc"] = max(
+            out["max_abs_err"]["conv2d_kernel_nhwc"],
+            h.held(label, "conv2d_kernel_nhwc", got, ref, bf16 if x.dtype == bf16 else f32))
+    for (xs, xdt, tail), (x, ops, specs, tail, cdt) in chains.items():
+        got = real_b1(x, ops, specs, tail=tail, compute_dtype=cdt)
+        ref = chain.conv_chain_reference(x, ops, specs, tail, cdt)
+        out["max_abs_err"]["fused_conv_chain_packed"] = max(
+            out["max_abs_err"]["fused_conv_chain_packed"],
+            h.held(f"B1 {xs} {xdt} {tail}", "fused_conv_chain_packed", got, ref,
+                   bf16 if cdt == bf16 else f32))
+
+    # [timing]: B5 at the pipelines' launch shapes (ESPCN 540p, U-Net 256) ----------------------
+    for key, (x, w, sc, of, alpha) in shapes.items():
+        xs, ws, xdt, wdt, st, pads, act = key
+        if not path_of[key].startswith(("espcn 540p b8", "unet")):
+            continue
+        dt = bf16 if x.dtype == bf16 else f32
+        label = f"{'x'.join(map(str, xs))}->{ws[-1]} k{ws[0]} {xdt}"
+        t = {k: h.time_ms(fn) for k, fn in {
+            "kernel": lambda: real_b5(x, w, sc, of, stride=st, pads=pads, activation=act),
+            "plain": lambda: conv_igemm.conv2d_igemm_reference(x, w, sc, of, st, pads, act),
+            "library": h.conv_yardstick(x, w.to(dt), sc, of, pads, act, dt)}.items()}
+        n, hh, ww, c = xs
+        kh, kw, _, o = ws
+        ho, wo = hh + pads[0] + pads[1] - kh + 1, ww + pads[2] + pads[3] - kw + 1
+        flops = 2.0 * n * ho * wo * kh * kw * c * o
+        nbytes = x.numel() * x.element_size() + n * ho * wo * o * x.element_size() \
+            + w.numel() * w.element_size() + 8 * o
+        b_ms, b_by = h.bound(flops, nbytes, dt)
+        b3, b3_text = h.tf32(flops, nbytes, dt)
+        out["timing"][label] = dict(ms=t["kernel"], plain_ms=t["plain"],
+                                    library_ms=t["library"], bound_ms=b_ms, bound_by=b_by, **b3)
+        log(f"[timing] conv2d_kernel_nhwc pipeline {label}: kernel {t['kernel']:.4f} ms plain "
+            f"{t['plain']:.4f} ms cudnn {t['library']:.4f} ms bound {b_ms:.5f} ms ({b_by}; "
+            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB{b3_text}) | {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[pipeline] phase {out['seconds']:.1f} s; launches {out['launches']} | {card}")
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -7,7 +7,7 @@ analog of the JAX package's XLA path) and the hand-written CUDA kernels
 over a (data, model, spatial) mesh of devices (parallel/), and
 `EngineOptions` carries the creation-time options that the compile step
 reads. The JAX package's XLA-only layout and buffer-donation options have
-no counterpart here.
+no counterpart here (`EngineOptions` says why).
 """
 
 from __future__ import annotations
@@ -80,6 +80,14 @@ class EngineOptions:
     `device` names where the engine runs: "cuda" (the default) needs a
     CUDA device and `Engine.from_graph` raises `RuntimeError` without one;
     "cpu" runs every kernel's plain PyTorch version and is meant for tests.
+
+    The JAX package's `auto_output_layout`, `auto_input_layout` and
+    `donate_input` have no counterpart. The first two let XLA choose the
+    device layout of a jitted step's outputs and inputs, and the third lets
+    it reuse the input buffer for an output; an eager PyTorch step has no
+    compiler to hand either choice to (tensors here are NHWC, contiguous,
+    as the kernels take them), and the caching allocator reuses a freed
+    input's memory without being told.
     """
 
     precision: Precision = Precision.FP32

@@ -8,7 +8,7 @@ from __future__ import annotations
 import os
 import statistics
 import time
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -111,19 +111,36 @@ class Engine:
             out[k] = t.to(self.model.device)
         return out
 
+    def _cuda_devices(self) -> List[torch.device]:
+        """The engine's CUDA devices: every device of its mesh, once each."""
+        mesh = getattr(self.model, "mesh", None)
+        devs = mesh.local_devices if mesh is not None else [self.model.device]
+        return [d for d in dict.fromkeys(devs) if d.type == "cuda"]
+
     def _sync(self) -> None:
         """Wait for the engine's devices: every device of its mesh."""
-        mesh = getattr(self.model, "mesh", None)
-        for dev in mesh.local_devices if mesh is not None else [self.model.device]:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        for dev in self._cuda_devices():
+            torch.cuda.synchronize(dev)
+
+    def dispatch(self, inputs: Dict[str, object]):
+        """Queue one engine step without waiting for the device: its outputs,
+        and an event recorded after it on the current stream of each CUDA
+        device it used. The upload of host inputs copies from pageable
+        memory, so it waits for work already queued on the stream."""
+        self._check_inputs(inputs)
+        outs = self.model(self._to_device(inputs))
+        events = []
+        for dev in self._cuda_devices():
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            events.append(ev)
+        return outs, events
 
     def run(self, inputs: Dict[str, object]) -> Dict[str, torch.Tensor]:
         """One engine step over a batch of frames, timed on the host clock,
         including the host->device transfer and waiting for the result."""
-        self._check_inputs(inputs)
         self.stats.total.start()
-        outs = self.model(self._to_device(inputs))
+        outs, _ = self.dispatch(inputs)
         self._sync()
         self.stats.total.stop()
         return outs

@@ -12,7 +12,8 @@ Faithful to the reference's ModelParser (core/src/ic2/modelparser.cpp):
   get*Layer methods.
 - Conv kernels are streamed O-major: for o in O: for i in I: k*k row-major
   (modelparser.cpp getConvolutionLayer weight loop) -> converted here to
-  our HWIO layout.
+  our HWIO layout by the native runtime (native.py), as the JAX parser
+  does.
 - Decoupled mode: weights in a little-endian float32 stream, consumed in
   layer order: kernel, bias (if useBias), then BN gamma, beta, movingMean,
   movingVariance (if useBatchNormalization) (modelparser.cpp:512-721).
@@ -29,6 +30,7 @@ from typing import BinaryIO, Dict, Optional
 
 import numpy as np
 
+from shadernn_tpu_torch import native
 from shadernn_tpu_torch.graph.ir import Graph, Node
 
 
@@ -73,26 +75,13 @@ class _WeightStream:
         return data
 
 
-def repack_oihw_to_hwio(flat: np.ndarray, o: int, i: int, kh: int, kw: int) -> np.ndarray:
-    """OIHW float32 stream -> HWIO array (the artifact bin layout)."""
-    flat = np.ascontiguousarray(flat, np.float32)
-    return np.ascontiguousarray(flat.reshape(o, i, kh, kw).transpose(2, 3, 1, 0))
-
-
-def repack_dw_to_hw1o(flat: np.ndarray, o: int, kh: int, kw: int) -> np.ndarray:
-    """Per-output-channel kxk depthwise stream -> HW1O array."""
-    flat = np.ascontiguousarray(flat, np.float32)
-    return np.ascontiguousarray(
-        flat.reshape(o, kh, kw).transpose(1, 2, 0)[:, :, None, :]
-    )
-
-
 def _conv_weights(layer, stream, o, i, k, is_bin):
     if is_bin:
         flat = stream.read(o * i * k * k)
     else:
         flat = np.asarray(layer["weights"]["kernel"], np.float32)
-    return repack_oihw_to_hwio(flat, o, i, k, k)
+    # OIHW -> HWIO in the native runtime (native.py)
+    return native.repack_oihw_to_hwio(flat, o, i, k, k)
 
 
 def _bias(layer, stream, o, is_bin):
@@ -211,7 +200,7 @@ def parse_model_dict(model: dict, bin_file: Optional[BinaryIO] = None,
                                             layer.get("weights", {}).get("kernel")),
                                   np.float32)
             # depthwise stream is per-output-channel kxk -> HW1O
-            params["weight"] = repack_dw_to_hw1o(flat, o, k, k)
+            params["weight"] = native.repack_dw_to_hw1o(flat, o, k, k)
             b = _bias(layer, stream, o, is_bin)
             if b is not None:
                 params["bias"] = b

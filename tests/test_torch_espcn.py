@@ -149,11 +149,12 @@ def test_package_imports_no_jax():
         "import shadernn_tpu_torch.utils.profiler, shadernn_tpu_torch.utils.trace_profile\n"
         "import shadernn_tpu_torch.graph.serialize, shadernn_tpu_torch.demo\n"
         "from shadernn_tpu_torch.tools import onnx_reader, onnx_export, convert, dump_reader\n"
-        "from shadernn_tpu_torch.tools import compare, optim, accuracy_report\n"
+        "from shadernn_tpu_torch.tools import compare, optim, accuracy_report, pipeline_overlap\n"
         "from shadernn_tpu_torch.tools import train_espcn, train_resnet18, train_mobilenetv2\n"
         "from shadernn_tpu_torch.tools import train_denoiser, train_styletransfer, train_yolo\n"
         "from shadernn_tpu_torch.parallel import mesh, halo, spmd, sharding, multihost\n"
-        "from shadernn_tpu_torch.parallel import scaling, dryrun\n"
+        "from shadernn_tpu_torch.parallel import scaling, dryrun, pipeline, elastic\n"
+        "from shadernn_tpu_torch import native\n"
         "p.build_model('espcn', h=8, w=8)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'shadernn_tpu' or m.startswith('shadernn_tpu.')]\n"
