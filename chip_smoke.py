@@ -116,9 +116,15 @@ Phases, each of which raises on failure (exit code != 0):
               against the TORCH forward with its launches held to its plans;
               the JAX package's accuracy gates (denoiser PSNR at 96, style
               PSNR at 64 and 512, YOLO mAP); [kernel] cases at every chain and
-              single conv of these plans with the models' weights; a planted
-              fault (U-Net's transposed-conv kernel flipped); [timing] rows
-              of each new launch shape
+              single conv of these plans with the models' weights; the
+              single-conv kernel's wide body (StyleTransfer's k9 stem and
+              head) at its edges (O = 1, 8, 9, 40; int8 weights; f32 and bf16
+              inputs; ragged tiles; b1; a 9x3 kernel, which fp32 runs on the
+              tile body); the packed bf16 stem launched 100 more times, each
+              output equal to the first bit for bit; planted faults (U-Net's
+              transposed-conv kernel flipped; the stem's weight mirrored
+              along W through the wide body); [timing] rows of each new launch shape, the wide body's
+              beside the tile body (the parent's launch)
   7. serve    the serving layer (serve_phase): ESPCN 2x (trained) at 540p b8
               BF16 under StreamingEngine, 4 producer threads x 64 frames of
               raw uint8 luma through the on-device ingest and the same
@@ -2352,7 +2358,11 @@ def main() -> int:
         "engine_step_p50_ms": trained_stats["bf16"]["engine_p50_ms"],
         "forms": ["bf16", "fp32: 3xTF32 on mma.sync m16n8k8 (conv_single_tf32_kernel; two "
                   "passes from a bf16 input)",
-                  "bf16 with int8 weights (trained ResNet18 and MobileNetV2 INT8)"],
+                  "bf16 with int8 weights (trained ResNet18 and MobileNetV2 INT8)",
+                  "wide body for kernels of 25 taps or more (StyleTransfer's k9 stem and "
+                  "head): bf16 and int8 weights on mma.sync m16n8k16 "
+                  "(conv_single_wide_kernel), fp32 exact on the CUDA cores "
+                  "(conv_single_fma_kernel) where kw is 5, 7 or 9, else the tile body"],
         "int8": dict(**i8_rows[("single", "MobileNetV2 cls10")], launches=i8_launches(
             "mobilenetv2 cls10 b64 (logits) calibrated", "fused_conv2d_haloed"),
             resnet18_cls10=dict(**i8_rows[("single", "ResNet18 cls10")], launches=i8_launches(
@@ -2361,6 +2371,7 @@ def main() -> int:
             top1={k: v["top1"] for k, v in i8_main.items() if "resnet18 cls10" in k},
             planted_fault_weight_scale_zeroed_diff=fault_errs["weight_scale_zeroed"]),
         "zoo": zoo_rows("fused_conv2d_haloed"),
+        "wide_body": zoo_out["wide_body"],
         "io": io_rows("fused_conv2d_haloed"),
         **trained_rows("fused_conv2d_haloed"),
         "serve": {"launches_per_batch": 1,
@@ -2495,9 +2506,12 @@ def zoo_phase(h) -> dict:
     package's accuracy gates on the card: denoiser PSNR at 96x96,
     StyleTransfer PSNR (the 64x64 default artifact, each style at 512),
     YOLO mAP. [kernel] cases at every chain and single conv of these
-    plans, with the models' weights, at the plans' forms; a planted fault
-    (U-Net's up0 transposed-conv kernel flipped); [timing] rows of each
-    new launch shape."""
+    plans, with the models' weights, at the plans' forms, and at the edges
+    of the single-conv kernel's wide body, its packed stem repeated bit for
+    bit; planted faults (U-Net's up0
+    transposed-conv kernel flipped; the stem's weight mirrored through the
+    wide body); [timing] rows of each new launch shape (a wide-body launch
+    also in the tile body, the parent's launch)."""
     import numpy as np
     import torch
 
@@ -2762,12 +2776,107 @@ def zoo_phase(h) -> dict:
             errs[(entry, form)] = max(errs.get((entry, form), 0.0), h.held(tag, entry, got, want, dt))
     log(f"[zoo] {2 * len(cases)} [kernel] cases at the zoo plans' launches")
 
+    # The single-conv kernel's wide body (kernels of 25 taps or more:
+    # StyleTransfer's k9 stem and head) at its edges, each from an f32 and a
+    # bf16 input, against the plain version: O = 1 and O = 8 / 9 around the
+    # n8 block, C = 3 with K packed across taps, int8 weights at the two
+    # StyleTransfer launches, tiles that do not divide the image, batch 1,
+    # a rectangular kernel (9x3: at fp32 on the tile body, as kw is not 5,
+    # 7 or 9), a block of 64 channels over O = 40; the full-size launches
+    # walk more tiles than the grid has CTAs. At fp32 the form on the CUDA
+    # cores.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wide_err, wide_cases = {}, 0
+
+    def wide_case(label, n, ih, iw, c, kh, kw, o, pads, act, form):
+        nonlocal wide_cases
+        dt = f32 if form == "fp32" else bf16
+        wf = (rng.standard_normal((kh, kw, c, o)) / np.sqrt(kh * kw * c)).astype(np.float32)
+        if form == "int8 w":
+            scale_w = float(np.abs(wf).max()) / 127
+            wts = torch.from_numpy(np.clip(np.round(wf / scale_w), -127, 127).astype(np.int8))
+        else:
+            scale_w, wts = 1.0, torch.from_numpy(wf)
+        wts = wts.to(dev)
+        sc = torch.from_numpy((1 + 0.1 * rng.standard_normal(o)).astype(np.float32) * scale_w).to(dev)
+        of = torch.from_numpy((0.1 * rng.standard_normal(o)).astype(np.float32)).to(dev)
+        geo = conv.launch_geometry(n, ih, iw, c, kh, kw, o, pads, dt == bf16, sms)
+        assert geo.body == (1 if dt == bf16 else 2 if kw in conv.FMA_KW else 0), (label, geo)
+        for x_dt in (f32, bf16):
+            x = torch.from_numpy(rng.random((n, ih, iw, c), dtype=np.float32)).to(dev, x_dt)
+            want = conv.conv2d_haloed_reference(x, wts, sc, of, pads, act, 0.3, dt)
+            got = conv.fused_conv2d_haloed(x, wts, sc, of, pads, act, 0.3, dt)
+            torch.cuda.synchronize()
+            wide_err[form] = max(wide_err.get(form, 0.0), h.held(
+                f"wide body {label} {form} x {'bf16' if x_dt == bf16 else 'f32'} (body "
+                f"{geo.body}, tile {geo.tile_h}x{geo.tile_w}, nb {geo.nb}, grid {geo.grid})",
+                "fused_conv2d_haloed", got, want, dt))
+            wide_cases += 1
+
+    p4 = (4, 4, 4, 4)
+    for form in ("bf16", "fp32", "int8 w"):
+        for label, shape in (
+                ("styletransfer stem k9 3->32 512x512 b4", (4, 512, 512, 3, 9, 9, 32, p4, "linear")),
+                ("styletransfer head k9 32->3 512x512 b4", (4, 512, 512, 32, 9, 9, 3, p4, "linear")),
+                ("k9 5->1 37x45 b2", (2, 37, 45, 5, 9, 9, 1, p4, "relu")),
+                ("k9 16->8 37x45 b2", (2, 37, 45, 16, 9, 9, 8, p4, "tanh")),
+                ("k9 12->9 37x45 b2", (2, 37, 45, 12, 9, 9, 9, p4, "leaky_relu")),
+                ("k9 2->3 5x7 b1", (1, 5, 7, 2, 9, 9, 3, p4, "sigmoid")),
+                ("k5 3->40 asymmetric pads 23x29 b1", (1, 23, 29, 3, 5, 5, 40, (1, 3, 0, 4),
+                                                       "relu6")),
+                ("k9x3 8->16 33x35 b2", (2, 33, 35, 8, 9, 3, 16, (4, 4, 1, 1), "gelu"))):
+            if form == "int8 w" and not label.startswith("styletransfer"):
+                continue
+            wide_case(label, *shape, form)
+    log(f"[zoo] {wide_cases} [kernel] cases of the single-conv kernel's wide body")
+
+    # Repeat launches of the packed bf16 stem (a ring of two buffers, the
+    # region's rows unfolded in shared memory): a race between one tile's
+    # unfold and the next tile's rows would show as outputs that differ
+    # from launch to launch. Each must equal the first, bit for bit.
+    x = torch.from_numpy(rng.random((4, 512, 512, 3), dtype=np.float32)).to(dev, bf16)
+    wts = torch.from_numpy((rng.standard_normal((9, 9, 3, 32)) / 15.6).astype(np.float32)
+                           ).to(dev, bf16)
+    one, zero = torch.ones(32, device=dev), torch.zeros(32, device=dev)
+    geo = conv.launch_geometry(4, 512, 512, 3, 9, 9, 32, (4, 4, 4, 4), True, sms)
+    assert geo.body == 1 and geo.packed and geo.in_bufs == 2, geo
+    first = conv.fused_conv2d_haloed(x, wts, one, zero, (4, 4, 4, 4), "linear", 0.3, bf16)
+    repeats = 100
+    differ = sum(not torch.equal(first, conv.fused_conv2d_haloed(
+        x, wts, one, zero, (4, 4, 4, 4), "linear", 0.3, bf16)) for _ in range(repeats))
+    log(f"[zoo] the packed bf16 stem launched {repeats} more times: {differ} outputs differ "
+        f"from the first")
+    assert differ == 0, "the wide body's packed stem is not deterministic"
+
+    # Planted fault: the stem's weight mirrored along W (dx -> 8 - dx, the
+    # order of the packed taps) through the kernel, held against the plain
+    # version of the true weight, must fail the check.
+    faults = {}
+    for dt in (bf16, f32):
+        x = torch.from_numpy(rng.random((4, 512, 512, 3), dtype=np.float32)).to(dev, dt)
+        wts = torch.from_numpy((rng.standard_normal((9, 9, 3, 32)) / 15.6).astype(np.float32)
+                               ).to(dev, dt)
+        one, zero = torch.ones(32, device=dev), torch.zeros(32, device=dev)
+        want = conv.conv2d_haloed_reference(x, wts, one, zero, p4, "linear", 0.3, dt)
+        got = conv.fused_conv2d_haloed(x, wts.flip(1).contiguous(), one, zero, p4, "linear",
+                                       0.3, dt)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs().max().item()
+        tol = (TOL_BF16 if dt == bf16 else TOL_FP32) * max(1.0, want.float().abs().max().item())
+        pname = "bf16" if dt == bf16 else "fp32"
+        log(f"[zoo] planted fault: the wide body at the stem ({pname}) with the weight mirrored "
+            f"along W moves the output by {diff:.3e} (tol {tol:.3g}) "
+            f"{'caught' if diff > tol else 'MISSED'}")
+        assert diff > tol, "the wide body's check misses a mirrored weight"
+        faults[f"stem {pname} weight mirrored along W"] = diff
+
     # [timing]: each launch shape at its form: kernel, plain version and the
     # library call (channels_last F.conv2d + epilogue, cuDNN), with the
     # bound from this run's shapes.
     rows = {}
     for (form, label), (kind, _l, nodes, specs, tail, shape, x_dt, dt) in cases.items():
         x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev, x_dt)
+        extra = {}
         if kind == "chain":
             ops = h.on_dev(chain.chain_operands(nodes, dt, specs))
             entry = "fused_conv_chain_packed" if tail in ("c1", "d2s2") else "fused_conv_chain"
@@ -2787,12 +2896,27 @@ def zoo_phase(h) -> dict:
             pads = padding_offsets(node.attr("padding", "same"), int(node.attr("kernel_size")))
             act, alpha = str(node.attr("activation", "linear")), float(node.attr("leaky_alpha", 0.3))
             entry = "fused_conv2d_haloed"
+
+            def single_conv():
+                return conv.fused_conv2d_haloed(x, wts, sc, of, pads, act, alpha, dt)
+
             t = h.timed({
-                "kernel": lambda: conv.fused_conv2d_haloed(x, wts, sc, of, pads, act, alpha, dt),
+                "kernel": single_conv,
                 "plain": lambda: conv.conv2d_haloed_reference(x, wts, sc, of, pads, act, alpha, dt),
                 "library": h.conv_yardstick(x, wts, sc, of, pads, act, dt),
             })
             kh, kw, c_, o_ = wts.shape
+            geometry = conv.launch_geometry
+            chosen = geometry(*shape, kh, kw, o_, pads, dt == bf16, sms)
+            if chosen.body > 0:  # the wide body: the parent's launch (the tile body) beside it
+                conv.launch_geometry = conv.tile_geometry
+                try:
+                    extra["parent_tile_body_ms"], extra["parent_tile_body_device_ms"] = h.timed(
+                        {"kernel": single_conv})["kernel"]
+                finally:
+                    conv.launch_geometry = geometry
+                extra["body"] = {1: "wide, tensor cores", 2: "wide, f32 on the CUDA cores"}[
+                    chosen.body]
             n_, h_, w_, _ = shape
             ho, wo = h_ + pads[0] + pads[1] - kh + 1, w_ + pads[2] + pads[3] - kw + 1
             flops = 2.0 * n_ * ho * wo * kh * kw * c_ * o_
@@ -2801,13 +2925,22 @@ def zoo_phase(h) -> dict:
         b_ms, b_by = h.bound(flops, nbytes, dt)
         b3, b3_text = h.tf32(flops, nbytes, dt)
         row = dict(**h.timing_keys(t), bound_ms=b_ms, bound_by=b_by, **b3)
+        extra_text = ""
+        if extra:
+            row.update(extra)
+            extra_text = "; " + ", ".join(
+                f"{k[:-3].replace('_', ' ')} {v:.4f} ms (device {extra[k[:-3] + '_device_ms']:.4f})"
+                for k, v in extra.items() if k.endswith("_ms") and not k.endswith("device_ms"))
+            extra_text += f"; kernel body: {extra['body']}"
         rows.setdefault(entry, {})[f"{label} {form}"] = row
-        log(f"[timing] {entry} {form} {label}: {h.timing_text(t)} bound {b_ms:.5f} ms ({b_by}; "
-            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB{b3_text}) | {h.card}")
+        log(f"[timing] {entry} {form} {label}: {h.timing_text(t)}{extra_text} bound {b_ms:.5f} ms "
+            f"({b_by}; {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB{b3_text}) | {h.card}")
     log(f"[zoo] phase {time.perf_counter() - t_phase:.1f} s")
     return {"paths": paths, "gates": gates, "timing": rows,
             "max_abs_err": {f"{e} {form}": v for (e, form), v in errs.items()},
-            "kernel_cases": 2 * len(cases)}
+            "kernel_cases": 2 * len(cases),
+            "wide_body": {"max_abs_err": wide_err, "kernel_cases": wide_cases,
+                          "planted_fault_diff": faults, "stem_repeats_differing": differ}}
 
 
 

@@ -82,33 +82,6 @@ namespace {
 
 #define SNN_IG_THREADS 256
 
-// n / d for 0 <= n < 2^31 by a multiply and a shift (Granlund-Montgomery;
-// m and s made on the host): the per-tile index arithmetic has no integer
-// division, whose dependent chain a tile would otherwise wait on.
-struct FastDiv {
-  unsigned int d, m;
-  int s;
-};
-
-inline FastDiv fast_div(int d) {
-  FastDiv f;
-  f.d = d;
-  f.m = 0;
-  f.s = 0;
-  if (d > 1) {
-    int l = 0;
-    while ((1u << l) < (unsigned)d) ++l;
-    const int p = 31 + l;
-    f.m = (unsigned)(((1ull << p) + d - 1) / d);
-    f.s = p - 32;
-  }
-  return f;
-}
-
-__device__ __forceinline__ int fdiv(int n, const FastDiv& f) {
-  return f.m ? (int)(__umulhi((unsigned)n, f.m) >> f.s) : n;
-}
-
 struct IgDesc {
   int n, h, w, c, kh, kw, o, stride, pt, pl, ho, wo;
   int act;
@@ -133,14 +106,6 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
     case 2: cp_async_wait<2>(); break;
     default: cp_async_wait<3>(); break;
   }
-}
-
-__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v0, v1);
 }
 
 // NT: n8-tiles per warp. F32: the 3xTF32 form (x, y f32), else bf16.

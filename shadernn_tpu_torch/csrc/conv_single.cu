@@ -20,9 +20,11 @@
 // What bounds it on an H100: a k3 conv over 64-128 channels does 500-1000
 // FLOPs per byte of input and output, above the ridge of the bf16 tensor
 // cores (989 TFLOP/s over 3.35 TB/s = 295 FLOP/byte); the small-channel
-// convs (the stems) are near it. At the shapes the port plans the bound is
-// a microsecond or less, so what a launch costs is staging, the halo and
-// filling 132 SMs.
+// convs (the stems) are near it. At the k3 shapes the port plans the bound
+// is a microsecond or less, so what a launch costs is staging, the halo and
+// filling 132 SMs. StyleTransfer's 9x9 stem (3 -> 32) and head (32 -> 3) at
+// 512x512 b4 do 16.3 GFLOP each over 73 MB (bf16): 0.022 ms of bytes, 0.016
+// of bf16 products; in f32 0.044 of bytes, 0.243 of CUDA-core products.
 //
 // Two forms, one per compute dtype:
 //
@@ -59,17 +61,63 @@
 // round-to-nearest adds after the tap: the tensor cores' accumulation
 // truncates, and promoted per tap its error no longer grows with K.
 //
-// The launch geometry (tiles, images per CTA, channel blocks and chunks,
-// taps per stage, strides and the shared-memory layout) is the wrapper's
-// (kernels/conv.py launch_geometry); this file checks it and launches.
+// Two bodies, picked by the wrapper's launch geometry (field G_BODY):
+//
+// The tile body (above; designed for the k3 convs of ResNet18, MobileNetV2,
+// YOLOv3-tiny and U-Net) gives each CTA one 64-pixel tile and stages the
+// weights of every stage for it. At a 9x9 kernel that is the whole weight
+// (StyleTransfer's head: 2592 x 16 bf16, 124 KB) for every 64 outputs, in
+// one stage that nothing overlaps, and N padded to 16 (3 of 16 columns of
+// the head carry data) and, at C = 3, C padded to 8 per tap (the stem: 648
+// of K for 243 values). Measured there (tools/phase_stamps.py, PERF.md), a
+// CTA spends 42% of its cycles issuing the weight's copies and the rest on
+// a k-loop of one n16 block per 64 pixels, one CTA a SM.
+//
+// The wide body (conv_single_wide_kernel, bf16), for kernels of at least 25
+// taps: a persistent grid of CTAs, each of one channel block of NB = 8*NT*(8/WM)
+// channels (n8 where O <= 8: every warp on M, no column past O = 8 is
+// computed), walks output tiles of up to 32*WM pixels (16x16 at WM = 8),
+// tile blockIdx.x, + gridDim.x, .... The block's whole weight is staged once
+// per CTA and kept; the tiles' input regions come through a ring of two
+// buffers (one where that lets two CTAs share a SM), cp.async bringing tile
+// t+1's region while tile t computes where the input's channels make
+// 16-byte copies, else loads eight values a thread in flight while the SM's
+// other CTA computes. Where C < 8, K is packed across taps: a staged
+// position holds the (dx, c) values of its kw taps, kw*C rounded up to 8
+// (the stem: 27 -> 32, K = 9 x 32 = 288 for 243 values instead of 648); the
+// region's rows are loaded as NHWC holds them (a position's taps are one
+// run of its row) and unfolded along W into positions in shared memory; the
+// tap walk is then over dy only. A per-CTA table gives each 8-value unit of
+// K its offset from a pixel's first staged position (a tap's (dy, dx)
+// shift, or a dy row), so one loop serves both layouts. mma.sync m16n8k16
+// (two chains of sums, even and odd k-steps). The epilogue
+// writes the fragments into a shared-memory tile and copies it out,
+// 16-byte pieces where O allows. At the head's n8 block the k-loop reads
+// 512 bytes of A from shared memory per mma: shared-memory bandwidth, not
+// the tensor cores, bounds it (PERF.md).
+//
+// Under f32, where kw is 5, 7 or 9 and the block's weight fits, the wide
+// body runs on the CUDA cores (conv_single_fma_kernel, below): exact f32
+// products and sums; at these narrow channels 3xTF32's splits and n8 k8
+// steps cost more than the products (measured at StyleTransfer's stem and
+// head, PERF.md). Every other f32 conv runs on the tile body.
+//
+// The launch geometry (the body; tiles, images per CTA, channel blocks and
+// chunks, taps per stage, strides, the shared-memory layout and, for the
+// wide body, the packing, warps and grid) is the wrapper's (kernels/conv.py
+// launch_geometry); this file checks it and launches.
 
 #include "snn_common.cuh"
 #include "snn_mma.cuh"
 
 // Fields of the geometry array the wrapper passes.
+// The wide body reads G_CC as the elements per staged position (C, or kw*C
+// when packed, rounded up to 8), G_TG as the taps (all in its one stage)
+// and G_IN_BUFS as the ring's depth (1 or 2).
 enum {
   G_TILE_H, G_TILE_W, G_IMGS, G_NB, G_CC, G_TG, G_IN_STRIDE, G_W_STRIDE, G_W_ROWS,
-  G_IN_OFF, G_IN_BUFS, G_W_OFF, G_W_BUFS, G_SMEM, G_FIELDS
+  G_IN_OFF, G_IN_BUFS, G_W_OFF, G_W_BUFS, G_SMEM,
+  G_BODY, G_PACKED, G_WM, G_TAB_OFF, G_OUT_OFF, G_OUT_STRIDE, G_GRID, G_FIELDS
 };
 
 namespace {
@@ -584,17 +632,731 @@ int dispatch_tf32(int nt, const void* x, void* y, const void* w, const float* sc
   }
 }
 
+// --------------------------------------------------------------- wide ----
+
+struct WideDesc {
+  int n, h, w, c, kh, kw, o, pt, pl, ho, wo;
+  int act;
+  float alpha;
+  int wm, tile_h, tile_w, tiles_x, tiles_img, mtiles;
+  int cols, region;            // staged region of a tile: rows x cols positions
+  int packed, kp, kunits;      // elements per staged position (kp = 8 * kunits)
+  int real;                    // the values of a position: c, or packed kw * c
+  int units;                   // 8-value units of K (taps or dy rows, times kunits)
+  int in_stride, w_stride, w_rows;  // elements per staged position / weight row; weight rows
+  int tab_off, so_off, w_off, in_off, in_buf, out_off, out_stride, bufs;  // smem bytes
+  int raw_off, raw_len;        // packed: the region's rows as NHWC holds them (raw_len values)
+  int x_bf16, w_int8, vec_x, vec_y;
+  FastDiv f_tiles_img, f_tiles_x, f_cols, f_kp, f_upp, f_tile_w, f_vpp, f_raw_len, f_kunits;
+};
+
+// NT: n8-tiles per warp (NB = 8 * NT * (8 / wm) channels per CTA). bf16
+// compute; x is f32 or bf16 (d.x_bf16).
+template <int NT>
+__global__ void __launch_bounds__(SNN_TC_THREADS, 2)
+conv_single_wide_kernel(const void* __restrict__ xv, const void* __restrict__ wv,
+                        const float* __restrict__ scale, const float* __restrict__ offset,
+                        __nv_bfloat16* __restrict__ y, const __grid_constant__ WideDesc d) {
+  using T = __nv_bfloat16;
+  constexpr int EPU = 8;  // elements per 16 bytes
+  const float* xf = static_cast<const float*>(xv);
+  const T* xb = static_cast<const T*>(xv);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % d.wm, wn = warp / d.wm;
+  const int nb = 8 * NT * (8 / d.wm);  // channels of the CTA
+  const int ob0 = blockIdx.y * nb;
+  const int wcol = wn * 8 * NT;        // the warp's first channel within the block
+  const int tile_px = d.tile_h * d.tile_w;
+  int* tab = reinterpret_cast<int*>(smem + d.tab_off);
+  float* so = reinterpret_cast<float*>(smem + d.so_off);  // the block's scale, then offset
+  T* wb = reinterpret_cast<T*>(smem + d.w_off);
+  T* ob = reinterpret_cast<T*>(smem + d.out_off);
+  auto in_slot = [&](int b) { return reinterpret_cast<T*>(smem + d.in_off + b * d.in_buf); };
+
+  // Each unit's offset (elements) from a pixel's first staged position: row
+  // r of the table is a tap (dy, dx) or, packed, a dy row; the last entry,
+  // for the padding unit of an odd count (bf16), is 0 (its B rows are zero,
+  // so any finite A serves).
+  for (int i = tid; i <= d.units; i += SNN_TC_THREADS) {
+    int off = 0;
+    if (i < d.units) {
+      const int r = i / d.kunits, u = i - r * d.kunits;
+      const int pos = d.packed ? r * d.cols : (r / d.kw) * d.cols + r % d.kw;
+      off = pos * d.in_stride + 8 * u;
+    }
+    tab[i] = off;
+  }
+  for (int i = tid; i < nb; i += SNN_TC_THREADS) {
+    so[i] = ob0 + i < d.o ? scale[ob0 + i] : 0.f;
+    so[nb + i] = ob0 + i < d.o ? offset[ob0 + i] : 0.f;
+  }
+  // K index k (unit k / 8, value k % 8) as the HWIO row tap * c + ci of the
+  // weight; -1 for padding (past C in a tap, past kw*C in a dy row, past K).
+  auto k_row = [&](int k) -> int {
+    const int u = k >> 3;
+    if (u >= d.units) return -1;
+    const int r = u / d.kunits, e = (u - r * d.kunits) * 8 + (k & 7);
+    if (e >= d.real) return -1;
+    // packed: (dy, dx, c) with e = dx * c + ci, contiguous in HWIO; else (tap, c)
+    return (d.packed ? r * d.kw * d.c : r * d.c) + e;
+  };
+  // The channel block's whole weight, once, k-major ([k][nb], an int8
+  // weight upcast exactly); zero past K and O.
+  {
+    const int cnt = min(nb, d.o - ob0);
+    for (int k = tid; k < d.w_rows; k += SNN_TC_THREADS) {  // a K row a thread: its HWIO row once
+      const int row = k_row(k);
+#pragma unroll 8
+      for (int r = 0; r < nb; ++r) {
+        float v = 0.f;
+        if (row >= 0 && r < cnt) {
+          const size_t src = (size_t)row * d.o + ob0 + r;
+          v = d.w_int8 ? (float)static_cast<const int8_t*>(wv)[src]
+                       : __bfloat162float(static_cast<const T*>(wv)[src]);
+        }
+        store_out(wb + (size_t)k * d.w_stride + r, v);
+      }
+    }
+  }
+  // This lane's A rows: pixels 32*wm + 16*i + (lane & 15) of the tile, as
+  // element offsets of their first staged position (0 past the tile).
+  int a_base[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = 32 * wm + 16 * i + (lane & 15);
+    const int py = p / d.tile_w, px = p - py * d.tile_w;
+    a_base[i] = p < tile_px ? (py * d.cols + px) * d.in_stride : 0;
+  }
+
+  const int my_tiles =
+      (int)blockIdx.x < d.mtiles ? (d.mtiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  auto tile_origin = [&](int q, int& n0, int& oy0, int& ox0) {
+    const int tile = (int)blockIdx.x + q * (int)gridDim.x;
+    n0 = fdiv(tile, d.f_tiles_img);
+    const int tt = tile - n0 * d.tiles_img;
+    const int ty = fdiv(tt, d.f_tiles_x);
+    oy0 = ty * d.tile_h;
+    ox0 = (tt - ty * d.tiles_x) * d.tile_w;
+  };
+
+  // The input region of this CTA's tile q into slot q % bufs, zero outside
+  // the image: a position holds its C channels or, packed, the kw*C values
+  // of its kw taps (contiguous in NHWC), then zeros up to kp.
+  auto load_tile = [&](int q) {
+    int n0, oy0, ox0;
+    tile_origin(q, n0, oy0, ox0);
+    const int iy0 = oy0 - d.pt, ix0 = ox0 - d.pl;
+    T* dst = in_slot(q % d.bufs);
+    if (d.vec_x) {  // unpacked, x bf16: 16 bytes of channels per copy
+      const int upp = d.kp / EPU;
+      for (int i = tid; i < d.region * upp; i += SNN_TC_THREADS) {
+        const int pos = fdiv(i, d.f_upp), u = i - pos * upp;
+        const int rr = fdiv(pos, d.f_cols), cl = pos - rr * d.cols;
+        const int gy = iy0 + rr, gx = ix0 + cl, c = u * EPU;
+        const bool ok = gy >= 0 && gy < d.h && gx >= 0 && gx < d.w && c < d.c;
+        const T* src = ok ? xb + (((size_t)n0 * d.h + gy) * d.w + gx) * d.c + c : xb;
+        cp_async16(dst + (size_t)pos * d.in_stride + u * EPU, src, ok ? 16 : 0);
+      }
+    } else if (d.packed) {
+      // The region's rows as they lie in NHWC (tile_w + kw - 1 pixels of C
+      // values: raw_len), zero outside the image, eight loads in flight a
+      // thread; then each position's kp values, the run of its kw taps
+      // (raw values cl * C ..), one 16-byte unit a thread.
+      T* raw = reinterpret_cast<T*>(smem + d.raw_off);
+      const int row_len = d.w * d.c, total = (d.tile_h + d.kh - 1) * d.raw_len;
+      for (int i0 = tid; i0 < total; i0 += 8 * SNN_TC_THREADS) {
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int i = i0 + j * SNN_TC_THREADS;
+          const int rr = fdiv(i, d.f_raw_len), f = i - rr * d.raw_len;
+          const int gy = iy0 + rr, flat = ix0 * d.c + f;
+          v[j] = 0.f;
+          if (i < total && gy >= 0 && gy < d.h && flat >= 0 && flat < row_len) {
+            const size_t src = ((size_t)n0 * d.h + gy) * row_len + flat;
+            v[j] = d.x_bf16 ? __bfloat162float(xb[src]) : xf[src];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (i0 + j * SNN_TC_THREADS < total) store_out(raw + i0 + j * SNN_TC_THREADS, v[j]);
+      }
+      __syncthreads();
+      for (int i = tid; i < d.region * d.kunits; i += SNN_TC_THREADS) {
+        const int pos = fdiv(i, d.f_kunits), u = i - pos * d.kunits;
+        const int rr = fdiv(pos, d.f_cols), cl = pos - rr * d.cols;
+        const T* src = raw + rr * d.raw_len + cl * d.c + 8 * u;
+        __align__(16) T v8[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v8[j] = 8 * u + j < d.real ? src[j] : T(0.f);
+        *reinterpret_cast<uint4*>(dst + (size_t)pos * d.in_stride + 8 * u) =
+            *reinterpret_cast<const uint4*>(v8);
+      }
+      __syncthreads();  // raw is read out: the next tile's rows may land in it
+    } else {
+      // Value by value, converted to the compute dtype, eight loads in
+      // flight a thread; zero past C and outside the image.
+      const int total = d.region * d.kp, row_len = d.w * d.c;
+      for (int i0 = tid; i0 < total; i0 += 8 * SNN_TC_THREADS) {
+        float v[8];
+        int at[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int i = i0 + j * SNN_TC_THREADS;
+          v[j] = 0.f;
+          at[j] = -1;
+          if (i < total) {
+            const int pos = fdiv(i, d.f_kp), e = i - pos * d.kp;
+            const int rr = fdiv(pos, d.f_cols), cl = pos - rr * d.cols;
+            const int gy = iy0 + rr, flat = (ix0 + cl) * d.c + e;
+            at[j] = pos * d.in_stride + e;
+            if (e < d.real && gy >= 0 && gy < d.h && flat >= 0 && flat < row_len) {
+              const size_t src = ((size_t)n0 * d.h + gy) * row_len + flat;
+              v[j] = d.x_bf16 ? __bfloat162float(xb[src]) : xf[src];
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (at[j] >= 0) store_out(dst + at[j], v[j]);
+      }
+    }
+  };
+
+  // The f32 sums: even k-steps in acc, odd in acc2 (two independent chains
+  // of mma.sync per fragment).
+  float acc[2][NT][4], acc2[2][NT][4];
+  for (int q = 0; q < d.bufs - 1; ++q) {
+    if (q < my_tiles) load_tile(q);
+    cp_async_commit();
+  }
+  for (int q = 0; q < my_tiles; ++q) {
+    if (q + d.bufs - 1 < my_tiles) load_tile(q + d.bufs - 1);
+    cp_async_commit();
+    if (d.bufs > 1) {
+      cp_async_wait<1>();  // tile q has landed (this thread's copies)
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // (everyone's; the weights and table too, at q = 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] = acc2[i][j][r] = 0.f;
+    const T* ib = in_slot(q % d.bufs);
+    // k16 steps of two units: lanes 0-15 give the first unit's rows,
+    // lanes 16-31 the second's; B rows: k row (lane & 15) of the step.
+    const __nv_bfloat16* b_lane =
+        wb + (size_t)(lane & 15) * d.w_stride + wcol + (lane >> 4) * 8;
+    auto step = [&](int ks, float (&ac)[2][NT][4]) {
+      const int off = tab[2 * ks + (lane >> 4)];
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) ldmatrix_x4(a[i], ib + a_base[i] + off);
+      const __nv_bfloat16* bp = b_lane + (size_t)16 * ks * d.w_stride;
+      if constexpr (NT == 1) {
+        uint32_t b[2];
+        ldmatrix_x2_trans(b, bp);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_bf16(ac[i][0], a[i], b[0], b[1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, bp + j * 8);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_bf16(ac[i][j], a[i], b[0], b[1]);
+            mma_bf16(ac[i][j + 1], a[i], b[2], b[3]);
+          }
+        }
+      }
+    };
+    const int nks = (d.units + 1) / 2;
+    int ks = 0;
+#pragma unroll 2
+    for (; ks + 1 < nks; ks += 2) {
+      step(ks, acc);
+      step(ks + 1, acc2);
+    }
+    if (ks < nks) step(ks, acc);
+
+    // Epilogue: the fragments (rows g, g + 8 of each m16 tile, columns
+    // 8j + 2t, +1) into the output tile, then the tile's pixels out.
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int p = 32 * wm + 16 * i + g + 8 * hh;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int col = wcol + 8 * j + 2 * t;  // columns past O are never copied out
+          const float v0 = apply_act(fmaf(acc[i][j][2 * hh] + acc2[i][j][2 * hh], so[col],
+                                          so[nb + col]), d.act, d.alpha);
+          const float v1 = apply_act(fmaf(acc[i][j][2 * hh + 1] + acc2[i][j][2 * hh + 1],
+                                          so[col + 1], so[nb + col + 1]), d.act, d.alpha);
+          store_pair(ob + (size_t)p * d.out_stride + col, v0, v1);
+        }
+      }
+    __syncthreads();
+    int n0, oy0, ox0;
+    tile_origin(q, n0, oy0, ox0);
+    const int cnt = min(nb, d.o - ob0);  // the last block may hold fewer channels
+    if (d.vec_y) {  // 16-byte pieces of each pixel's channels (o * esz a multiple of 16)
+      const int vpp = nb / EPU;
+      for (int i = tid; i < tile_px * vpp; i += SNN_TC_THREADS) {
+        const int p = fdiv(i, d.f_vpp), v = i - p * vpp;
+        const int py = fdiv(p, d.f_tile_w), px = p - py * d.tile_w;
+        const int gy = oy0 + py, gx = ox0 + px;
+        if (gy < d.ho && gx < d.wo && v * EPU < cnt)
+          *reinterpret_cast<uint4*>(y + (((size_t)n0 * d.ho + gy) * d.wo + gx) * d.o + ob0 +
+                                    v * EPU) =
+              *reinterpret_cast<const uint4*>(ob + (size_t)p * d.out_stride + v * EPU);
+      }
+    } else {  // value by value: the tile's pixels' cnt channels, contiguous runs of NHWC
+      for (int i = tid; i < tile_px * cnt; i += SNN_TC_THREADS) {
+        const int p = i / cnt, e = i - p * cnt;
+        const int py = fdiv(p, d.f_tile_w), px = p - py * d.tile_w;
+        const int gy = oy0 + py, gx = ox0 + px;
+        if (gy < d.ho && gx < d.wo)
+          y[(((size_t)n0 * d.ho + gy) * d.wo + gx) * d.o + ob0 + e] =
+              ob[(size_t)p * d.out_stride + e];
+      }
+    }
+    __syncthreads();  // the slot and the output tile are free again
+  }
+}
+
+template <int NT>
+int launch_wide(const void* x, const void* w, const float* scale, const float* offset, void* y,
+                const WideDesc& d, int grid_x, int smem, cudaStream_t s) {
+  auto kern = conv_single_wide_kernel<NT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nb = 8 * NT * (8 / d.wm);
+  dim3 grid(grid_x, (d.o + nb - 1) / nb);
+  kern<<<grid, SNN_TC_THREADS, smem, s>>>(x, w, scale, offset,
+                                          static_cast<__nv_bfloat16*>(y), d);
+  return (int)cudaGetLastError();
+}
+
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// ------------------------------------------------------- wide, f32 FMA ----
+
+struct FmaDesc {
+  int n, h, w, c, kh, kw, o, pt, pl, ho, wo;
+  int act;
+  float alpha;
+  int g, s;                        // channel groups x segments = the 8 warps
+  int tile_w, tiles_x, tiles_img, mtiles;  // tiles of 32 rows x tile_w columns
+  int cc, chunks, rows, cols, cstride, plane;  // a chunk's planes: rows x cstride floats
+  int so_off, w_off, in_off, in_buf, bufs;     // smem bytes
+  int x_bf16;
+  FastDiv f_tiles_img, f_tiles_x, f_cc, f_cols, f_chunks;
+};
+
+// The wide body's f32 form on the CUDA cores: exact f32 products and sums
+// (fmaf), for narrow channels, where 3xTF32's splits and n8 k8 steps
+// cost more than the products (PERF.md). A CTA of 8 warps, g
+// channel groups of OB channels x s segments of PX columns, walks tiles of
+// 32 rows x s*PX columns: lane = row, so each lane keeps PX x OB sums of
+// its row segment. The input region comes in chunks of cc channels, one
+// plane per channel (rows of cstride floats, an odd number of 16-byte
+// units: the lanes' 16-byte loads are free of bank conflicts), by 4-byte
+// cp.async (a bf16 input: eight loads in flight a thread, converted) into a
+// ring of two buffers; the block's weight is staged once,
+// [group][dy][c][dx][OBP] (OB padded to 4 or 8 floats), read as 16-byte
+// broadcasts. Per (c, dy) a lane loads its row segment (PX + KW - 1 values)
+// once and reuses it over the KW taps of the row.
+template <int KW, int OB>
+__global__ void __launch_bounds__(SNN_TC_THREADS, 2)
+conv_single_fma_kernel(const void* __restrict__ xv, const float* __restrict__ w,
+                       const float* __restrict__ scale, const float* __restrict__ offset,
+                       float* __restrict__ y, const __grid_constant__ FmaDesc d) {
+  constexpr int PX = OB == 8 ? 8 : 4;       // columns per lane
+  constexpr int OBP = OB <= 4 ? 4 : 8;      // a tap's staged channels
+  constexpr int XN = (PX + KW - 1 + 3) / 4 * 4;  // a row segment, whole 16-byte units
+  const float* xf = static_cast<const float*>(xv);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(xv);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp / d.s, seg = warp - grp * d.s;
+  const int nb = d.g * OB;
+  const int ob0 = blockIdx.y * nb;
+  float* so = reinterpret_cast<float*>(smem + d.so_off);
+  float* wsm = reinterpret_cast<float*>(smem + d.w_off);
+  constexpr int WROW = KW * OBP;  // floats of one (group, dy, c)
+  const int w_total = d.g * d.kh * d.c * WROW;
+  for (int i0 = tid; i0 < w_total; i0 += 8 * SNN_TC_THREADS) {  // eight loads in flight
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = i0 + j * SNN_TC_THREADS;
+      int rest = i / OBP;
+      const int oo = i - rest * OBP;
+      const int dx = rest % KW;
+      rest /= KW;
+      const int ci = rest % d.c;
+      rest /= d.c;
+      const int dy = rest % d.kh, gg = rest / d.kh;
+      const int oc = ob0 + gg * OB + oo;
+      v[j] = i < w_total && oo < OB && oc < d.o
+                 ? w[((size_t)(dy * KW + dx) * d.c + ci) * d.o + oc] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (i0 + j * SNN_TC_THREADS < w_total) wsm[i0 + j * SNN_TC_THREADS] = v[j];
+  }
+  for (int i = tid; i < nb; i += SNN_TC_THREADS) {
+    so[i] = ob0 + i < d.o ? scale[ob0 + i] : 0.f;
+    so[nb + i] = ob0 + i < d.o ? offset[ob0 + i] : 0.f;
+  }
+
+  const int my_tiles =
+      (int)blockIdx.x < d.mtiles ? (d.mtiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int items = my_tiles * d.chunks;
+  auto tile_origin = [&](int tl, int& n0, int& oy0, int& ox0) {
+    const int tile = (int)blockIdx.x + tl * (int)gridDim.x;
+    n0 = fdiv(tile, d.f_tiles_img);
+    const int tt = tile - n0 * d.tiles_img;
+    const int ty = fdiv(tt, d.f_tiles_x);
+    oy0 = ty * 32;
+    ox0 = (tt - ty * d.tiles_x) * d.tile_w;
+  };
+  auto slot = [&](int q) {
+    return reinterpret_cast<float*>(smem + d.in_off + (q % d.bufs) * d.in_buf);
+  };
+  // Item q: chunk q % chunks of tile q / chunks, zero outside the image and
+  // past C; channels fastest, as NHWC holds them.
+  auto load_item = [&](int q) {
+    const int tl = fdiv(q, d.f_chunks), ci = q - tl * d.chunks;
+    int n0, oy0, ox0;
+    tile_origin(tl, n0, oy0, ox0);
+    const int iy0 = oy0 - d.pt, ix0 = ox0 - d.pl, c0 = ci * d.cc;
+    float* dst = slot(q);
+    const int total = d.rows * d.cols * d.cc;
+    if (!d.x_bf16) {  // f32: 4-byte cp.async, zero-filled outside the image and past C
+      for (int i = tid; i < total; i += SNN_TC_THREADS) {
+        const int pos = fdiv(i, d.f_cc), e = i - pos * d.cc;
+        const int rr = fdiv(pos, d.f_cols), cl = pos - rr * d.cols;
+        const int gy = iy0 + rr, gx = ix0 + cl, c = c0 + e;
+        const bool ok = c < d.c && gy >= 0 && gy < d.h && gx >= 0 && gx < d.w;
+        cp_async4(dst + e * d.plane + rr * d.cstride + cl,
+                  ok ? xf + (((size_t)n0 * d.h + gy) * d.w + gx) * d.c + c : xf, ok);
+      }
+      return;
+    }
+    for (int i0 = tid; i0 < total; i0 += 8 * SNN_TC_THREADS) {  // bf16: eight loads in flight
+      float v[8];
+      int at[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = i0 + j * SNN_TC_THREADS;
+        v[j] = 0.f;
+        at[j] = -1;
+        if (i < total) {
+          const int pos = fdiv(i, d.f_cc), e = i - pos * d.cc;
+          const int rr = fdiv(pos, d.f_cols), cl = pos - rr * d.cols;
+          const int gy = iy0 + rr, gx = ix0 + cl, c = c0 + e;
+          at[j] = e * d.plane + rr * d.cstride + cl;
+          if (c < d.c && gy >= 0 && gy < d.h && gx >= 0 && gx < d.w) {
+            const size_t src = (((size_t)n0 * d.h + gy) * d.w + gx) * d.c + c;
+            v[j] = __bfloat162float(xb[src]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (at[j] >= 0) dst[at[j]] = v[j];
+    }
+  };
+
+  float acc[PX][OB];
+  for (int q = 0; q < d.bufs - 1; ++q) {
+    if (q < items) load_item(q);
+    cp_async_commit();
+  }
+  for (int q = 0; q < items; ++q) {
+    if (q + d.bufs - 1 < items) load_item(q + d.bufs - 1);
+    cp_async_commit();
+    if (d.bufs > 1) {
+      cp_async_wait<1>();  // item q has landed (this thread's copies)
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // (everyone's; the weights too, at q = 0)
+    const int tl = fdiv(q, d.f_chunks), ci = q - tl * d.chunks;
+    if (ci == 0) {
+#pragma unroll
+      for (int p = 0; p < PX; ++p)
+#pragma unroll
+        for (int oo = 0; oo < OB; ++oo) acc[p][oo] = 0.f;
+    }
+    const int c0 = ci * d.cc, ccn = min(d.cc, d.c - c0);
+    const float* xs = slot(q) + lane * d.cstride + seg * PX;
+    for (int e = 0; e < ccn; ++e) {
+      const float* xc = xs + e * d.plane;
+      const float* wc = wsm + ((size_t)grp * d.kh * d.c + c0 + e) * WROW;
+      for (int dy = 0; dy < d.kh; ++dy) {
+        float xr[XN];
+        const float4* xp = reinterpret_cast<const float4*>(xc + dy * d.cstride);
+#pragma unroll
+        for (int v = 0; v < XN / 4; ++v) {
+          const float4 t4 = xp[v];
+          xr[4 * v] = t4.x; xr[4 * v + 1] = t4.y; xr[4 * v + 2] = t4.z; xr[4 * v + 3] = t4.w;
+        }
+        const float4* wp = reinterpret_cast<const float4*>(wc + (size_t)dy * d.c * WROW);
+#pragma unroll
+        for (int dx = 0; dx < KW; ++dx) {
+          float wv[OBP];
+#pragma unroll
+          for (int v = 0; v < OBP / 4; ++v) {
+            const float4 t4 = wp[dx * (OBP / 4) + v];
+            wv[4 * v] = t4.x; wv[4 * v + 1] = t4.y; wv[4 * v + 2] = t4.z; wv[4 * v + 3] = t4.w;
+          }
+#pragma unroll
+          for (int p = 0; p < PX; ++p)
+#pragma unroll
+            for (int oo = 0; oo < OB; ++oo) acc[p][oo] = fmaf(xr[p + dx], wv[oo], acc[p][oo]);
+        }
+      }
+    }
+    if (ci == d.chunks - 1) {
+      // Epilogue: the lane's row segment, PX pixels x OB channels, out.
+      int n0, oy0, ox0;
+      tile_origin(tl, n0, oy0, ox0);
+      const int gy = oy0 + lane, gx0 = ox0 + seg * PX, oc0 = ob0 + grp * OB;
+      if (gy < d.ho) {
+        float (&v)[PX][OB] = acc;  // the epilogue in place: no second set of registers
+#pragma unroll
+        for (int p = 0; p < PX; ++p)
+#pragma unroll
+          for (int oo = 0; oo < OB; ++oo)
+            v[p][oo] = apply_act(fmaf(acc[p][oo], so[grp * OB + oo], so[nb + grp * OB + oo]),
+                                 d.act, d.alpha);
+        float* yr = y + (((size_t)n0 * d.ho + gy) * d.wo + gx0) * d.o + oc0;
+        const bool whole = gx0 + PX <= d.wo && oc0 + OB <= d.o;
+        if (whole && OB == d.o && (PX * OB) % 4 == 0 && (reinterpret_cast<uintptr_t>(yr) & 15) == 0) {
+          // The segment's pixels hold every channel: one contiguous run.
+          float4* yv = reinterpret_cast<float4*>(yr);
+#pragma unroll
+          for (int k = 0; k < PX * OB; k += 4)
+            yv[k / 4] = make_float4(v[k / OB][k % OB], v[(k + 1) / OB][(k + 1) % OB],
+                                    v[(k + 2) / OB][(k + 2) % OB], v[(k + 3) / OB][(k + 3) % OB]);
+        } else if (whole && OB % 4 == 0 && d.o % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(yr) & 15) == 0) {
+#pragma unroll
+          for (int p = 0; p < PX; ++p)
+#pragma unroll
+            for (int oo = 0; oo < OB; oo += 4)
+              *reinterpret_cast<float4*>(yr + (size_t)p * d.o + oo) =
+                  make_float4(v[p][oo], v[p][oo + 1], v[p][oo + 2], v[p][oo + 3]);
+        } else {
+#pragma unroll
+          for (int p = 0; p < PX; ++p)
+#pragma unroll
+            for (int oo = 0; oo < OB; ++oo)
+              if (gx0 + p < d.wo && oc0 + oo < d.o) yr[(size_t)p * d.o + oo] = v[p][oo];
+        }
+      }
+    }
+    __syncthreads();  // the slot of item q is free for item q + bufs
+  }
+}
+
+template <int KW, int OB>
+int launch_fma(const void* x, const void* w, const float* scale, const float* offset, void* y,
+               const FmaDesc& d, int grid_x, int smem, cudaStream_t s) {
+  auto kern = conv_single_fma_kernel<KW, OB>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nb = d.g * OB;
+  dim3 grid(grid_x, (d.o + nb - 1) / nb);
+  kern<<<grid, SNN_TC_THREADS, smem, s>>>(x, static_cast<const float*>(w), scale, offset,
+                                          static_cast<float*>(y), d);
+  return (int)cudaGetLastError();
+}
+
+template <int KW>
+int dispatch_fma(int ob, const void* x, const void* w, const float* scale, const float* offset,
+                 void* y, const FmaDesc& d, int grid_x, int smem, cudaStream_t s) {
+  switch (ob) {
+    case 1: return launch_fma<KW, 1>(x, w, scale, offset, y, d, grid_x, smem, s);
+    case 2: return launch_fma<KW, 2>(x, w, scale, offset, y, d, grid_x, smem, s);
+    case 3: return launch_fma<KW, 3>(x, w, scale, offset, y, d, grid_x, smem, s);
+    case 4: return launch_fma<KW, 4>(x, w, scale, offset, y, d, grid_x, smem, s);
+    default: return launch_fma<KW, 8>(x, w, scale, offset, y, d, grid_x, smem, s);
+  }
+}
 
 // [off, off + need) within [lo, hi), 16-byte aligned.
 inline bool fits(long long off, long long need, long long lo, long long hi) {
   return off % 16 == 0 && off >= lo && off + need <= hi;
 }
 
-// The wrapper's geometry checked and completed; the bf16 form or (f32) the
-// 3xTF32 form launched.
+inline bool apart(long long a, long long na, long long b, long long nb) {
+  return a + na <= b || b + nb <= a;
+}
+
+// The wide body's geometry checked and completed, then launched (bf16
+// compute only).
+int run_wide(const void* x, int x_bf16, void* y, const void* w, const float* scale,
+             const float* offset, const TcDesc& t, const int* g, cudaStream_t s) {
+  WideDesc d;
+  d.n = t.n; d.h = t.h; d.w = t.w; d.c = t.c; d.kh = t.kh; d.kw = t.kw; d.o = t.o;
+  d.pt = t.pt; d.pl = t.pl; d.ho = t.ho; d.wo = t.wo; d.act = t.act; d.alpha = t.alpha;
+  d.x_bf16 = x_bf16; d.w_int8 = t.w_int8;
+  constexpr int esz = 2, epu = 8;
+  const int taps = d.kh * d.kw;
+  const int nb = g[G_NB];
+  d.wm = g[G_WM]; d.tile_h = g[G_TILE_H]; d.tile_w = g[G_TILE_W];
+  d.packed = g[G_PACKED]; d.kp = g[G_CC]; d.bufs = g[G_IN_BUFS];
+  d.in_stride = g[G_IN_STRIDE]; d.w_stride = g[G_W_STRIDE]; d.w_rows = g[G_W_ROWS];
+  d.tab_off = g[G_TAB_OFF]; d.w_off = g[G_W_OFF]; d.in_off = g[G_IN_OFF];
+  d.out_off = g[G_OUT_OFF]; d.out_stride = g[G_OUT_STRIDE];
+  const long long smem = g[G_SMEM];
+  const int grid_x = g[G_GRID];
+  if (d.wm != 1 && d.wm != 2 && d.wm != 4 && d.wm != 8) return -4;
+  const int nt = nb / (8 * (8 / d.wm));
+  if ((nt != 1 && nt != 2 && nt != 4) || nb != 8 * nt * (8 / d.wm)) return -4;
+  if (g[G_IMGS] != 1 || g[G_TG] != taps || g[G_W_BUFS] != 1) return -4;
+  if (d.tile_h < 1 || d.tile_w < 1 || d.tile_h * d.tile_w > 32 * d.wm) return -4;
+  if (d.packed != 0 && d.packed != 1) return -4;
+  d.real = d.packed ? d.kw * d.c : d.c;  // values of a staged position
+  if (d.kp % 8 || d.kp < d.real || d.kp >= d.real + 8) return -4;
+  if (d.bufs != 1 && d.bufs != 2) return -4;
+  if (d.in_stride < d.kp || d.in_stride % epu) return -4;
+  d.kunits = d.kp / 8;
+  d.units = (d.packed ? d.kh : taps) * d.kunits;
+  // weights k-major: rows of nb channels, k16 steps
+  if (d.w_stride < nb || d.w_stride % 8 || d.w_rows != (d.units + 1) / 2 * 16) return -4;
+  if (d.out_stride < nb || d.out_stride % epu) return -4;
+  d.tiles_x = (d.wo + d.tile_w - 1) / d.tile_w;
+  d.tiles_img = d.tiles_x * ((d.ho + d.tile_h - 1) / d.tile_h);
+  const long long mtiles = (long long)d.n * d.tiles_img;
+  if (mtiles > 2147483647LL) return -2;
+  d.mtiles = (int)mtiles;
+  if (grid_x < 1 || grid_x > d.mtiles) return -4;
+  d.cols = d.packed ? d.tile_w : d.tile_w + d.kw - 1;
+  d.region = (d.tile_h + d.kh - 1) * d.cols;
+  d.in_buf = (int)(((long long)d.region * d.in_stride * esz + 15) & ~15LL);
+  d.so_off = d.tab_off + ((4 * (d.units + 1) + 15) & ~15);  // after the table
+  const long long tab_bytes = d.so_off - d.tab_off + 8LL * nb;  // table, scale, offset
+  const long long w_bytes = (long long)d.w_rows * d.w_stride * esz;
+  const long long in_bytes = (long long)d.bufs * d.in_buf;
+  const long long out_bytes = 32LL * d.wm * d.out_stride * esz;
+  d.raw_len = (d.tile_w + d.kw - 1) * d.c;
+  d.raw_off = (int)((d.out_off + out_bytes + 15) & ~15LL);  // packed: after the output tile
+  const long long raw_bytes =
+      d.packed ? (long long)(d.tile_h + d.kh - 1) * d.raw_len * esz : 0;
+  auto inside = [&](long long off, long long need) {
+    return off % 16 == 0 && off >= 0 && off + need <= smem;
+  };
+  if (smem > SNN_MAX_SMEM || !inside(d.tab_off, tab_bytes) || !inside(d.w_off, w_bytes) ||
+      !inside(d.in_off, in_bytes) || !inside(d.out_off, out_bytes) ||
+      !inside(d.raw_off, raw_bytes) ||
+      !apart(d.tab_off, tab_bytes, d.w_off, w_bytes) ||
+      !apart(d.tab_off, tab_bytes, d.in_off, in_bytes) ||
+      !apart(d.tab_off, tab_bytes, d.out_off, out_bytes) ||
+      !apart(d.w_off, w_bytes, d.in_off, in_bytes) ||
+      !apart(d.w_off, w_bytes, d.out_off, out_bytes) ||
+      !apart(d.in_off, in_bytes, d.out_off, out_bytes))
+    return -2;
+  d.vec_x = !d.packed && x_bf16 && d.c % epu == 0 && aligned16(x);
+  // 16-byte output pieces where every block's channels are whole ones.
+  d.vec_y = (d.o * esz) % 16 == 0 && nb % epu == 0 && aligned16(y);
+  d.f_tiles_img = fast_div(d.tiles_img);
+  d.f_tiles_x = fast_div(d.tiles_x);
+  d.f_cols = fast_div(d.cols);
+  d.f_kp = fast_div(d.kp);
+  d.f_upp = fast_div(d.kp / epu);
+  d.f_tile_w = fast_div(d.tile_w);
+  d.f_vpp = fast_div(nb / epu > 0 ? nb / epu : 1);
+  d.f_raw_len = fast_div(d.raw_len);
+  d.f_kunits = fast_div(d.kunits);
+  const int sm = (int)smem;
+  switch (nt) {
+    case 1: return launch_wide<1>(x, w, scale, offset, y, d, grid_x, sm, s);
+    case 2: return launch_wide<2>(x, w, scale, offset, y, d, grid_x, sm, s);
+    default: return launch_wide<4>(x, w, scale, offset, y, d, grid_x, sm, s);
+  }
+}
+
+// The wide body's f32 form on the CUDA cores: its geometry checked and
+// completed, then launched. G_WM is the warps along M (segments), G_NB the
+// channels of a block (channel groups x OB), G_CC the channels per chunk,
+// G_IN_STRIDE the floats per staged row, G_TAB_OFF the scale and offset.
+int run_fma(const void* x, int x_bf16, void* y, const void* w, const float* scale,
+            const float* offset, const TcDesc& t, const int* g, cudaStream_t s) {
+  FmaDesc d;
+  d.n = t.n; d.h = t.h; d.w = t.w; d.c = t.c; d.kh = t.kh; d.kw = t.kw; d.o = t.o;
+  d.pt = t.pt; d.pl = t.pl; d.ho = t.ho; d.wo = t.wo; d.act = t.act; d.alpha = t.alpha;
+  d.x_bf16 = x_bf16;
+  if (t.w_int8) return -3;
+  d.s = g[G_WM];
+  if (d.s != 1 && d.s != 2 && d.s != 4 && d.s != 8) return -4;
+  d.g = 8 / d.s;
+  const int nb = g[G_NB], ob = nb / d.g;
+  if (nb != d.g * ob || (ob != 1 && ob != 2 && ob != 3 && ob != 4 && ob != 8)) return -4;
+  if (ob < 8 && d.g != 1) return -4;
+  if (d.kw != 5 && d.kw != 7 && d.kw != 9) return -4;
+  const int px = ob == 8 ? 8 : 4, obp = ob <= 4 ? 4 : 8, xn = (px + d.kw - 1 + 3) / 4 * 4;
+  d.tile_w = g[G_TILE_W];
+  if (g[G_TILE_H] != 32 || d.tile_w != d.s * px || g[G_IMGS] != 1) return -4;
+  if (g[G_TG] != d.kh * d.kw || g[G_W_BUFS] != 1 || g[G_PACKED] != 0) return -4;
+  d.cc = g[G_CC]; d.bufs = g[G_IN_BUFS]; d.cstride = g[G_IN_STRIDE];
+  if (d.cc < 1 || d.cc > d.c || (d.bufs != 1 && d.bufs != 2)) return -4;
+  d.rows = 32 + d.kh - 1;
+  d.cols = d.tile_w + d.kw - 1;
+  if (d.cstride < d.cols || d.cstride < (d.s - 1) * px + xn || d.cstride % 4) return -4;
+  if (g[G_W_STRIDE] != d.kw * obp || g[G_W_ROWS] != d.g * d.kh * d.c) return -4;
+  d.plane = d.rows * d.cstride;
+  d.chunks = (d.c + d.cc - 1) / d.cc;
+  d.tiles_x = (d.wo + d.tile_w - 1) / d.tile_w;
+  d.tiles_img = d.tiles_x * ((d.ho + 31) / 32);
+  const long long mtiles = (long long)d.n * d.tiles_img;
+  if (mtiles * d.chunks > 2147483647LL) return -2;
+  d.mtiles = (int)mtiles;
+  const int grid_x = g[G_GRID];
+  if (grid_x < 1 || grid_x > d.mtiles) return -4;
+  d.so_off = g[G_TAB_OFF]; d.w_off = g[G_W_OFF]; d.in_off = g[G_IN_OFF];
+  d.in_buf = (int)(((long long)d.cc * d.plane * 4 + 15) & ~15LL);
+  const long long smem = g[G_SMEM];
+  const long long so_bytes = 8LL * nb, w_bytes = 4LL * g[G_W_ROWS] * g[G_W_STRIDE];
+  const long long in_bytes = (long long)d.bufs * d.in_buf;
+  auto inside = [&](long long off, long long need) {
+    return off % 16 == 0 && off >= 0 && off + need <= smem;
+  };
+  if (smem > SNN_MAX_SMEM || !inside(d.so_off, so_bytes) || !inside(d.w_off, w_bytes) ||
+      !inside(d.in_off, in_bytes) || !apart(d.so_off, so_bytes, d.w_off, w_bytes) ||
+      !apart(d.so_off, so_bytes, d.in_off, in_bytes) || !apart(d.w_off, w_bytes, d.in_off, in_bytes))
+    return -2;
+  d.f_tiles_img = fast_div(d.tiles_img);
+  d.f_tiles_x = fast_div(d.tiles_x);
+  d.f_cc = fast_div(d.cc);
+  d.f_cols = fast_div(d.cols);
+  d.f_chunks = fast_div(d.chunks);
+  const int sm = (int)smem;
+  switch (d.kw) {
+    case 5: return dispatch_fma<5>(ob, x, w, scale, offset, y, d, grid_x, sm, s);
+    case 7: return dispatch_fma<7>(ob, x, w, scale, offset, y, d, grid_x, sm, s);
+    default: return dispatch_fma<9>(ob, x, w, scale, offset, y, d, grid_x, sm, s);
+  }
+}
+
+// The wrapper's geometry checked and completed; the wide body (bf16) or its
+// f32 form on the CUDA cores, or the tile body's bf16 form or (f32) its
+// 3xTF32 form, launched.
 int run(const void* x, int x_bf16, void* y, const void* w, const float* scale,
         const float* offset, TcDesc d, const int* g, bool bf16, cudaStream_t s) {
+  if (g[G_BODY] == 1) return bf16 ? run_wide(x, x_bf16, y, w, scale, offset, d, g, s) : -4;
+  if (g[G_BODY] == 2) return bf16 ? -4 : run_fma(x, x_bf16, y, w, scale, offset, d, g, s);
+  if (g[G_BODY] != 0) return -4;
   const int nb = g[G_NB], taps = d.kh * d.kw, esz = bf16 ? 2 : 4;
   d.tile_h = g[G_TILE_H]; d.tile_w = g[G_TILE_W]; d.imgs = g[G_IMGS];
   d.cc = g[G_CC]; d.tg = g[G_TG];
@@ -647,8 +1409,10 @@ extern "C" {
 // Returns 0 on success, a negative code for arguments the kernel does not
 // take (see snn_conv_single_error), or the cudaError_t of the launch.
 // w: bf16 compute: device HWIO (kh*kw*c*o) bf16, or int8 when w_int8;
-// f32 compute: the n-major f32 weight (o rows of kh*kw*c8, c zero-padded
-// to a multiple of 8; kernels/conv.py nmajor_weight), 16-byte aligned.
+// f32 compute: the tile body takes the n-major f32 weight (o rows of
+// kh*kw*c8, c zero-padded to a multiple of 8; kernels/conv.py
+// nmajor_weight), 16-byte aligned, the wide body's CUDA-core form the HWIO
+// f32 weight.
 // scale, offset: device f32 (o). geom: G_FIELDS ints, the wrapper's launch geometry (the fields
 // of the enum above; kernels/conv.py ConvLaunch).
 int snn_conv_single(const void* x, int x_bf16, void* y, const void* w, int w_int8,
@@ -675,11 +1439,12 @@ const char* snn_conv_single_error(int code) {
   switch (code) {
     case -1: return "empty input, kernel, output or a negative pad";
     case -2: return "the launch geometry's shared-memory layout does not hold its buffers "
-                    "within 227 KB";
+                    "apart within 227 KB, or more than 2^31 output tiles";
     case -3: return "shape outside the kernel's limits (c <= 128, o <= 128, kh*kw*c <= 4096), "
                     "or int8 weights under f32 activations";
-    case -4: return "launch geometry outside the kernel (tile, channel block, chunk, taps "
-                    "per stage, strides or buffers), or an unaligned f32 weight";
+    case -4: return "launch geometry outside the kernel (body, tile, channel block, warps, "
+                    "chunk or packing, taps per stage, strides, buffers or grid), or an "
+                    "unaligned f32 weight";
     default: return code > 0 ? cudaGetErrorString((cudaError_t)code) : "unknown error";
   }
 }

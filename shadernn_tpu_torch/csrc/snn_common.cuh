@@ -1,7 +1,7 @@
 // Device helpers shared by the port's kernels (conv_chain.cu,
 // conv_single.cu, invres_block.cu, conv_igemm.cu, matmul_fused.cu): the
-// shared-memory limit, bf16 rounding, loads and stores, and the activation
-// codes of the f32 epilogues.
+// shared-memory limit, bf16 rounding, loads and stores, the activation
+// codes of the f32 epilogues, and division by a multiply (FastDiv).
 
 #pragma once
 
@@ -55,6 +55,33 @@ __device__ __forceinline__ void load_w(const float* p, float (&w)[CH]) {
 #pragma unroll
     for (int j = 0; j < CH; ++j) w[j] = p[j];
   }
+}
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift (Granlund-Montgomery;
+// m and s made on the host): the per-tile index arithmetic has no integer
+// division, whose dependent chain a tile would otherwise wait on.
+struct FastDiv {
+  unsigned int d, m;
+  int s;
+};
+
+inline FastDiv fast_div(int d) {
+  FastDiv f;
+  f.d = d;
+  f.m = 0;
+  f.s = 0;
+  if (d > 1) {
+    int l = 0;
+    while ((1u << l) < (unsigned)d) ++l;
+    const int p = 31 + l;
+    f.m = (unsigned)(((1ull << p) + d - 1) / d);
+    f.s = p - 32;
+  }
+  return f;
+}
+
+__device__ __forceinline__ int fdiv(int n, const FastDiv& f) {
+  return f.m ? (int)(__umulhi((unsigned)n, f.m) >> f.s) : n;
 }
 
 }  // namespace

@@ -1,9 +1,11 @@
 // Tensor-core and asynchronous-copy helpers shared by the tensor-core
-// paths of conv_chain.cu, conv_single.cu and invres_block.cu: shared-memory
+// paths of conv_chain.cu, conv_single.cu, invres_block.cu and
+// conv_igemm.cu: shared-memory
 // addresses, ldmatrix (plain and transposed), the bf16 m16n8k16 mma.sync
 // with f32 accumulators, the s8 m16n8k32 mma.sync with s32 accumulators,
 // the tf32 m16n8k8 mma.sync and the split of f32 values into TF32 hi and
-// lo (3xTF32), the symmetric int8 quantizer, and cp.async with zero fill.
+// lo (3xTF32), the symmetric int8 quantizer, cp.async with zero fill, and
+// bf16 packing and pair stores.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4*g + t):
 //   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
@@ -176,6 +178,15 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two adjacent output values, one rounding each to the output dtype.
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v0, v1);
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
-"""Where a CTA's cycles go in the chain kernel's f32 form and in the
-implicit-GEMM conv kernel: `clock64()` stamps at the phase boundaries of a
-copy of their sources, built into a library of its own, run at the main
-paths' shapes on the card:
+"""Where a CTA's cycles go in the chain kernel's f32 form, the
+implicit-GEMM conv kernel and the single-conv kernel: `clock64()` stamps at
+the phase boundaries of a copy of their sources, built into a library of
+its own, run at the main paths' shapes on the card:
 
     python -m shadernn_tpu_torch.tools.phase_stamps [--out FILE]
 
@@ -12,7 +12,14 @@ layer's k-loop and epilogue (thread 0 of each CTA; lane 0 of each warp).
 The implicit-GEMM conv (the two-input graph's conv, 8x540x960, 8 -> 16,
 k3, bf16 and f32): cycles per item of issuing the next items' copies,
 waiting for this one's, the products, the epilogue up to its barrier and
-in all. Cycles are the SM's clock; the stamps cost a few instructions a
+in all. The single-conv kernel at StyleTransfer 512x512 b4's 9x9 stem
+(3 -> 32) and head (32 -> 3), bf16 and fp32, in each body that can run
+them (the tile body, the parent's launch there; under bf16 the wide body
+on the tensor cores, under fp32 its form on the CUDA cores): cycles per CTA of staging
+the input and the weights, waiting, the products and the epilogue (tile
+body), or per CTA of staging the weight and per tile of issuing the next
+tile's input, waiting, the products and the epilogue (wide body; thread 0
+of each CTA). Cycles are the SM's clock; the stamps cost a few instructions a
 phase. The copy is written to build/kernels/phase_stamps/ and the port's
 own library is left as it is. Needs one CUDA card.
 """
@@ -131,6 +138,104 @@ IGEMM = [
   }"""),
 ]
 
+# The single-conv kernel's tile body (conv_single_tc_kernel, bf16, and
+# conv_single_tf32_kernel, 3xTF32), per CTA (thread 0): 0 issuing the input
+# region's loads, 1 issuing the weights', 2 waiting for the stage, 3 the
+# products, 4 the epilogue; 63 CTAs.
+_TILE_STAMPS_END = """
+  if (threadIdx.x == 0) {
+    PRB(0, PI);
+    PRB(1, PW);
+    PRB(2, WT);
+    PRB(3, PR);
+    PRB(4, clock64() - Q5);
+    PRB(63, 1);
+  }
+}"""
+SINGLE = [
+    ("// Fields of the geometry array the wrapper passes.",
+     PROBE + "// Fields of the geometry array the wrapper passes."),
+]
+for _ib, _w_head, _w_end, _y_end in (
+        ("const __nv_bfloat16* ib", ": row r", "                                             : "
+         "__float2bfloat16_rn(0.f);\n      }\n    }\n  };",
+         "        yo[oc] = __float2bfloat16_rn(v0);\n      }\n    }\n  }\n}"),
+        ("const float* ib", ", n-major", "                 ok ? w + (size_t)oc * k_row + (size_t)tap * c8 + c : "
+         "w, ok ? 16 : 0);\n    }\n  };", "        yo[oc] = v0;\n      }\n    }\n  }\n}")):
+    SINGLE += [
+        ("  auto load_stage = [&](int s) {\n    const int ci = s / d.groups, grp = s - ci * d.groups;",
+         "  long long PI = 0, PW = 0, Q1 = 0, WT = 0, PR = 0;\n  auto load_stage = [&](int s) {\n"
+         "    const long long Q0 = clock64();\n"
+         "    const int ci = s / d.groups, grp = s - ci * d.groups;"),
+        ("    // Weights of (chunk, tap group)" + _w_head,
+         "    Q1 = clock64();\n    PI += Q1 - Q0;\n    // Weights of (chunk, tap group)" + _w_head),
+        (_w_end, _w_end[:-4] + "\n    PW += clock64() - Q1;\n  };"),
+        ("    cp_async_commit();\n    cp_async_wait<1>();  // stage s has landed (this thread's "
+         "copies)\n    __syncthreads();     // (everyone's)\n"
+         "    const int ci = s / d.groups, grp = s - ci * d.groups;\n    " + _ib,
+         "    cp_async_commit();\n    const long long Q2 = clock64();\n    cp_async_wait<1>();\n"
+         "    __syncthreads();\n    const long long Q3 = clock64();\n    WT += Q3 - Q2;\n"
+         "    const int ci = s / d.groups, grp = s - ci * d.groups;\n    " + _ib),
+        ("    __syncthreads();  // the buffers of stage s are free for stage s + 2\n  }\n",
+         "    __syncthreads();\n    PR += clock64() - Q3;\n  }\n  const long long Q5 = clock64();\n"),
+        (_y_end, _y_end[:-2] + _TILE_STAMPS_END),
+    ]
+
+# The wide body, per CTA (thread 0): 8 (tensor cores) / 16 (CUDA cores)
+# staging the block's weight and table; per tile (item: chunk of a tile) +1
+# issuing the next one's loads, +2 waiting for this one's, +3 the products,
+# +4 the epilogue with its barriers; 61 / 59 CTAs, 62 / 60 tiles (items).
+_WIDE_LOOP_END = """
+    const long long T4 = clock64();
+    if (threadIdx.x == 0) {{
+      PRB({b} + 3, T3 - T2);
+      PRB({b} + 4, T4 - T3);
+      PRB({n}, 1);
+    }}
+  }}"""
+SINGLE += [
+    ("  // Each unit's offset (elements) from a pixel's first staged position: row",
+     "  const long long S0 = clock64();\n"
+     "  // Each unit's offset (elements) from a pixel's first staged position: row"),
+    ("  float acc[2][NT][4], acc2[2][NT][4];\n  for (int q = 0; q < d.bufs - 1; ++q) {",
+     "  float acc[2][NT][4], acc2[2][NT][4];\n"
+     "  if (threadIdx.x == 0) {\n    PRB(8, clock64() - S0);\n    PRB(61, 1);\n  }\n"
+     "  for (int q = 0; q < d.bufs - 1; ++q) {"),
+    ("    if (q + d.bufs - 1 < my_tiles) load_tile(q + d.bufs - 1);",
+     "    const long long T0 = clock64();\n"
+     "    if (q + d.bufs - 1 < my_tiles) load_tile(q + d.bufs - 1);\n"
+     "    const long long T1 = clock64();"),
+    ("    __syncthreads();  // (everyone's; the weights and table too, at q = 0)",
+     "    __syncthreads();\n    const long long T2 = clock64();\n"
+     "    if (threadIdx.x == 0) {\n      PRB(9, T1 - T0);\n      PRB(10, T2 - T1);\n    }"),
+    ("    // Epilogue: the fragments (rows g, g + 8 of each m16 tile, columns",
+     "    const long long T3 = clock64();\n"
+     "    // Epilogue: the fragments (rows g, g + 8 of each m16 tile, columns"),
+    ("    __syncthreads();  // the slot and the output tile are free again\n  }",
+     "    __syncthreads();" + _WIDE_LOOP_END.format(b=8, n=62)),
+    ("  constexpr int WROW = KW * OBP;  // floats of one (group, dy, c)",
+     "  const long long S0 = clock64();\n"
+     "  constexpr int WROW = KW * OBP;  // floats of one (group, dy, c)"),
+    ("  float acc[PX][OB];\n  for (int q = 0; q < d.bufs - 1; ++q) {",
+     "  float acc[PX][OB];\n"
+     "  if (threadIdx.x == 0) {\n    PRB(16, clock64() - S0);\n    PRB(59, 1);\n  }\n"
+     "  for (int q = 0; q < d.bufs - 1; ++q) {"),
+    ("    if (q + d.bufs - 1 < items) load_item(q + d.bufs - 1);\n    cp_async_commit();\n"
+     "    if (d.bufs > 1) {\n      cp_async_wait<1>();  // item q has landed",
+     "    const long long T0 = clock64();\n"
+     "    if (q + d.bufs - 1 < items) load_item(q + d.bufs - 1);\n"
+     "    const long long T1 = clock64();\n    cp_async_commit();\n"
+     "    if (d.bufs > 1) {\n      cp_async_wait<1>();  // item q has landed"),
+    ("    __syncthreads();  // (everyone's; the weights too, at q = 0)",
+     "    __syncthreads();\n    const long long T2 = clock64();\n"
+     "    if (threadIdx.x == 0) {\n      PRB(17, T1 - T0);\n      PRB(18, T2 - T1);\n    }"),
+    ("    if (ci == d.chunks - 1) {\n      // Epilogue: the lane's row segment",
+     "    const long long T3 = clock64();\n"
+     "    if (ci == d.chunks - 1) {\n      // Epilogue: the lane's row segment"),
+    ("    __syncthreads();  // the slot of item q is free for item q + bufs\n  }",
+     "    __syncthreads();" + _WIDE_LOOP_END.format(b=16, n=60)),
+]
+
 
 def _patch(path, pairs, tail):
     with open(path) as f:
@@ -168,6 +273,7 @@ def main(argv=None) -> int:
     _patch(os.path.join(src, "conv_chain.cu"), CHAIN + [CHAIN_EPILOGUE_END],
            READ.format(name="chain"))
     _patch(os.path.join(src, "conv_igemm.cu"), IGEMM, READ.format(name="igemm"))
+    _patch(os.path.join(src, "conv_single.cu"), SINGLE, READ.format(name="single"))
     saved = (_build.CSRC, _build.BUILD_DIR, _build.LIB_PATH, _build._lib)
     _build.CSRC, _build.BUILD_DIR = src, root
     _build.LIB_PATH, _build._lib = os.path.join(root, "libsnn_phase_stamps.so"), None
@@ -239,6 +345,7 @@ def _measure(lib, emit) -> None:
                              f"{v[17 + 4 * sl + last] / cnt:.0f} ({cnt} pairs)")
     finally:
         chain.f32_launch_geometry = geometry
+    _measure_single(lib, emit, probe)
     for dt in (torch.bfloat16, torch.float32):
         xx = torch.from_numpy(rng.standard_normal((8, 540, 960, 8)).astype(np.float32)).to(dev, dt)
         w = torch.from_numpy((rng.standard_normal((3, 3, 8, 16)) / 5).astype(np.float32)).to(dev, dt)
@@ -251,6 +358,66 @@ def _measure(lib, emit) -> None:
              f"{v[63]} CTAs, {v[62]} items; per item issuing copies {v[0] / items:.0f}, waiting "
              f"{v[1] / items:.0f}, products {v[2] / items:.0f}, epilogue to its barrier "
              f"{v[3] / items:.0f}, epilogue {v[4] / items:.0f}, closing barrier {v[5] / items:.0f}")
+
+
+# StyleTransfer 512x512 b4's two 9x9 convs: (name, x shape, HWIO weight).
+K9_CONVS = [("stem", (4, 512, 512, 3), (9, 9, 3, 32)), ("head", (4, 512, 512, 32), (9, 9, 32, 3))]
+
+
+def _measure_single(lib, emit, probe) -> None:
+    """The single-conv kernel's stamps at StyleTransfer's k9 launches, bf16
+    and fp32 (the engines' inputs: bf16 under BF16, f32 under FP32), in
+    each body that can run them: the tile body (the parent's launch) and
+    the wrapper's choice, the wide body on the tensor cores (bf16) or its
+    form on the CUDA cores (fp32)."""
+    import numpy as np
+    import torch
+
+    from shadernn_tpu_torch.kernels import conv
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geometry = conv.launch_geometry
+    try:
+        for dt in (torch.bfloat16, torch.float32):
+            prec = "bf16" if dt == torch.bfloat16 else "fp32"
+            bodies = [("tile", conv.tile_geometry)]
+            if dt == torch.bfloat16:
+                bodies.append(("wide", lambda *a: conv.wide_geometry(*a[:8], a[9])))
+            else:
+                bodies.append(("wide f32 CUDA cores", lambda *a: conv.fma_geometry(*a[:8], a[9])))
+            for name, xs, ws in K9_CONVS:
+                x = torch.from_numpy(rng.random(xs, dtype=np.float32)).to(dev, dt)
+                w = torch.from_numpy((rng.standard_normal(ws) / np.sqrt(np.prod(ws[:3])))
+                                     .astype(np.float32)).to(dev, dt)
+                one, zero = torch.ones(ws[3], device=dev), torch.zeros(ws[3], device=dev)
+                pads = (4, 4, 4, 4)
+                for body, fn in bodies:
+                    geo = fn(*xs, ws[0], ws[1], ws[3], pads, dt == torch.bfloat16, sms)
+                    conv.launch_geometry = lambda *_a, geo=geo: geo
+                    v = probe(lambda: conv.fused_conv2d_haloed(x, w, one, zero, pads, "linear",
+                                                               compute_dtype=dt),
+                              "snn_probe_single")
+                    head = (f"single {prec} styletransfer {name} {xs} -> {ws[3]} k9, {body} body "
+                            f"(tile {geo.tile_h}x{geo.tile_w}, nb {geo.nb}, smem {geo.smem} B")
+                    if geo.body == 0:
+                        ctas = max(1, v[63])
+                        emit(f"{head}): {v[63]} CTAs; per CTA issuing the input "
+                             f"{v[0] / ctas:.0f}, issuing the weights {v[1] / ctas:.0f}, waiting "
+                             f"{v[2] / ctas:.0f}, products {v[3] / ctas:.0f}, epilogue "
+                             f"{v[4] / ctas:.0f}")
+                        continue
+                    b, ctas_slot, tiles_slot = (8, 61, 62) if geo.body == 1 else (16, 59, 60)
+                    ctas, tiles = max(1, v[ctas_slot]), max(1, v[tiles_slot])
+                    unit = "tile" if geo.body == 1 else "item (a chunk of a tile)"
+                    emit(f"{head}, grid {geo.grid}): {v[ctas_slot]} CTAs, {v[tiles_slot]} "
+                         f"{unit}s; per CTA staging the weight {v[b] / ctas:.0f}; per {unit} "
+                         f"issuing the next one's input {v[b + 1] / tiles:.0f}, waiting "
+                         f"{v[b + 2] / tiles:.0f}, products {v[b + 3] / tiles:.0f}, epilogue "
+                         f"{v[b + 4] / tiles:.0f}")
+    finally:
+        conv.launch_geometry = geometry
 
 
 if __name__ == "__main__":

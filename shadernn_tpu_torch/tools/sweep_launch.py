@@ -5,12 +5,14 @@ channel-block rule of `kernels/conv.py` `launch_geometry`,
 `kernels/chain.py` `_f32_cost` and `kernels/conv_igemm.py`
 `launch_geometry`:
 
-    python -m shadernn_tpu_torch.tools.sweep_launch [--out FILE] [--only chain,igemm]
+    python -m shadernn_tpu_torch.tools.sweep_launch [--out FILE] [--only chain,igemm,wide]
 
 For every block geometry of MobileNetV2 224 (b8) and the trained cls10
 model (b64), every tile, split of E and buffer count that fits; for the
 ResNet18 paths' single convs, the channel block, chunk, taps per stage and
-tile; for the FP32 chain plans (ESPCN 540p b8, the trained ResNet18's
+tile; for the single-conv kernel's wide body at StyleTransfer's k9 stem and
+head, the packing, buffers and grid (bf16) and its f32 form's grid; for the
+FP32 chain plans (ESPCN 540p b8, the trained ResNet18's
 16->16->16 at 32x32 b64), every tile, thread count and weight staging
 that fits; for the implicit-GEMM conv at the two-input graph's shape and
 the ResNet-wide shapes, bf16 and f32, the warp layout, tile, ring depth
@@ -81,6 +83,57 @@ def _blocks(graph, n, dev):
     return out
 
 
+def _sweep_wide(dev, sms, rng, emit) -> None:
+    """The single-conv kernel's wide body at StyleTransfer 512x512 b4's k9
+    stem and head: at bf16 (the tensor cores) K packed or not (the stem),
+    the 16x16 tile with one or two input buffers, and the grid of one wave
+    at one and at two CTAs a SM; at fp32 the form on the CUDA cores at both
+    grids. Then launch_geometry's choice against the best."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from shadernn_tpu_torch.kernels import conv
+
+    geometry = conv.launch_geometry
+    pads = (4, 4, 4, 4)
+    try:
+        for dt in (torch.bfloat16, torch.float32):
+            bf16 = dt == torch.bfloat16
+            for name, c, o in (("stem", 3, 32), ("head", 32, 3)):
+                x = torch.from_numpy(rng.random((4, 512, 512, c), dtype=np.float32)).to(dev, dt)
+                w = torch.from_numpy((rng.standard_normal((9, 9, c, o)) / np.sqrt(81 * c))
+                                     .astype(np.float32)).to(dev, dt)
+                one, zero = torch.ones(o, device=dev), torch.zeros(o, device=dev)
+                nb = 8 if o <= 8 else 32
+                if bf16:
+                    geos = [conv._wide_layout(c, 9, 9, 16, 16, nb, bufs, packed, 4096, 1, sms)
+                            for packed in ({c < 8, False}) for bufs in (2, 1)]
+                else:
+                    geos = [conv.fma_geometry(4, 512, 512, c, 9, 9, o, pads, sms)]
+                geos = [dataclasses.replace(g, grid=grid) for g in geos
+                        if g.smem <= conv.MAX_SMEM_BYTES for grid in (sms, 2 * sms)]
+                times = {}
+                for geo in geos:
+                    conv.launch_geometry = lambda *_a, geo=geo: geo
+                    times[geo] = device_ms(lambda: conv.fused_conv2d_haloed(
+                        x, w, one, zero, pads, "linear", compute_dtype=dt))
+                    emit(f"wide {name} k9 {c}->{o} 512x512 b4 {'bf16' if bf16 else 'fp32'} body "
+                         f"{geo.body} packed {geo.packed} tile {geo.tile_h}x{geo.tile_w} bufs "
+                         f"{geo.in_bufs} grid {geo.grid} smem {geo.smem} {times[geo]:.5f} ms")
+                conv.launch_geometry = geometry
+                choice = geometry(4, 512, 512, c, 9, 9, o, pads, bf16, sms)
+                mine = times.get(choice) or device_ms(lambda: conv.fused_conv2d_haloed(
+                    x, w, one, zero, pads, "linear", compute_dtype=dt))
+                best = _best(times)
+                emit(f"wide {name} {'bf16' if bf16 else 'fp32'}: launch_geometry body {choice.body} "
+                     f"packed {choice.packed} bufs {choice.in_bufs} grid {choice.grid} "
+                     f"{mine:.5f} ms, best {best:.5f} ms ({mine / best:.3f}x)")
+    finally:
+        conv.launch_geometry = geometry
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
@@ -92,8 +145,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the lines to this file")
-    ap.add_argument("--only", default="block,conv,chain,igemm",
-                    help="comma-separated kernels to sweep: block, conv (these two run together), chain, igemm")
+    ap.add_argument("--only", default="block,conv,chain,igemm,wide",
+                    help="comma-separated kernels to sweep: block, conv (these two run together), "
+                         "chain, igemm, wide")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -113,6 +167,8 @@ def main(argv=None) -> int:
         _sweep_chain(dev, sms, rng, emit)
     if "igemm" in only:
         _sweep_igemm(dev, sms, rng, emit)
+    if "wide" in only:
+        _sweep_wide(dev, sms, rng, emit)
     if "block" not in only and "conv" not in only:
         return _write(args.out, lines)
     blocks = {**_blocks(build_mobilenetv2(), 8, dev),

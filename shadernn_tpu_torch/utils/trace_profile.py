@@ -26,7 +26,8 @@ import torch
 
 # The hand-written kernels' names, as the profiler gives them (the
 # demangled name holds the identifier).
-HAND_WRITTEN = re.compile(r"\b(conv_chain(_tc|_tf32)?|conv_single(_tc|_tf32)?|invres(_tc|_tf32)?|"
+HAND_WRITTEN = re.compile(r"\b(conv_chain(_tc|_tf32)?|conv_single(_tc|_tf32|_wide|_fma)?|"
+                          r"invres(_tc|_tf32)?|"
                           r"conv_igemm(_tc)?|matmul_fused)_kernel\b")
 
 

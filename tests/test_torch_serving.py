@@ -530,6 +530,8 @@ def test_trace_report_parses_cpu_profile(tmp_path, rng):
     assert _category("Memcpy HtoD (Pinned -> Device)")[1] == "memcpy"
     assert _category("sm90_xmma_fprop_implicit_gemm")[1] == "library"
     assert HAND_WRITTEN.search("matmul_fused_kernel") and not HAND_WRITTEN.search("conv_chain")
+    for body in ("conv_single_wide_kernel<1, false>", "conv_single_fma_kernel<9, 3>"):
+        assert _category(f"void (anonymous namespace)::{body}(x)")[1] == "hand-written"
     path = capture_trace(eng, x, str(tmp_path / "trace.json"), steps=2)
     assert json.load(open(path))["traceEvents"]
 
