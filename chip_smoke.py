@@ -279,7 +279,9 @@ def main() -> int:
     from shadernn_tpu_torch.graph import fusion
     from shadernn_tpu_torch.graph.ir import Graph, Node
     from shadernn_tpu_torch.graph.parser import parse_model_file
-    from shadernn_tpu_torch.kernels import _build, chain, conv, conv_igemm, invres, matmul
+    from shadernn_tpu_torch.kernels import (
+        _build, chain, conv, conv_igemm, invres, launch_counts, matmul,
+    )
     from shadernn_tpu_torch.models.mobilenetv2 import build_mobilenetv2
     from shadernn_tpu_torch.models.resnet18 import build_resnet18_cifar10
     from shadernn_tpu_torch.models.zoo import (
@@ -843,17 +845,15 @@ def main() -> int:
 
     # 4. main path -----------------------------------------------------------
     # Each path runs with every kernel's count set to 0 just before it and
-    # read just after.
-    counters = (chain.launches, conv.launches, invres.launches, conv_igemm.launches,
-                matmul.launches)
+    # read just after: the launches counted since `reset_counts`, by entry
+    # point (`kernels.launch_counts`).
+    counted_before = {}
 
     def reset_counts():
-        for counts in counters:
-            for k in counts:
-                counts[k] = 0
+        counted_before.update(launch_counts())
 
     def read_counts():
-        return {k: v for counts in counters for k, v in counts.items()}
+        return {k: v - counted_before.get(k, 0) for k, v in launch_counts().items()}
 
     def device_busy(eng, inputs, steps=5):
         """Device time per engine step (inputs already on the card) and the

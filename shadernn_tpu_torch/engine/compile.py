@@ -51,7 +51,7 @@ from shadernn_tpu_torch.ops.common import ACTIVATIONS
 from shadernn_tpu_torch.ops.conv import folded_operands, kernel_chain_supported
 from shadernn_tpu_torch.ops.registry import RunCtx
 from shadernn_tpu_torch.quant.calibrate import propagate_input_scales
-from shadernn_tpu_torch.utils import get_logger
+from shadernn_tpu_torch.utils import get_logger, timer
 from shadernn_tpu_torch.weights import params_from_numpy
 
 log = get_logger("snn_torch.compile")
@@ -389,8 +389,18 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
         key = tuple(t for v in views if v is not None for t in v.params.values())
         hit = prepared.get(head)
         if hit is None or len(hit[0]) != len(key) or any(a is not b for a, b in zip(hit[0], key)):
+            timer.count("engine.operand_prepares")
             hit = prepared[head] = (key, make())
         return hit[1]
+
+    # Each planned entry's path, the `path` of its `snn.layer` span.
+    paths = {}
+    for node in order:
+        if node.name in skip or node.op == "InputLayer":
+            continue
+        paths[node.name] = ("block" if node.name in blocks else "chain" if node.name in chains
+                            else "single" if node.name in singles
+                            else "kernel" if node.name in layer_kernels else "torch")
 
     def forward(params: Params, inputs: Dict[str, torch.Tensor]) -> dict:
         env: Dict[str, torch.Tensor] = {}
@@ -400,9 +410,7 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
                 env[name] = inputs[name].to(act_dtype)
             return env[name]
 
-        for node in order:
-            if node.name in skip or node.op == "InputLayer":
-                continue
+        def run_entry(node: Node) -> None:
             if node.name in blocks:
                 members, spec, a8w8 = blocks[node.name]
                 views = [_NodeView(n, params.get(n.name, {})) if n is not None else None
@@ -413,7 +421,7 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
                 out = members[3] if members[3] is not None else members[2]
                 env[out.name] = fused_invres_block(
                     value(node.inputs[0]).contiguous(), ops, spec)
-                continue
+                return
             if node.name in chains:
                 run, tail, tail_node, act_node, specs = chains[node.name]
                 views = [_NodeView(n, params.get(n.name, {})) for n in run]
@@ -432,13 +440,13 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
                 for n in (run[-1], tail_node, act_node):
                     if n is not None:
                         env[n.name] = res
-                continue
+                return
             view = _NodeView(node, params.get(node.name, {}))
             if node.name in singles:
                 env[node.name] = conv_run_kernel(
                     view, value(node.inputs[0]).contiguous(), act_dtype,
                     operands(node.name, [view], lambda: folded_operands(view, act_dtype)))
-                continue
+                return
             # The op bodies own the per-layer kernels' branch: a planned node
             # gets KERNEL and its prepared operands, a declined one TORCH.
             if node.name in layer_kernels:
@@ -451,6 +459,15 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
                 ctx = RunCtx(precision=options.precision, backend=backend,
                              cache=functools.partial(operands, node.name, [view]))
             env[node.name] = get_op(node.op).run(view, [value(i) for i in node.inputs], ctx)
+        on = timer.tracing()
+        for node in order:
+            if node.name in skip or node.op == "InputLayer":
+                continue
+            if on:
+                with timer.span("snn.layer", node=node.name, path=paths[node.name]):
+                    run_entry(node)
+            else:
+                run_entry(node)
         outs = {o: value(o).to(out_dtype) for o in graph.output_names}
         if options.dump_outputs:
             outs["__dumps__"] = {
@@ -491,7 +508,10 @@ class CompiledModel:
     device: torch.device
 
     def __call__(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return self.forward(self.params, inputs)
+        if not timer.tracing():
+            return self.forward(self.params, inputs)
+        with timer.span("snn.step"):  # the forward's host time
+            return self.forward(self.params, inputs)
 
     def load_params(self, params: Params) -> None:
         """Install parameters (e.g. from weights.params_from_numpy): the same

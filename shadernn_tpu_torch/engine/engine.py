@@ -219,7 +219,10 @@ class Engine:
 
     # -- reporting ---------------------------------------------------------
     def time_report(self) -> str:
-        return self.stats.report(warmup=self.options.warmup_loops)
+        """The reference's timing table (core.cpp:436-460): a row per layer of
+        this engine from the `snn.layer` spans recorded while tracing was on
+        (utils/timer.py), the whole step's host time, and the counters."""
+        return self.stats.report(warmup=self.options.warmup_loops, nodes=self.graph.nodes)
 
     def benchmark(self, inputs: Dict[str, object], loops: int = 20) -> dict:
         """Run `loops` steps on inputs already on the device; mean/p50/min

@@ -25,6 +25,14 @@ continuous batcher:
   Tensors used on a stream other than the one that allocated them are
   `record_stream`ed, and every batch keeps its tensors until it is done.
 
+Every batch leaves one record (`BatchTrace`; bounded, always kept): the
+dispatcher's monotonic stamps of its wait for frames, staging, copies,
+step, done wait and routing, the time the dispatcher spent blocked since
+the batch before, and its frames' queue waits from `submit()`. `timeline`
+and `stats()` are read from these records; while tracing is on
+(utils/timer.py) each record also becomes the spans `snn.serve.*` of the
+dispatcher's thread.
+
 On a CPU engine the same loop runs with no streams and no pinning, and a
 batch is done when its step returns.
 
@@ -40,12 +48,12 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from shadernn_tpu_torch.utils import get_logger
+from shadernn_tpu_torch.utils import get_logger, timer
 
 logger = get_logger("snn_torch.streaming")
 
@@ -57,7 +65,9 @@ class Frame:
     # (H, W, C) array for single-input graphs, or {input_name: array} for
     # multi-input graphs (e.g. a detection head fed per-scale features).
     data: object
-    enqueue_time: float = 0.0
+    enqueue_time: float = 0.0  # put into the queue
+    submit_time: float = 0.0  # submit() entered (put, where the frame was put directly)
+    taken_time: float = 0.0  # taken off the queue by the dispatcher
 
 
 @dataclasses.dataclass
@@ -78,19 +88,23 @@ class FrameQueue:
 
     def put(self, frame: Frame, timeout: Optional[float] = None) -> None:
         frame.enqueue_time = time.monotonic()
+        if not frame.submit_time:
+            frame.submit_time = frame.enqueue_time
         self._q.put(frame, timeout=timeout)
 
     def get_batch(self, max_batch: int, wait_s: float,
                   window_s: Optional[float] = None) -> List[Optional[Frame]]:
         """Block up to wait_s for the first frame, then drain greedily up to
         max_batch within window_s (default wait_s): the continuous batching
-        window."""
+        window. Each frame's `taken_time` is stamped as it is taken."""
         out: List[Optional[Frame]] = []
         try:
             first = self._q.get(timeout=wait_s if wait_s > 0 else None)
         except queue.Empty:
             return out
         out.append(first)
+        if first is not None:
+            first.taken_time = time.monotonic()
         deadline = time.monotonic() + (wait_s if window_s is None else window_s)
         while len(out) < max_batch and first is not None:
             remaining = deadline - time.monotonic()
@@ -101,6 +115,7 @@ class FrameQueue:
             out.append(item)
             if item is None:
                 break
+            item.taken_time = time.monotonic()
         return out
 
     def close(self, timeout: Optional[float] = None) -> None:
@@ -117,17 +132,43 @@ class _Done:
         pass
 
 
+class BatchTrace(NamedTuple):
+    """One batch's record: the dispatcher's monotonic stamps (seconds) in
+    the order they are taken, what it spent blocked since the batch before
+    (from that batch's staging to this one's), and the frames' queue
+    waits (from `submit()` to being taken off the queue)."""
+
+    wait_began: float  # the get_batch call that returned the batch began
+    first_taken: float  # its first frame taken off the queue
+    window_closed: float  # get_batch returned
+    staging_began: float
+    staged: float  # the frames stacked in (pinned) host memory
+    upload_queued: float
+    step_queued: float  # the step's launches queued on the compute stream
+    dispatched: float  # the downloads and the done marker queued
+    done_wait_began: float
+    drained: float  # the done marker reached
+    routed: float  # every result handed on
+    blocked_frames_s: float  # in get_batch since the batch before
+    blocked_done_s: float  # in synchronize() since the batch before
+    frames: int
+    queue_wait_sum_s: float
+    queue_wait_max_s: float
+
+
 @dataclasses.dataclass
 class _Batch:
     """One dispatched batch: its frames, its host outputs (filled once
-    `ready` is done), and every tensor its copies and step use."""
+    `ready` is done), every tensor its copies and step use, and its record
+    so far (`BatchTrace`'s fields up to `dispatched`, and the rest)."""
 
     frames: List[Frame]
     outputs: Dict[str, torch.Tensor]
     fill: int
     ready: object  # torch.cuda.Event or _Done: query(), synchronize()
     keep: tuple
-    times: Tuple[float, float, float]  # staging began, staged, the last copy queued
+    head: tuple  # BatchTrace's first eight fields
+    tail: tuple  # blocked_frames_s, blocked_done_s, frames, queue waits
 
 
 class StreamingEngine:
@@ -176,12 +217,9 @@ class StreamingEngine:
         # each probe was an RPC over a remote link.)
         self.poll_interval_s = 0.0002
         self._latencies: List[float] = []  # per-frame seconds (bounded)
-        self._fetch_ms: List[float] = []  # per-batch blocking wait for the outputs
-        # (staging began, staged, dispatched, drained) monotonic times of
-        # each batch, in drain order: the host's staging and dispatch time
-        # per batch, and whether batch k+1 was dispatched before batch k
-        # drained
-        self.timeline: List[Tuple[float, float, float, float]] = []
+        self._trace: List[BatchTrace] = []  # one per batch, in drain order (bounded)
+        self._blocked_frames = 0.0  # seconds in get_batch since the last batch staged
+        self._blocked_done = 0.0  # seconds in synchronize() since then
         self.padded_frames = 0  # wasted compute: pad slots of partial batches
         self.frames_done = 0
         self.batches_run = 0
@@ -203,7 +241,7 @@ class StreamingEngine:
     def submit(self, stream_id: int, frame_id: int, data) -> None:
         """Enqueue one frame; blocks while the queue is full. Raises if the
         dispatcher has failed."""
-        frame = Frame(stream_id, frame_id, data)
+        frame = Frame(stream_id, frame_id, data, submit_time=time.monotonic())
         while True:
             if self._error is not None:
                 raise RuntimeError("the streaming dispatcher failed") from self._error
@@ -281,8 +319,11 @@ class StreamingEngine:
             if closed:
                 break
             wait = self.poll_interval_s if self._inflight else 0.25
+            t_wait = time.monotonic()
             frames = self.queue.get_batch(self.batch_size, wait_s=wait,
                                           window_s=self.batch_window_s)
+            t_closed = time.monotonic()
+            self._blocked_frames += t_closed - t_wait
             if None in frames:
                 closed = True
             # drop ALL sentinels: a twice-closed queue (pre-filled, closed,
@@ -290,7 +331,7 @@ class StreamingEngine:
             # must never see an empty frame list
             frames = [f for f in frames if f is not None]
             if frames:
-                self._run_batch(frames)
+                self._run_batch(frames, t_wait, t_closed)
         while self._inflight:  # after a hard stop
             self._drain_one(self._inflight.pop(0))
 
@@ -298,9 +339,11 @@ class StreamingEngine:
         """The batch of frames in one host tensor (pinned on the card), the
         last frame repeated into the pad slots."""
         first = np.asarray(arrays[0])
+        pinned = self.device.type == "cuda"
+        if pinned:
+            timer.count("serve.pinned_allocs")
         host = torch.empty((self.batch_size, *first.shape),
-                           dtype=torch.from_numpy(first[:0]).dtype,
-                           pin_memory=self.device.type == "cuda")
+                           dtype=torch.from_numpy(first[:0]).dtype, pin_memory=pinned)
         buf = host.numpy()
         np.stack([np.asarray(a) for a in arrays], out=buf[:len(arrays)])
         buf[len(arrays):] = buf[len(arrays) - 1]
@@ -328,6 +371,7 @@ class StreamingEngine:
         if not self._streams:
             return out
         out.record_stream(self._streams[2])
+        timer.count("serve.pinned_allocs")
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         return host
@@ -337,20 +381,25 @@ class StreamingEngine:
         recorded on the download stream, or on the CPU one that is done."""
         return self._mark(2) if self._streams else _Done()
 
-    def _run_batch(self, frames: List[Frame]) -> None:
+    def _run_batch(self, frames: List[Frame], t_wait: float, t_closed: float) -> None:
         """Dispatch one batch (nothing here waits for the device) and append
-        it to the in-flight window."""
+        it to the in-flight window. `t_wait` and `t_closed`: when the
+        get_batch call that returned the frames began and returned."""
+        t_stage = time.monotonic()
+        waits = [f.taken_time - f.submit_time for f in frames]
+        tail = (self._blocked_frames, self._blocked_done, len(frames), sum(waits), max(waits))
+        self._blocked_frames = self._blocked_done = 0.0
         fill = len(frames)
         self.padded_frames += self.batch_size - fill
         multi = isinstance(frames[0].data, dict)
         names = self.in_names if multi else [self.in_name]
-        t_staged = time.monotonic()
         if self._t_first_dispatch is None:
-            self._t_first_dispatch = t_staged
+            self._t_first_dispatch = t_stage
         host = {n: self._stage([f.data[n] if multi else f.data for f in frames]) for n in names}
         t_host = time.monotonic()
         with self._stream(0):
             dev = {n: h.to(self.device, non_blocking=True) for n, h in host.items()}
+        t_upload = time.monotonic()
         self._wait(1, self._mark(0))
         with self._stream(1):
             if self._streams:
@@ -362,11 +411,14 @@ class StreamingEngine:
                 outs = self.engine.model(dev)
             outs = {k: v for k, v in outs.items() if k != "__dumps__"}
         self._wait(2, self._mark(1))
+        t_step = time.monotonic()
         with self._stream(2):
             fetched = {k: self._fetch(v) for k, v in outs.items()}
             ready = self._mark_ready()
-        self._inflight.append(_Batch(frames, fetched, fill, ready, (host, dev, outs),
-                                     (t_staged, t_host, time.monotonic())))
+        head = (t_wait, frames[0].taken_time, t_closed, t_stage, t_host, t_upload, t_step,
+                time.monotonic())
+        self._inflight.append(_Batch(frames, fetched, fill, ready, (host, dev, outs), head,
+                                     tail))
 
     # -- drain ---------------------------------------------------------
     def _drain_one(self, batch: _Batch) -> None:
@@ -375,11 +427,9 @@ class StreamingEngine:
         t0 = time.monotonic()
         batch.ready.synchronize()
         now = time.monotonic()
+        self._blocked_done += now - t0
         self._t_last_drain = now
         self.batches_run += 1
-        if len(self._fetch_ms) < 100_000:
-            self._fetch_ms.append(1e3 * (now - t0))
-            self.timeline.append((*batch.times, now))
         outs = {k: v.numpy() for k, v in batch.outputs.items()}
         for i, f in enumerate(batch.frames):
             res = Result(
@@ -396,6 +446,19 @@ class StreamingEngine:
                 self.on_result(res)
             else:
                 self.results.put(res)
+        rec = BatchTrace(*batch.head, t0, now, time.monotonic(), *batch.tail)
+        if len(self._trace) < 100_000:
+            self._trace.append(rec)
+        if timer.tracing():
+            _record_spans(rec)
+
+    # -- records -----------------------------------------------------------
+    @property
+    def timeline(self) -> List[Tuple[float, float, float, float]]:
+        """(staging began, staged, dispatched, drained) monotonic times of
+        each batch, in drain order: the host's staging and dispatch time per
+        batch, and whether batch k+1 was dispatched before batch k drained."""
+        return [(r.staging_began, r.staged, r.dispatched, r.drained) for r in self._trace]
 
     # -- stats -------------------------------------------------------------
     def stats(self) -> dict:
@@ -411,7 +474,9 @@ class StreamingEngine:
             "batches_run": self.batches_run,
             # mean blocking wait for a batch's outputs (near zero once the
             # downloads overlap the steps)
-            "mean_fetch_ms": float(np.mean(self._fetch_ms)) if self._fetch_ms else 0.0,
+            "mean_fetch_ms": (1e3 * float(np.mean([r.drained - r.done_wait_began
+                                                    for r in self._trace]))
+                              if self._trace else 0.0),
             "avg_fill": self.frames_done / max(self.batches_run, 1),
             # wasted compute from padding partial batches to the engine's batch
             "padded_frames": self.padded_frames,
@@ -421,4 +486,22 @@ class StreamingEngine:
             lat = np.sort(np.asarray(self._latencies))
             out["p50_latency_ms"] = 1e3 * float(lat[len(lat) // 2])
             out["p99_latency_ms"] = 1e3 * float(lat[min(len(lat) - 1, int(len(lat) * 0.99))])
+        # every batch's record (BatchTrace), as a dict
+        out["trace"] = [r._asdict() for r in self._trace]
         return out
+
+
+# The spans of a batch's record: (name, first stamp, last stamp).
+_SPANS = (("snn.serve.wait_frames", "wait_began", "window_closed"),
+          ("snn.serve.stage", "staging_began", "staged"),
+          ("snn.serve.step_enqueue", "upload_queued", "step_queued"),
+          ("snn.serve.fetch_enqueue", "step_queued", "dispatched"),
+          ("snn.serve.wait_done", "done_wait_began", "drained"),
+          ("snn.serve.route", "drained", "routed"))
+
+
+def _record_spans(rec: BatchTrace) -> None:
+    """The batch's record as spans of the recorder, on this (the
+    dispatcher's) thread."""
+    for name, a, b in _SPANS:
+        timer.record(name, int(getattr(rec, a) * 1e9), int(getattr(rec, b) * 1e9))

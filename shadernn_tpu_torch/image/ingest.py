@@ -16,6 +16,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from shadernn_tpu_torch.utils import timer
+
 # BT.601 limited-range YUV -> RGB (matches image/color.py host version).
 _YUV_M = ((1.164, 0.0, 1.596), (1.164, -0.392, -0.813), (1.164, 2.017, 0.0))
 
@@ -24,7 +26,8 @@ def _const(values, device) -> torch.Tensor:
     """A small float32 constant on `device`. On the card it is copied from
     pinned memory without waiting: a copy from pageable memory may wait
     for every step queued on the stream before it, and so serialize a
-    pipeline of batches."""
+    pipeline of batches. Counted in `ingest.consts`."""
+    timer.count("ingest.consts")
     t = torch.tensor(values, dtype=torch.float32)
     if torch.device(device).type == "cuda":
         t = t.pin_memory().to(device, non_blocking=True)
@@ -70,7 +73,14 @@ def ingest_frames(
     channel, repeated over the channels. A resize to `target_hw` follows
     jax.image.resize: "linear" is its antialiased bilinear (a triangle
     kernel widened by the scale when downsampling), anything else its
-    nearest."""
+    nearest. Its host time is the span `snn.ingest`."""
+    if not timer.tracing():
+        return _ingest(frames, target_hw, means, norms, dtype_name, resize_method)
+    with timer.span("snn.ingest"):
+        return _ingest(frames, target_hw, means, norms, dtype_name, resize_method)
+
+
+def _ingest(frames, target_hw, means, norms, dtype_name, resize_method) -> torch.Tensor:
     x = torch.as_tensor(frames).float()
     c = x.shape[-1]
     mean = _const((list(means) * c)[:c], x.device)

@@ -49,6 +49,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from shadernn_tpu_torch.kernels import count_launch
 from shadernn_tpu_torch.kernels.tf32 import tf32_split
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
 from shadernn_tpu_torch.ops.conv import (
@@ -70,10 +71,6 @@ ACT_CODES = {
     "tanh": 4, "sigmoid": 5, "silu": 6, "swish": 6, "gelu": 7,
 }
 TAILS = {"none": 0, "c1": 1, "d2s2": 2}
-
-# Kernel launches per entry point since import (a caller may reset them).
-launches = {"fused_conv_chain_packed": 0, "fused_conv_chain": 0}
-
 
 @dataclasses.dataclass(frozen=True)
 class ChainLayerSpec:
@@ -775,7 +772,7 @@ def _launch(x, layer_params, specs, tail, dt, entry) -> torch.Tensor:
         raise RuntimeError(
             f"conv_chain launch failed ({rc}): {lib.snn_error_string(rc).decode()}"
         )
-    launches[entry] += 1
+    count_launch(entry, 0 if dt == torch.bfloat16 else 1)
     return y
 
 

@@ -50,14 +50,12 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from shadernn_tpu_torch.kernels import count_launch
 from shadernn_tpu_torch.kernels.chain import ACT_CODES, MAX_SMEM_BYTES
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
 from shadernn_tpu_torch.ops.conv import (
     conv2d_nhwc_f32, folded_operands, kernel_chain_supported,
 )
-
-# Kernel launches since import (a caller may reset them).
-launches = {"fused_conv2d_haloed": 0}
 
 
 def conv2d_haloed_reference(
@@ -431,7 +429,7 @@ def _launch(x, w_hwio, scale, offset, pads, activation, alpha, dt) -> torch.Tens
         raise RuntimeError(
             f"conv_single launch failed ({rc}): {lib.snn_conv_single_error(rc).decode()}"
         )
-    launches["fused_conv2d_haloed"] += 1
+    count_launch("fused_conv2d_haloed", geo.body + 1 if geo.body else 0 if bf16 else 1)
     return y
 
 

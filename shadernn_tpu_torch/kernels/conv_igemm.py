@@ -40,6 +40,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from shadernn_tpu_torch.kernels import count_launch
 from shadernn_tpu_torch.kernels.chain import ACT_CODES, MAX_SMEM_BYTES
 from shadernn_tpu_torch.kernels.tf32 import tf32_split
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
@@ -47,8 +48,6 @@ from shadernn_tpu_torch.ops.conv import (
     conv2d_nhwc_f32, folded_operands, kernel_conv_supported,
 )
 
-# Kernel launches since import (a caller may reset them).
-launches = {"conv2d_kernel_nhwc": 0}
 
 SMEM_PER_SM = 233472   # 228 KB; each resident CTA also takes 1 KB
 CTAS_PER_SM = 2        # what __launch_bounds__(256, 2) holds the registers to
@@ -297,7 +296,7 @@ def _launch(x, w_hwio, scale, offset, stride, pads, activation, alpha) -> torch.
         raise RuntimeError(
             f"conv_igemm launch failed ({rc}): {lib.snn_conv_igemm_error(rc).decode()}"
         )
-    launches["conv2d_kernel_nhwc"] += 1
+    count_launch("conv2d_kernel_nhwc")
     return y
 
 

@@ -43,6 +43,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from shadernn_tpu_torch.kernels import count_launch
 from shadernn_tpu_torch.kernels.chain import ACT_CODES, MAX_SMEM_BYTES
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
 from shadernn_tpu_torch.ops.conv import (
@@ -56,9 +57,6 @@ MAX_TILE = 8
 MAX_COUT = 320
 MAX_SPLIT = 8
 MAX_E_A8W8 = 1024  # E of an A8W8 project; match_invres_block's E <= 1024 too
-
-# Kernel launches since import (a caller may reset them).
-launches = {"fused_invres_block": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -551,7 +549,7 @@ def _launch(x: torch.Tensor, ops: Dict[str, torch.Tensor], spec: InvResSpec) -> 
     )
     if rc != 0:
         raise RuntimeError(f"invres_block launch failed ({rc}): {lib.snn_invres_error(rc).decode()}")
-    launches["fused_invres_block"] += 1
+    count_launch("fused_invres_block", 0 if bf16 else 1)
     return y
 
 

@@ -35,12 +35,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from shadernn_tpu_torch.kernels import count_launch
 from shadernn_tpu_torch.kernels.chain import ACT_CODES, MAX_SMEM_BYTES
 from shadernn_tpu_torch.ops.common import apply_activation
 from shadernn_tpu_torch.ops.conv import folded_operands
-
-# Kernel launches since import (a caller may reset them).
-launches = {"fused_matmul": 0}
 
 
 def matmul_supported(activation: str) -> bool:
@@ -204,7 +202,7 @@ def _launch(x, w, scale, offset, activation, alpha) -> torch.Tensor:
         raise RuntimeError(
             f"matmul_fused launch failed ({rc}): {lib.snn_matmul_error(rc).decode()}"
         )
-    launches["fused_matmul"] += 1
+    count_launch("fused_matmul")
     return y
 
 

@@ -20,6 +20,8 @@ layers' bytes over the graph instead.
 
 from __future__ import annotations
 
+import json
+import math
 import time
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -184,9 +186,52 @@ def print_report(profiles: List[LayerProfile], precision: str = "bfloat16") -> s
     return "\n".join(lines)
 
 
+def export_chrome_trace(prof, out_path: str, snap: Optional[dict] = None) -> str:
+    """Write the Chrome trace of a finished torch.profiler session to
+    `out_path` with the recorder's spans (utils/timer.py; `snap`, or a
+    snapshot taken now) merged in: a process "snn spans" with a row for
+    each thread that recorded spans, the service's dispatcher among them,
+    which the profiler records no host op of. A span is placed on the
+    trace's clock by the recorder's offset from the monotonic clock to the
+    wall clock, against the trace's `baseTimeNanoseconds`; spans that end
+    before the trace's first event or start after its last are left out."""
+    from shadernn_tpu_torch.utils import timer
+
+    snap = snap if snap is not None else timer.snapshot()
+    prof.export_chrome_trace(out_path)
+    with open(out_path) as f:
+        trace = json.load(f)
+    events = trace.setdefault("traceEvents", [])
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    stamps = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+              if e.get("ph") == "X" and "ts" in e]
+    lo = min((a for a, _ in stamps), default=-math.inf)
+    hi = max((b for _, b in stamps), default=math.inf)
+    off = int(snap["offset_ns"]) - base
+    pid = "snn spans"
+    rows = set()
+    for sp in snap["spans"]:
+        ts, end = (sp["start_ns"] + off) / 1e3, (sp["end_ns"] + off) / 1e3
+        if end < lo or ts > hi:
+            continue
+        rows.add(sp["thread"])
+        events.append({"ph": "X", "cat": "snn_span", "name": sp["name"], "pid": pid,
+                       "tid": sp["thread"], "ts": ts, "dur": end - ts,
+                       "args": dict(sp["attrs"], depth=sp["depth"])})
+    events.append({"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                   "args": {"name": pid}})
+    for tid in sorted(rows):
+        events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                       "args": {"name": snap["threads"].get(tid, str(tid))}})
+    with open(out_path, "w") as f:
+        json.dump(trace, f)
+    return out_path
+
+
 def capture_trace(engine, inputs: Dict[str, object], out_path: str, steps: int = 3) -> str:
     """A Chrome trace (chrome://tracing, Perfetto) of `steps` engine steps
-    after one warm step, written by torch.profiler's export_chrome_trace:
+    after one warm step, written by `export_chrome_trace`: the profiler's
+    events and the recorder's spans of the steps (`snn.step`, `snn.layer`),
     the deep-dive counterpart of the per-layer table."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -202,5 +247,4 @@ def capture_trace(engine, inputs: Dict[str, object], out_path: str, steps: int =
             engine.model(dev_inputs)
         if cuda:
             torch.cuda.synchronize(device)
-    prof.export_chrome_trace(out_path)
-    return out_path
+    return export_chrome_trace(prof, out_path)

@@ -24,11 +24,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from shadernn_tpu_torch.kernels import KERNELS, launch_counts
+from shadernn_tpu_torch.utils import timer
+
 # The hand-written kernels' names, as the profiler gives them (the
 # demangled name holds the identifier).
-HAND_WRITTEN = re.compile(r"\b(conv_chain(_tc|_tf32)?|conv_single(_tc|_tf32|_wide|_fma)?|"
-                          r"invres(_tc|_tf32)?|"
-                          r"conv_igemm(_tc)?|matmul_fused)_kernel\b")
+HAND_WRITTEN = re.compile(r"\b(" + "|".join(sorted({k for ks in KERNELS.values() for k in ks}))
+                          + r")\b")
 
 
 @dataclasses.dataclass
@@ -45,6 +47,9 @@ class TraceReport:
     ops: List[TraceOp]  # sorted by time, descending
     steps: int
     precision: str = "bfloat16"
+    # the program's own launches per step of each hand-written kernel over
+    # the profiled steps (the recorder's `kernels.launches.<kernel>.<entry>`)
+    launches: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def covered_us(self) -> float:
@@ -119,16 +124,30 @@ def parse_profile(prof, steps: int, precision: str = "bfloat16",
 def complete(report: TraceReport) -> bool:
     """Whether a card profile recorded every launch: a step launches each
     kernel the same number of times, so each row's events over the profiled
-    steps are a multiple of the step count, and there is at least one."""
+    steps are a multiple of the step count, and there is at least one; and
+    each hand-written kernel has as many events as the program counted
+    launches of it (`report.launches`)."""
+    counts = {o.name: o.count for o in report.ops}
     return bool(report.ops) and all(
-        abs(o.count - round(o.count)) < 1e-6 for o in report.ops)
+        abs(o.count - round(o.count)) < 1e-6 for o in report.ops) and all(
+        abs(counts.get(k, 0.0) - n) < 1e-6 for k, n in report.launches.items())
+
+
+def launches_per_step(before: Dict[str, int], after: Dict[str, int],
+                      steps: int) -> Dict[str, float]:
+    """{kernel: the program's launches of it per step} between two reads of
+    the recorder's counters (`kernels.launch_counts`)."""
+    pre, post = launch_counts("kernel", before), launch_counts("kernel", after)
+    return {k: (n - pre.get(k, 0)) / max(int(steps), 1)
+            for k, n in post.items() if n != pre.get(k, 0)}
 
 
 def profile_steps(fn: Callable[[], object], steps: int, device: torch.device,
                   precision: str = "bfloat16", attempts: int = 3) -> TraceReport:
     """Profile `steps` calls of fn after one warm call. On the card, now and
     then a profile records no device event, or fewer events of a kernel than
-    it was launched: it is then taken again, up to `attempts` times in all;
+    it was launched (the recorder's launch counters say how many): it is
+    then taken again, up to `attempts` times in all;
     where none is complete, the one with the most device time stands
     (e2e_us 0.0 where none saw an event)."""
     from torch.profiler import ProfilerActivity, profile
@@ -145,11 +164,13 @@ def profile_steps(fn: Callable[[], object], steps: int, device: torch.device,
     sync()
     best = None
     for _ in range(attempts):
+        before = timer.counters()
         with profile(activities=activities) as prof:
             for _ in range(steps):
                 fn()
             sync()
         report = parse_profile(prof, steps, precision, device.type)
+        report.launches = launches_per_step(before, timer.counters(), steps)
         if not cuda or complete(report):
             return report
         if best is None or report.e2e_us > best.e2e_us:

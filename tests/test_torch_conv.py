@@ -24,7 +24,7 @@ from shadernn_tpu.ops.registry import RunCtx as JCtx
 import shadernn_tpu_torch as P
 from shadernn_tpu_torch.graph.builder import GraphBuilder as PBuilder
 from shadernn_tpu_torch.graph.ir import Node as PNode
-from shadernn_tpu_torch.kernels import conv
+from shadernn_tpu_torch.kernels import conv, launch_counts
 
 TOL = {"fp32": 0.01, "bf16": 0.1}  # tests/conftest.py thresholds
 DTYPES = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -65,9 +65,9 @@ def test_reference_matches_jax_haloed_kernel(rng, case, prec):
     pnode = PNode("conv", "Conv2D", ["x"], attrs(k, o, padding, act),
                   {key: torch.from_numpy(v) for key, v in params.items()})
     assert conv.single_conv_supported(pnode, c)
-    before = dict(conv.launches)
+    before = launch_counts()
     got = conv.conv_run_kernel(pnode, torch.from_numpy(x).to(tdt), tdt)
-    assert conv.launches == before  # CPU tensors never launch the kernel
+    assert launch_counts() == before  # CPU tensors never launch the kernel
     assert got.dtype == tdt and tuple(got.shape) == want.shape
     tol = TOL[prec] * max(1.0, float(np.abs(want).max()))
     assert np.max(np.abs(got.float().numpy() - want)) <= tol

@@ -25,7 +25,7 @@ from shadernn_tpu.kernels.conv_pallas import conv2d_pallas_nhwc
 import shadernn_tpu_torch as P
 from shadernn_tpu_torch.graph.ir import Graph as PGraph
 from shadernn_tpu_torch.graph.ir import Node as PNode
-from shadernn_tpu_torch.kernels import conv_igemm
+from shadernn_tpu_torch.kernels import conv_igemm, launch_counts
 from shadernn_tpu_torch.ops import get_op as p_op
 from shadernn_tpu_torch.ops.conv import kernel_conv_supported
 from shadernn_tpu_torch.ops.registry import RunCtx as PCtx
@@ -72,12 +72,12 @@ def test_reference_matches_jax_kernel(rng, case, prec):
         jnp.asarray(x, jdt), jnp.asarray(wt) if int8 else jnp.asarray(wt, jdt),
         jnp.asarray(scale), jnp.asarray(offset), stride=stride, pads=pads, activation=act,
         interpret=True), np.float32)
-    before = dict(conv_igemm.launches)
+    before = launch_counts()
     got = conv_igemm.conv2d_kernel_nhwc(
         torch.from_numpy(x).to(tdt), torch.from_numpy(wt) if int8 else torch.from_numpy(wt).to(tdt),
         torch.from_numpy(scale), torch.from_numpy(offset), stride=stride, pads=pads,
         activation=act)
-    assert conv_igemm.launches == before  # CPU tensors never launch the kernel
+    assert launch_counts() == before  # CPU tensors never launch the kernel
     assert got.dtype == tdt and tuple(got.shape) == want.shape
     tol = TOL[prec] * max(1.0, float(np.abs(want).max()))
     assert np.max(np.abs(got.float().numpy() - want)) <= tol

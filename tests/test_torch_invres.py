@@ -24,7 +24,7 @@ from shadernn_tpu.kernels.block_pallas import match_invres_block as j_match
 
 from shadernn_tpu_torch.graph import fusion as pfusion
 from shadernn_tpu_torch.graph.parser import parse_model_file as pparse
-from shadernn_tpu_torch.kernels import invres
+from shadernn_tpu_torch.kernels import invres, launch_counts
 from shadernn_tpu_torch.models.zoo import MOBILENETV2_TRAINED
 
 TOL = {"fp32": 0.01, "bf16": 0.1}  # tests/conftest.py thresholds
@@ -75,9 +75,9 @@ def test_reference_matches_jax_kernel(rng, geom, prec):
     for k in ("w1", "w2"):
         if k in tops:
             tops[k] = tops[k].to(tdt)
-    before = dict(invres.launches)
+    before = launch_counts()
     got = invres.fused_invres_block(torch.from_numpy(x).to(tdt), tops, spec)
-    assert invres.launches == before  # CPU tensors never launch the kernel
+    assert launch_counts() == before  # CPU tensors never launch the kernel
     assert got.dtype == tdt and tuple(got.shape) == want.shape == (n, h, w, cout)
     tol = TOL[prec] * max(1.0, float(np.abs(want).max()))
     assert np.max(np.abs(got.float().numpy() - want)) <= tol

@@ -20,7 +20,7 @@ from shadernn_tpu.kernels.matmul_pallas import fused_matmul as j_fused_matmul
 
 import shadernn_tpu_torch as P
 from shadernn_tpu_torch.graph.ir import Node as PNode
-from shadernn_tpu_torch.kernels import matmul
+from shadernn_tpu_torch.kernels import matmul, launch_counts
 from shadernn_tpu_torch.ops import get_op as p_op
 from shadernn_tpu_torch.ops.registry import RunCtx as PCtx
 
@@ -59,11 +59,11 @@ def test_reference_matches_jax_kernel(rng, case, prec):
     want = np.asarray(j_fused_matmul(
         jnp.asarray(x, jdt), jnp.asarray(w) if int8 else jnp.asarray(w, jdt),
         jnp.asarray(scale), jnp.asarray(offset), activation=act, interpret=True), np.float32)
-    before = dict(matmul.launches)
+    before = launch_counts()
     got = matmul.fused_matmul(
         torch.from_numpy(x).to(tdt), torch.from_numpy(w) if int8 else torch.from_numpy(w).to(tdt),
         torch.from_numpy(scale), torch.from_numpy(offset), activation=act)
-    assert matmul.launches == before  # CPU tensors never launch the kernel
+    assert launch_counts() == before  # CPU tensors never launch the kernel
     assert got.dtype == tdt and tuple(got.shape) == want.shape == (m, n)
     tol = TOL[prec] * max(1.0, float(np.abs(want).max()))
     assert np.max(np.abs(got.float().numpy() - want)) <= tol

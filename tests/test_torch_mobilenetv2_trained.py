@@ -12,12 +12,11 @@ import torch
 import shadernn_tpu as J
 
 import shadernn_tpu_torch as P
-from shadernn_tpu_torch.kernels import chain, conv, invres
+from shadernn_tpu_torch.kernels import launch_counts
 from shadernn_tpu_torch.models.zoo import MOBILENETV2_TRAINED
 from shadernn_tpu_torch.tools.train_resnet18 import synth_cls
 
 TOL = {"fp32": 0.01, "bf16": 0.1}  # tests/conftest.py thresholds
-COUNTERS = (chain.launches, conv.launches, invres.launches)
 
 
 def options(pkg, prec, **kw):
@@ -32,12 +31,10 @@ def test_trained_matches_jax(monkeypatch, prec):
     eng = P.Engine.from_json(MOBILENETV2_TRAINED, options(P, prec, batch_size=8, device="cpu"))
     assert len(eng.model.forward.block_plan) == 13
     assert eng.model.forward.single_conv_plan == ["stem_conv"]
-    for counts in COUNTERS:
-        for k in counts:
-            counts[k] = 0
+    before = launch_counts()
     got = eng.run_single(x)
     # A CPU run takes the plain versions: no kernel launches.
-    assert all(v == 0 for counts in COUNTERS for v in counts.values())
+    assert launch_counts() == before
     assert got.dtype == torch.float32 and tuple(got.shape) == (8, 10)
     want = np.asarray(want, np.float32)
     assert np.max(np.abs(got.numpy() - want)) <= TOL[prec] * max(1.0, float(np.abs(want).max()))

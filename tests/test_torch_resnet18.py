@@ -27,7 +27,7 @@ from shadernn_tpu.ops.conv import pallas_chain_supported, pallas_conv_supported
 
 import shadernn_tpu_torch as P
 from shadernn_tpu_torch.graph.builder import GraphBuilder
-from shadernn_tpu_torch.kernels import chain, conv, conv_igemm, invres, matmul
+from shadernn_tpu_torch.kernels import launch_counts
 from shadernn_tpu_torch.models.resnet18 import build_resnet18_cifar10 as p_build
 from shadernn_tpu_torch.models.zoo import RESNET18_TRAINED
 from shadernn_tpu_torch.models.zoo import build_model as p_build_model
@@ -35,9 +35,6 @@ from shadernn_tpu_torch.tools.train_resnet18 import synth_cls
 
 TOL = {"fp32": 0.01, "bf16": 0.1}  # tests/conftest.py thresholds
 REDUCED = dict(h=16, w=16, base_filters=8, seed=11)
-COUNTERS = (chain.launches, conv.launches, invres.launches, conv_igemm.launches,
-            matmul.launches)
-
 
 
 def close(got, want, prec):
@@ -183,12 +180,10 @@ def test_forced_kernel_logits_match_jax(reduced_jax, prec):
     x, want = reduced_jax
     eng = P.Engine.from_graph(reduced(p_build, "linear"), options(P, prec, "kernel", batch_size=2))
     assert eng.model.forward.kernel_dense_plan == ["fc"]
-    for counts in COUNTERS:
-        for k in counts:
-            counts[k] = 0
+    before = launch_counts()
     got = eng.run_single(x)
     # A CPU run takes the plain versions: no kernel launches.
-    assert all(v == 0 for counts in COUNTERS for v in counts.values())
+    assert launch_counts() == before
     assert np.abs(want[prec][0]).max() > 1.0
     close(got, want[prec][0], prec)
 

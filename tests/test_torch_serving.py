@@ -110,7 +110,8 @@ def test_streaming_stats_keys_match_jax(rng):
     jsvc.queue.close()
     jsvc.start()
     jsvc.stop(drain=True)
-    want_keys = set(jsvc.stats()) | {"p50_latency_ms", "p99_latency_ms"}
+    # the JAX service's keys, and the port's per-batch records ("trace")
+    want_keys = set(jsvc.stats()) | {"p50_latency_ms", "p99_latency_ms", "trace"}
     assert set(st) == want_keys
     assert st["frames_done"] == 6 and st["batches_run"] == 2 and st["padded_frames"] == 2
     assert st["avg_fill"] == 3.0 and st["throughput_fps"] > 0
