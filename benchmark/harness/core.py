@@ -84,7 +84,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, t0: float,
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
     ref = check.reference_model(root, config, model, dev)
-    numbers = check.compare(ref, window.answers, dev)
+    numbers = check.compare(ref, window.answers, dev, config, model)
     compared = {k: {"value": numbers.get(k, float("inf")), "limit": lim}
                 for k, lim in sorted(cell.limits.items())}
     correct = (window.failed == 0 and bool(numbers) and bool(compared)

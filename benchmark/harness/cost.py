@@ -4,10 +4,10 @@ Operations: each op's own count in the reference's table
 (`reference/plain.py`: 2 * kh * kw * (Cin / groups) * Cout per output pixel
 of a conv, per input pixel of a transposed conv; an op that no table holds
 is an error); an f32 product counts once, whatever a kernel does to compute
-it. Bytes: what any implementation must move once: the
-step's input frames at their dtype (uint8), its outputs (float32, as the
-engine returns them) and its parameters at the configuration's precision.
-Intermediates are not counted.
+it. Bytes: what any implementation must move once: the step's input
+frames at their dtype (uint8), its outputs (each that the configuration
+names; float32, as the engine returns them) and its parameters at the
+configuration's precision. Intermediates are not counted.
 
 Peaks are NVIDIA's data-sheet dense rates at the full power limit.
 """
@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import math
 from typing import Dict, NamedTuple, Tuple
+
+from benchmark.reference.plain import inputs_of
 
 
 class Peaks(NamedTuple):
@@ -42,15 +44,21 @@ def peaks_for(device_name: str) -> Tuple[str, Peaks]:
 
 def frame_cost(model, h: int, w: int, c: int) -> Dict[str, int]:
     """Operations, parameters and output values of one frame of ``model``
-    (a `reference.plain.Model`), each op counted by its own table entry."""
+    (a `reference.plain.Model`), each op counted by its own table entry. A
+    layer's input shape is the previous layer's, or its ``"from"`` layers'
+    (`plain.inputs_of`); the output values are those of the model's
+    ``outputs``, or of its last layer."""
     ops = params = 0
+    shape, shapes = (h, w, c), {}
     for layer in model.layers:
         op = model.op(layer)
-        out = op.shape(layer, (h, w, c))
-        ops += op.ops(layer, (h, w, c), out)
+        shape_in = inputs_of(layer, shape, shapes)
+        shape = op.shape(layer, shape_in)
+        ops += op.ops(layer, shape_in, shape)
         params += sum(math.prod(s) for s in op.weights(layer).values())
-        h, w, c = out
-    return {"ops": ops, "params": params, "out_values": h * w * c}
+        shapes[layer["name"]] = shape
+    outs = [shapes[name] for name in model.outputs] if model.outputs else [shape]
+    return {"ops": ops, "params": params, "out_values": sum(math.prod(s) for s in outs)}
 
 
 def step_cost(model, config: dict, batch: int) -> Dict[str, float]:

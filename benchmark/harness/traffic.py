@@ -46,7 +46,7 @@ class Window:
     window_s: float
     t_start: float  # monotonic time of the first measured frame
     latencies_ms: Optional[List[float]]  # every frame due in the window (failed: inf)
-    answers: list  # [(uint8 frames, outputs)] for the check
+    answers: list  # [(uint8 frames, outputs or a dict of named outputs)] for the check
     steps: int = 0
     step_s: float = 0.0  # host seconds per step outside the traced stretch
     trace: Optional[dict] = None
@@ -223,13 +223,14 @@ def open_loop(program, config: dict, traffic: dict, seed: int, seconds: float,
     sample = set(rng.choice(in_window, size=min(int(traffic["sample_frames"]), len(in_window)),
                             replace=False).tolist())
     done = np.full(n, np.nan)
-    kept: Dict[int, np.ndarray] = {}
-    out_name = program.out_name
+    kept: Dict[int, object] = {}
+    out_name, out_names = program.out_name, program.out_names
 
     def on_result(r):
         done[r.frame_id] = time.monotonic()
         if r.frame_id in sample:
-            kept[r.frame_id] = r.outputs[out_name].copy()
+            kept[r.frame_id] = ({k: r.outputs[k].copy() for k in out_names} if out_names
+                                else r.outputs[out_name].copy())
 
     # warm the step (the kernels' first launches) before the service starts
     b = int(traffic["batch"])
@@ -307,8 +308,12 @@ def open_loop(program, config: dict, traffic: dict, seed: int, seconds: float,
              f"second half {1e3 * lw[len(lw) // 2:].mean():.4f} ms; offered "
              f"{len(in_window) / seconds:.1f} frames/s"]
     keys = sorted(kept)
-    answers = [(torch.as_tensor(pool[pool_of[keys]]),
-                torch.as_tensor(np.stack([kept[k] for k in keys])))] if keys else []
+    answers = []
+    if keys:
+        outs = ({name: torch.as_tensor(np.stack([kept[k][name] for k in keys]))
+                 for name in out_names} if out_names
+                else torch.as_tensor(np.stack([kept[k] for k in keys])))
+        answers = [(torch.as_tensor(pool[pool_of[keys]]), outs)]
     if len(keys) < len(sample):
         notes.append(f"[serve] {len(sample) - len(keys)} sampled frames never came")
     return Window(attempted=len(in_window), completed=completed, failed=failed,

@@ -22,6 +22,9 @@ model alike.
 - ``depth_to_space``: TensorFlow's order, channel (py * r + px) * co + c.
 - ``act``: the activation alone.
 
+A layer takes the previous layer's output, or, where it names them in
+``"from"``, the outputs of those layers: one input as it is, several as a
+tuple, in the order named (and the op's ``shape`` gets their shapes alike).
 Every layer ends with its ``act`` (default ``linear``). Operations are the
 products of the layer equations, two to a multiply-add: 2 * kh * kw *
 (Cin / groups) * Cout per output pixel of a conv, per input pixel of a
@@ -53,9 +56,9 @@ HWC = Tuple[int, int, int]
 
 class Op(NamedTuple):
     weights: Callable[[dict], Dict[str, tuple]]  # layer -> {name: shape}, in stream order
-    shape: Callable[[dict, HWC], HWC]  # layer, input (h, w, c) -> output (h, w, c)
+    shape: Callable[[dict, HWC], HWC]  # layer, input (h, w, c) or a tuple of them -> output
     ops: Callable[[dict, HWC, HWC], int]  # layer, input, output -> operations of a frame
-    forward: Callable  # (layer, params, y NCHW, earlier outputs, quantize) -> y
+    forward: Callable  # (layer, params, y NCHW or a tuple, earlier outputs, quantize) -> y
 
 
 def _none(layer):
@@ -136,10 +139,12 @@ ACTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 class Model(NamedTuple):
     """A family's layers at a configuration's sizes, with the tables they
-    dispatch through."""
+    dispatch through, and the names of the layers whose outputs are the
+    model's (the configuration's ``outputs``; None: the last layer's)."""
     layers: List[dict]
     ops: Dict[str, Op]
     acts: Dict[str, Callable]
+    outputs: Optional[List[str]] = None
 
     def op(self, layer: dict) -> Op:
         if layer["op"] not in self.ops:
@@ -153,12 +158,20 @@ class Model(NamedTuple):
             raise ValueError(f"layer {layer.get('name')!r}: unknown activation {name!r}")
         return self.acts[name]
 
+    def layer(self, name: str) -> dict:
+        for layer in self.layers:
+            if layer["name"] == name:
+                return layer
+        raise ValueError(f"no layer {name!r}")
+
 
 def model(family, config: dict) -> Model:
     """The layers of ``family`` (a `reference/<family>.py` module) at
     ``config``'s sizes, with the common tables and the family's own."""
+    outputs = config.get("outputs")
     return Model(family.layers(config), {**OPS, **getattr(family, "OPS", {})},
-                 {**ACTS, **getattr(family, "ACTS", {})})
+                 {**ACTS, **getattr(family, "ACTS", {})},
+                 [o["name"] for o in outputs] if outputs else None)
 
 
 def read_weights(m: Model, path: str) -> Dict[str, Dict[str, np.ndarray]]:
@@ -192,9 +205,24 @@ def ingest(raw: torch.Tensor, means, norms) -> torch.Tensor:
     return (raw.float() - mean) * norm
 
 
+def inputs_of(layer: dict, last, outs: dict):
+    """What a layer takes: ``last`` (the previous layer's), or its ``"from"``
+    layers' from ``outs``: one as it is, several as a tuple."""
+    if "from" not in layer:
+        return last
+    got = tuple(outs[name] for name in layer["from"])
+    return got[0] if len(got) == 1 else got
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1).contiguous() if t.dim() == 4 else t
+
+
 def forward(m: Model, params, x: torch.Tensor,
-            quantize: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
-    """float32 NHWC in, float32 NHWC out. TF32 is off for the call."""
+            quantize: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+    """float32 NHWC in, float32 NHWC out: the last layer's output, or where
+    the model names its ``outputs`` a dict of them (a map NHWC, any other
+    tensor as its layer made it). TF32 is off for the call."""
     q = quantize or (lambda t: t)
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -203,12 +231,27 @@ def forward(m: Model, params, x: torch.Tensor,
         y = x.permute(0, 3, 1, 2).float()
         outs = {}
         for layer in m.layers:
+            y = inputs_of(layer, y, outs)
             y = m.op(layer).forward(layer, params.get(layer["name"]), y, outs, q)
             y = m.act(layer)(y)
             outs[layer["name"]] = y
+        if m.outputs:
+            return {name: _nhwc(outs[name]) for name in m.outputs}
         return y.permute(0, 2, 3, 1).contiguous()
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def layer_forward(m: Model, name: str, inputs) -> torch.Tensor:
+    """The weightless layer ``name`` alone, on ``inputs`` (NHWC, one for each
+    of its ``"from"`` layers) in place of the reference's own: its output as
+    `forward` gives it."""
+    layer = m.layer(name)
+    if m.op(layer).weights(layer):
+        raise ValueError(f"layer {name!r} has weights")
+    ys = tuple(t.float().permute(0, 3, 1, 2) if t.dim() == 4 else t.float() for t in inputs)
+    y = m.op(layer).forward(layer, None, ys[0] if len(ys) == 1 else ys, {}, lambda t: t)
+    return _nhwc(m.act(layer)(y))
 
 
 def artifact_weights(root: str, config: dict) -> str:

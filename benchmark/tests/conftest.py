@@ -43,6 +43,25 @@ TINY = {
 }
 
 
+def yolo_config(hw=(256, 256), precision="bf16"):
+    """YOLOv3-tiny (darknet's cfg/yolov3-tiny.cfg at its published widths) on
+    the repo's trained 3-class artifact, at the size it was trained at by
+    default: a branched family with a detector's outputs, for the tests. No
+    cell runs it."""
+    return {
+        "name": "yolov3-tiny-256-" + precision, "family": "yolov3_tiny", "precision": precision,
+        "artifact": "shadernn_tpu/models/artifacts/yolov3_tiny_trained_layers.json",
+        "input": {"height": hw[0], "width": hw[1], "channels": 3},
+        "ingest": {"means": [0.0], "norms": [1 / 255]}, "channels": 3,
+        "widths": [16, 32, 64, 128, 256, 512, 1024], "bottleneck": 256, "head_widths": [512, 256],
+        "route_width": 128, "route_from": 4, "activation": "leaky", "classes": 3,
+        "anchors": [[10, 14], [23, 27], [37, 58], [81, 82], [135, 169], [344, 319]],
+        "masks": [[3, 4, 5], [1, 2, 3]], "net_hw": [256, 256], "score_threshold": 0.35,
+        "nms_iou": 0.45, "max_detections": 100,
+        "outputs": [{"name": "head1", "compare": "dense"}, {"name": "head2", "compare": "dense"},
+                    {"name": "yolo", "compare": "detections"}]}
+
+
 def tiny_cell(name, root=ROOT, bench=None):
     from benchmark.harness import spec
 

@@ -4,6 +4,7 @@ outputs and parameters only."""
 import pytest
 
 from benchmark.harness import cost, spec
+from conftest import yolo_config
 
 
 def cfg(name):
@@ -92,3 +93,35 @@ def test_an_op_that_no_table_holds_is_an_error(where, tmp_path):
         else:
             plain.forward(m, {"c": {"w": torch.ones(1, 1, 1, 1), "b": torch.zeros(1)}},
                           torch.ones(1, 4, 4, 1))
+
+
+@pytest.mark.parametrize("cell,frame,step", [
+    ("espcn-540p-b8", {"ops": 3400704000, "params": 3316, "out_values": 2073600},
+     {"ops": 27205632000, "bytes": 70509032}),
+    ("styletransfer-candy-512-b4", {"ops": 66135785472, "params": 1679235, "out_values": 786432},
+     {"ops": 264543141888, "bytes": 19087110})])
+def test_the_cost_of_a_chain_is_as_it_was(cell, frame, step):
+    """The numbers the cost model gave before layers could branch."""
+    c = spec.load_cell(cell)
+    config, model = c.config, spec.model(c.config)
+    inp = config["input"]
+    assert cost.frame_cost(model, inp["height"], inp["width"], inp["channels"]) == frame
+    assert cost.step_cost(model, config, int(c.traffic["batch"])) == step
+
+
+def test_yolo_ops_are_the_conv_sum_of_both_branches():
+    config = yolo_config((416, 416))
+    model = spec.model(config)
+    convs = [  # (k*k, cin, cout, output side)
+        (9, 3, 16, 416), (9, 16, 32, 208), (9, 32, 64, 104), (9, 64, 128, 52),
+        (9, 128, 256, 26), (9, 256, 512, 13), (9, 512, 1024, 13),  # the stride-1 pool keeps 13
+        (1, 1024, 256, 13), (9, 256, 512, 13), (1, 256, 128, 13), (1, 512, 24, 13),
+        (9, 128 + 256, 256, 26), (1, 256, 24, 26)]  # after the upsample and the concat
+    f = cost.frame_cost(model, 416, 416, 3)
+    assert f["ops"] == sum(2 * k * ci * co * s * s for k, ci, co, s in convs)
+    assert f["ops"] == pytest.approx(5.445e9, rel=1e-3)
+    assert f["params"] == sum(k * ci * co + co for k, ci, co, _ in convs) == 8671312
+    # the compared outputs: both heads and the detector's 100 rows of 6
+    assert f["out_values"] == 13 * 13 * 24 + 26 * 26 * 24 + 100 * 6
+    c = cost.step_cost(model, config, 8)
+    assert c["bytes"] == 8 * 416 * 416 * 3 + 8 * f["out_values"] * 4 + 2 * f["params"]
