@@ -45,7 +45,10 @@ Phases, each of which raises on failure (exit code != 0):
               kernel at the classifier heads (softmax rows must sum to 1),
               a ragged shape, int8 weights (bf16 x too), M = 1, N = 1001,
               K = 1, many row and column blocks, and two softmax launches
-              back to back on the same arrival counters
+              back to back on the same arrival counters; the YOLO NMS
+              kernel at the 416 b8 shapes (8 x 2,535 candidates, the 100
+              best) bit for bit against nms_fixed, one launch a call, an
+              IoU threshold of 0.55 as a planted fault
   4. main     ESPCN 2x at 540p, trained weights, batch 8, through
               Engine.from_json at BF16 and at FP32, 5 steps each; every
               step must launch the chain kernel once. MobileNetV2 224
@@ -843,6 +846,63 @@ def main() -> int:
                 f"back-to-back softmax #{i + 1} 8x1280x1000 {pname}", "fused_matmul", got,
                 matmul.fused_matmul_reference(x, wts, sc, of, "softmax"), dt))
 
+    # The YOLO head's suppression in one launch (kernels/nms.py) at the
+    # 416 b8 cell's shapes: 8 frames of 13²·3 + 26²·3 = 2,535 candidates,
+    # the 100 best, 80 classes (decode_grid of seeded 255-channel heads) and
+    # crowded boxes of 3 classes (`nms_inputs`); bit for bit against `nms_fixed`, one launch
+    # counted a call, and an IoU threshold of 0.55 as a planted fault.
+    from shadernn_tpu_torch.kernels import nms as nms_kernel
+    from shadernn_tpu_torch.ops.yolo import (
+        YOLOV3_TINY_ANCHORS, YOLOV3_TINY_MASKS, decode_grid, nms_fixed, top_candidates,
+    )
+
+    def nms_inputs(kind):
+        """Drawn on the host (torch's CPU generator), then moved to the card.
+        "decoded": heads whose class logits favour 3 of the 80 classes, so
+        that same-class boxes meet as in the cell (a few rows of 800
+        suppressed); "crowded": boxes crowded into the frame, 3 classes."""
+        g = torch.Generator().manual_seed(416 if kind == "decoded" else 417)
+        if kind == "decoded":
+            parts = []
+            for hw, mask in ((13, YOLOV3_TINY_MASKS[0]), (26, YOLOV3_TINY_MASKS[1])):
+                feat = torch.randn((8, hw, hw, 3, 85), generator=g)
+                feat[..., 5:8] += 6.0
+                parts.append(decode_grid(feat.reshape(8, hw, hw, 255),
+                                         [YOLOV3_TINY_ANCHORS[m] for m in mask], (416, 416), 80))
+            return tuple(torch.cat(p_, dim=1).to(dev) for p_ in zip(*parts))
+        xy = torch.rand((8, 2535, 2), generator=g) * 0.6
+        wh = 0.05 + torch.rand((8, 2535, 2), generator=g) * 0.3
+        return (torch.cat([xy, wh], -1).to(dev), torch.rand((8, 2535), generator=g).to(dev),
+                torch.randint(0, 3, (8, 2535), generator=g).to(dev))
+
+    nms_rows = {}
+    for kind in ("decoded", "crowded"):
+        boxes, scores, classes = nms_inputs(kind)
+        assert boxes.shape == (8, 2535, 4), boxes.shape
+        b_, c_, top, idx = top_candidates(boxes, scores, classes, 0.35, 100)
+        before = launch_counts().get("nms_fixed", 0)
+        got = nms_kernel.suppress(b_, c_, top, idx, 0.45)
+        launched = launch_counts().get("nms_fixed", 0) - before
+        want = nms_fixed(boxes, scores, classes, 0.45, 0.35, 100)
+        planted = nms_kernel.suppress(b_, c_, top, idx, 0.55)
+        torch.cuda.synchronize()
+        equal, kept = torch.equal(got, want), int((want[..., 1] > 0).sum())
+        sees_fault = not torch.equal(planted, want)
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(200):
+            nms_kernel.suppress(b_, c_, top, idx, 0.45)
+        t1.record()
+        torch.cuda.synchronize()
+        ms = t0.elapsed_time(t1) / 200
+        log(f"[kernel] nms {kind} 8x2535 k100          {'nms_fixed':<24} bit-equal {equal}, "
+            f"{kept} of {int((top > 0).sum())} rows kept, {launched} launch, IoU 0.55 planted "
+            f"fault seen {sees_fault}; event ms {ms:.4f} {'ok' if equal else 'FAIL'}")
+        assert equal and launched == 1 and sees_fault, (kind, equal, launched, sees_fault)
+        assert 0 < kept < int((top > 0).sum()), (kind, kept)
+        nms_rows[kind] = {"bit_equal": equal, "launches": launched, "kept_rows": kept,
+                          "planted_fault_seen": sees_fault, "event_ms": ms}
+
     # 4. main path -----------------------------------------------------------
     # Each path runs with every kernel's count set to 0 just before it and
     # read just after: the launches counted since `reset_counts`, by entry
@@ -1010,7 +1070,8 @@ def main() -> int:
                 "fused_conv2d_haloed": len(fwd.single_conv_plan),
                 "fused_invres_block": len(fwd.block_plan),
                 "conv2d_kernel_nhwc": len(fwd.kernel_conv_plan),
-                "fused_matmul": len(fwd.kernel_dense_plan)}
+                "fused_matmul": len(fwd.kernel_dense_plan),
+                "nms_fixed": len(fwd.nms_plan)}
         assert got == {k: v * steps for k, v in want.items()}, (got, want, steps)
         return want
 
@@ -2482,6 +2543,14 @@ def main() -> int:
         "io": io_rows("fused_matmul"),
         **trained_rows("fused_matmul"),
     })
+    kernels.append({
+        "name": "nms.suppress",
+        "route": "cuda",
+        "source": "shadernn_tpu_torch/csrc/yolo_nms.cu",
+        "replaces": "shadernn_tpu_torch/ops/yolo.py nms_fixed (no TPU kernel: lax.fori_loop)",
+        "shape": "8 x 2,535 candidates, the 100 best (YOLOv3-tiny 416 b8)",
+        "cases": nms_rows,
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2698,7 +2767,7 @@ def zoo_phase(h) -> dict:
     for prec in (FP32, BF16):
         eng = engine(zoo.YOLOV3_TINY_TRAINED, prec, 8, outputs=("head1", "head2", "yolo"))
         label = f"yolov3-tiny 256x256 b8 {prec.value}"
-        outs, st = drive(label, eng, feeds, {"fused_conv2d_haloed": 1})
+        outs, st = drive(label, eng, feeds, {"fused_conv2d_haloed": 1, "nms_fixed": 1})
         dets = [d[d[:, 1] > 0] for o in outs for d in o["yolo"].float().cpu().numpy()]
         st["map"] = mean_average_precision(dets, gts, NUM_CLASSES)
         log(f"[zoo] gate {label}: mAP {st['map']:.4f} on 32 scenes"
@@ -3917,8 +3986,8 @@ def parallel_phase(h) -> dict:
 
     def drive(label, eng, x, want, torch_want=None, steps=h.STEPS):
         """One main path: `steps` steps with the counts set to 0 just before
-        and read just after; B5 launched shards x kernel convs a step and
-        nothing else; every output against `want` (and `torch_want`), the
+        and read just after; B5 launched shards x kernel convs a step, the
+        NMS kernel shards x YOLO nodes, and nothing else; every output against `want` (and `torch_want`), the
         outputs of the same engine unsharded: within ENGINE_TOL x max(1,
         max|want|), YOLO detections box to box (utils/metrics.py
         detections_agree; rows of near-equal score may swap)."""
@@ -3935,8 +4004,10 @@ def parallel_phase(h) -> dict:
         finally:
             conv_igemm.conv2d_kernel_nhwc = real
         per_step = mesh.size * len(fwd.kernel_conv_plan)
-        assert counts == ({"conv2d_kernel_nhwc": per_step * steps} if per_step else {}), (
-            label, counts, per_step)
+        nms_per_step = mesh.size * len(fwd.nms_plan)
+        assert counts == {k: v * steps for k, v in (("conv2d_kernel_nhwc", per_step),
+                                                    ("nms_fixed", nms_per_step)) if v}, (
+            label, counts, per_step, nms_per_step)
         errs, ok = {}, True
         for name, w_ in want.items():
             y = ys[-1][name].float()

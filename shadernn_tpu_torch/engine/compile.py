@@ -515,6 +515,9 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
     forward.single_conv_plan = list(singles)
     forward.kernel_conv_plan = list(kernel_convs)
     forward.kernel_dense_plan = list(kernel_denses)
+    forward.paths = dict(paths)  # each entry the forward runs, and its path
+    # The YOLO nodes: on a CUDA device one NMS launch each a step (ops/yolo.py `nms`).
+    forward.nms_plan = [n for n in paths if graph.nodes[n].op == "YOLO"]
     forward.out_dtype = out_dtype
     return forward
 
@@ -529,9 +532,9 @@ class CompiledModel:
     forward: Callable
     input_specs: Dict[str, tuple]
     device: torch.device
-    # The CUDA graphs of its fused ingest step (engine/graphs.py
-    # `StepGraphs`), made at the step's first call; False where they do not
-    # engage.
+    # The CUDA graphs of its fused ingest step and of `Engine.dispatch`
+    # (engine/graphs.py `StepGraphs`), made at the first such call; False
+    # where they do not engage.
     graphs: object = dataclasses.field(default=None, repr=False, compare=False)
 
     def __call__(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -126,9 +126,14 @@ class Engine:
         """Queue one engine step without waiting for the device: its outputs,
         and an event recorded after it on the current stream of each CUDA
         device it used. The upload of host inputs copies from pageable
-        memory, so it waits for work already queued on the stream."""
+        memory, so it waits for work already queued on the stream. Where
+        CUDA graphs engage (engine/graphs.py `run_dispatch`: an unsharded
+        CUDA model whose plan runs more than one entry), the step is one
+        graph replay from its second call with those input shapes."""
+        from shadernn_tpu_torch.engine.graphs import run_dispatch
+
         self._check_inputs(inputs)
-        outs = self.model(self._to_device(inputs))
+        outs = run_dispatch(self.model, self._to_device(inputs))
         events = []
         for dev in self._cuda_devices():
             ev = torch.cuda.Event()

@@ -124,7 +124,10 @@ def parse_model_dict(model: dict, bin_file: Optional[BinaryIO] = None,
                      input_hw: Optional[tuple] = None) -> Graph:
     """`input_hw` overrides the artifact's frame geometry — CNN weights are
     size-agnostic, and the reference runs the same artifact at whatever
-    frame size the processor feeds it (inferenceProcessor resize path)."""
+    frame size the processor feeds it (inferenceProcessor resize path). A
+    YOLO layer's `net_hw` follows it: the decode divides the anchors by the
+    size of the frame the network sees. (The JAX parser keeps the
+    artifact's `net_hw`.)"""
     g = Graph(name)
     g.meta["inputRange"] = model.get("inputRange")
     count = int(model["numLayers"]["count"])
@@ -297,6 +300,8 @@ def parse_model_dict(model: dict, bin_file: Optional[BinaryIO] = None,
             attrs = {k: layer[k] for k in
                      ("num_classes", "net_hw", "max_detections", "anchors", "masks")
                      if k in layer}
+            if input_hw:  # the decode scales the anchors by the frame it runs on
+                attrs["net_hw"] = [int(input_hw[0]), int(input_hw[1])]
             op = "YOLO"
         elif ltype == "Unary":
             attrs = {"op_type": layer.get("op_type", "abs"),

@@ -30,6 +30,8 @@ KERNELS = {
     "fused_invres_block": ("invres_tc_kernel", "invres_tf32_kernel"),
     "conv2d_kernel_nhwc": ("conv_igemm_tc_kernel",),
     "fused_matmul": ("matmul_fused_kernel",),
+    # the YOLO head's suppression (ops/yolo.py nms_fixed), in one launch
+    "nms_fixed": ("yolo_nms_kernel",),
 }
 LAUNCHES = "kernels.launches."
 _COUNTER = {(entry, i): f"{LAUNCHES}{kernel}.{entry}"

@@ -127,8 +127,10 @@ def kernel_lib() -> ctypes.CDLL:
                 P, I, P, I, P, P, P, P, P, I, I, I, I, ctypes.c_float, I, ctypes.POINTER(I), P,
             ]
             lib.snn_matmul_fused.restype = I
+            lib.snn_yolo_nms.argtypes = [P, P, P, P, P, I, I, I, ctypes.c_float, P]
+            lib.snn_yolo_nms.restype = I
             for name in ("snn_error_string", "snn_conv_single_error", "snn_invres_error",
-                         "snn_conv_igemm_error", "snn_matmul_error"):
+                         "snn_conv_igemm_error", "snn_matmul_error", "snn_yolo_nms_error"):
                 getattr(lib, name).argtypes = [I]
                 getattr(lib, name).restype = ctypes.c_char_p
             _lib = lib

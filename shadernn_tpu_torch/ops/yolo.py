@@ -4,8 +4,10 @@ shadernn_tpu/ops/yolo.py).
 The decode is vectorized over every grid cell, the candidates are the
 `max_detections` best scores by a stable descending sort (ties go to the
 lower index, as `lax.top_k` breaks them), and the class-aware greedy
-suppression is a loop of `max_detections` batched steps over the score-
-sorted rows: static shapes, no host sync, no branch on device values.
+suppression over the score-sorted rows is one kernel launch on a CUDA
+device (`nms`, kernels/nms.py) and elsewhere a loop of `max_detections`
+batched steps (`nms_fixed`, also the kernel's oracle): static shapes, no
+host sync, no branch on device values.
 
 Output: (N, max_detections, 6) rows [class_id, score, x, y, w, h] in
 normalized [0, 1] image coordinates (x, y the top-left corner), suppressed
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from shadernn_tpu_torch.graph.ir import Node, TensorSpec
+from shadernn_tpu_torch.kernels import nms as nms_kernel
 from shadernn_tpu_torch.ops.registry import OpDef, RunCtx, register
 
 YOLOV3_TINY_ANCHORS = (
@@ -61,13 +64,11 @@ def decode_grid(feat: torch.Tensor, anchors, net_hw, num_classes: int):
     return boxes.reshape(n, m, 4), scores.reshape(n, m), cls_id.reshape(n, m)
 
 
-def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
-              iou_threshold: float, score_threshold: float, max_det: int) -> torch.Tensor:
-    """Class-aware greedy NMS on the `max_det` best candidates of each of N
-    samples: boxes (N, M, 4), scores and classes (N, M) -> (N, max_det, 6).
-    Rows are score-sorted; a kept row suppresses every later row of its
-    class with IoU above the threshold. With fewer than `max_det`
-    candidates, empty ones are appended so that the shape stays static."""
+def top_candidates(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
+                   score_threshold: float, max_det: int):
+    """(boxes, classes, top scores (N, max_det), their indices): the scores
+    below the threshold zeroed, and with fewer than `max_det` candidates
+    empty ones appended to all three, so that the shape stays static."""
     scores = torch.where(scores >= score_threshold, scores, torch.zeros_like(scores))
     pad = max_det - scores.shape[1]
     if pad > 0:
@@ -75,10 +76,44 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
         boxes = torch.nn.functional.pad(boxes, (0, 0, 0, pad))
         classes = torch.nn.functional.pad(classes, (0, pad))
     top_scores, idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    top_scores, idx = top_scores[:, :max_det], idx[:, :max_det]
+    return boxes, classes, top_scores[:, :max_det], idx[:, :max_det]
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
+        iou_threshold: float, score_threshold: float, max_det: int) -> torch.Tensor:
+    """`nms_fixed`'s rows: on a CUDA device the suppression in one launch
+    (kernels/nms.py), else `nms_fixed`."""
+    if boxes.device.type != "cuda":
+        return nms_fixed(boxes, scores, classes, iou_threshold, score_threshold, max_det)
+    boxes, classes, top_scores, idx = top_candidates(boxes, scores, classes, score_threshold,
+                                                     max_det)
+    return nms_kernel.suppress(boxes, classes, top_scores, idx, iou_threshold)
+
+
+def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
+              iou_threshold: float, score_threshold: float, max_det: int) -> torch.Tensor:
+    """Class-aware greedy NMS on the `max_det` best candidates of each of N
+    samples: boxes (N, M, 4), scores and classes (N, M) -> (N, max_det, 6).
+    Rows are score-sorted; a kept row suppresses every later row of its
+    class with IoU above the threshold. With fewer than `max_det`
+    candidates, empty ones are appended so that the shape stays static."""
+    boxes, classes, top_scores, idx = top_candidates(boxes, scores, classes, score_threshold,
+                                                     max_det)
     top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
     top_classes = torch.gather(classes, 1, idx)
+    spared = ~suppression(top_boxes, top_classes, iou_threshold)
+    keep = top_scores > 0
+    for i in range(max_det):  # two launches a row, none waiting for the host
+        keep = torch.where(keep[:, i:i + 1], keep & spared[:, i], keep)
+    out_scores = torch.where(keep, top_scores, torch.zeros_like(top_scores))
+    return torch.cat([top_classes[..., None].float(), out_scores[..., None], top_boxes], dim=-1)
 
+
+def suppression(top_boxes: torch.Tensor, top_classes: torch.Tensor,
+                iou_threshold: float) -> torch.Tensor:
+    """suppresses[n, i, j]: row i, if kept, removes the later row j (of its
+    class, IoU above the threshold); float32 throughout."""
+    k = top_boxes.shape[1]
     x0, y0 = top_boxes[..., 0], top_boxes[..., 1]
     x1, y1 = x0 + top_boxes[..., 2], y0 + top_boxes[..., 3]
     area = top_boxes[..., 2] * top_boxes[..., 3]
@@ -88,15 +123,8 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
           - torch.maximum(y0[:, :, None], y0[:, None, :])).clamp_min(0.0)
     inter = iw * ih
     iou = inter / (area[:, :, None] + area[:, None, :] - inter + 1e-9)
-    later = torch.ones(max_det, max_det, dtype=torch.bool, device=scores.device).triu(1)
-    # suppresses[n, i, j]: row i, if kept, removes the later row j.
-    suppresses = (iou > iou_threshold) & (top_classes[:, :, None] == top_classes[:, None, :]) & later
-    spared = ~suppresses
-    keep = top_scores > 0
-    for i in range(max_det):  # two launches a row, none waiting for the host
-        keep = torch.where(keep[:, i:i + 1], keep & spared[:, i], keep)
-    out_scores = torch.where(keep, top_scores, torch.zeros_like(top_scores))
-    return torch.cat([top_classes[..., None].float(), out_scores[..., None], top_boxes], dim=-1)
+    later = torch.ones(k, k, dtype=torch.bool, device=top_boxes.device).triu(1)
+    return (iou > iou_threshold) & (top_classes[:, :, None] == top_classes[:, None, :]) & later
 
 
 @register("YOLO", "Yolo", "YoloDetection")
@@ -106,6 +134,9 @@ class YOLO(OpDef):
 
     def infer(self, node: Node, in_specs: Sequence[TensorSpec]) -> TensorSpec:
         max_det = int(node.attr("max_detections", 100))
+        if max_det > nms_kernel.MAX_ROWS:
+            raise ValueError(f"{node.name}: max_detections {max_det} over {nms_kernel.MAX_ROWS}, "
+                             "the rows the NMS kernel's sweep holds")
         return in_specs[0].with_shape((in_specs[0].n, max_det, 6))
 
     def run(self, node: Node, xs: List, ctx: RunCtx):
@@ -116,9 +147,8 @@ class YOLO(OpDef):
         decoded = [decode_grid(feat.float(), [anchors[m] for m in mask], net_hw, num_classes)
                    for feat, mask in zip(xs, masks)]
         boxes, scores, classes = (torch.cat(parts, dim=1) for parts in zip(*decoded))
-        return nms_fixed(boxes, scores, classes, float(node.attr("iou_threshold", 0.45)),
-                         float(node.attr("score_threshold", 0.35)),
-                         int(node.attr("max_detections", 100)))
+        return nms(boxes, scores, classes, float(node.attr("iou_threshold", 0.45)),
+                   float(node.attr("score_threshold", 0.35)), int(node.attr("max_detections", 100)))
 
 
 def encode_grid(gts, gh: int, gw: int, anchors, net_hw, num_classes: int,

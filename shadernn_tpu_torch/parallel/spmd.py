@@ -594,6 +594,8 @@ def build_spmd_forward(graph: Graph, options: EngineOptions, mesh: Mesh,
     # counterpart of compile.py's kernel_conv_plan: one launch per shard).
     forward.kernel_conv_plan = [n for n, b in backends.items()
                                 if b == BackendKind.KERNEL and graph.nodes[n].op == "Conv2D"]
+    # The YOLO nodes: on CUDA devices one NMS launch each per shard.
+    forward.nms_plan = [n.name for n in order if n.op == "YOLO"]
     return forward, plan
 
 

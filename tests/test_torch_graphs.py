@@ -2,14 +2,18 @@
 
 On the CPU: the rule that decides where the graphs engage (the CPU,
 `dump_outputs`, a sharded model and an op that waits on the host stay
-eager), the graphs dropped when parameters are installed or changed in
+eager; `Engine.dispatch` besides needs a plan of more than one entry), the
+graphs dropped when parameters are installed or changed in
 place, the capture's tally of launches and the operands it holds, and the
 forward's outputs left uncast for the copy-out. On the card (tests marked
 `card`, which skip without a CUDA device), ESPCN 540p at b1 and as a b8
 served batch: a replay equal to the eager step bit for bit at BF16, FP32 and
 INT8; 64 calls over 64 inputs with 64 outputs of their own; new weights
 after `load_params`; the launch counters; a profile of replays; a fault
-planted on `CompiledModel.__call__` showing through the graph. This file
+planted on `CompiledModel.__call__` showing through the graph. Through
+`Engine.dispatch`: YOLOv3-tiny 416 b8 (BF16, FP32) and StyleTransfer-candy
+512 b4 replayed bit-equal to the eager step, ESPCN b8 (one chain) eager,
+new weights, one NMS launch a step by counter and by profile. This file
 imports no JAX, so that on the card it runs without the test configuration:
 
     python -m pytest tests/test_torch_graphs.py -q --noconftest -p no:cacheprovider
@@ -84,6 +88,65 @@ RULE_CASES = {
 def test_the_rule_engages_on_an_unsharded_cuda_model_only(case):
     make, want = RULE_CASES[case]
     assert graphs.engages(make(cpu_model())) is want
+
+
+def yolo80_model(precision=P.Precision.BF16, hw=(64, 64), device="cpu") -> CompiledModel:
+    return yolo80(precision, 2, hw, device).model
+
+
+def yolo80(precision, batch, hw, device=None) -> P.Engine:
+    """The seeded YOLOv3-tiny at darknet's widths with its heads and its
+    detections as outputs."""
+    from shadernn_tpu_torch.graph.parser import parse_model_file
+    from shadernn_tpu_torch.tools.seeded_artifact import LAYERS_JSON
+
+    g = parse_model_file(LAYERS_JSON, input_hw=hw)
+    g.output_names = ["head1", "head2", "yolo"]
+    kw = {"device": device} if device else {}
+    return P.Engine.from_graph(g, P.EngineOptions(precision=precision, batch_size=batch, **kw))
+
+
+DISPATCH_CASES = {
+    # one B1 chain: a graph would save one launch and add a pass over the input
+    "espcn_bf16_one_chain": (lambda: cpu_model(P.Precision.BF16), False),
+    "espcn_fp32_chain_and_subpixel": (lambda: cpu_model(P.Precision.FP32), True),
+    "yolov3_tiny_80": (yolo80_model, True),
+    "mobilenetv2": (lambda: P.Engine.from_graph(P.build_model("mobilenetv2"), P.EngineOptions(
+        precision=P.Precision.BF16, batch_size=2, device="cpu")).model, True),
+    "resnet18_kernel": (lambda: P.Engine.from_graph(P.build_model("resnet18"), P.EngineOptions(
+        precision=P.Precision.BF16, batch_size=2, device="cpu",
+        backend=P.BackendKind.KERNEL)).model, True),
+    "unet": (lambda: trained_cpu("UNET_TRAINED"), True),
+    "spatialdenoise_chain_and_residual": (lambda: trained_cpu("SPATIALDENOISE_TRAINED"), True),
+    "aidenoise": (lambda: trained_cpu("AIDENOISE_TRAINED"), True),
+}
+
+
+def trained_cpu(name) -> CompiledModel:
+    from shadernn_tpu_torch.models import zoo
+
+    return P.Engine.from_json(getattr(zoo, name), P.EngineOptions(
+        precision=P.Precision.BF16, batch_size=2, device="cpu"), input_hw=(64, 64)).model
+
+
+@pytest.mark.parametrize("case", sorted(DISPATCH_CASES))
+def test_dispatch_engages_where_the_plan_runs_more_than_one_entry(case):
+    make, want = DISPATCH_CASES[case]
+    model = make()
+    assert graphs.one_launch(model) is not want
+    assert graphs.engages(_cuda(model))
+
+
+def test_a_cpu_dispatch_runs_eager_and_counts_no_graph():
+    eng = P.Engine(yolo80_model())
+    x = {"input": torch.rand(2, 64, 64, 3)}
+    want = eng.model(x)
+    for _ in range(3):
+        got, events = eng.dispatch(x)
+        assert events == [] and sorted(got) == ["head1", "head2", "yolo"]
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    assert eng.model.graphs is False
+    assert not any(k in timer.counters() for k in GRAPH_COUNTERS)
 
 
 def test_a_cpu_step_runs_eager_and_counts_no_graph():
@@ -305,3 +368,147 @@ def test_the_service_serves_its_batches_through_the_graph(card):
         want = eager(eng, torch.from_numpy(host[i:i + 8]).cuda()).cpu().numpy()
         for j in range(8):
             np.testing.assert_array_equal(got[i + j].outputs["subpixel"], want[j])
+
+
+# --- Engine.dispatch on the card ---------------------------------------------
+
+def style(precision=P.Precision.BF16, batch=4) -> P.Engine:
+    from shadernn_tpu_torch.models import zoo
+
+    return P.Engine.from_json(zoo.STYLE512_TRAINED["candy"],
+                              P.EngineOptions(precision=precision, batch_size=batch),
+                              input_hw=(512, 512))
+
+
+def device_inputs(n, batch, hw, c, seed=0):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return [ingest_frames(torch.randint(0, 256, (batch, *hw, c), generator=g, dtype=torch.uint8,
+                                        device="cuda"), norms=NORM, dtype_name="float32")
+            for _ in range(n)]
+
+
+def zoo_engine(name, precision, batch, **kw) -> P.Engine:
+    return P.Engine.from_graph(P.build_model(name),
+                               P.EngineOptions(precision=precision, batch_size=batch, **kw))
+
+
+def trained(name, precision, batch, hw) -> P.Engine:
+    from shadernn_tpu_torch.models import zoo
+
+    return P.Engine.from_json(getattr(zoo, name),
+                              P.EngineOptions(precision=precision, batch_size=batch), input_hw=hw)
+
+
+DISPATCHED = {
+    "yolov3_tiny_416_b8_bf16": (lambda: yolo80(P.Precision.BF16, 8, (416, 416)), (416, 416), 3),
+    "yolov3_tiny_416_b8_fp32": (lambda: yolo80(P.Precision.FP32, 8, (416, 416)), (416, 416), 3),
+    "styletransfer_candy_512_b4_bf16": (style, (512, 512), 3),
+    # B4's blocks
+    "mobilenetv2_224_b8_bf16": (lambda: zoo_engine("mobilenetv2", P.Precision.BF16, 8),
+                                (224, 224), 3),
+    # B3 and B6 with its softmax, whose arrival counters are kept per stream
+    "resnet18_b8_kernel_bf16": (lambda: zoo_engine("resnet18", P.Precision.BF16, 8,
+                                                   backend=P.BackendKind.KERNEL), (32, 32), 3),
+    "resnet18_b8_kernel_fp32": (lambda: zoo_engine("resnet18", P.Precision.FP32, 8,
+                                                   backend=P.BackendKind.KERNEL), (32, 32), 3),
+    "unet_256_b8_bf16": (lambda: trained("UNET_TRAINED", P.Precision.BF16, 8, (256, 256)),
+                         (256, 256), 1),
+    "unet_256_b8_fp32": (lambda: trained("UNET_TRAINED", P.Precision.FP32, 8, (256, 256)),
+                         (256, 256), 1),
+    # a B1 chain and TORCH ops around it
+    "spatialdenoise_1080p_b2_bf16": (lambda: trained("SPATIALDENOISE_TRAINED", P.Precision.BF16,
+                                                     2, (1080, 1920)), (1080, 1920), 1),
+    "aidenoise_1080p_b2_bf16": (lambda: trained("AIDENOISE_TRAINED", P.Precision.BF16, 2,
+                                                (1080, 1920)), (1080, 1920), 1),
+    "aidenoise_1080p_b2_fp32": (lambda: trained("AIDENOISE_TRAINED", P.Precision.FP32, 2,
+                                                (1080, 1920)), (1080, 1920), 1),
+    "espcn_540p_b8_fp32": (lambda: espcn(P.Precision.FP32, batch=8), (540, 960), 1),
+}
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms: StyleTransfer's transposed convs
+    (cuDNN's dgrad) otherwise differ from one eager step to the next, by
+    0.002 at the head (on an H100), so that no two steps, eager or
+    replayed, are bit-equal."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", sorted(DISPATCHED))
+def test_a_dispatch_replay_equals_the_eager_step_bit_for_bit(card, deterministic_cudnn, case):
+    make, hw, c = DISPATCHED[case]
+    eng = make()
+    batch = eng.options.batch_size
+    xs = device_inputs(4, batch, hw, c, seed=7)
+    got = [eng.dispatch({"input": x})[0] for x in xs]  # eager, capture, replay, replay
+    torch.cuda.synchronize()
+    assert graph_counts() == (1, 3, 1)
+    for x, g in zip(xs, got):
+        want = eng.model({"input": x})
+        assert sorted(g) == sorted(want)
+        for k in want:
+            assert g[k].dtype == want[k].dtype and torch.equal(g[k], want[k]), k
+    assert len({t.data_ptr() for g in got for t in g.values()}) == 4 * len(got[0])
+
+
+@pytest.mark.card
+def test_espcn_b8_dispatch_stays_eager(card):
+    eng = espcn(P.Precision.BF16, batch=8)
+    x = ingest_frames(frames(1, 8, seed=8)[0], norms=NORM, dtype_name="float32")
+    for _ in range(3):
+        eng.dispatch({"input": x})
+    torch.cuda.synchronize()
+    assert graph_counts() == (0, 0, 3)
+    assert eng.model.graphs and not eng.model.graphs.dispatch
+
+
+@pytest.mark.card
+def test_new_weights_drop_the_dispatch_graphs(card):
+    eng = yolo80(P.Precision.BF16, 8, (416, 416))
+    (x,) = device_inputs(1, 8, (416, 416), 3, seed=9)
+    for _ in range(3):
+        old = eng.dispatch({"input": x})[0]
+    eng.model.load_params({n: {k: v * 0.5 if k == "weight" else v for k, v in d.items()}
+                           for n, d in eng.model.params.items()})
+    new = [eng.dispatch({"input": x})[0] for _ in range(3)]  # eager, capture, replay
+    want = eng.model({"input": x})
+    assert not torch.equal(want["head1"], old["head1"])
+    assert all(torch.equal(t[k], want[k]) for t in new for k in want)
+    assert graph_counts() == (2, 4, 2)
+    with torch.no_grad():
+        eng.model.params["head2"]["bias"].add_(1.0)
+    changed = [eng.dispatch({"input": x})[0] for _ in range(3)]
+    want = eng.model({"input": x})
+    assert all(torch.equal(t[k], want[k]) for t in changed for k in want)
+    assert graph_counts() == (3, 6, 3)
+
+
+@pytest.mark.card
+def test_a_dispatch_replay_launches_the_nms_once_a_step(card):
+    from shadernn_tpu_torch.utils.trace_profile import profile_steps
+
+    eng = yolo80(P.Precision.BF16, 8, (416, 416))
+    (x,) = device_inputs(1, 8, (416, 416), 3, seed=10)
+    per_call = []
+    for _ in range(4):
+        before = launch_counts("kernel")
+        eng.dispatch({"input": x})
+        after = launch_counts("kernel")
+        per_call.append({k: n - before.get(k, 0) for k, n in after.items()})
+    want = {"conv_single_tc_kernel": 1, "yolo_nms_kernel": 1}
+    assert per_call == [want] * 4
+    timer.reset()
+    report = profile_steps(lambda: eng.dispatch({"input": x}), 10, torch.device("cuda"))
+    events = {o.name: o.count for o in report.ops if o.category == "hand-written"}
+    assert report.launches == {k: 1.0 for k in want}
+    assert events == {k: 1.0 for k in want}
+    c = timer.counters()
+    assert c.get("engine.graph_eager", 0) == 0 and c["engine.graph_replays"] >= 11

@@ -22,7 +22,7 @@ from shadernn_tpu_torch.graph.serialize import save_model as psave
 from shadernn_tpu_torch.graph.serialize import serialize_graph
 
 from test_torch_graph import assert_same_graph
-from test_torch_zoo import ARTIFACTS, art_id, options, outputs_match, small_hw
+from test_torch_zoo import ARTIFACTS, art_id, jparse_at, options, outputs_match, small_hw
 
 # Small frames and widths, as tests/test_artifact.py builds them.
 BUILDERS = [
@@ -54,7 +54,7 @@ def graphs(source):
         jg, pg = jbuild(name, **kw), P.build_model(name, **kw)
     else:
         hw = small_hw(name)
-        jg, pg = jparse(name, input_hw=hw), pparse(name, input_hw=hw)
+        jg, pg = jparse_at(name, hw), pparse(name, input_hw=hw)
     jg.infer_shapes()
     pg.infer_shapes()
     return jg, pg

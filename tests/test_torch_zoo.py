@@ -186,6 +186,17 @@ def small_hw(path):
             "spatialdenoise": (20, 28), "espcn_2x": (20, 28)}.get(stem)
 
 
+def jparse_at(path, hw):
+    """The JAX parser's graph of `path` at the frame `hw`, with a YOLO node's
+    `net_hw` set to the frame, as the port's parser sets it (ROADMAP C9: the
+    JAX parser keeps the artifact's)."""
+    g = jparse(path, input_hw=hw)
+    for n in g.nodes.values():
+        if n.op == "YOLO" and hw:
+            n.attrs["net_hw"] = [int(hw[0]), int(hw[1])]
+    return g
+
+
 def test_every_artifact_is_covered():
     names = {os.path.basename(p)[: -len("_trained_layers.json")] for p in ARTIFACTS}
     assert {"aidenoise", "spatialdenoise", "unet", "styletransfer", "yolov3_tiny"} <= names
@@ -200,11 +211,13 @@ def test_every_artifact_is_covered():
 def test_from_json_every_artifact_matches_jax(rng, path):
     """Engine.from_json loads every trained artifact of the repo; at FP32
     its output is the JAX engine's (the classifiers' and ESPCN's at their
-    own size, the zoo's retargeted to a small frame)."""
+    own size, the zoo's retargeted to a small frame). The port's parser sets
+    a YOLO node's `net_hw` to the frame (ROADMAP C9); the JAX parser keeps
+    the artifact's, so the JAX engine runs its graph with `net_hw` set so."""
     hw = small_hw(path)
-    jg, pg = jparse(path, input_hw=hw), pparse(path, input_hw=hw)
+    jg, pg = jparse_at(path, hw), pparse(path, input_hw=hw)
     assert_same_graph(pg, jg)
-    je = J.Engine.from_json(path, options(J, "fp32", batch_size=2), input_hw=hw)
+    je = J.Engine.from_graph(jg, options(J, "fp32", batch_size=2))
     pe = P.Engine.from_json(path, options(P, "fp32", batch_size=2, device="cpu"), input_hw=hw)
     x = input_of(pe.graph, rng)
     close(pe.run_single(x).float().numpy(), np.asarray(je.run_single(x)), "fp32", path)
@@ -238,7 +251,7 @@ def test_trained_zoo_matches_jax_at_low_precision(rng, path, prec):
                       outputs=("head1", "head2", "yolo"), x=x)
         return
     hw = small_hw(path)
-    outputs_match(jparse(path, input_hw=hw), pparse(path, input_hw=hw), prec, rng)
+    outputs_match(jparse_at(path, hw), pparse(path, input_hw=hw), prec, rng)
 
 
 PLANS = {
@@ -261,7 +274,7 @@ def test_trained_zoo_plans_match_jax(monkeypatch, path, prec):
     none under BF16 (U-Net), chain outputs with two consumers (U-Net's
     skips), the c1 tail (SpatialDenoise)."""
     hw = small_hw(path)
-    fwd = plans_match(monkeypatch, jparse(path, input_hw=hw), pparse(path, input_hw=hw), prec)
+    fwd = plans_match(monkeypatch, jparse_at(path, hw), pparse(path, input_hw=hw), prec)
     chains, singles = PLANS[art_id(path)]
     if path == zoo.AIDENOISE_TRAINED and prec != "fp32":
         chains = {"down": chains["down"] + ["up"]}
