@@ -13,6 +13,14 @@ otherwise round float32 operands to TF32 (about three decimal digits),
 where the JAX package runs float32 at HIGHEST precision. bfloat16 values
 are exact in TF32, so the rule costs bfloat16 nothing in accuracy.
 
+A Conv2D or Conv2DTranspose on bfloat16 activations on a CUDA device
+(`cudnn_bf16`: BF16 engines and INT8 weight-only ones) runs bfloat16
+cuDNN in channels_last (`conv2d_nhwc_cudnn`,
+`conv_transpose2d_nhwc_cudnn`): the tensor cores multiply the bfloat16
+values, sum the products in float32 and round the sum once to bfloat16,
+which is the JAX op's float32 sum and cast. float32 activations, and every
+input on the CPU, keep the float32 route (`conv2d_nhwc_f32`).
+
 Under a calibrated INT8 engine a Conv2D with int8 weights and an
 `in_act_scale` runs A8W8 where `a8w8_profitable` holds, as the JAX XLA
 path does: the input quantized to int8, an exact int32 sum (an int8
@@ -32,7 +40,7 @@ from shadernn_tpu_torch.config import BackendKind
 from shadernn_tpu_torch.graph.ir import Node, TensorSpec, Transform, transform_output_dims
 from shadernn_tpu_torch.ops.common import apply_activation, is_same_padding, padding_offsets
 from shadernn_tpu_torch.ops.registry import OpDef, RunCtx, register
-from shadernn_tpu_torch.utils import get_logger
+from shadernn_tpu_torch.utils import get_logger, timer
 
 log = get_logger("snn_torch.ops")
 
@@ -70,6 +78,38 @@ def conv2d_nhwc_f32(x: torch.Tensor, w_hwio: torch.Tensor, pads, stride: int = 1
     xin = F.pad(x.float().permute(0, 3, 1, 2), (l, r, t, b))
     with full_precision():
         y = F.conv2d(xin, w_hwio.float().permute(3, 2, 0, 1), stride=stride, groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def cudnn_bf16(x: torch.Tensor) -> bool:
+    """Does a Conv2D or Conv2DTranspose on `x` run bfloat16 cuDNN
+    (`conv2d_nhwc_cudnn`, `conv_transpose2d_nhwc_cudnn`)? bfloat16
+    activations on a CUDA device; float32 and the CPU keep the float32
+    route."""
+    return x.dtype == torch.bfloat16 and x.device.type == "cuda"
+
+
+def cudnn_weight(w_hwio: torch.Tensor, transposed: bool = False) -> torch.Tensor:
+    """HWIO `w_hwio` as `F.conv2d`'s OIHW (`F.conv_transpose2d`'s IOHW, where
+    `transposed`) in channels_last, the layout cuDNN reads beside a
+    channels_last input without a copy."""
+    perm = (2, 3, 0, 1) if transposed else (3, 2, 0, 1)
+    return w_hwio.permute(*perm).contiguous(memory_format=torch.channels_last)
+
+
+def conv2d_nhwc_cudnn(x: torch.Tensor, w: torch.Tensor, pads, stride: int = 1) -> torch.Tensor:
+    """Convolution of NHWC `x` with `w` (`cudnn_weight`) in x's dtype, on
+    the channels_last NCHW view of `x` (no copy); (top, bottom, left, right)
+    zero pads, the symmetric part inside the call and only an asymmetric
+    excess padded first, in NHWC. For bfloat16 on a CUDA device cuDNN sums
+    the bfloat16 products in float32 and rounds once. Returns contiguous
+    NHWC: the permuted channels_last output."""
+    timer.count("ops.conv_bf16_cudnn")
+    t, b, l, r = pads
+    ph, pw = min(t, b), min(l, r)
+    if (t, b, l, r) != (ph, ph, pw, pw):
+        x = F.pad(x, (0, 0, l - pw, r - pw, t - ph, b - ph))
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=(ph, pw))
     return y.permute(0, 2, 3, 1)
 
 
@@ -169,20 +209,22 @@ def a8w8_engaged(node: Node, ctx: RunCtx, k: int, cin: int, cout: int) -> float:
 
 
 def layer_weight(node: Node, ctx: RunCtx, dtype: torch.dtype, device: torch.device,
-                 sa: float):
-    """What a TORCH Conv2D, SeparableConv2D or Dense body multiplies by,
-    made once per parameter set through the engine's `ctx.cache` (on every
-    call without one). Under A8W8 (`sa` > 0) the pair (int8_rhs of the int8
-    weight as a (k*k*Cin, O) matrix, the float32 column scale sa *
-    weight_scale that dequantizes its int32 sums, in the JAX package's
-    order); else get_weight in `dtype` on `device`."""
+                 sa: float, layout=None):
+    """What a TORCH Conv2D, SeparableConv2D, Conv2DTranspose or Dense body
+    multiplies by, made once per parameter set through the engine's
+    `ctx.cache` (on every call without one). Under A8W8 (`sa` > 0) the pair
+    (int8_rhs of the int8 weight as a (k*k*Cin, O) matrix, the float32
+    column scale sa * weight_scale that dequantizes its int32 sums, in the
+    JAX package's order); else get_weight in `dtype` on `device`, laid out
+    by `layout` where one is given (`cudnn_weight`)."""
 
     def make():
         if sa:
             wq = torch.as_tensor(node.params["weight_q"]).to(device)
             ws = torch.as_tensor(node.params["weight_scale"]).to(device, torch.float32)
             return int8_rhs(wq.reshape(-1, wq.shape[-1])), sa * ws.reshape(-1)
-        return get_weight(node, dtype).to(device)
+        w = get_weight(node, dtype).to(device)
+        return w if layout is None else layout(w)
 
     return make() if ctx.cache is None else ctx.cache(make)
 
@@ -321,12 +363,15 @@ class Conv2D(OpDef):
             log.warning("conv %s given to KERNEL runs on TORCH: outside the %s", node.name, GATE)
         k, stride = int(node.attr("kernel_size")), int(node.attr("stride", 1))
         sa = a8w8_engaged(node, ctx, k, x.shape[-1], int(node.attr("out_channels")))
-        w = layer_weight(node, ctx, x.dtype, x.device, sa)
         if sa:  # A8W8: int8 x int8 -> exact int32, (sa * weight_scale) folded after
-            rhs, col_scale = w
+            rhs, col_scale = layer_weight(node, ctx, x.dtype, x.device, sa)
             acc = conv2d_nhwc_int8(quantize_act(x, sa), torch.as_tensor(node.params["weight_q"]),
                                    _conv_pads(node), stride, rhs)
             return _epilogue(node, (acc.float() * col_scale).to(x.dtype))
+        if cudnn_bf16(x):
+            w = layer_weight(node, ctx, x.dtype, x.device, 0.0, cudnn_weight)
+            return _epilogue(node, conv2d_nhwc_cudnn(x, w, _conv_pads(node), stride))
+        w = layer_weight(node, ctx, x.dtype, x.device, 0.0)
         y = conv2d_nhwc_f32(x, w, _conv_pads(node), stride)
         return _epilogue(node, y.to(x.dtype))
 
@@ -376,25 +421,48 @@ def conv_transpose_padding(k: int, s: int, same: bool) -> Tuple[int, int]:
     return pad_a, pad_len - pad_a
 
 
+def transpose_window(y: torch.Tensor, hw_in, k_hw, stride: int, same: bool) -> torch.Tensor:
+    """lax.conv_transpose's window of NHWC `y`, the whole transposed conv of
+    an `hw_in` input: the scatter y[i*s + a] += x[i] * w[a]
+    (`F.conv_transpose2d` without padding gives all of it, (H-1)*s + k rows)
+    seen through lax's window, which starts k - 1 - pad_a rows in and spans
+    (H-1)*s + 1 + pad_a + pad_b - k + 1 rows. A slice where the window lies
+    inside `y`; zero rows (padded in NHWC) only where it reaches past an
+    edge."""
+    cuts, fill = [], []
+    for k, n_in, full in zip(k_hw, hw_in, y.shape[1:3]):
+        pad_a, pad_b = conv_transpose_padding(k, stride, same)
+        start, size = k - 1 - pad_a, (n_in - 1) * stride + pad_a + pad_b - k + 2
+        lo, hi = max(start, 0), min(start + size, full)
+        cuts.append(slice(lo, hi))
+        fill += [lo - start, start + size - hi]
+    y = y[:, cuts[0], cuts[1]]
+    if any(fill):
+        y = F.pad(y, (0, 0, fill[2], fill[3], fill[0], fill[1]))
+    return y
+
+
 def conv_transpose2d_nhwc_f32(x: torch.Tensor, w_hwio: torch.Tensor, stride: int,
                               same: bool) -> torch.Tensor:
     """float32 transposed convolution of NHWC `x` with HWIO `w_hwio` (I = x's
     channels), the function of the JAX op: `lax.conv_transpose` of the
-    spatially flipped kernel, i.e. the scatter y[i*s + a] += x[i] * w[a]
-    (`F.conv_transpose2d` without padding gives all of it, (H-1)*s + k rows)
-    seen through lax's window: it starts k - 1 - pad_a rows in, which is
-    a crop, or zero rows where negative, and spans (H-1)*s + 1 + pad_a +
-    pad_b - k + 1 rows. Returns NHWC float32."""
-    kh, kw = int(w_hwio.shape[0]), int(w_hwio.shape[1])
+    spatially flipped kernel, i.e. `transpose_window` of the whole
+    `F.conv_transpose2d`. Returns NHWC float32."""
     with full_precision():
         y = F.conv_transpose2d(x.float().permute(0, 3, 1, 2), w_hwio.float().permute(2, 3, 0, 1),
                                stride=stride)
-    pads = []
-    for k, n_in, full in ((kw, x.shape[2], y.shape[3]), (kh, x.shape[1], y.shape[2])):
-        pad_a, pad_b = conv_transpose_padding(k, stride, same)
-        start, size = k - 1 - pad_a, (n_in - 1) * stride + pad_a + pad_b - k + 2
-        pads += [-start, start + size - full]
-    return F.pad(y, pads).permute(0, 2, 3, 1)
+    return transpose_window(y.permute(0, 2, 3, 1), x.shape[1:3], w_hwio.shape[:2], stride, same)
+
+
+def conv_transpose2d_nhwc_cudnn(x: torch.Tensor, w: torch.Tensor, stride: int,
+                                same: bool) -> torch.Tensor:
+    """`conv_transpose2d_nhwc_f32`'s function in x's dtype, with `w` as
+    `cudnn_weight(w_hwio, transposed=True)`: `F.conv_transpose2d` on the
+    channels_last view of `x`, then `transpose_window`. For bfloat16 on a
+    CUDA device cuDNN sums in float32 and rounds once. Returns NHWC."""
+    timer.count("ops.conv_bf16_cudnn")
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=stride).permute(0, 2, 3, 1)
+    return transpose_window(y, x.shape[1:3], w.shape[2:], stride, same)
 
 
 @register("Conv2DTranspose", "Deconvolution")
@@ -422,7 +490,10 @@ class Conv2DTranspose(OpDef):
 
     def run(self, node: Node, xs: List, ctx: RunCtx):
         x = xs[0]
+        stride, same = int(node.attr("stride", 1)), is_same_padding(node.attr("padding", "same"))
+        if cudnn_bf16(x):
+            w = layer_weight(node, ctx, x.dtype, x.device, 0.0,
+                             lambda w: cudnn_weight(w, transposed=True))
+            return _epilogue(node, conv_transpose2d_nhwc_cudnn(x, w, stride, same))
         w = layer_weight(node, ctx, x.dtype, x.device, 0.0)
-        y = conv_transpose2d_nhwc_f32(x, w, int(node.attr("stride", 1)),
-                                      is_same_padding(node.attr("padding", "same")))
-        return _epilogue(node, y.to(x.dtype))
+        return _epilogue(node, conv_transpose2d_nhwc_f32(x, w, stride, same).to(x.dtype))

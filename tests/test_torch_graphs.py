@@ -13,7 +13,10 @@ after `load_params`; the launch counters; a profile of replays; a fault
 planted on `CompiledModel.__call__` showing through the graph. Through
 `Engine.dispatch`: YOLOv3-tiny 416 b8 (BF16, FP32) and StyleTransfer-candy
 512 b4 replayed bit-equal to the eager step, ESPCN b8 (one chain) eager,
-new weights, one NMS launch a step by counter and by profile. This file
+new weights, one NMS launch a step by counter and by profile; the TORCH
+convs' bf16 cuDNN route (ops/conv.py `cudnn_bf16`) counted once per
+captured dispatch, and under FP32 the convs in float32 with TF32 off (on
+the CPU: a plan's TORCH convs counted on the route where it is forced). This file
 imports no JAX, so that on the card it runs without the test configuration:
 
     python -m pytest tests/test_torch_graphs.py -q --noconftest -p no:cacheprovider
@@ -198,6 +201,40 @@ def test_a_capture_tallies_its_launches_and_holds_what_they_read():
     count_launch("fused_conv_chain_packed")
     assert launch_counts("entry")["fused_conv_chain_packed"] == 1
     assert held == ["operand"]
+
+
+CONV_ROUTE = "ops.conv_bf16_cudnn"
+
+
+def style_cpu() -> CompiledModel:
+    from shadernn_tpu_torch.models import zoo
+
+    return P.Engine.from_json(zoo.STYLE512_TRAINED["candy"], P.EngineOptions(
+        precision=P.Precision.BF16, batch_size=2, device="cpu"), input_hw=(64, 64)).model
+
+
+# The plan's TORCH Conv2D and Conv2DTranspose entries: each a call of the
+# bfloat16 cuDNN route on a CUDA device (ops/conv.py `cudnn_bf16`).
+ROUTED_CPU = {
+    "yolov3_tiny_80": (yolo80_model, (2, 64, 64, 3), 12),  # 13 convs less B3's stem
+    "styletransfer_candy": (style_cpu, (2, 64, 64, 3), 14),  # the k9 stem and head on B3
+    "espcn_one_chain": (lambda: cpu_model(P.Precision.BF16), (1, 16, 24, 1), 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTED_CPU))
+def test_a_plans_torch_convs_count_on_the_bf16_route(case, monkeypatch):
+    from shadernn_tpu_torch.ops import conv
+
+    make, shape, want = ROUTED_CPU[case]
+    x = {"input": torch.rand(*shape)}
+    make()(x)
+    assert timer.counters().get(CONV_ROUTE, 0) == 0  # the CPU keeps the float32 route
+    # A model's route is fixed by its device and dtype, so it caches one
+    # layout of each weight: a model of its own takes the forced route.
+    monkeypatch.setattr(conv, "cudnn_bf16", lambda t: t.dtype == torch.bfloat16)
+    make()(x)
+    assert timer.counters().get(CONV_ROUTE, 0) == want
 
 
 @pytest.mark.parametrize("precision", [P.Precision.BF16, P.Precision.FP32])
@@ -457,6 +494,53 @@ def test_a_dispatch_replay_equals_the_eager_step_bit_for_bit(card, deterministic
         for k in want:
             assert g[k].dtype == want[k].dtype and torch.equal(g[k], want[k]), k
     assert len({t.data_ptr() for g in got for t in g.values()}) == 4 * len(got[0])
+
+
+ROUTED = {
+    "styletransfer_candy_512_b4_bf16": (style, (512, 512), 14),
+    "styletransfer_candy_512_b4_fp32": (lambda: style(P.Precision.FP32), (512, 512), 0),
+    "yolov3_tiny_416_b8_bf16": (lambda: yolo80(P.Precision.BF16, 8, (416, 416)), (416, 416), 12),
+    "yolov3_tiny_416_b8_fp32": (lambda: yolo80(P.Precision.FP32, 8, (416, 416)), (416, 416), 0),
+}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", sorted(ROUTED))
+def test_the_bf16_route_counts_once_per_captured_dispatch(card, case):
+    make, hw, want = ROUTED[case]
+    eng = make()
+    per_call = []
+    for x in device_inputs(4, eng.options.batch_size, hw, 3, seed=13):
+        before = timer.counters().get(CONV_ROUTE, 0)
+        eng.dispatch({"input": x})  # eager, capture, replay, replay
+        per_call.append(timer.counters().get(CONV_ROUTE, 0) - before)
+    torch.cuda.synchronize()
+    assert graph_counts() == (1, 3, 1)
+    assert per_call == [want, want, 0, 0]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", sorted(ROUTED))
+def test_the_torch_convs_run_in_the_engines_dtype_with_tf32_off(card, case, monkeypatch):
+    import torch.nn.functional as F
+
+    make, hw, routed = ROUTED[case]
+    eng = make()
+    seen = []
+    for name in ("conv2d", "conv_transpose2d"):
+        def spy(x, *args, _call=getattr(F, name), _name=name, **kw):
+            seen.append((_name, x.dtype, torch.backends.cudnn.allow_tf32))
+            return _call(x, *args, **kw)
+
+        monkeypatch.setattr(F, name, spy)
+    (x,) = device_inputs(1, eng.options.batch_size, hw, 3, seed=14)
+    eng.model({"input": x})
+    transposed = 2 if case.startswith("style") else 0
+    assert sorted(n for n, _, _ in seen) == ["conv2d"] * 12 + ["conv_transpose2d"] * transposed
+    fp32 = routed == 0
+    assert all(dt == (torch.float32 if fp32 else torch.bfloat16) for _, dt, _ in seen)
+    if fp32:
+        assert not any(tf32 for _, _, tf32 in seen)
 
 
 @pytest.mark.card
