@@ -1695,6 +1695,7 @@ def main() -> int:
         w_lib = [torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1))).to(dev, dt)
                  .contiguous(memory_format=torch.channels_last) for w in w_lib]
         b_lib = [torch.from_numpy(n.params["bias"]).to(dev, dt) for n in espcn_nodes]
+        prep = chain.prepare(ops, specs, dt)  # packed once: the timed call launches alone
         for nb in (1, 8):
             x = torch.from_numpy(frames[:nb]).to(dev)
             xl = x.permute(0, 3, 1, 2).to(dt).contiguous(memory_format=torch.channels_last)
@@ -1708,7 +1709,8 @@ def main() -> int:
                 return torch.tanh(depth_to_space(y, 2)) if tail == "d2s2" else y.contiguous()
 
             t = timed({
-                "kernel": lambda: getattr(chain, entry)(x, ops, specs, tail=tail, compute_dtype=dt),
+                "kernel": lambda: getattr(chain, entry)(x, prep, specs, tail=tail,
+                                                        compute_dtype=dt),
                 "plain": lambda: chain.conv_chain_reference(x, ops, specs, tail, dt),
                 "library": library,
             })
@@ -1768,8 +1770,9 @@ def main() -> int:
         specs = chain.build_chain_specs(nodes, cin, dt, tail="none")
         ops = on_dev(chain.chain_operands(nodes, dt))
         x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev, dt)
+        prep = chain.prepare(ops, specs, dt)
         t = timed({
-            "kernel": lambda: chain.fused_conv_chain(x, ops, specs, compute_dtype=dt),
+            "kernel": lambda: chain.fused_conv_chain(x, prep, specs, compute_dtype=dt),
             "plain": lambda: chain.conv_chain_reference(x, ops, specs, "none", dt),
             "library": chain_library(x, ops, specs, "none", dt),
         })
@@ -1885,12 +1888,13 @@ def main() -> int:
 
     def time_conv(entry, label, kernel, plain, nb, h, w, wts, sc, of, pads, act, dt):
         """One [timing] line of a stride-1 conv kernel at x (nb,h,w,c);
-        `kernel` and `plain` take (x, wts, sc, of, pads, act)."""
+        `kernel` and `plain` take (x, wts, sc, of, pads, act), `kernel`
+        returning the launch on operands it prepared."""
         kh, kw, c, o = wts.shape
         pname = "bf16" if dt == bf16 else "fp32"
         x = tensor(rng.standard_normal((nb, h, w, c)), dt)
         wts = wts.to(dt)
-        t = timed({"kernel": lambda: kernel(x, wts, sc, of, pads, act),
+        t = timed({"kernel": kernel(x, wts, sc, of, pads, act),
                    "plain": lambda: plain(x, wts, sc, of, pads, act),
                    "library": conv_yardstick(x, wts, sc, of, pads, act, dt)})
         ho, wo = h + pads[0] + pads[1] - kh + 1, w + pads[2] + pads[3] - kw + 1
@@ -1911,14 +1915,18 @@ def main() -> int:
     # single-conv kernel launches them on the ResNet18 path, the
     # implicit-GEMM form is meant for them. Then each at its own main-path
     # shape: the trained MobileNetV2's stem (b64), the two-input conv (b8).
+    # `single` and `igemm` prepare the operands once and return the launch,
+    # so that a timed call launches the kernel alone.
     def single(x, wts, sc, of, pads, act):
-        return conv.fused_conv2d_haloed(x, wts, sc, of, pads, act, 0.3, x.dtype)
+        ops = conv.prepare(wts, sc, of, x.dtype)
+        return lambda: conv.run(x, ops, pads, act, 0.3)
 
     def single_plain(x, wts, sc, of, pads, act):
         return conv.conv2d_haloed_reference(x, wts, sc, of, pads, act, 0.3, x.dtype)
 
     def igemm(x, wts, sc, of, pads, act):
-        return conv_igemm.conv2d_kernel_nhwc(x, wts, sc, of, stride=1, pads=pads, activation=act)
+        ops = conv_igemm.prepare(wts, sc, of, x.dtype)
+        return lambda: conv_igemm.run(x, ops, stride=1, pads=pads, activation=act)
 
     def igemm_plain(x, wts, sc, of, pads, act):
         return conv_igemm.conv2d_igemm_reference(x, wts, sc, of, 1, pads, act)
@@ -1944,7 +1952,8 @@ def main() -> int:
         step = [(tensor(rng.standard_normal((nb, h, w, wts.shape[2])), dt), wts.to(dt), sc, of,
                  pads, act) for nb, h, w, (wts, sc, of), pads, act in zoo_step]
         libs = [conv_yardstick(*args, dt) for args in step]
-        t = timed({"kernel": lambda: [single(*args) for args in step],
+        launches = [single(*args) for args in step]
+        t = timed({"kernel": lambda: [fn() for fn in launches],
                    "plain": lambda: [single_plain(*args) for args in step],
                    "library": lambda: [fn() for fn in libs]})
         share, work, step_work = {"operations": 0.0, "bytes": 0.0}, [0.0, 0.0], []
@@ -2039,8 +2048,9 @@ def main() -> int:
     x = torch.from_numpy(frames).to(dev)
     for form, specs, ops in (("int8 weights", espcn_w8_specs, espcn_w8_ops),
                              ("a8", espcn_a8_specs, espcn_a8_ops)):
+        prep = chain.prepare(ops, specs, bf16)
         fns = {"kernel": lambda: chain.fused_conv_chain_packed(
-                   x, ops, specs, tail="d2s2", compute_dtype=bf16),
+                   x, prep, specs, tail="d2s2", compute_dtype=bf16),
                "plain": lambda: chain.conv_chain_reference(x, ops, specs, "d2s2", bf16)}
         if not any(sp.in_q for sp in specs):
             fns["library"] = chain_library(x, ops, specs, "d2s2", bf16)
@@ -2101,10 +2111,11 @@ def main() -> int:
             step_i8.append((xb, wq, sc, of, pads, act))
             step_bf.append((xb, wq.to(bf16), sc, of, pads, act))
         libs = [conv_yardstick(*a, bf16) for a in step_i8]  # int8 weights cast to bf16
-        t = timed({"kernel": lambda: [single(*a) for a in step_i8],
+        launches_i8, launches_bf = ([single(*a) for a in step] for step in (step_i8, step_bf))
+        t = timed({"kernel": lambda: [fn() for fn in launches_i8],
                    "plain": lambda: [single_plain(*a) for a in step_i8],
                    "library": lambda: [fn() for fn in libs]})
-        t_bf = timed({"bf16": lambda: [single(*a) for a in step_bf]})["bf16"]
+        t_bf = timed({"bf16": lambda: [fn() for fn in launches_bf]})["bf16"]
         flops = nbytes = 0.0
         for xb, wq, _sc, _of, (pt, pb, pl, pr), _act in step_i8:
             kh, kw, c_, o_ = wq.shape
@@ -2126,7 +2137,8 @@ def main() -> int:
     # the softmax).
     specs_, ops_, shape = r18_chains_i8[0]
     x = tensor(rng.random(shape), bf16)
-    t = timed({"kernel": lambda: chain.fused_conv_chain(x, ops_, specs_, compute_dtype=bf16),
+    prep = chain.prepare(ops_, specs_, bf16)
+    t = timed({"kernel": lambda: chain.fused_conv_chain(x, prep, specs_, compute_dtype=bf16),
                "plain": lambda: chain.conv_chain_reference(x, ops_, specs_, "none", bf16),
                "library": chain_library(x, ops_, specs_, "none", bf16)})
     n_, h_, w_, _ = shape
@@ -2143,8 +2155,7 @@ def main() -> int:
         f"{bf['ms']:.4f} ms (device {bf['device_ms']:.4f}) | {card}")
     nb_, h_, w_, c_, k_, o_ = TWO_INPUT
     x = tensor(rng.random((nb_, h_, w_, c_)), bf16)
-    t = timed({"kernel": lambda: conv_igemm.conv2d_kernel_nhwc(x, *two_ops, stride=1, pads=same3,
-                                                                activation="relu"),
+    t = timed({"kernel": igemm(x, *two_ops, same3, "relu"),
                "plain": lambda: conv_igemm.conv2d_igemm_reference(x, *two_ops, 1, same3, "relu"),
                "library": conv_yardstick(x, *two_ops, same3, "relu", bf16)})
     flops = 2.0 * nb_ * h_ * w_ * k_ * k_ * c_ * o_
@@ -2158,8 +2169,7 @@ def main() -> int:
     # The fp32 form on the same int8 weights (3xTF32, two passes): the
     # library call on the weights cast to f32 (exact).
     x = tensor(rng.random((nb_, h_, w_, c_)))
-    t = timed({"kernel": lambda: conv_igemm.conv2d_kernel_nhwc(x, *two_ops, stride=1, pads=same3,
-                                                                activation="relu"),
+    t = timed({"kernel": igemm(x, *two_ops, same3, "relu"),
                "plain": lambda: conv_igemm.conv2d_igemm_reference(x, *two_ops, 1, same3, "relu"),
                "library": conv_yardstick(x, *two_ops, same3, "relu", f32)})
     nbytes = (x.numel() + nb_ * h_ * w_ * o_) * 4 + two_ops[0].numel() + 8 * o_
@@ -2949,8 +2959,10 @@ def zoo_phase(h) -> dict:
         if kind == "chain":
             ops = h.on_dev(chain.chain_operands(nodes, dt, specs))
             entry = "fused_conv_chain_packed" if tail in ("c1", "d2s2") else "fused_conv_chain"
+            prep = chain.prepare(ops, specs, dt)
             t = h.timed({
-                "kernel": lambda: getattr(chain, entry)(x, ops, specs, tail=tail, compute_dtype=dt),
+                "kernel": lambda: getattr(chain, entry)(x, prep, specs, tail=tail,
+                                                        compute_dtype=dt),
                 "plain": lambda: chain.conv_chain_reference(x, ops, specs, tail, dt),
                 "library": h.chain_library(x, ops, specs, tail, dt),
             })
@@ -2965,9 +2977,10 @@ def zoo_phase(h) -> dict:
             pads = padding_offsets(node.attr("padding", "same"), int(node.attr("kernel_size")))
             act, alpha = str(node.attr("activation", "linear")), float(node.attr("leaky_alpha", 0.3))
             entry = "fused_conv2d_haloed"
+            prep = conv.prepare(wts, sc, of, dt)
 
             def single_conv():
-                return conv.fused_conv2d_haloed(x, wts, sc, of, pads, act, alpha, dt)
+                return conv.run(x, prep, pads, act, alpha)
 
             t = h.timed({
                 "kernel": single_conv,
@@ -3971,18 +3984,17 @@ def parallel_phase(h) -> dict:
     # [kernel] cases and the [timing] rows.
     shapes, path_of = {}, {}
     current = {"label": ""}
-    real = conv_igemm.conv2d_kernel_nhwc
+    real = conv_igemm.run  # what the engines' B5 launches go through, on prepared operands
 
-    def recording(x, w, scale, offset, *, stride=1, pads=(0, 0, 0, 0), activation="linear",
-                  alpha=0.3):
+    def recording(x, ops, *, stride=1, pads=(0, 0, 0, 0), activation="linear", alpha=0.3):
+        w = ops.hwio
         key = (tuple(x.shape), tuple(w.shape), str(x.dtype).split(".")[-1],
                str(w.dtype).split(".")[-1], int(stride), tuple(int(p) for p in pads),
                str(activation))
         if key not in shapes:
-            shapes[key] = (x.clone(), w.clone(), scale.clone(), offset.clone(), alpha)
+            shapes[key] = (x.clone(), w.clone(), ops.scale.clone(), ops.offset.clone(), alpha)
             path_of[key] = current["label"]
-        return real(x, w, scale, offset, stride=stride, pads=pads, activation=activation,
-                    alpha=alpha)
+        return real(x, ops, stride=stride, pads=pads, activation=activation, alpha=alpha)
 
     def drive(label, eng, x, want, torch_want=None, steps=h.STEPS):
         """One main path: `steps` steps with the counts set to 0 just before
@@ -3996,13 +4008,13 @@ def parallel_phase(h) -> dict:
         tol = tol_of(eng.options.precision)
         eng.run({"input": x})  # warm: prepared operands
         current["label"] = label
-        conv_igemm.conv2d_kernel_nhwc = recording
+        conv_igemm.run = recording
         try:
             h.reset_counts()
             ys = [eng.run({"input": x}) for _ in range(steps)]
             counts = {k: v for k, v in h.read_counts().items() if v}
         finally:
-            conv_igemm.conv2d_kernel_nhwc = real
+            conv_igemm.run = real
         per_step = mesh.size * len(fwd.kernel_conv_plan)
         nms_per_step = mesh.size * len(fwd.nms_plan)
         assert counts == {k: v * steps for k, v in (("conv2d_kernel_nhwc", per_step),
@@ -4089,7 +4101,8 @@ def parallel_phase(h) -> dict:
     # [kernel]: every distinct B5 launch against its plain version -------------------
     for (xs, ws, xdt, wdt, st, pads, act), (x, w, sc, of, alpha) in shapes.items():
         label = f"B5 sharded {xs}->{ws[-1]} k{ws[0]} {xdt} w {wdt} pads {pads}"
-        got = real(x, w, sc, of, stride=st, pads=pads, activation=act, alpha=alpha)
+        got = conv_igemm.conv2d_kernel_nhwc(x, w, sc, of, stride=st, pads=pads, activation=act,
+                                            alpha=alpha)
         want = conv_igemm.conv2d_igemm_reference(x, w, sc, of, st, pads, act, alpha)
         out["max_abs_err"] = max(out["max_abs_err"], h.held(
             label, "conv2d_kernel_nhwc", got, want, bf16 if x.dtype == bf16 else f32))
@@ -4156,8 +4169,9 @@ def parallel_phase(h) -> dict:
             continue
         label = f"{'x'.join(map(str, xs))}->{ws[-1]} k{ws[0]} {xdt} w {wdt} ({path_of[key]})"
         dt = bf16 if x.dtype == bf16 else f32
+        ops = conv_igemm.prepare(w, sc, of, x.dtype)
         t = timed({
-            "kernel": lambda: real(x, w, sc, of, stride=st, pads=pads, activation=act),
+            "kernel": lambda: real(x, ops, stride=st, pads=pads, activation=act),
             "plain": lambda: conv_igemm.conv2d_igemm_reference(x, w, sc, of, st, pads, act),
             "library": h.conv_yardstick(x, w.to(dt), sc, of, pads, act, dt)})
         n, hh, ww, c = xs
@@ -4362,18 +4376,18 @@ def pipeline_phase(h) -> dict:
     # [kernel] cases and the [timing] rows.
     shapes, chains, path_of = {}, {}, {}
     current = {"label": ""}
-    real_b5, real_b1 = conv_igemm.conv2d_kernel_nhwc, chain.fused_conv_chain_packed
+    # The engines' B5 launches go through conv_igemm.run, on prepared operands.
+    real_b5, real_b1 = conv_igemm.run, chain.fused_conv_chain_packed
 
-    def recording_b5(x, w, scale, offset, *, stride=1, pads=(0, 0, 0, 0), activation="linear",
-                     alpha=0.3):
+    def recording_b5(x, ops, *, stride=1, pads=(0, 0, 0, 0), activation="linear", alpha=0.3):
+        w = ops.hwio
         key = (tuple(x.shape), tuple(w.shape), str(x.dtype).split(".")[-1],
                str(w.dtype).split(".")[-1], int(stride), tuple(int(p) for p in pads),
                str(activation))
         if key not in shapes:
-            shapes[key] = (x.clone(), w.clone(), scale.clone(), offset.clone(), alpha)
+            shapes[key] = (x.clone(), w.clone(), ops.scale.clone(), ops.offset.clone(), alpha)
             path_of[key] = current["label"]
-        return real_b5(x, w, scale, offset, stride=stride, pads=pads, activation=activation,
-                       alpha=alpha)
+        return real_b5(x, ops, stride=stride, pads=pads, activation=activation, alpha=alpha)
 
     def recording_b1(x, layer_params, specs, *, tail="none", compute_dtype=None):
         key = (tuple(x.shape), str(x.dtype).split(".")[-1], tail)
@@ -4382,7 +4396,7 @@ def pipeline_phase(h) -> dict:
             path_of[key] = current["label"]
         return real_b1(x, layer_params, specs, tail=tail, compute_dtype=compute_dtype)
 
-    conv_igemm.conv2d_kernel_nhwc = recording_b5
+    conv_igemm.run = recording_b5
     chain.fused_conv_chain_packed = recording_b1
 
     def counted(label, fn):
@@ -4487,8 +4501,8 @@ def pipeline_phase(h) -> dict:
                                micro_batch=2)
         assert any(set(s.consumes) - {n.name for n in pipe.stages[s.index - 1].nodes}
                    for s in pipe.stages[1:]), "no U-Net value skips a stage"
-        kernel_convs = sum(ctx.backend == BackendKind.KERNEL
-                           for s in pipe.stages for _n, _v, ctx in s.steps[0])
+        kernel_convs = sum(backend == BackendKind.KERNEL
+                           for s in pipe.stages for _n, _v, backend, _k in s.steps[0])
         label = current["label"] = "unet 256 b8 bf16 4 stages mb2"
         pipe.run({"input": xu})
         ys, counts = counted(label, lambda: [pipe.run({"input": xu}) for _ in range(2)])
@@ -4706,20 +4720,21 @@ def pipeline_phase(h) -> dict:
             f"{after or 'not run: the probe excluded the device'} | {card}")
         del ee
     finally:
-        conv_igemm.conv2d_kernel_nhwc, chain.fused_conv_chain_packed = real_b5, real_b1
+        conv_igemm.run, chain.fused_conv_chain_packed = real_b5, real_b1
 
     # [kernel]: every distinct B5 and B1 launch of these paths against its plain version
     out["max_abs_err"] = {"conv2d_kernel_nhwc": 0.0, "fused_conv_chain_packed": 0.0}
     for (xs, ws, xdt, wdt, st, pads, act), (x, w, sc, of, alpha) in shapes.items():
         label = f"B5 {xs}->{ws[-1]} k{ws[0]} {xdt} w {wdt}"
-        got = real_b5(x, w, sc, of, stride=st, pads=pads, activation=act, alpha=alpha)
+        got = conv_igemm.conv2d_kernel_nhwc(x, w, sc, of, stride=st, pads=pads, activation=act,
+                                            alpha=alpha)
         ref = conv_igemm.conv2d_igemm_reference(x, w, sc, of, st, pads, act, alpha)
         out["max_abs_err"]["conv2d_kernel_nhwc"] = max(
             out["max_abs_err"]["conv2d_kernel_nhwc"],
             h.held(label, "conv2d_kernel_nhwc", got, ref, bf16 if x.dtype == bf16 else f32))
     for (xs, xdt, tail), (x, ops, specs, tail, cdt) in chains.items():
         got = real_b1(x, ops, specs, tail=tail, compute_dtype=cdt)
-        ref = chain.conv_chain_reference(x, ops, specs, tail, cdt)
+        ref = chain.conv_chain_reference(x, getattr(ops, "layers", ops), specs, tail, cdt)
         out["max_abs_err"]["fused_conv_chain_packed"] = max(
             out["max_abs_err"]["fused_conv_chain_packed"],
             h.held(f"B1 {xs} {xdt} {tail}", "fused_conv_chain_packed", got, ref,
@@ -4732,8 +4747,9 @@ def pipeline_phase(h) -> dict:
             continue
         dt = bf16 if x.dtype == bf16 else f32
         label = f"{'x'.join(map(str, xs))}->{ws[-1]} k{ws[0]} {xdt}"
+        ops = conv_igemm.prepare(w, sc, of, x.dtype)
         t = {k: h.time_ms(fn) for k, fn in {
-            "kernel": lambda: real_b5(x, w, sc, of, stride=st, pads=pads, activation=act),
+            "kernel": lambda: real_b5(x, ops, stride=st, pads=pads, activation=act),
             "plain": lambda: conv_igemm.conv2d_igemm_reference(x, w, sc, of, st, pads, act),
             "library": h.conv_yardstick(x, w.to(dt), sc, of, pads, act, dt)}.items()}
         n, hh, ww, c = xs

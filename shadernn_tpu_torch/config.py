@@ -45,7 +45,6 @@ class BackendKind(enum.Enum):
     AUTO = "auto"  # per layer: the kernel where the chain gate admits it
 
 
-CHAIN_FORMATS = ("auto", "packed", "im2col")
 CHAIN_A8 = ("auto", "off")
 SPMD_MODES = ("shard_map", "gspmd")
 
@@ -102,11 +101,6 @@ class EngineOptions:
     # puts on the JAX package's result (TORCH on every shard, no TP under
     # SP).
     spmd_mode: str = "shard_map"
-    # Which entry point a planned conv chain goes through: "auto"/"packed"
-    # take `fused_conv_chain_packed` for c1/d2s2 tails and `fused_conv_chain`
-    # otherwise; "im2col" always takes `fused_conv_chain`. On Hopper both
-    # entry points launch the same kernel (kernels/chain.py).
-    chain_format: str = "auto"
     # Under INT8: "auto" runs a packed chain layer's dot int8 x int8 where
     # its input range is bounded (the JAX package's a8 rule,
     # kernels/chain.py a8_scales); "off" keeps every chain dot on bf16.
@@ -125,10 +119,6 @@ class EngineOptions:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.chain_format not in CHAIN_FORMATS:
-            raise ValueError(
-                f"chain_format {self.chain_format!r} not in {CHAIN_FORMATS}"
-            )
         if self.chain_a8 not in CHAIN_A8:
             raise ValueError(f"chain_a8 {self.chain_a8!r} not in {CHAIN_A8}")
         if self.spmd_mode not in SPMD_MODES:

@@ -1,8 +1,8 @@
 """Graph -> forward function on one device (counterpart of
 shadernn_tpu/engine/compile.py).
 
-The forward walks the sorted graph eagerly. Five plans are made
-statically, as the JAX package makes them for its Pallas kernels:
+The forward runs one list of entries (`PlanEntry`), planned statically,
+as the JAX package plans its Pallas kernels:
 
 - runs of stride-1 convs that the AUTO policy gives the kernel become ONE
   chain on the conv-chain CUDA kernel (kernels/chain.py), with a
@@ -26,6 +26,9 @@ given to KERNEL and that no kernel's gate admits runs on TORCH too, with
 a log line that names the gate: the decision is made here, never at
 launch time.
 
+A kernel entry prepares its operands (the kernels' `prepare`) once into
+the model's `OperandStore`, which keeps a TORCH body's weights too.
+
 Under INT8 (bfloat16 activations, int8 weights) the planners also set the
 int8 activations of a calibrated graph, as the JAX package does: a packed
 chain's per-layer `in_q` (kernels/chain.py a8_scales, unless
@@ -48,7 +51,6 @@ import torch
 
 from shadernn_tpu_torch.config import BackendKind, EngineOptions
 from shadernn_tpu_torch.graph.ir import Graph, Node
-from shadernn_tpu_torch.kernels import hold
 from shadernn_tpu_torch.ops import get_op
 from shadernn_tpu_torch.ops.common import ACTIVATIONS
 from shadernn_tpu_torch.ops.conv import folded_operands, kernel_chain_supported
@@ -100,35 +102,37 @@ def resolve_device(options: EngineOptions) -> torch.device:
     return dev
 
 
+class NodeView:
+    """A node whose `params` are the engine's tensors; its other attributes
+    are the node's."""
+
+    __slots__ = ("_node", "params")
+
+    def __init__(self, node: Node, params: Dict[str, torch.Tensor]):
+        self._node, self.params = node, params
+
+    def __getattr__(self, name):
+        return getattr(self._node, name)
+
+
 @dataclasses.dataclass
-class _NodeView:
-    """Node proxy whose params come from the engine's tensor dict."""
+class PlanEntry:
+    """One step of the forward ("chain", "block", "single", "kernel" or
+    "torch"): the `members` whose parameters it reads (None for a block's
+    missing expand or add), the `nodes` it runs (head first) and the
+    `outputs` bound to its result. `prepare(views)` makes its kernel's
+    operands, once into the model's `OperandStore`; `run(views, operands,
+    value, inputs)` runs it (a TORCH step gets the store's cache as
+    `operands`). `spec`: a chain's layer specs (which a planted fault may
+    edit), a block's spec."""
 
-    _node: Node
-    params: Dict[str, torch.Tensor]
-
-    @property
-    def name(self):
-        return self._node.name
-
-    @property
-    def op(self):
-        return self._node.op
-
-    @property
-    def inputs(self):
-        return self._node.inputs
-
-    @property
-    def attrs(self):
-        return self._node.attrs
-
-    @property
-    def out_spec(self):
-        return self._node.out_spec
-
-    def attr(self, key: str, default=None):
-        return self._node.attr(key, default)
+    kind: str
+    members: List[Optional[Node]]
+    nodes: List[str]
+    outputs: List[str]
+    run: Callable
+    prepare: Optional[Callable] = None
+    spec: object = None
 
 
 def resolve_backend(node: Node, graph: Graph, options: EngineOptions) -> BackendKind:
@@ -164,9 +168,8 @@ _FOLDABLE = tuple(a for a in ACTIVATIONS if a not in ("softmax", "linear")) + (
 
 
 def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]):
-    """(chains, singles): head name -> (run, tail, tail_node, act_node,
-    specs), and the names of the convs that run alone on the single-conv
-    kernel."""
+    """(chains, singles): head name -> its chain's `PlanEntry`, and the
+    names of the convs that run alone on the single-conv kernel."""
     from shadernn_tpu_torch.kernels.chain import a8_scales, build_chain_specs
     from shadernn_tpu_torch.kernels.conv import single_conv_supported
 
@@ -191,7 +194,7 @@ def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]):
                 singles.append(n.name)
             else:
                 # Its backend resolved to KERNEL (forced, or by the AUTO
-                # policy), so _plan_layer_kernels sees it next and logs where
+                # policy), so plan_layer_kernels sees it next and logs where
                 # it runs: the implicit-GEMM kernel or TORCH.
                 log.info("conv %s declined by the single-conv kernel's gate (activation, "
                          "int8 weights under float32 activations, or shared memory); the "
@@ -272,23 +275,45 @@ def _plan_chains(graph: Graph, options: EngineOptions, order: List[Node]):
             )
             alone(run, f"chain at {node.name} declined")
             continue
-        if a8 and options.chain_format in ("auto", "packed") and tail in ("c1", "d2s2"):
+        if a8 and tail in ("c1", "d2s2"):
             # The packed entry's int8 dots, as the JAX package plans them; a
             # declined layer runs the bf16 dot there too.
             specs, notes = a8_scales(run, specs, graph.nodes[node.inputs[0]].op == "InputLayer")
             log.info("chain at %s, int8 dots: %s", node.name, "; ".join(
                 f"{name} in_q {q:.6g} ({why})" if q else f"{name} bf16 ({why})"
                 for name, q, why in notes))
-        chains[node.name] = (run, tail, tail_node, act_node, specs)
+        chains[node.name] = _chain_entry(graph, run, tail_node, act_node, tail, specs, act_dtype)
     return chains, singles
 
 
+def _chain_entry(graph, run, tail_node, act_node, tail, specs, dt) -> PlanEntry:
+    from shadernn_tpu_torch.kernels import chain
+
+    launch = chain.fused_conv_chain_packed if tail in ("c1", "d2s2") else chain.fused_conv_chain
+    src = graph.nodes[run[0].inputs[0]]
+
+    def go(views, ops, value, inputs):
+        # An InputLayer feeds the raw frame: the kernel casts on load.
+        x = inputs[src.name] if src.op == "InputLayer" else value(src.name)
+        return launch(x.contiguous(), ops, specs, tail=tail, compute_dtype=dt)
+
+    def prepare(views):
+        return chain.prepare(chain.chain_operands(views, dt, specs), specs, dt)
+
+    return PlanEntry("chain", run, [n.name for n in run + [tail_node, act_node] if n is not None],
+                     [n.name for n in (run[-1], tail_node, act_node) if n is not None], go,
+                     prepare, specs)
+
+
 def _plan_blocks(graph: Graph, options: EngineOptions, order: List[Node], taken: set) -> dict:
-    """head name -> ((expand, dw, project, add), InvResSpec, (in_act_scale,
-    a8w8)) for each inverted-residual block the kernel takes; `taken` holds
-    the names that chains (and earlier blocks) already run and grows with
-    each block's members other than its head."""
-    from shadernn_tpu_torch.kernels.invres import build_invres, match_invres_block
+    """head name -> the `PlanEntry` of each inverted-residual block the
+    kernel takes; `taken` holds the names that chains (and earlier blocks)
+    already run and grows with each block's members other than its head."""
+    from shadernn_tpu_torch.kernels.invres import (
+        build_invres, fused_invres_block, match_invres_block, prepare_operands,
+    )
+
+    dt = options.precision.activation_dtype
 
     blocks: dict = {}
     if options.dump_outputs:  # intermediates must be observable
@@ -311,7 +336,7 @@ def _plan_blocks(graph: Graph, options: EngineOptions, order: List[Node], taken:
         # A8W8 scales only under an INT8 engine: a calibrated graph rebuilt
         # at FP32/BF16 runs float activations.
         a8w8 = (float(in_node.attrs.get("act_scale", 0.0) or 0.0) if int8 else 0.0, int8)
-        built = build_invres(m, in_node.out_spec, options.precision.activation_dtype, *a8w8)
+        built = build_invres(m, in_node.out_spec, dt, *a8w8)
         if built is None:
             log.info("block at %s declined by the kernel's gate (activation, Cout > 320 "
                      "or shared memory); its ops run on TORCH", head.name)
@@ -320,12 +345,22 @@ def _plan_blocks(graph: Graph, options: EngineOptions, order: List[Node], taken:
             log.info("block at %s: expand %s, project %s", head.name,
                      f"int8 (ax1 {built[1].ax1:.6g})" if built[1].ax1 else "bf16",
                      f"int8 (ax2 {built[1].ax2:.6g})" if built[1].ax2 else "bf16")
-        blocks[head.name] = (m, built[1], a8w8)
+        spec = built[1]
+
+        def go(views, ops, value, inputs, head=head, spec=spec):
+            return fused_invres_block(value(head.inputs[0]).contiguous(), ops, spec)
+
+        def prepare(views, in_spec=in_node.out_spec, spec=spec, a8w8=a8w8):
+            return prepare_operands(build_invres(views, in_spec, dt, *a8w8)[0], spec, dt)
+
+        out = m[3] if m[3] is not None else m[2]
+        blocks[head.name] = PlanEntry("block", list(m), [n.name for n in members], [out.name],
+                                      go, prepare, spec)
         taken.update(n.name for n in members if n is not head)
     return blocks
 
 
-def _plan_layer_kernels(graph: Graph, options: EngineOptions, order: List[Node], taken: set):
+def plan_layer_kernels(graph: Graph, options: EngineOptions, order: List[Node], taken: set):
     """(convs, denses, on_torch): the names of the Conv2D nodes given to
     KERNEL that run on the implicit-GEMM kernel, of the Dense nodes that run
     on the fused-matmul kernel, and of the KERNEL nodes of both kinds that
@@ -361,22 +396,53 @@ def _plan_layer_kernels(graph: Graph, options: EngineOptions, order: List[Node],
     return convs, denses, on_torch
 
 
+class OperandStore:
+    """A model's prepared operands: each plan entry's kernel operands and
+    what a TORCH body derives from its parameters (ops/conv.py
+    layer_weight), under a key of the caller's. `sync(params)`, once a
+    call, walks the parameter tensors: where one was replaced or changed in
+    place (its identity or `_version`), every entry is dropped, to be made
+    again at its next `get`, and `generation` moves. It holds the walked
+    `tensors`, so that their identities stay theirs."""
+
+    def __init__(self):
+        self.entries: Dict[object, object] = {}
+        self.generation = 0
+        self._stamp = None
+        self.tensors: tuple = ()
+
+    def sync(self, params) -> int:
+        """Walk `params` (node -> {name: tensor}, or a list of those, None
+        at another process's shards); returns the generation."""
+        groups = params if isinstance(params, (list, tuple)) else (params,)
+        tensors = tuple(t for p in groups if p is not None for d in p.values() for t in d.values())
+        stamp = tuple(map(id, tensors)) + tuple(t._version for t in tensors)
+        if stamp != self._stamp:
+            self._stamp, self.tensors, self.entries = stamp, tensors, {}
+            self.generation += 1
+        return self.generation
+
+    def get(self, key, make):
+        """The operands under `key`, made by make() where there are none."""
+        hit = self.entries.get(key)
+        if hit is None:
+            timer.count("engine.operand_prepares")
+            hit = self.entries[key] = make()
+        return hit
+
+
+
 def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dict], dict]:
     """The forward over (params, inputs) -> {output name: tensor}; with
-    options.dump_outputs also every layer's output under "__dumps__".
-    `forward.chain_plan` and `forward.block_plan` map each chain or block
-    head to the nodes it fuses (`forward.chain_specs` and
-    `forward.block_specs` to its kernel's specs); `forward.single_conv_plan`,
-    `forward.kernel_conv_plan` and `forward.kernel_dense_plan` list the
-    nodes that run alone on the single-conv, implicit-GEMM and fused-matmul
-    kernels."""
-    from shadernn_tpu_torch.kernels.chain import (
-        chain_operands, fused_conv_chain, fused_conv_chain_packed,
-    )
-    from shadernn_tpu_torch.kernels.conv import conv_run_kernel
-    from shadernn_tpu_torch.kernels.invres import (
-        build_invres, fused_invres_block, prepare_operands,
-    )
+    options.dump_outputs also every layer's output under "__dumps__". One
+    loop over `forward.entries` (`PlanEntry`), their prepared operands in
+    `forward.store` (`OperandStore`). Views of the entries: `chain_plan`
+    and `block_plan` (head -> the nodes fused), `chain_specs` and
+    `block_specs` (head -> the kernel's specs), `single_conv_plan`,
+    `kernel_conv_plan` and `kernel_dense_plan` (the nodes on the
+    single-conv, implicit-GEMM and fused-matmul kernels), `paths` (head ->
+    kind) and `nms_plan` (the YOLO nodes: one NMS launch each on CUDA)."""
+    from shadernn_tpu_torch.kernels import conv, conv_igemm
 
     order = graph.toposort()
     act_dtype = options.precision.activation_dtype
@@ -386,43 +452,51 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
         else getattr(torch, options.output_dtype)
     )
     chains, singles = _plan_chains(graph, options, order)
-    skip = set()
-    for run, _tail, tail_node, act_node, _specs in chains.values():
-        skip.update(n.name for n in run[1:])
-        skip.update(n.name for n in (tail_node, act_node) if n is not None)
-    blocks = _plan_blocks(graph, options, order, skip | set(chains))
-    for head, (members, _spec, _a8w8) in blocks.items():
-        skip.update(n.name for n in members if n is not None and n.name != head)
-    singles = [n for n in singles if n not in skip and n not in blocks]
-    kernel_convs, kernel_denses, on_torch = _plan_layer_kernels(
-        graph, options, order, skip | set(chains) | set(blocks) | set(singles))
-    layer_kernels = set(kernel_convs) | set(kernel_denses)
-    prepared: Dict[str, tuple] = {}
+    taken = {n for e in chains.values() for n in e.nodes[1:]}
+    blocks = _plan_blocks(graph, options, order, taken | set(chains))
+    taken.update(n for e in blocks.values() for n in e.nodes[1:])
+    singles = [n for n in singles if n not in taken and n not in blocks]
+    kernel_convs, kernel_denses, on_torch = plan_layer_kernels(
+        graph, options, order, taken | set(chains) | set(blocks) | set(singles))
 
-    def operands(head: str, views, make):
-        """The kernel operands of a planned chain, block, conv or dense
-        layer (weights cast, epilogues folded), or the weight of a TORCH
-        layer (ops/conv.py layer_weight), prepared once for each set of
-        parameter tensors: `CompiledModel.load_params` installs new
-        tensors, which prepares them anew."""
-        key = tuple(t for v in views if v is not None for t in v.params.values())
-        hit = prepared.get(head)
-        if hit is None or len(hit[0]) != len(key) or any(a is not b for a, b in zip(hit[0], key)):
-            timer.count("engine.operand_prepares")
-            hit = prepared[head] = (key, make())
-        hold(hit)
-        return hit[1]
+    def op_entry(kind, node, backend, prepare=None) -> PlanEntry:
+        op = get_op(node.op)
 
-    # Each planned entry's path, the `path` of its `snn.layer` span.
-    paths = {}
+        def go(views, ops, value, inputs):
+            if kind == "single":
+                return conv.conv_run_kernel(views[0], value(node.inputs[0]).contiguous(),
+                                            act_dtype, ops)
+            # The op bodies own the per-layer kernels' branch: a planned node
+            # gets KERNEL and its prepared operands, a declined one TORCH.
+            ctx = RunCtx(precision=options.precision, backend=backend,
+                         operands=ops if prepare else None, cache=None if prepare else ops)
+            return op.run(views[0], [value(i) for i in node.inputs], ctx)
+
+        return PlanEntry(kind, [node], [node.name], [node.name], go, prepare)
+
+    entries: List[PlanEntry] = []
     for node in order:
-        if node.name in skip or node.op == "InputLayer":
+        name = node.name
+        if node.op == "InputLayer" or name in taken:
             continue
-        paths[node.name] = ("block" if node.name in blocks else "chain" if node.name in chains
-                            else "single" if node.name in singles
-                            else "kernel" if node.name in layer_kernels else "torch")
+        if name in chains or name in blocks:
+            entries.append(chains.get(name) or blocks[name])
+        elif name in singles:
+            entries.append(op_entry("single", node, BackendKind.KERNEL, lambda views: conv.prepare(
+                *folded_operands(views[0], act_dtype), act_dtype)))
+        elif name in kernel_convs:
+            entries.append(op_entry("kernel", node, BackendKind.KERNEL, lambda views: (
+                conv_igemm.prepare(*folded_operands(views[0], act_dtype), act_dtype))))
+        elif name in kernel_denses:
+            entries.append(op_entry("kernel", node, BackendKind.KERNEL,
+                                    lambda views: folded_operands(views[0], act_dtype)))
+        else:
+            entries.append(op_entry("torch", node, BackendKind.TORCH if name in on_torch
+                                    else resolve_backend(node, graph, options)))
+    store = OperandStore()
 
     def forward(params: Params, inputs: Dict[str, torch.Tensor]) -> dict:
+        store.sync(params)
         env: Dict[str, torch.Tensor] = {}
 
         def value(name: str) -> torch.Tensor:
@@ -430,64 +504,19 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
                 env[name] = inputs[name].to(act_dtype)
             return env[name]
 
-        def run_entry(node: Node) -> None:
-            if node.name in blocks:
-                members, spec, a8w8 = blocks[node.name]
-                views = [_NodeView(n, params.get(n.name, {})) if n is not None else None
-                         for n in members]
-                ops = operands(node.name, views, lambda: prepare_operands(build_invres(
-                    views, graph.nodes[node.inputs[0]].out_spec, act_dtype, *a8w8)[0], spec,
-                    act_dtype))
-                out = members[3] if members[3] is not None else members[2]
-                env[out.name] = fused_invres_block(
-                    value(node.inputs[0]).contiguous(), ops, spec)
-                return
-            if node.name in chains:
-                run, tail, tail_node, act_node, specs = chains[node.name]
-                views = [_NodeView(n, params.get(n.name, {})) for n in run]
-                src = graph.nodes[node.inputs[0]]
-                # An InputLayer feeds the raw frame: the kernel casts on load.
-                vin = inputs[src.name] if src.op == "InputLayer" else value(src.name)
-                vin = vin.contiguous()
-                entry = (
-                    fused_conv_chain_packed
-                    if options.chain_format in ("auto", "packed") and tail in ("c1", "d2s2")
-                    else fused_conv_chain
-                )
-                res = entry(vin, operands(node.name, views,
-                                          lambda: chain_operands(views, act_dtype, specs)),
-                            specs, tail=tail, compute_dtype=act_dtype)
-                for n in (run[-1], tail_node, act_node):
-                    if n is not None:
-                        env[n.name] = res
-                return
-            view = _NodeView(node, params.get(node.name, {}))
-            if node.name in singles:
-                env[node.name] = conv_run_kernel(
-                    view, value(node.inputs[0]).contiguous(), act_dtype,
-                    operands(node.name, [view], lambda: folded_operands(view, act_dtype)))
-                return
-            # The op bodies own the per-layer kernels' branch: a planned node
-            # gets KERNEL and its prepared operands, a declined one TORCH.
-            if node.name in layer_kernels:
-                ctx = RunCtx(precision=options.precision, backend=BackendKind.KERNEL,
-                             operands=operands(node.name, [view],
-                                               lambda: folded_operands(view, act_dtype)))
-            else:
-                backend = (BackendKind.TORCH if node.name in on_torch
-                           else resolve_backend(node, graph, options))
-                ctx = RunCtx(precision=options.precision, backend=backend,
-                             cache=functools.partial(operands, node.name, [view]))
-            env[node.name] = get_op(node.op).run(view, [value(i) for i in node.inputs], ctx)
         on = timer.tracing()
-        for node in order:
-            if node.name in skip or node.op == "InputLayer":
-                continue
+        for e in entries:
+            views = [NodeView(n, params.get(n.name, {})) if n is not None else None
+                     for n in e.members]
+            ops = (store.get(e.nodes[0], functools.partial(e.prepare, views)) if e.prepare
+                   else functools.partial(store.get, e.nodes[0]))  # a TORCH body's RunCtx.cache
             if on:
-                with timer.span("snn.layer", node=node.name, path=paths[node.name]):
-                    run_entry(node)
+                with timer.span("snn.layer", node=e.nodes[0], path=e.kind):
+                    res = e.run(views, ops, value, inputs)
             else:
-                run_entry(node)
+                res = e.run(views, ops, value, inputs)
+            for o in e.outputs:
+                env[o] = res
         if getattr(_uncast, "on", False):
             return {o: value(o) for o in graph.output_names}
         outs = {o: value(o).to(out_dtype) for o in graph.output_names}
@@ -497,28 +526,16 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
             }
         return outs
 
-    forward.chain_plan = {
-        head: [n.name for n in run]
-        + ([tail_node.name] if tail_node else [])
-        + ([act_node.name] if act_node else [])
-        for head, (run, _tail, tail_node, act_node, _specs) in chains.items()
-    }
-    forward.block_plan = {
-        head: [n.name for n in members if n is not None]
-        for head, (members, _spec, _a8w8) in blocks.items()
-    }
-    # The kernels' static plans: each chain's layer specs (in_q; the lists
-    # the forward runs, so that a planted fault can edit one) and each
-    # block's spec (ax1, ax2).
-    forward.chain_specs = {head: c[4] for head, c in chains.items()}
-    forward.block_specs = {head: spec for head, (_m, spec, _a8w8) in blocks.items()}
+    forward.entries, forward.store, forward.out_dtype = entries, store, out_dtype
+    forward.chain_plan = {h: e.nodes for h, e in chains.items()}
+    forward.block_plan = {h: e.nodes for h, e in blocks.items()}
+    forward.chain_specs = {h: e.spec for h, e in chains.items()}
+    forward.block_specs = {h: e.spec for h, e in blocks.items()}
     forward.single_conv_plan = list(singles)
     forward.kernel_conv_plan = list(kernel_convs)
     forward.kernel_dense_plan = list(kernel_denses)
-    forward.paths = dict(paths)  # each entry the forward runs, and its path
-    # The YOLO nodes: on a CUDA device one NMS launch each a step (ops/yolo.py `nms`).
-    forward.nms_plan = [n for n in paths if graph.nodes[n].op == "YOLO"]
-    forward.out_dtype = out_dtype
+    forward.paths = {e.nodes[0]: e.kind for e in entries}
+    forward.nms_plan = [n for n in forward.paths if graph.nodes[n].op == "YOLO"]
     return forward
 
 

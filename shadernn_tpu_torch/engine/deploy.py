@@ -119,7 +119,9 @@ def export_engine(engine, path: str) -> str:
 
 
 def _options(recorded: dict, device: str) -> EngineOptions:
-    kw = _decode(recorded)
+    # An option that an older export recorded and EngineOptions no longer has is dropped.
+    names = {f.name for f in dataclasses.fields(EngineOptions)}
+    kw = {k: v for k, v in _decode(recorded).items() if k in names}
     kw["precision"] = Precision(kw["precision"])
     kw["backend"] = BackendKind(kw["backend"])
     if kw.get("backend_overrides"):

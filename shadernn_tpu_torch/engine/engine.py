@@ -168,7 +168,8 @@ class Engine:
         not perturbed as the JAX package's fori_loop must. Host dispatch can
         still bound a small model here: the window ends when the last step
         ends, and if the host queues steps slower than the card runs them,
-        the card waits. A CUDA graph of the step is ROADMAP A1."""
+        the card waits. It times the eager step: `dispatch` replays a CUDA
+        graph of it where one engages (engine/graphs.py)."""
         self._check_inputs(inputs)
         dev_inputs = self._to_device(inputs)
         cuda = self.model.device.type == "cuda"

@@ -23,17 +23,18 @@ that one pass.
   kernels' first launch); the second captures, and every call from then on
   replays. The capture call replays too, for its outputs.
 - Stale weights: `CompiledModel.load_params` drops the graphs, and so does
-  a call that finds any parameter tensor replaced or changed in place (its
-  `_version`); the next call of each key warms again.
+  a call at which the model's operand store (engine/compile.py
+  `OperandStore`, `sync`) finds any parameter tensor replaced or changed
+  in place (its `_version`); the next call of each key warms again.
 - Streams: the capture runs on a side stream of the model's own, into a
   memory pool of the model's own, in "thread_local" mode, since the
   service captures on its dispatcher thread while other threads run. The
   replays of one model run one after another on the device: a call on
   another stream than the last waits for that stream first.
-- Lifetimes: a graph holds every tensor it reads: its static inputs, the
-  parameters, the prepared operands and packed chain weights the capture's
-  launches read (kernels `hold`); the ingest's constants live for the
-  process (image/ingest.py `_const`).
+- Lifetimes: a graph holds every tensor it reads: its static inputs, and
+  the parameters and prepared operands of the store as they were at its
+  capture; the ingest's constants live for the process (image/ingest.py
+  `_const`).
 - Counters: `engine.graph_captures`, `engine.graph_replays` and
   `engine.graph_eager` (the steps' CUDA calls that ran eager). A capture
   launches nothing; its launches are tallied (kernels `capturing`) and
@@ -46,6 +47,7 @@ that one pass.
 
 from __future__ import annotations
 
+import collections
 import threading
 from typing import Dict
 
@@ -75,20 +77,9 @@ def engages(model) -> bool:
             and not model.options.dump_outputs and not waits_on_host(model.graph))
 
 
-def params_stamp(params) -> tuple:
-    """Each parameter tensor's identity and version, in order."""
-    return tuple((id(t), t._version) for d in params.values() for t in d.values())
-
-
-class _Graph:
-    __slots__ = ("graph", "input", "outputs", "launches", "held")
-
-    def __init__(self, graph, static_input, outputs, launches, held):
-        self.graph = graph
-        self.input = static_input
-        self.outputs = outputs
-        self.launches = tuple(launches.items())
-        self.held = held
+# A captured step: its graph, static inputs and outputs, the launches of a
+# replay ((counter, launches) pairs) and the store's tensors that it reads.
+_Graph = collections.namedtuple("_Graph", "graph input outputs launches operands")
 
 
 def one_launch(model) -> bool:
@@ -98,18 +89,20 @@ def one_launch(model) -> bool:
 
 class StepGraphs:
     """The CUDA graphs of one model's steps, by key: the model's `graphs`.
-    `out_dtype` is the forward's output dtype; `dispatch` whether
-    `Engine.dispatch` replays them too."""
+    `out_dtype` is the forward's output dtype, `store` the model's
+    `OperandStore`; `dispatch` whether `Engine.dispatch` replays them too."""
 
-    def __init__(self, device: torch.device, out_dtype: torch.dtype, dispatch: bool = False):
+    def __init__(self, device: torch.device, out_dtype: torch.dtype, store,
+                 dispatch: bool = False):
         self.device = device
         if device.type == "cuda" and device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.out_dtype = out_dtype
+        self.store = store
         self.dispatch = dispatch
         self.lock = threading.Lock()
         self.graphs = {}  # key -> _Graph, or None once warmed
-        self.stamp = None
+        self.generation = None  # the store's, when the graphs were made
         self.last = None  # the stream of the last replay
         self.stream = self.pool = None  # made at the first capture
 
@@ -125,10 +118,10 @@ class StepGraphs:
 
     def check(self, params) -> None:
         """Drop the graphs if a parameter tensor was replaced or changed."""
-        stamp = params_stamp(params)
-        if stamp != self.stamp:
+        generation = self.store.sync(params)
+        if generation != self.generation:
             self._drop()
-            self.stamp = stamp
+            self.generation = generation
 
     def __call__(self, params, key, fn, inputs: Dict[str, torch.Tensor]):
         """fn(inputs on the model's device) -> the model's outputs, for the
@@ -139,7 +132,7 @@ class StepGraphs:
                             for name, t in inputs.items()))
             g = self.graphs.get(k, _COLD)
             if g is None:
-                g = self.graphs[k] = self._capture(params, fn, inputs)
+                g = self.graphs[k] = self._capture(fn, inputs)
             if g is _COLD:
                 self.graphs[k] = None
                 timer.count("engine.graph_eager")
@@ -150,7 +143,7 @@ class StepGraphs:
             with timer.span("snn.step"):
                 return self._replay(g, inputs)
 
-    def _capture(self, params, fn, inputs: Dict[str, torch.Tensor]):
+    def _capture(self, fn, inputs: Dict[str, torch.Tensor]):
         from shadernn_tpu_torch.engine.compile import uncast_outputs
         from shadernn_tpu_torch.kernels import capturing
 
@@ -160,12 +153,14 @@ class StepGraphs:
         static = {name: torch.empty(t.shape, dtype=t.dtype, device=self.device)
                   for name, t in inputs.items()}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device), capturing() as (tally, held):
+        with torch.cuda.device(self.device), capturing() as tally:
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
                                   capture_error_mode="thread_local"), uncast_outputs():
                 outs = fn(static)
         timer.count("engine.graph_captures")
-        return _Graph(graph, static, outs, tally, (params, held))
+        store = self.store
+        return _Graph(graph, static, outs, tuple(tally.items()),
+                      (store.tensors, tuple(store.entries.values())))
 
     def _replay(self, g: _Graph, inputs: Dict[str, torch.Tensor]) -> dict:
         stream = torch.cuda.current_stream(self.device)
@@ -188,7 +183,7 @@ def _graphs(model):
     graphs = model.graphs
     if graphs is None:
         graphs = model.graphs = (StepGraphs(model.device, model.forward.out_dtype,
-                                            dispatch=not one_launch(model))
+                                            model.forward.store, dispatch=not one_launch(model))
                                  if engages(model) else False)
     return graphs
 

@@ -9,8 +9,11 @@ once, in the span and counter recorder (utils/timer.py), as
 `kernels.launches.<kernel>.<entry>`; `launch_counts` sums those counters by
 entry point or by kernel. While a thread captures a CUDA graph
 (`capturing`), its launches are tallied for the graph instead, whose every
-replay adds the tally (engine/graphs.py), and the cached operands that the
-kernels read are held for it (`hold`).
+replay adds the tally (engine/graphs.py).
+
+The kernels keep no state: a wrapper's `prepare` (invres.py's
+`prepare_operands`) returns what its launch reads, for the caller to keep
+(engine/compile.py `OperandStore`); an entry point prepares on each call.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ _COUNTER = {(entry, i): f"{LAUNCHES}{kernel}.{entry}"
             for entry, kernels in KERNELS.items() for i, kernel in enumerate(kernels)}
 
 
-# The tally and the held objects of the capture running on a thread, if any.
+# The tally of the capture running on a thread, if any.
 _capture = threading.local()
 
 
@@ -53,23 +56,15 @@ def count_launch(entry: str, form: int = 0) -> None:
         tally[name] = tally.get(name, 0) + 1
 
 
-def hold(obj) -> None:
-    """Keep `obj`, a cached operand that a launch reads, alive as long as the
-    graph that the capture running on this thread makes, if one runs."""
-    held = getattr(_capture, "held", None)
-    if held is not None:
-        held.append(obj)
-
-
 @contextlib.contextmanager
 def capturing():
-    """While a CUDA graph is captured on this thread: yields (tally, held),
-    the launches counted ({counter: launches}) and the objects held."""
-    _capture.tally, _capture.held = {}, []
+    """While a CUDA graph is captured on this thread: yields the tally of
+    the launches counted ({counter: launches})."""
+    _capture.tally = {}
     try:
-        yield _capture.tally, _capture.held
+        yield _capture.tally
     finally:
-        _capture.tally = _capture.held = None
+        _capture.tally = None
 
 
 def launch_counts(by: str = "entry", counters: Optional[Dict[str, int]] = None) -> Dict[str, int]:

@@ -30,9 +30,10 @@ with a launch geometry that this module owns (`launch_geometry` for bf16,
 `f32_launch_geometry` for f32: the tile, the region strides, the
 shared-memory layout, which layers pack their taps densely, whether the
 weights stay resident) and weights packed here into the kernel's B images
-(`pack_params`, `pack_params_f32`); the C entry point checks the geometry
-and launches. The f32 form is 3xTF32 (kernels/tf32.py is the plain model
-of that arithmetic): its B images come split into TF32 hi and lo, and
+(`pack_params`, `pack_params_f32`; `prepare` packs a chain's once, and its
+caller keeps them); the C entry point checks the geometry and launches.
+The f32 form is 3xTF32 (kernels/tf32.py is the plain model of that
+arithmetic): its B images come split into TF32 hi and lo, and
 each layer's epilogue writes the next layer's input split. The gate's
 shared-memory term (`smem_bytes`) is the layout of the first f32 form, on
 the CUDA cores with a fixed 16 x 32 tile, kept as a formula so that the
@@ -44,12 +45,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import weakref
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from shadernn_tpu_torch.kernels import count_launch, hold
+from shadernn_tpu_torch.kernels import count_launch
 from shadernn_tpu_torch.kernels.tf32 import tf32_split
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
 from shadernn_tpu_torch.ops.conv import (
@@ -658,23 +658,30 @@ def f32_launch_geometry(specs: Tuple[ChainLayerSpec, ...], n: int, h: int, w: in
     return dataclasses.replace(best, grid=min(tiles, sms * _f32_per_sm(best)))
 
 
-# Packed parameters, per first weight tensor (by id, while it lives) and
-# form: rebuilt when any operand tensor is replaced or modified in place
-# (its _version).
-_PACKED: dict = {}
+@dataclasses.dataclass(frozen=True)
+class ChainOperands:
+    """A chain's operands as its launch reads them (`prepare`): the layer
+    dicts of `chain_operands` (which the plain version reads), the compute
+    dtype and per layer whether it takes an int8 input, which fix the form
+    and its layout, and the packed parameters of that form; for the f32
+    form, which layers' B lo images are read."""
+
+    layers: List[dict]
+    dtype: torch.dtype
+    q8: Tuple[bool, ...]
+    params: torch.Tensor
+    b_lo: Tuple[int, ...] = ()
 
 
-def _packed(layer_params: List[dict], form: str, make):
-    tensors = [t for p in layer_params for t in (p["w"], p["scale"], p["offset"])]
-    key = (id(tensors[0]), form)
-    stamp = (tuple(id(t) for t in tensors), tuple(t._version for t in tensors))
-    hit = _PACKED.get(key)
-    if hit is None or hit[0] != stamp:
-        if hit is None:
-            weakref.finalize(tensors[0], _PACKED.pop, key, None)
-        hit = _PACKED[key] = (stamp, tensors[1:], make())  # holds the others: ids stay theirs
-    hold(hit)
-    return hit[2]
+def prepare(layer_params, specs: Sequence[ChainLayerSpec],
+            compute_dtype: torch.dtype) -> ChainOperands:
+    """The launch's operands for `specs` in the compute dtype's form:
+    `pack_params` (bf16) or `pack_params_f32`."""
+    q8 = tuple(s.in_q > 0.0 for s in specs)
+    if compute_dtype == torch.bfloat16:
+        return ChainOperands(layer_params, compute_dtype, q8, pack_params(layer_params, specs))
+    return ChainOperands(layer_params, compute_dtype, q8,
+                         *pack_params_f32(layer_params, specs))
 
 
 def _compute_dtype(x: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.dtype:
@@ -719,8 +726,10 @@ def _check_a8(specs: Sequence[ChainLayerSpec], dt: torch.dtype) -> None:
             raise ValueError(f"an int8 layer input (in_q) needs the bf16 form and C % 8 == 0: {s}")
 
 
-def _launch(x, layer_params, specs, tail, dt, entry) -> torch.Tensor:
+def _launch(x, ops, specs, tail, dt, entry) -> torch.Tensor:
     from shadernn_tpu_torch.kernels._build import kernel_lib, sm_count
+
+    layer_params = ops.layers if isinstance(ops, ChainOperands) else ops
 
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv chain input must be float32 or bfloat16, got {x.dtype}")
@@ -739,6 +748,10 @@ def _launch(x, layer_params, specs, tail, dt, entry) -> torch.Tensor:
         for t in (p["w"], p["scale"], p["offset"]):
             if t.device != x.device:
                 raise ValueError(f"operand on {t.device}, input on {x.device}")
+    if not isinstance(ops, ChainOperands):
+        ops = prepare(ops, specs, dt)
+    if ops.dtype != dt or ops.q8 != tuple(s.in_q > 0.0 for s in specs):
+        raise ValueError("chain operands prepared for another form than the launch's")
     n, h, w, _ = x.shape
     ho, wo = _out_hw(h, w, specs)
     shape = (n, 2 * ho, 2 * wo, 1) if tail == "d2s2" else (n, ho, wo, specs[-1].o)
@@ -755,20 +768,17 @@ def _launch(x, layer_params, specs, tail, dt, entry) -> torch.Tensor:
     x_bf16 = int(x.dtype == torch.bfloat16)
     if dt == torch.bfloat16:
         geo = launch_geometry(tuple(specs), n, h, w, sm_count(x.device.index))
-        params = _packed(layer_params, ("bf16",) + tuple(s.in_q > 0.0 for s in specs),
-                         lambda: pack_params(layer_params, specs))
         # 1/in_q as float32, the constant the JAX kernel multiplies by.
         inv_q = (ctypes.c_float * len(specs))(*[1.0 / s.in_q if s.in_q > 0.0 else 0.0
                                                 for s in specs])
-        rc = lib.snn_conv_chain_tc(x.data_ptr(), x_bf16, y.data_ptr(), params.data_ptr(), ints,
+        rc = lib.snn_conv_chain_tc(x.data_ptr(), x_bf16, y.data_ptr(), ops.params.data_ptr(), ints,
                                    alphas, inv_q, len(specs), n, h, w, TAILS[tail], geo.array,
                                    stream)
     else:
         geo = f32_launch_geometry(tuple(specs), n, h, w, sm_count(x.device.index))
-        params, b_lo = _packed(layer_params, "f32", lambda: pack_params_f32(layer_params, specs))
-        rc = lib.snn_conv_chain_f32(x.data_ptr(), x_bf16, y.data_ptr(), params.data_ptr(), ints,
-                                    alphas, (ctypes.c_int * len(specs))(*b_lo), len(specs), n,
-                                    h, w, TAILS[tail], geo.array, stream)
+        rc = lib.snn_conv_chain_f32(x.data_ptr(), x_bf16, y.data_ptr(), ops.params.data_ptr(),
+                                    ints, alphas, (ctypes.c_int * len(specs))(*ops.b_lo),
+                                    len(specs), n, h, w, TAILS[tail], geo.array, stream)
     if rc != 0:
         raise RuntimeError(
             f"conv_chain launch failed ({rc}): {lib.snn_error_string(rc).decode()}"
@@ -777,14 +787,15 @@ def _launch(x, layer_params, specs, tail, dt, entry) -> torch.Tensor:
     return y
 
 
-def _conv_chain(x, layer_params, specs, tail, compute_dtype, entry):
+def _conv_chain(x, ops, specs, tail, compute_dtype, entry):
     if tail not in TAILS:
         raise ValueError(f"tail {tail!r} not in {tuple(TAILS)}")
     dt = _compute_dtype(x, compute_dtype)
     if x.device.type == "cuda":
-        return _launch(x, layer_params, specs, tail, dt, entry)
+        return _launch(x, ops, specs, tail, dt, entry)
     if x.device.type == "cpu":
-        return conv_chain_reference(x, layer_params, specs, tail, dt)
+        layers = ops.layers if isinstance(ops, ChainOperands) else ops
+        return conv_chain_reference(x, layers, specs, tail, dt)
     raise ValueError(f"no conv chain for device {x.device}")
 
 
@@ -798,7 +809,8 @@ def fused_conv_chain_packed(
 ) -> torch.Tensor:
     """Counterpart of chain_packed_pallas.fused_conv_chain_packed: the CUDA
     kernel for a CUDA tensor (no fallback), `conv_chain_reference` for a
-    CPU tensor."""
+    CPU tensor. `layer_params`: the layer dicts of `chain_operands`, packed
+    on this call, or the `ChainOperands` that `prepare` made of them."""
     return _conv_chain(x, layer_params, specs, tail, compute_dtype,
                        "fused_conv_chain_packed")
 

@@ -22,9 +22,9 @@ the chain kernel's gate declines.
 
 The kernel has two bodies, and `launch_geometry` picks one per conv: the
 tile body (64 output pixels a CTA, the weights staged for each; the k3
-convs; under float32 it reads the weight n-major, `nmajor_weight`, made
-once per weight tensor) and, for kernels of WIDE_TAPS taps or more
-(StyleTransfer's 9x9 stem and head), the wide body. Under bfloat16 that is
+convs; under float32 it reads the weight n-major, `nmajor_weight`, which
+`prepare` makes once for the caller to keep) and, for kernels of
+WIDE_TAPS taps or more (StyleTransfer's 9x9 stem and head), the wide body. Under bfloat16 that is
 a persistent grid on the tensor cores whose CTAs stage their channel
 block's whole weight once and walk 16x16 tiles through a double-buffered
 ring, with an n8 channel block where O <= 8 and, where C < 8, K packed
@@ -45,7 +45,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import weakref
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -358,33 +357,45 @@ def tile_geometry(n: int, h: int, w: int, c: int, kh: int, kw: int, o: int,
             return geo
 
 
-# The f32 form's n-major weights, per HWIO weight tensor (by id, while it
-# lives): rebuilt when it is modified in place (its _version).
-_NMAJOR: dict = {}
-
-
 def nmajor_weight(w_hwio: torch.Tensor) -> torch.Tensor:
-    """The f32 form's weight: (O, kh*kw*C8) float32, row o holding w[:, :,
-    :, o] tap by tap with C zero-padded to a multiple of 8 (k contiguous:
-    ldmatrix has no 32-bit transpose). Made once per weight tensor."""
-    key = id(w_hwio)
-    hit = _NMAJOR.get(key)
-    if hit is None or hit[0] != w_hwio._version:
-        if hit is None:
-            weakref.finalize(w_hwio, _NMAJOR.pop, key, None)
-        kh, kw, c, o = w_hwio.shape
-        wn = torch.nn.functional.pad(w_hwio.float().permute(3, 0, 1, 2), (0, -c % 8))
-        hit = _NMAJOR[key] = (w_hwio._version, wn.reshape(o, -1).contiguous())
-    return hit[1]
+    """The f32 tile body's weight: (O, kh*kw*C8) float32, row o holding
+    w[:, :, :, o] tap by tap with C zero-padded to a multiple of 8 (k
+    contiguous: ldmatrix has no 32-bit transpose)."""
+    kh, kw, c, o = w_hwio.shape
+    wn = torch.nn.functional.pad(w_hwio.float().permute(3, 0, 1, 2), (0, -c % 8))
+    return wn.reshape(o, -1).contiguous()
 
 
-def _launch(x, w_hwio, scale, offset, pads, activation, alpha, dt) -> torch.Tensor:
-    from shadernn_tpu_torch.kernels._build import kernel_lib, sm_count
+@dataclasses.dataclass(frozen=True)
+class ConvOperands:
+    """A conv's operands as its launch reads them (`prepare`): the HWIO
+    weight in the compute dtype (an int8 weight under bfloat16 as it is),
+    under float32 also its n-major form (`nmajor_weight`, what the tile
+    body reads), and the float32 scale and offset."""
 
+    w: torch.Tensor
+    scale: torch.Tensor
+    offset: torch.Tensor
+    dtype: torch.dtype
+    nmajor: Optional[torch.Tensor] = None
+
+
+def prepare(w_hwio: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+            compute_dtype: torch.dtype) -> ConvOperands:
+    """The launch's operands of one conv in the compute dtype's form."""
+    bf16 = compute_dtype == torch.bfloat16
+    w = (w_hwio if w_hwio.dtype == torch.int8 and bf16 else w_hwio.to(compute_dtype)).contiguous()
+    return ConvOperands(w, scale.float().contiguous(), offset.float().contiguous(),
+                        compute_dtype, None if bf16 else nmajor_weight(w))
+
+
+def check_launch(x, w_hwio, scale, offset, activation) -> Tuple[int, int, int, int]:
+    """What a launch of either conv kernel checks: x float32 or bfloat16,
+    NHWC and contiguous; an HWIO weight over its C; O scales and offsets;
+    every operand on x's device; an activation of the epilogue. Returns
+    (kh, kw, c, o)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv input must be float32 or bfloat16, got {x.dtype}")
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"conv compute dtype must be float32 or bfloat16, got {dt}")
     if x.dim() != 4 or w_hwio.dim() != 4 or w_hwio.shape[2] != x.shape[-1]:
         raise ValueError(
             f"conv needs NHWC x and HWIO w with matching C, got {tuple(x.shape)} "
@@ -393,14 +404,24 @@ def _launch(x, w_hwio, scale, offset, pads, activation, alpha, dt) -> torch.Tens
     if not x.is_contiguous():
         raise ValueError("conv input must be contiguous")
     kh, kw, c, o = (int(v) for v in w_hwio.shape)
-    for name, t, numel in (("scale", scale, o), ("offset", offset, o)):
-        if t.numel() != numel:
-            raise ValueError(f"{name} has {t.numel()} values, want {numel}")
+    for name, t in (("scale", scale), ("offset", offset)):
+        if t.numel() != o:
+            raise ValueError(f"{name} has {t.numel()} values, want {o}")
     for t in (w_hwio, scale, offset):
         if t.device != x.device:
             raise ValueError(f"operand on {t.device}, input on {x.device}")
-    if activation.lower() not in ACT_CODES:
+    if str(activation or "linear").lower() not in ACT_CODES:
         raise ValueError(f"activation {activation!r} is not in the kernel's epilogue")
+    return kh, kw, c, o
+
+
+def _launch(x, ops: ConvOperands, pads, activation, alpha) -> torch.Tensor:
+    from shadernn_tpu_torch.kernels._build import kernel_lib, sm_count
+
+    dt = ops.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"conv compute dtype must be float32 or bfloat16, got {dt}")
+    kh, kw, c, o = check_launch(x, ops.w, ops.scale, ops.offset, activation)
     pt, pb, pl, pr = (int(p) for p in pads)
     n, h, w, _ = x.shape
     y = torch.empty((n, h + pt + pb - kh + 1, w + pl + pr - kw + 1, o), dtype=dt,
@@ -411,17 +432,13 @@ def _launch(x, w_hwio, scale, offset, pads, activation, alpha, dt) -> torch.Tens
     geo = launch_geometry(n, h, w, c, kh, kw, o, (pt, pb, pl, pr), bf16, sm_count(x.device.index))
     if geo.smem > MAX_SMEM_BYTES:
         raise ValueError(f"conv k{kh}x{kw} {c}->{o} does not fit the kernel's shared memory")
-    w_int8 = w_hwio.dtype == torch.int8 and bf16
-    if bf16 or geo.body == 2:  # HWIO in the compute dtype (or int8); the tile body's f32: n-major
-        wf = (w_hwio if w_int8 else w_hwio.to(dt)).contiguous()
-    else:
-        wf = nmajor_weight(w_hwio)
-    sf = scale.float().contiguous()
-    of = offset.float().contiguous()
+    # HWIO in the compute dtype (or int8); the tile body's f32: n-major
+    wf = ops.w if bf16 or geo.body == 2 else ops.nmajor
     lib = kernel_lib()
     rc = lib.snn_conv_single(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(), wf.data_ptr(), int(w_int8),
-        sf.data_ptr(), of.data_ptr(), n, h, w, c, kh, kw, o, pt, pb, pl, pr,
+        x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(), wf.data_ptr(),
+        int(ops.w.dtype == torch.int8), ops.scale.data_ptr(), ops.offset.data_ptr(),
+        n, h, w, c, kh, kw, o, pt, pb, pl, pr,
         ACT_CODES[activation.lower()], float(alpha), int(bf16), geo.array,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -445,12 +462,19 @@ def fused_conv2d_haloed(
 ) -> torch.Tensor:
     """Counterpart of conv_pallas.fused_conv2d_haloed, NHWC in and out: the
     CUDA kernel for a CUDA tensor (no fallback), `conv2d_haloed_reference`
-    for a CPU tensor."""
+    for a CPU tensor; the operands prepared on this call."""
     dt = compute_dtype or (torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32)
+    return run(x, prepare(w_hwio, scale, offset, dt), pads, activation, alpha)
+
+
+def run(x: torch.Tensor, ops: ConvOperands, pads: Sequence[int] = (0, 0, 0, 0),
+        activation: str = "linear", alpha: float = 0.3) -> torch.Tensor:
+    """`fused_conv2d_haloed` on operands that `prepare` made."""
     if x.device.type == "cuda":
-        return _launch(x, w_hwio, scale, offset, pads, activation, alpha, dt)
+        return _launch(x, ops, pads, activation, alpha)
     if x.device.type == "cpu":
-        return conv2d_haloed_reference(x, w_hwio, scale, offset, pads, activation, alpha, dt)
+        return conv2d_haloed_reference(x, ops.w, ops.scale, ops.offset, pads, activation, alpha,
+                                       ops.dtype)
     raise ValueError(f"no single-conv kernel for device {x.device}")
 
 
@@ -485,15 +509,11 @@ def single_conv_supported(node, in_channels: int,
 
 
 def conv_run_kernel(node, x: torch.Tensor, compute_dtype: torch.dtype,
-                    operands: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+                    operands: Optional[ConvOperands] = None) -> torch.Tensor:
     """A Conv2D node on the kernel (counterpart of ops/conv.py
-    conv_run_pallas_chain); `operands` as ops/conv.py folded_operands gives them, where
-    the caller has them prepared."""
-    w, scale, offset = operands or folded_operands(node, compute_dtype)
+    conv_run_pallas_chain); `operands`: `prepare`'s of ops/conv.py
+    folded_operands where the caller keeps them, else made on this call."""
+    operands = operands or prepare(*folded_operands(node, compute_dtype), compute_dtype)
     pads = padding_offsets(node.attr("padding", "same"), int(node.attr("kernel_size")))
-    return fused_conv2d_haloed(
-        x, w, scale, offset, pads,
-        activation=str(node.attr("activation", "linear")),
-        alpha=float(node.attr("leaky_alpha", 0.3)),
-        compute_dtype=compute_dtype,
-    )
+    return run(x, operands, pads,
+               str(node.attr("activation", "linear")), float(node.attr("leaky_alpha", 0.3)))

@@ -24,10 +24,11 @@ so that both packages plan alike.
 The kernel runs on the tensor cores: bf16 products with float32 sums for
 a bf16 x; for a float32 x 3xTF32 (kernels/tf32.py is the plain model of
 that arithmetic) on a weight this module lays out n-major and splits into
-TF32 hi and lo once per weight tensor (`nmajor_split`). The launch
-geometry is this module's (`launch_geometry`): the C entry point checks it
-and launches. On a CUDA tensor the wrapper launches the kernel or raises;
-on a CPU tensor (tests) it runs `conv2d_igemm_reference`.
+TF32 hi and lo (`nmajor_split`), which `prepare` does once for the caller
+to keep. The launch geometry is this module's (`launch_geometry`): the C
+entry point checks it and launches. On a CUDA tensor the wrapper launches
+the kernel or raises; on a CPU tensor (tests) it runs
+`conv2d_igemm_reference`.
 """
 
 from __future__ import annotations
@@ -35,13 +36,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import weakref
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from shadernn_tpu_torch.kernels import count_launch
 from shadernn_tpu_torch.kernels.chain import ACT_CODES, MAX_SMEM_BYTES
+from shadernn_tpu_torch.kernels.conv import check_launch
 from shadernn_tpu_torch.kernels.tf32 import tf32_split
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
 from shadernn_tpu_torch.ops.conv import (
@@ -213,56 +214,55 @@ def launch_geometry(n: int, h: int, w: int, c: int, kh: int, kw: int, o: int, st
             return geo
 
 
-# The f32 form's weights, per HWIO weight tensor (by id, while it lives):
-# rebuilt when it is modified in place (its _version).
-_NMAJOR: dict = {}
-
-
 def nmajor_split(w_hwio: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The f32 form's weight: (O, kh*kw*C8), row o holding w[:, :, :, o] tap
     by tap with C zero-padded to a multiple of 8 (k contiguous: ldmatrix
     has no 32-bit transpose), as its TF32 hi and lo float32 parts; an int8
     weight stays int8 (exact in TF32, the kernel upcasts it) with no lo,
     and so does a float weight exact in TF32 (lo None: that pass is
-    skipped). Made once per weight tensor."""
-    key = id(w_hwio)
-    hit = _NMAJOR.get(key)
-    if hit is None or hit[0] != w_hwio._version:
-        if hit is None:
-            weakref.finalize(w_hwio, _NMAJOR.pop, key, None)
-        kh, kw, c, o = w_hwio.shape
-        wn = torch.nn.functional.pad(w_hwio.permute(3, 0, 1, 2), (0, -c % 8)).reshape(o, -1)
-        if w_hwio.dtype == torch.int8:
-            parts = (wn.contiguous(), None)
-        else:
-            hi, lo = tf32_split(wn)
-            parts = (hi.contiguous(), lo.contiguous() if bool(lo.any()) else None)
-        hit = _NMAJOR[key] = (w_hwio._version, parts)
-    return hit[1]
+    skipped)."""
+    kh, kw, c, o = w_hwio.shape
+    wn = torch.nn.functional.pad(w_hwio.permute(3, 0, 1, 2), (0, -c % 8)).reshape(o, -1)
+    if w_hwio.dtype == torch.int8:
+        return wn.contiguous(), None
+    hi, lo = tf32_split(wn)
+    return hi.contiguous(), lo.contiguous() if bool(lo.any()) else None
 
 
-def _launch(x, w_hwio, scale, offset, stride, pads, activation, alpha) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class IgemmOperands:
+    """A conv's operands as its launch reads them (`prepare`), for inputs
+    of `dtype`: the HWIO weight as given (which the plain version reads),
+    the weight the kernel stages (bf16: HWIO in bf16 or int8; f32:
+    `nmajor_split`'s hi and lo) and the float32 scale and offset."""
+
+    hwio: torch.Tensor
+    w: torch.Tensor
+    w_lo: Optional[torch.Tensor]
+    scale: torch.Tensor
+    offset: torch.Tensor
+    dtype: torch.dtype
+
+
+def prepare(w_hwio: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+            dtype: torch.dtype) -> IgemmOperands:
+    """The launch's operands of one conv for inputs of `dtype`."""
+    w_int8 = w_hwio.dtype == torch.int8
+    if dtype == torch.float32:
+        wk, w_lo = nmajor_split(w_hwio if w_int8 else w_hwio.float())
+    else:
+        wk, w_lo = (w_hwio if w_int8 else w_hwio.to(torch.bfloat16)).contiguous(), None
+    return IgemmOperands(w_hwio, wk, w_lo, scale.float().contiguous(),
+                         offset.float().contiguous(), dtype)
+
+
+def _launch(x, ops: IgemmOperands, stride, pads, activation, alpha) -> torch.Tensor:
     from shadernn_tpu_torch.kernels._build import kernel_lib, sm_count
 
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"conv input must be float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 4 or w_hwio.dim() != 4 or w_hwio.shape[2] != x.shape[-1]:
-        raise ValueError(
-            f"conv needs NHWC x and HWIO w with matching C, got {tuple(x.shape)} "
-            f"and {tuple(w_hwio.shape)}"
-        )
-    if not x.is_contiguous():
-        raise ValueError("conv input must be contiguous")
-    kh, kw, c, o = (int(v) for v in w_hwio.shape)
-    for name, t in (("scale", scale), ("offset", offset)):
-        if t.numel() != o:
-            raise ValueError(f"{name} has {t.numel()} values, want {o}")
-    for t in (w_hwio, scale, offset):
-        if t.device != x.device:
-            raise ValueError(f"operand on {t.device}, input on {x.device}")
+    kh, kw, c, o = check_launch(x, ops.hwio, ops.scale, ops.offset, activation)
+    if ops.dtype != x.dtype:
+        raise ValueError(f"operands prepared for {ops.dtype} inputs, input is {x.dtype}")
     act = str(activation or "linear").lower()
-    if act not in ACT_CODES:
-        raise ValueError(f"activation {activation!r} is not in the kernel's epilogue")
     stride = int(stride)
     pt, pb, pl, pr = (int(p) for p in pads)
     n, h, w, _ = (int(v) for v in x.shape)
@@ -274,21 +274,16 @@ def _launch(x, w_hwio, scale, offset, stride, pads, activation, alpha) -> torch.
     if y.numel() == 0:
         return y
     f32 = x.dtype == torch.float32
-    w_int8 = w_hwio.dtype == torch.int8
+    w_int8 = ops.hwio.dtype == torch.int8
     geo = launch_geometry(n, h, w, c, kh, kw, o, stride, (pt, pb, pl, pr), f32,
                           sm_count(x.device.index))
     if geo.smem > MAX_SMEM_BYTES:
         raise ValueError(f"conv k{kh}x{kw} {c}->{o} does not fit the kernel's shared memory")
-    if f32:
-        wk, w_lo = nmajor_split(w_hwio if w_int8 else w_hwio.float())
-    else:
-        wk, w_lo = (w_hwio if w_int8 else w_hwio.to(torch.bfloat16)).contiguous(), None
-    sf = scale.float().contiguous()
-    of = offset.float().contiguous()
     lib = kernel_lib()
     rc = lib.snn_conv_igemm(
-        x.data_ptr(), int(not f32), wk.data_ptr(), w_lo.data_ptr() if w_lo is not None else None,
-        int(w_int8), int(w_lo is not None), sf.data_ptr(), of.data_ptr(), y.data_ptr(),
+        x.data_ptr(), int(not f32), ops.w.data_ptr(),
+        ops.w_lo.data_ptr() if ops.w_lo is not None else None, int(w_int8),
+        int(ops.w_lo is not None), ops.scale.data_ptr(), ops.offset.data_ptr(), y.data_ptr(),
         n, h, w, c, kh, kw, o, stride, pt, pb, pl, pr, ACT_CODES[act], float(alpha), geo.array,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -313,11 +308,20 @@ def conv2d_kernel_nhwc(
 ) -> torch.Tensor:
     """Counterpart of conv_pallas.conv2d_pallas_nhwc, NHWC in and out: the
     CUDA kernel for a CUDA tensor (no fallback), `conv2d_igemm_reference`
-    for a CPU tensor."""
+    for a CPU tensor; the operands prepared on this call."""
+    return run(x, prepare(w_hwio, scale, offset, x.dtype), stride=stride, pads=pads,
+               activation=activation, alpha=alpha)
+
+
+def run(x: torch.Tensor, ops: IgemmOperands, *, stride: int = 1,
+        pads: Sequence[int] = (0, 0, 0, 0), activation: str = "linear",
+        alpha: float = 0.3) -> torch.Tensor:
+    """`conv2d_kernel_nhwc` on operands that `prepare` made."""
     if x.device.type == "cuda":
-        return _launch(x, w_hwio, scale, offset, stride, pads, activation, alpha)
+        return _launch(x, ops, stride, pads, activation, alpha)
     if x.device.type == "cpu":
-        return conv2d_igemm_reference(x, w_hwio, scale, offset, stride, pads, activation, alpha)
+        return conv2d_igemm_reference(x, ops.hwio, ops.scale, ops.offset, stride, pads,
+                                      activation, alpha)
     raise ValueError(f"no implicit-GEMM conv kernel for device {x.device}")
 
 
@@ -341,13 +345,13 @@ def igemm_conv_supported(node, in_channels: int) -> bool:
 
 
 def conv_run_igemm(node, x: torch.Tensor,
-                   operands: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+                   operands: Optional[IgemmOperands] = None) -> torch.Tensor:
     """A Conv2D node on the kernel (counterpart of ops/conv.py
-    _conv_run_pallas); `operands` as ops/conv.py folded_operands gives them, where the
-    caller has them prepared."""
-    w, scale, offset = operands or folded_operands(node, x.dtype)
-    return conv2d_kernel_nhwc(
-        x.contiguous(), w, scale, offset,
+    _conv_run_pallas); `operands`: `prepare`'s of ops/conv.py
+    folded_operands where the caller keeps them, else made on this call."""
+    operands = operands or prepare(*folded_operands(node, x.dtype), x.dtype)
+    return run(
+        x.contiguous(), operands,
         stride=int(node.attr("stride", 1)),
         pads=padding_offsets(node.attr("padding", "same"), int(node.attr("kernel_size"))),
         activation=str(node.attr("activation", "linear")),

@@ -274,9 +274,8 @@ class ElasticEngine:
 
     def _reset_backend(self) -> None:
         """Best-effort refresh after a timeout: drop the engine that hung,
-        and with it the operands it prepared (its own cache, and the chain
-        kernel's packed weights, which live only as long as the tensors
-        they were made from: kernels/chain.py). The next step rebuilds it.
+        and with it the operands it prepared (its model's operand store).
+        The next step rebuilds it.
         Nothing here frees device memory (no empty_cache): cudaFree waits
         for the device, so this thread would hang behind the hung step.
         The caching allocator reuses the blocks, ordered after the work

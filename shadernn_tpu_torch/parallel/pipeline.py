@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -59,7 +60,8 @@ class Stage:
     produces: List[str]
     flops: int
     device: object = None  # a torch.device, or a data-only Mesh for a sub-mesh stage
-    # Per shard: the (node, view, RunCtx) triples the stage runs, in order.
+    # Per shard: the (node, view, backend, operand key) of each node the
+    # stage runs, in order.
     steps: list = None
     shards: dict = None  # device -> the indices of the shards on it
     streams: dict = None  # CUDA: device -> the stage's stream there
@@ -137,17 +139,6 @@ class _Value:
     ready: list
 
 
-def _cache(store: dict, name: str):
-    """RunCtx.cache for node `name`: make() once, then its result."""
-
-    def get(make):
-        if name not in store:
-            store[name] = make()
-        return store[name]
-
-    return get
-
-
 class PipelinedEngine:
     """Micro-batched pipelined inference over a stage-split graph."""
 
@@ -160,9 +151,9 @@ class PipelinedEngine:
         micro_batch: int = 1,
     ):
         from shadernn_tpu_torch.engine.compile import (
-            _NodeView, _plan_layer_kernels, extract_params, resolve_backend, resolve_device,
+            NodeView, OperandStore, extract_params, plan_layer_kernels, resolve_backend,
+            resolve_device,
         )
-        from shadernn_tpu_torch.ops.conv import folded_operands
         from shadernn_tpu_torch.weights import params_from_numpy
 
         self.graph = graph
@@ -181,8 +172,7 @@ class PipelinedEngine:
             graph.infer_shapes(batch_size=micro_batch)
         self.stages = split_stages(graph, num_stages)
         all_params = extract_params(graph)
-        prec = self.options.precision
-        act_dtype = prec.activation_dtype
+        self.params: List[Dict[str, Dict[str, torch.Tensor]]] = []
         self._cuda = kind == "cuda"
 
         # Per node: KERNEL where the engine's planner puts the node on the
@@ -190,7 +180,7 @@ class PipelinedEngine:
         # resolves to KERNEL (outside the kernel's gate, or an op with no
         # kernel branch: its TORCH body runs).
         order = graph.toposort()
-        convs, denses, _ = _plan_layer_kernels(graph, self.options, order, set())
+        convs, denses, _ = plan_layer_kernels(graph, self.options, order, set())
         on_kernel = set(convs) | set(denses)
         backends = {}
         for n in order:
@@ -214,26 +204,44 @@ class PipelinedEngine:
                 stage.shards.setdefault(d, []).append(i)
                 if d not in per_device:
                     params = params_from_numpy(host, d)
-                    cache: dict = {}
-                    steps = []
-                    for node in stage.nodes:
-                        view = _NodeView(node, params.get(node.name, {}))
-                        kernel = backends[node.name] == BackendKind.KERNEL
-                        steps.append((node, view, RunCtx(
-                            precision=prec, backend=backends[node.name],
-                            operands=folded_operands(view, act_dtype) if kernel else None,
-                            cache=None if kernel else _cache(cache, node.name))))
-                    per_device[d] = steps
+                    self.params.append(params)
+                    per_device[d] = [(node, NodeView(node, params.get(node.name, {})),
+                                      backends[node.name], (d, node.name)) for node in stage.nodes]
                 stage.steps.append(per_device[d])
             if self._cuda:
                 stage.streams = {d: torch.cuda.Stream(d) for d in per_device}
-                for d in per_device:
+        # What is prepared from each device's params (kernel operands here,
+        # TORCH layer weights at their first call), by (device, node).
+        self.operands = OperandStore()
+        self.operands.sync(self.params)
+        for stage in self.stages:
+            for steps in stage.steps:
+                for _node, view, backend, key in steps:
+                    if backend == BackendKind.KERNEL:
+                        self._ctx(view, backend, key)
+            if self._cuda:
+                for d in stage.shards:
                     torch.cuda.synchronize(d)  # the operands, before the streams read them
         logger.info(
             "pipeline: %d stages, flops %s",
             len(self.stages),
             [f"{s.flops / 1e6:.1f}M@{s.device}" for s in self.stages],
         )
+
+    def _ctx(self, view, backend: BackendKind, key) -> RunCtx:
+        """A step's RunCtx: a KERNEL node's prepared operands (kernels/
+        conv_igemm.py `prepare`, a Dense's ops/conv.py folded_operands), a
+        TORCH node the store's cache."""
+        from shadernn_tpu_torch.kernels.conv_igemm import prepare
+        from shadernn_tpu_torch.ops.conv import folded_operands
+
+        prec, dt = self.options.precision, self.options.precision.activation_dtype
+        if backend != BackendKind.KERNEL:
+            return RunCtx(precision=prec, backend=backend,
+                          cache=functools.partial(self.operands.get, key))
+        return RunCtx(precision=prec, backend=backend, operands=self.operands.get(key, lambda: (
+            prepare(*folded_operands(view, dt), dt) if view.op == "Conv2D"
+            else folded_operands(view, dt))))
 
     # -- data movement --------------------------------------------------------
     def _to(self, part, src_stream, ready, dst, dst_stream):
@@ -291,9 +299,9 @@ class PipelinedEngine:
             with torch.cuda.stream(stream) if self._cuda else contextlib.nullcontext():
                 for i in shards:
                     local = {k: parts[i] for k, parts in staged.items()}
-                    for node, view, ctx in stage.steps[i]:
+                    for node, view, backend, key in stage.steps[i]:
                         local[node.name] = get_op(node.op).run(
-                            view, [local[n] for n in node.inputs], ctx)
+                            view, [local[n] for n in node.inputs], self._ctx(view, backend, key))
                     outs[i] = local
                 if self._cuda:
                     ev = torch.cuda.Event()
@@ -346,6 +354,7 @@ class PipelinedEngine:
         mb = self.micro_batch
         if batch % mb:
             raise ValueError(f"batch {batch} is not a multiple of micro_batch {mb}")
+        self.operands.sync(self.params)
         whole = self._upload(inputs, slice(None))
         inflight = []
         for m in range(batch // mb):

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from shadernn_tpu_torch.config import BackendKind, EngineOptions, ShardingOptions
+from shadernn_tpu_torch.engine.compile import NodeView, OperandStore
 from shadernn_tpu_torch.graph.ir import Graph, Node
 from shadernn_tpu_torch.ops.common import apply_activation, padding_offsets
 from shadernn_tpu_torch.ops.registry import RunCtx, canonical_op, get_op
@@ -290,24 +291,22 @@ def _kernel_admits(node, x: torch.Tensor, use_kernel: bool) -> bool:
     return use_kernel and igemm_conv_supported(node, x.shape[-1])
 
 
-def _conv_local(node, x: torch.Tensor, stride: int, pads, use_kernel: bool,
-                operands=None) -> torch.Tensor:
+def _conv_local(node, x: torch.Tensor, stride: int, pads, operands) -> torch.Tensor:
     """One conv on local (already halo-extended) rows with explicit pads,
     the epilogue in the folded per-channel (scale, offset) form. The
-    implicit-GEMM kernel where `_kernel_admits`; else float32 sums on the
-    compute-dtype values (int8 weights are exact there, their scale is in
-    the epilogue). `operands`: ops/conv.py folded_operands of the node, where
-    the caller has them prepared."""
-    from shadernn_tpu_torch.ops.conv import conv2d_nhwc_f32, folded_operands
+    implicit-GEMM kernel where `operands` are its own (kernels/conv_igemm.py
+    `prepare`, where `_kernel_admits`); else, on ops/conv.py
+    folded_operands, float32 sums on the compute-dtype values (int8 weights
+    are exact there, their scale is in the epilogue)."""
+    from shadernn_tpu_torch.kernels import conv_igemm
+    from shadernn_tpu_torch.ops.conv import conv2d_nhwc_f32
 
-    w, scale, offset = operands or folded_operands(node, x.dtype)
     act = node.attr("activation", "linear")
     alpha = float(node.attr("leaky_alpha", 0.3))
-    if _kernel_admits(node, x, use_kernel):
-        from shadernn_tpu_torch.kernels.conv_igemm import conv2d_kernel_nhwc
-
-        return conv2d_kernel_nhwc(x.contiguous(), w, scale, offset, stride=stride,
-                                  pads=tuple(pads), activation=act, alpha=alpha)
+    if isinstance(operands, conv_igemm.IgemmOperands):
+        return conv_igemm.run(x.contiguous(), operands, stride=stride, pads=tuple(pads),
+                              activation=act, alpha=alpha)
+    w, scale, offset = operands
     y = conv2d_nhwc_f32(x, w.to(x.dtype), tuple(pads), stride)
     return apply_activation(y * scale + offset, act, alpha).to(x.dtype)
 
@@ -387,19 +386,12 @@ def build_spmd_forward(graph: Graph, options: EngineOptions, mesh: Mesh,
         n.name: (_local_backend(n, graph, options) if use_kernels else BackendKind.TORCH)
         for n in order if n.op != "InputLayer"
     }
-    prepared: Dict[tuple, tuple] = {}
+    # What each shard derives from its params (kernel and folded operands,
+    # the TORCH layer weight), under (shard, node, what, dtype).
+    store = OperandStore()
 
-    from shadernn_tpu_torch.engine.compile import _NodeView
-    from shadernn_tpu_torch.ops.conv import epilogue_scale_offset, folded_operands
-
-    def cached(key, view, make):
-        """What a shard derives from its params (folded operands, the TORCH
-        layer weight), made once per set of parameter tensors."""
-        ids = tuple(view.params.values())
-        hit = prepared.get(key)
-        if hit is None or len(hit[0]) != len(ids) or any(a is not b for a, b in zip(hit[0], ids)):
-            hit = prepared[key] = (ids, make())
-        return hit[1]
+    from shadernn_tpu_torch.kernels.conv_igemm import prepare
+    from shadernn_tpu_torch.ops.conv import folded_operands
 
     def each(fn) -> List:
         out = [None] * nshards
@@ -408,6 +400,7 @@ def build_spmd_forward(graph: Graph, options: EngineOptions, mesh: Mesh,
         return out
 
     def forward(shard_params: List, shard_inputs: List) -> List:
+        store.sync(shard_params)
         env: Dict[str, List] = {}
         dumps: Dict[str, List] = {}
         for node in order:
@@ -415,7 +408,7 @@ def build_spmd_forward(graph: Graph, options: EngineOptions, mesh: Mesh,
             if node.op == "InputLayer":
                 env[node.name] = each(lambda i: shard_inputs[i][node.name].to(act_dtype))
                 continue
-            views = each(lambda i: _NodeView(node, shard_params[i].get(node.name, {})))
+            views = each(lambda i: NodeView(node, shard_params[i].get(node.name, {})))
             xs = [env[i] for i in node.inputs]
             if np_.gather_inputs or np_.mode == "gather":
                 xs = [coll.gather(x, sp_ax, 1) if plan.out_state[i] else x
@@ -424,9 +417,12 @@ def build_spmd_forward(graph: Graph, options: EngineOptions, mesh: Mesh,
             use_kernel = backend == BackendKind.KERNEL
             mode = np_.mode
 
-            def operands(i, x):
-                return cached((i, node.name, "folded", x.dtype), views[i],
-                              lambda: folded_operands(views[i], x.dtype))
+            def operands(i, x, kernel=False):
+                """The implicit-GEMM kernel's operands, else the folded ones."""
+                def make():
+                    folded = folded_operands(views[i], x.dtype)
+                    return prepare(*folded, x.dtype) if kernel else folded
+                return store.get((i, node.name, "igemm" if kernel else "folded", x.dtype), make)
 
             if mode in ("local", "gather"):
                 op = get_op(node.op)
@@ -434,11 +430,11 @@ def build_spmd_forward(graph: Graph, options: EngineOptions, mesh: Mesh,
                 def run(i):
                     ins = [x[i] for x in xs]
                     ctx = RunCtx(precision=options.precision, backend=backend,
-                                 cache=functools.partial(cached, (i, node.name, "w"), views[i]))
+                                 cache=functools.partial(store.get, (i, node.name, "w")))
                     if use_kernel and node.op == "Conv2D":
                         xin = ins[0] if len(ins) == 1 else torch.cat(ins, dim=-1)
                         if _kernel_admits(node, xin, True):
-                            ctx.operands = operands(i, xin)
+                            ctx.operands = operands(i, xin, True)
                         else:
                             ctx.backend = BackendKind.TORCH
                     return op.run(views[i], ins, ctx)
@@ -472,8 +468,8 @@ def build_spmd_forward(graph: Graph, options: EngineOptions, mesh: Mesh,
                             y[i] = _epilogue_f32(node, acc, scale, offset, x[i].dtype)
                 else:
                     xh = coll.halo(x, sp_ax, up, dn) if (up or dn) else x
-                    y = each(lambda i: _conv_local(views[i], xh[i], st, (0, 0, pl_, pr),
-                                                   use_kernel, operands(i, xh[i])))
+                    y = each(lambda i: _conv_local(views[i], xh[i], st, (0, 0, pl_, pr), operands(
+                        i, xh[i], _kernel_admits(node, xh[i], use_kernel))))
                 if np_.tp:
                     y = coll.gather(y, tp_ax, -1)
             elif mode == "dw_conv":
@@ -497,10 +493,7 @@ def build_spmd_forward(graph: Graph, options: EngineOptions, mesh: Mesh,
                 def dw(i):
                     from shadernn_tpu_torch.ops.conv import conv2d_nhwc_f32
 
-                    v = views[i]
-                    w, scale, offset = cached((i, node.name, "dw", x[i].dtype), v, lambda: (
-                        torch.as_tensor(v.params.get("weight_q", v.params.get("weight")))
-                        .to(x[i].dtype), *epilogue_scale_offset(v)))
+                    w, scale, offset = operands(i, x[i])
                     acc = conv2d_nhwc_f32(x[i], w, pads_v + (pl_, pr), st, groups=x[i].shape[-1])
                     return _epilogue_f32(node, acc, scale, offset, act_dtype)
 
@@ -534,11 +527,8 @@ def build_spmd_forward(graph: Graph, options: EngineOptions, mesh: Mesh,
                 x = xs[0]
 
                 def dense(i):
-                    v = views[i]
                     xi = x[i].reshape(x[i].shape[0], -1) if x[i].dim() > 2 else x[i]
-                    w, scale, offset = cached((i, node.name, "dense", xi.dtype), v, lambda: (
-                        torch.as_tensor(v.params.get("weight_q", v.params.get("weight")))
-                        .to(xi.dtype), *epilogue_scale_offset(v)))
+                    w, scale, offset = operands(i, xi)
                     return (xi.float() @ w.float()) * scale + offset
 
                 y = each(dense)
@@ -596,6 +586,7 @@ def build_spmd_forward(graph: Graph, options: EngineOptions, mesh: Mesh,
                                 if b == BackendKind.KERNEL and graph.nodes[n].op == "Conv2D"]
     # The YOLO nodes: on CUDA devices one NMS launch each per shard.
     forward.nms_plan = [n.name for n in order if n.op == "YOLO"]
+    forward.store = store
     return forward, plan
 
 

@@ -86,8 +86,9 @@ def no_tf32():
 
 class TrainState:
     """Adam over a model's parameter dict (node -> {name: tensor}), updated
-    in place: the leaves keep their identity, so the engine's operand cache
-    (engine/compile.py) stays valid. Leaves named in `frozen` get
+    in place: the leaves keep their identity, and the engine's operand store
+    (engine/compile.py `OperandStore`) prepares anew what it derived from a
+    leaf whose version moved. Leaves named in `frozen` get
     `requires_grad=False` and no update."""
 
     def __init__(self, params: Dict[str, Dict[str, torch.Tensor]],

@@ -321,6 +321,7 @@ def _measure(lib, emit) -> None:
                                    / np.sqrt(s.k * s.k * s.c)).astype(np.float32)).to(dev),
             "scale": torch.ones(s.o, device=dev), "offset": torch.zeros(s.o, device=dev)}
            for s in specs]
+    ops = chain.prepare(ops, specs, torch.float32)
     x = torch.from_numpy(rng.random((8, 540, 960, 1), dtype=np.float32)).to(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     geometry = chain.f32_launch_geometry
@@ -349,9 +350,9 @@ def _measure(lib, emit) -> None:
     for dt in (torch.bfloat16, torch.float32):
         xx = torch.from_numpy(rng.standard_normal((8, 540, 960, 8)).astype(np.float32)).to(dev, dt)
         w = torch.from_numpy((rng.standard_normal((3, 3, 8, 16)) / 5).astype(np.float32)).to(dev, dt)
-        one, zero = torch.ones(16, device=dev), torch.zeros(16, device=dev)
-        v = probe(lambda: conv_igemm.conv2d_kernel_nhwc(xx, w, one, zero, stride=1,
-                                                        pads=(1, 1, 1, 1), activation="relu"),
+        ops8 = conv_igemm.prepare(w, torch.ones(16, device=dev), torch.zeros(16, device=dev), dt)
+        v = probe(lambda: conv_igemm.run(xx, ops8, stride=1, pads=(1, 1, 1, 1),
+                                         activation="relu"),
                   "snn_probe_igemm")
         items = max(1, v[62])
         emit(f"igemm {'bf16' if dt == torch.bfloat16 else 'fp32'} two-input 8x540x960 8->16 k3: "
@@ -391,14 +392,13 @@ def _measure_single(lib, emit, probe) -> None:
                 x = torch.from_numpy(rng.random(xs, dtype=np.float32)).to(dev, dt)
                 w = torch.from_numpy((rng.standard_normal(ws) / np.sqrt(np.prod(ws[:3])))
                                      .astype(np.float32)).to(dev, dt)
-                one, zero = torch.ones(ws[3], device=dev), torch.zeros(ws[3], device=dev)
+                ops = conv.prepare(w, torch.ones(ws[3], device=dev),
+                                   torch.zeros(ws[3], device=dev), dt)
                 pads = (4, 4, 4, 4)
                 for body, fn in bodies:
                     geo = fn(*xs, ws[0], ws[1], ws[3], pads, dt == torch.bfloat16, sms)
                     conv.launch_geometry = lambda *_a, geo=geo: geo
-                    v = probe(lambda: conv.fused_conv2d_haloed(x, w, one, zero, pads, "linear",
-                                                               compute_dtype=dt),
-                              "snn_probe_single")
+                    v = probe(lambda: conv.run(x, ops, pads, "linear"), "snn_probe_single")
                     head = (f"single {prec} styletransfer {name} {xs} -> {ws[3]} k9, {body} body "
                             f"(tile {geo.tile_h}x{geo.tile_w}, nb {geo.nb}, smem {geo.smem} B")
                     if geo.body == 0:

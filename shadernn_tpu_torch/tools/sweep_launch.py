@@ -106,6 +106,7 @@ def _sweep_wide(dev, sms, rng, emit) -> None:
                 w = torch.from_numpy((rng.standard_normal((9, 9, c, o)) / np.sqrt(81 * c))
                                      .astype(np.float32)).to(dev, dt)
                 one, zero = torch.ones(o, device=dev), torch.zeros(o, device=dev)
+                ops = conv.prepare(w, one, zero, dt)
                 nb = 8 if o <= 8 else 32
                 if bf16:
                     geos = [conv._wide_layout(c, 9, 9, 16, 16, nb, bufs, packed, 4096, 1, sms)
@@ -117,15 +118,13 @@ def _sweep_wide(dev, sms, rng, emit) -> None:
                 times = {}
                 for geo in geos:
                     conv.launch_geometry = lambda *_a, geo=geo: geo
-                    times[geo] = device_ms(lambda: conv.fused_conv2d_haloed(
-                        x, w, one, zero, pads, "linear", compute_dtype=dt))
+                    times[geo] = device_ms(lambda: conv.run(x, ops, pads, "linear"))
                     emit(f"wide {name} k9 {c}->{o} 512x512 b4 {'bf16' if bf16 else 'fp32'} body "
                          f"{geo.body} packed {geo.packed} tile {geo.tile_h}x{geo.tile_w} bufs "
                          f"{geo.in_bufs} grid {geo.grid} smem {geo.smem} {times[geo]:.5f} ms")
                 conv.launch_geometry = geometry
                 choice = geometry(4, 512, 512, c, 9, 9, o, pads, bf16, sms)
-                mine = times.get(choice) or device_ms(lambda: conv.fused_conv2d_haloed(
-                    x, w, one, zero, pads, "linear", compute_dtype=dt))
+                mine = times.get(choice) or device_ms(lambda: conv.run(x, ops, pads, "linear"))
                 best = _best(times)
                 emit(f"wide {name} {'bf16' if bf16 else 'fp32'}: launch_geometry body {choice.body} "
                      f"packed {choice.packed} bufs {choice.in_bufs} grid {choice.grid} "
@@ -213,6 +212,7 @@ def main(argv=None) -> int:
             wts = torch.from_numpy((rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c))
                                    .astype(np.float32)).to(dev)
             one, zero = torch.ones(o, device=dev), torch.zeros(o, device=dev)
+            ops = conv.prepare(wts, one, zero, torch.float32)
             pads = (1, 1, 1, 1)
             choice = geometry(n, h, w, c, k, k, o, pads, False, sms)
             c8 = -(-c // 8) * 8
@@ -228,7 +228,7 @@ def main(argv=None) -> int:
                 if geo.smem > conv.MAX_SMEM_BYTES:
                     continue
                 conv.launch_geometry = lambda *_a, geo=geo: geo
-                ms = device_ms(lambda: conv.fused_conv2d_haloed(x, wts, one, zero, pads, "relu"))
+                ms = device_ms(lambda: conv.run(x, ops, pads, "relu"))
                 times[(nb, cc, tg, th, tw, imgs)] = ms
                 emit(f"conv k{k} c{c}->{o} {h}x{w} b{n} nb {nb} cc {cc} taps/stage {tg} tile "
                      f"{th}x{tw} imgs {imgs} smem {geo.smem} {ms:.5f} ms")
@@ -282,6 +282,7 @@ def _sweep_chain(dev, sms, rng, emit) -> None:
                                            / np.sqrt(s.k * s.k * s.c)).astype(np.float32)).to(dev),
                     "scale": torch.ones(s.o, device=dev), "offset": torch.zeros(s.o, device=dev)}
                    for s in specs]
+            ops = chain.prepare(ops, specs, torch.float32)
             x = torch.from_numpy(rng.random((n, h, w, cin), dtype=np.float32)).to(dev)
             choice = geometry(tuple(specs), n, h, w, sms)
             times = {}
@@ -335,6 +336,7 @@ def _sweep_igemm(dev, sms, rng, emit) -> None:
                 wts = torch.from_numpy((rng.standard_normal((k, k, c, o)) / np.sqrt(k * k * c))
                                        .astype(np.float32)).to(dev, dt)
                 one, zero = torch.ones(o, device=dev), torch.zeros(o, device=dev)
+                ops = conv_igemm.prepare(wts, one, zero, dt)
                 choice = geometry(n, h, w, c, k, k, o, 1, pads, f32, sms)
                 times = {}
                 for nt, wm, half, bufs, per_sm in itertools.product(
@@ -362,8 +364,8 @@ def _sweep_igemm(dev, sms, rng, emit) -> None:
                     if cfg in times:
                         continue
                     conv_igemm.launch_geometry = lambda *_a, geo=geo: geo
-                    times[cfg] = device_ms(lambda: conv_igemm.conv2d_kernel_nhwc(
-                        x, wts, one, zero, stride=1, pads=pads, activation="relu"))
+                    times[cfg] = device_ms(lambda: conv_igemm.run(
+                        x, ops, stride=1, pads=pads, activation="relu"))
                     emit(f"igemm {'fp32' if f32 else 'bf16'} k{k} c{c}->{o} {h}x{w} b{n} nt {nt} "
                          f"wm {wm} tile {th}x{tw} cc {geo.cc} taps/stage {geo.tg} bufs {bufs} "
                          f"grid {geo.grid} smem {geo.smem} {times[cfg]:.5f} ms")

@@ -2,19 +2,23 @@
 another checkout, so that a parent and a change are timed on one card in
 one call (parent, change, change, parent):
 
-    python -m shadernn_tpu_torch.tools.time_parent {b3,b5} [--tree DIR] [--tag NAME]
+    python -m shadernn_tpu_torch.tools.time_parent {b1,b3,b5} [--tree DIR] [--tag NAME]
 
 `--tree` takes the package from that checkout (its shadernn_tpu_torch/,
 built into its own build/kernels/). Each row: CUDA-event ms per call (20
 back-to-back calls, median of 3 rounds) and torch.profiler device ms. One
-JSON line per row. Needs one CUDA card. Row sets:
+JSON line per row. Needs one CUDA card. A timed call launches the kernel
+alone, on operands its module's `prepare` made before (in a package
+without it, its own cache at the first call). Row sets:
+
+b1, the chain kernel (kernels/chain.py): the trained ESPCN 2x 540p b8
+chain as the engine plans it, at bf16 (d2s2 tail) and fp32 (none).
 
 b3, the single-conv kernel (kernels/conv.py): the single-conv launches of
 one step of each path that plans them (ResNet18 at the zoo width b8 and the
 trained ResNet18 b64, forced KERNEL; the trained MobileNetV2 b64's folded
 stem; U-Net 256 b8; YOLOv3-tiny 256 b8), summed, with the models' folded
-weights, at bf16 and fp32 (first, so that two trees allocate their tensors
-alike: a tile-body f32 launch caches an n-major weight); StyleTransfer
+weights, at bf16 and fp32; StyleTransfer
 512x512 b4's k9 stem (3 -> 32) and head (32 -> 3) at bf16 and fp32, inputs
 in the compute dtype as the engines pass them; the StyleTransfer-candy 512
 b4 step through Engine.from_json at BF16 and FP32: p50 (Engine.benchmark,
@@ -62,6 +66,37 @@ def event_ms(fn, reps=20, warm=3, rounds=3) -> float:
     return statistics.median(a.elapsed_time(b) / reps for a, b in evs)
 
 
+def _prepared(mod, entry, x, w, scale, offset, dt, **kw):
+    """A call of `mod.entry` on x, on operands `mod.prepare` made once."""
+    if not hasattr(mod, "prepare"):
+        return lambda: getattr(mod, entry)(x, w, scale, offset, **kw)
+    ops = mod.prepare(w, scale, offset, dt)
+    kw.pop("compute_dtype", None)
+    return lambda: mod.run(x, ops, **kw)
+
+
+def _rows_b1(emit, dev) -> None:
+    import numpy as np
+    import torch
+
+    from shadernn_tpu_torch import Engine, EngineOptions, Precision
+    from shadernn_tpu_torch.kernels import chain
+    from shadernn_tpu_torch.models import zoo
+
+    x = torch.from_numpy(np.random.default_rng(0).random((8, 540, 960, 1), dtype=np.float32)
+                         ).to(dev)
+    for prec, tail in ((Precision.BF16, "d2s2"), (Precision.FP32, "none")):
+        eng = Engine.from_json(zoo.ESPCN_TRAINED, EngineOptions(precision=prec, batch_size=8),
+                               input_hw=(540, 960))
+        dt, specs = prec.activation_dtype, eng.model.forward.chain_specs["conv_1"]
+        nodes = [eng.graph.nodes[n] for n in ("conv_1", "conv_2", "conv_3")]
+        ops = [{k: v.to(dev) for k, v in p.items()} for p in chain.chain_operands(nodes, dt, specs)]
+        ops = chain.prepare(ops, specs, dt) if hasattr(chain, "prepare") else ops
+        launch = chain.fused_conv_chain_packed if tail == "d2s2" else chain.fused_conv_chain
+        emit({"row": f"espcn 540x960 b8 chain, tail {tail}", "dtype": prec.value},
+             lambda: launch(x, ops, specs, tail=tail, compute_dtype=dt))
+
+
 def _rows_b3(emit, dev) -> None:
     import numpy as np
     import torch
@@ -104,12 +139,14 @@ def _rows_b3(emit, dev) -> None:
                 x = torch.from_numpy(rng.random((eng.options.batch_size, s.h, s.w, s.c),
                                                 dtype=np.float32)).to(dev, dt)
                 wts, sc, of = (t.to(dev) for t in folded_operands(node, dt))
-                launches.append((x, wts, sc, of, padding_offsets(node.attr("padding", "same"), k),
-                                 str(node.attr("activation", "linear"))))
+                launches.append(_prepared(
+                    conv, "fused_conv2d_haloed", x, wts, sc, of, dt, compute_dtype=dt,
+                    pads=padding_offsets(node.attr("padding", "same"), k),
+                    activation=str(node.attr("activation", "linear"))))
             assert len(launches) == want, (label, len(launches))
             emit({"row": f"{label}: the {want} single-conv launches of one step",
                   "dtype": prec.value},
-                 lambda: [conv.fused_conv2d_haloed(*a, compute_dtype=dt) for a in launches])
+                 lambda: [call() for call in launches])
             del eng
 
     for dt in (torch.bfloat16, torch.float32):
@@ -121,8 +158,8 @@ def _rows_b3(emit, dev) -> None:
                                  .astype(np.float32)).to(dev, dt)
             one, zero = torch.ones(ws[3], device=dev), torch.zeros(ws[3], device=dev)
             emit({"row": f"styletransfer 512x512 b4 {name} k9 {xs[3]}->{ws[3]}", "dtype": prec},
-                 lambda: conv.fused_conv2d_haloed(x, w, one, zero, (4, 4, 4, 4), "linear",
-                                                  compute_dtype=dt))
+                 _prepared(conv, "fused_conv2d_haloed", x, w, one, zero, dt,
+                           pads=(4, 4, 4, 4), activation="linear", compute_dtype=dt))
 
     x = {"input": rng.random((4, 512, 512, 3), dtype=np.float32)}
     for prec in (Precision.BF16, Precision.FP32):
@@ -151,11 +188,11 @@ def _rows_b5(emit, dev) -> None:
             w = (torch.randn(ws, device=dev) / (ws[0] * ws[1] * ws[2]) ** 0.5).to(dt)
             sc, of = torch.ones(ws[-1], device=dev), torch.zeros(ws[-1], device=dev)
             emit({"dtype": str(dt).split(".")[-1], "mesh": mesh, "x": xs, "w": ws},
-                 lambda: conv_igemm.conv2d_kernel_nhwc(x, w, sc, of, stride=1, pads=pads,
-                                                       activation=act))
+                 _prepared(conv_igemm, "conv2d_kernel_nhwc", x, w, sc, of, dt, stride=1,
+                           pads=pads, activation=act))
 
 
-ROWS = {"b3": _rows_b3, "b5": _rows_b5}
+ROWS = {"b1": _rows_b1, "b3": _rows_b3, "b5": _rows_b5}
 
 
 def main(argv=None) -> int:

@@ -131,7 +131,7 @@ def _time_ms(fn, device: torch.device, iters: int) -> float:
 def profile_layers(engine, inputs: Dict[str, object], iters: int = 20) -> List[LayerProfile]:
     """Time every layer of a compiled engine alone, each fed the real
     intermediate activations (input layers excluded)."""
-    from shadernn_tpu_torch.engine.compile import _NodeView, resolve_backend
+    from shadernn_tpu_torch.engine.compile import NodeView, resolve_backend
     from shadernn_tpu_torch.ops import get_op
     from shadernn_tpu_torch.ops.registry import RunCtx
 
@@ -145,7 +145,7 @@ def profile_layers(engine, inputs: Dict[str, object], iters: int = 20) -> List[L
         for node in graph.toposort():
             if node.op == "InputLayer":
                 continue
-            view = _NodeView(node, params.get(node.name, {}))
+            view = NodeView(node, params.get(node.name, {}))
             ctx = RunCtx(precision=options.precision,
                          backend=resolve_backend(node, graph, options))
             op = get_op(node.op)

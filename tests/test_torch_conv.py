@@ -23,6 +23,7 @@ from shadernn_tpu.ops.registry import RunCtx as JCtx
 
 import shadernn_tpu_torch as P
 from shadernn_tpu_torch.graph.builder import GraphBuilder as PBuilder
+from shadernn_tpu_torch.engine.compile import OperandStore
 from shadernn_tpu_torch.graph.ir import Node as PNode
 from shadernn_tpu_torch.kernels import conv, launch_counts
 
@@ -223,20 +224,31 @@ def test_f32_stage_layout():
 
 def test_nmajor_weight_is_made_once_per_weight_tensor():
     """The f32 form reads the weight n-major: row o holds w[:, :, :, o] tap
-    by tap with C zero-padded to 8. It is made once per weight tensor and
-    made again when the tensor is modified in place."""
+    by tap with C zero-padded to 8. `prepare` makes it under float32; a
+    model's operand store keeps it for its weight tensor and makes it again
+    when the tensor is modified in place."""
     w = torch.arange(2 * 3 * 5 * 4, dtype=torch.float32).reshape(2, 3, 5, 4)
+    one, zero = torch.ones(4), torch.zeros(4)
     wn = conv.nmajor_weight(w)
     assert wn.shape == (4, 2 * 3 * 8) and wn.dtype == torch.float32 and wn.is_contiguous()
     rows = wn.reshape(4, 2, 3, 8)
     assert torch.equal(rows[..., :5], w.permute(3, 0, 1, 2))
     assert not rows[..., 5:].any()
-    assert conv.nmajor_weight(w) is wn
+    store, params = OperandStore(), {"conv": {"weight": w}}
+
+    def prepared():
+        store.sync(params)
+        return store.get("conv", lambda: conv.prepare(w, one, zero, torch.float32))
+
+    ops = prepared()
+    assert torch.equal(ops.nmajor, wn) and prepared() is ops
     w[0, 0, 0, 0] = -1.0
-    again = conv.nmajor_weight(w)
-    assert again is not wn and again[0, 0].item() == -1.0
+    again = prepared()
+    assert again is not ops and again.nmajor[0, 0].item() == -1.0
+    assert conv.prepare(w, one, zero, torch.bfloat16).nmajor is None  # bf16 reads HWIO
     wb = w.to(torch.bfloat16)  # a bf16 weight under f32: its values, as f32
-    assert torch.equal(conv.nmajor_weight(wb), again.to(torch.bfloat16).float())
+    assert torch.equal(conv.nmajor_weight(wb), again.nmajor.to(torch.bfloat16).float())
+    assert torch.equal(conv.prepare(wb, one, zero, torch.float32).nmajor, conv.nmajor_weight(wb))
 
 
 def test_entry_point_rejects_other_devices():
@@ -316,7 +328,8 @@ def test_int8_weights_match_jax_haloed_kernel(rng, case):
     assert not conv.single_conv_supported(pnode, c, torch.float32)
     ops = P.ops.conv.folded_operands(pnode, torch.bfloat16)
     assert ops[0].dtype == torch.int8
-    got = conv.conv_run_kernel(pnode, torch.from_numpy(x).to(torch.bfloat16), torch.bfloat16, ops)
+    got = conv.conv_run_kernel(pnode, torch.from_numpy(x).to(torch.bfloat16), torch.bfloat16,
+                               conv.prepare(*ops, torch.bfloat16))
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
     assert np.max(np.abs(got.float().numpy() - want)) <= 0.1 * max(1.0, float(np.abs(want).max()))
 

@@ -17,6 +17,7 @@ the card it runs without the test configuration:
     python -m pytest tests/test_torch_conv_cudnn.py -q --noconftest -p no:cacheprovider
 """
 
+import functools
 import types
 
 import numpy as np
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from shadernn_tpu_torch.config import Precision
+from shadernn_tpu_torch.engine.compile import NodeView, OperandStore
 from shadernn_tpu_torch.graph.ir import Node
 from shadernn_tpu_torch.ops import conv as C
 from shadernn_tpu_torch.ops.registry import RunCtx, get_op
@@ -235,19 +237,20 @@ def test_the_transposed_route_is_the_f32_route(k, stride, same):
 
 def test_the_weight_is_laid_out_once_per_parameter_set():
     node = conv_node("Conv2D", 3, 8, 16)
-    made = []
-
-    def cache(make):
-        if not made:
-            made.append(make())
-        return made[0]
-
-    ctx = RunCtx(precision=Precision.BF16, cache=cache)
-    w = C.layer_weight(node, ctx, BF16, torch.device("cpu"), 0.0, C.cudnn_weight)
-    assert w is C.layer_weight(node, ctx, BF16, torch.device("cpu"), 0.0, C.cudnn_weight)
+    params = {"conv": {k: torch.from_numpy(v) for k, v in node.params.items()}}
+    view = NodeView(node, params["conv"])
+    store = OperandStore()
+    store.sync(params)
+    ctx = RunCtx(precision=Precision.BF16, cache=functools.partial(store.get, "conv"))
+    w = C.layer_weight(view, ctx, BF16, torch.device("cpu"), 0.0, C.cudnn_weight)
+    assert w is C.layer_weight(view, ctx, BF16, torch.device("cpu"), 0.0, C.cudnn_weight)
     assert w.shape == (16, 8, 3, 3) and w.dtype == BF16
     assert w.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(w.permute(2, 3, 1, 0), C.get_weight(node, BF16))
+    params["conv"]["weight"].mul_(2.0)  # a new parameter set: laid out anew
+    store.sync(params)
+    again = C.layer_weight(view, ctx, BF16, torch.device("cpu"), 0.0, C.cudnn_weight)
+    assert again is not w and torch.equal(again.permute(2, 3, 1, 0), C.get_weight(view, BF16))
 
 
 # --- on the card --------------------------------------------------------------

@@ -23,6 +23,7 @@ from shadernn_tpu.graph.ir import Node as JNode
 from shadernn_tpu.kernels.conv_pallas import conv2d_pallas_nhwc
 
 import shadernn_tpu_torch as P
+from shadernn_tpu_torch.engine.compile import OperandStore
 from shadernn_tpu_torch.graph.ir import Graph as PGraph
 from shadernn_tpu_torch.graph.ir import Node as PNode
 from shadernn_tpu_torch.kernels import conv_igemm, launch_counts
@@ -144,7 +145,7 @@ def test_two_input_conv_under_kernel_matches_jax(prec):
     want = np.asarray(jmodel({"a": xa, "b": xb})["conv"], np.float32)
 
     calls = []
-    real = conv_igemm.conv2d_kernel_nhwc
+    real = conv_igemm.run
 
     def counted(x, *a, **kw):
         calls.append(tuple(x.shape))
@@ -157,11 +158,11 @@ def test_two_input_conv_under_kernel_matches_jax(prec):
     fwd = eng.model.forward
     assert fwd.kernel_conv_plan == ["conv"]
     assert fwd.chain_plan == {} and fwd.single_conv_plan == [] and fwd.kernel_dense_plan == []
-    conv_igemm.conv2d_kernel_nhwc = counted
+    conv_igemm.run = counted
     try:
         got = eng.run({"a": xa, "b": xb})["conv"].numpy()
     finally:
-        conv_igemm.conv2d_kernel_nhwc = real
+        conv_igemm.run = real
     assert calls == [(2, 10, 12, 8)]
     assert got.shape == want.shape == (2, 10, 12, 16)
     assert np.max(np.abs(got - want)) <= TOL[prec] * max(1.0, float(np.abs(want).max()))
@@ -176,13 +177,13 @@ def test_conv_op_honours_the_kernel_backend(rng, caplog):
     holds, TORCH with a log line that names the gate where it does not
     (stride 2)."""
     calls = []
-    real = conv_igemm.conv2d_kernel_nhwc
+    real = conv_igemm.run
 
     def counted(x, *a, **kw):
         calls.append(kw["stride"])
         return real(x, *a, **kw)
 
-    conv_igemm.conv2d_kernel_nhwc = counted
+    conv_igemm.run = counted
     try:
         for stride in (1, 2):
             node = conv_node(PNode, 3, 6, stride=stride, weight=torch.from_numpy(
@@ -193,7 +194,7 @@ def test_conv_op_honours_the_kernel_backend(rng, caplog):
             want = p_op("Conv2D").run(node, xs, PCtx(backend=P.BackendKind.TORCH))
             assert (got - want).abs().max().item() <= 1e-5
     finally:
-        conv_igemm.conv2d_kernel_nhwc = real
+        conv_igemm.run = real
     assert calls == [1]
     assert caplog.text.count("conv n given to KERNEL runs on TORCH: outside the implicit-GEMM") == 1
 
@@ -212,11 +213,11 @@ def test_two_input_conv_int8_under_kernel_matches_jax():
                                optimize=False)
     want = np.asarray(jeng.run({"a": xa, "b": xb})["conv"], np.float32)
     seen = []
-    real = conv_igemm.conv2d_kernel_nhwc
+    real = conv_igemm.run
 
-    def counted(x, w, *a, **kw):
-        seen.append(w.dtype)
-        return real(x, w, *a, **kw)
+    def counted(x, ops, *a, **kw):
+        seen.append(ops.w.dtype)
+        return real(x, ops, *a, **kw)
 
     eng = P.Engine.from_graph(two_input_graph(PGraph, PNode, np.random.default_rng(seed)),
                               P.EngineOptions(device="cpu", precision=P.Precision.INT8,
@@ -224,11 +225,11 @@ def test_two_input_conv_int8_under_kernel_matches_jax():
                               optimize=False)
     assert "weight_q" in eng.graph.nodes["conv"].params
     assert eng.model.forward.kernel_conv_plan == ["conv"]
-    conv_igemm.conv2d_kernel_nhwc = counted
+    conv_igemm.run = counted
     try:
         got = eng.run({"a": xa, "b": xb})["conv"].numpy()
     finally:
-        conv_igemm.conv2d_kernel_nhwc = real
+        conv_igemm.run = real
     assert seen == [torch.int8]
     assert got.shape == want.shape
     assert np.max(np.abs(got - want)) <= 0.1 * max(1.0, float(np.abs(want).max()))
@@ -347,7 +348,12 @@ def test_nmajor_split_follows_the_kernel_k_order(rng, c, k, o):
     assert not full[..., c:].any()
     want = w.double().permute(3, 0, 1, 2)
     assert torch.all((full[..., :c] - want).abs() <= 2.0 ** -22 * want.abs())
-    assert conv_igemm.nmajor_split(w)[0] is hi  # once per weight tensor
+    # once per weight tensor: `prepare` splits it, the model's store keeps it
+    ones, store = torch.ones(o), OperandStore()
+    store.sync({"conv": {"weight": w}})
+    ops = store.get("conv", lambda: conv_igemm.prepare(w, ones, ones, torch.float32))
+    assert torch.equal(ops.w, hi) and torch.equal(ops.w_lo, lo) and ops.hwio is w
+    assert store.get("conv", None) is ops
     w8 = torch.from_numpy(rng.integers(-127, 128, (k, k, c, o)).astype(np.int8))
     q, no_lo = conv_igemm.nmajor_split(w8)
     assert q.dtype == torch.int8 and no_lo is None

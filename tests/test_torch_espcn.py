@@ -2,6 +2,7 @@
 the CPU against the JAX Engine on the same frames, plus the engine's
 contracts and the package's independence from JAX."""
 
+import json
 import os
 import re
 import subprocess
@@ -114,7 +115,7 @@ def test_weights_carried_from_jax(rng):
         eng.model.load_params({"conv_1": {}})
 
 
-def test_engine_contracts(rng):
+def test_engine_contracts(rng, tmp_path):
     eng = P.Engine.from_graph(P.build_model("espcn", h=16, w=24),
                               P.EngineOptions(device="cpu"))
     with pytest.raises(ValueError):
@@ -130,8 +131,19 @@ def test_engine_contracts(rng):
     assert int8.chain_a8 == "auto"
     with pytest.raises(ValueError):
         P.EngineOptions(chain_a8="on")
-    with pytest.raises(ValueError):
-        P.EngineOptions(chain_format="tiles")
+    # An export that recorded an option EngineOptions no longer has (the
+    # chain entry point's format, now fixed by the tail) still loads.
+    from shadernn_tpu_torch.engine.deploy import ExportedEngine, export_engine
+
+    path = export_engine(eng, str(tmp_path / "espcn"))
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    meta["options"]["chain_format"] = "im2col"
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    loaded = ExportedEngine(path, device="cpu")
+    x = rng.random((1, 16, 24, 1), dtype=np.float32)
+    assert torch.equal(loaded.run_single(x), eng.run_single(x))
 
 
 def test_default_device_needs_cuda():

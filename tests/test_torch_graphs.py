@@ -33,7 +33,7 @@ from shadernn_tpu_torch.engine import graphs
 from shadernn_tpu_torch.engine.compile import CompiledModel, ShardedModel, uncast_outputs
 from shadernn_tpu_torch.graph.ir import Graph, Node, TensorSpec
 from shadernn_tpu_torch.image.ingest import ingest_frames, make_ingest_fn
-from shadernn_tpu_torch.kernels import capturing, count_launch, hold, launch_counts
+from shadernn_tpu_torch.kernels import capturing, count_launch, launch_counts
 from shadernn_tpu_torch.utils import timer
 
 GRAPH_COUNTERS = ("engine.graph_captures", "engine.graph_replays", "engine.graph_eager")
@@ -167,7 +167,8 @@ def test_a_cpu_step_runs_eager_and_counts_no_graph():
 
 def test_graphs_drop_on_load_params_and_on_a_parameters_version():
     model = cpu_model()
-    g = model.graphs = graphs.StepGraphs(model.device, model.forward.out_dtype)
+    g = model.graphs = graphs.StepGraphs(model.device, model.forward.out_dtype,
+                                         model.forward.store)
     sentinel = object()
     g.check(model.params)
     g.graphs["k"] = sentinel
@@ -184,23 +185,35 @@ def test_graphs_drop_on_load_params_and_on_a_parameters_version():
     g.graphs["k"] = sentinel
     g.check(model.params)
     assert g.graphs == {"k": sentinel}
+    with torch.no_grad():  # a call outside the graphs sees a change first: they still drop
+        next(iter(model.params["conv_1"].values())).mul_(1.0)
+    model({"input": torch.rand(1, 16, 24, 1)})
+    g.check(model.params)
+    assert g.graphs == {}
 
 
 def test_a_capture_tallies_its_launches_and_holds_what_they_read():
     before = timer.counters()
-    with capturing() as (tally, held):
+    with capturing() as tally:
         count_launch("fused_conv_chain_packed")
         count_launch("fused_conv_chain_packed")
         count_launch("fused_invres_block", 1)
-        hold("operand")
     assert timer.counters() == before  # a capture launches nothing
     assert tally == {"kernels.launches.conv_chain_tc_kernel.fused_conv_chain_packed": 2,
                      "kernels.launches.invres_tf32_kernel.fused_invres_block": 1}
-    assert held == ["operand"]
-    hold("after")  # no capture runs: nothing is held
     count_launch("fused_conv_chain_packed")
     assert launch_counts("entry")["fused_conv_chain_packed"] == 1
-    assert held == ["operand"]
+    # What a graph holds from its capture on (engine/graphs.py `_capture`):
+    # the store's parameters and every prepared operand its launches read.
+    model = cpu_model(P.Precision.BF16)
+    model({"input": torch.rand(1, 16, 24, 1)})
+    store = model.forward.store
+    assert {id(t) for d in model.params.values() for t in d.values()} == set(map(id, store.tensors))
+    (chain_ops,) = store.entries.values()
+    assert chain_ops is store.get("conv_1", None)
+    model.load_params({n: {k: v.clone() for k, v in d.items()} for n, d in model.params.items()})
+    model({"input": torch.rand(1, 16, 24, 1)})
+    assert store.entries["conv_1"] is not chain_ops and chain_ops.params.numel() > 0
 
 
 CONV_ROUTE = "ops.conv_bf16_cudnn"
@@ -324,7 +337,8 @@ def test_new_weights_after_load_params_and_an_in_place_change(card):
     with torch.no_grad():
         next(iter(eng.model.params["conv_3"].values())).mul_(2.0)
     changed = [step(raw)["subpixel"] for _ in range(3)]
-    want = eager(eng, raw)
+    before, want = want, eager(eng, raw)
+    assert not torch.equal(want, before)  # the change reaches the chain's bf16 operands
     assert all(torch.equal(t, want) for t in changed)
     assert graph_counts() == (3, 6, 3)
 

@@ -334,12 +334,16 @@ def test_engine_prepares_each_torch_layer_weight_once(monkeypatch):
     first = eng.run_single(x)
     once = dict(made)
     assert once["rhs"] >= 5 and once["dequant"] >= 1, once
+    store = eng.model.forward.store  # the model's one keeper of them
+    kept = dict(store.entries)
     torch.testing.assert_close(eng.run_single(x), first, rtol=0, atol=0)
     assert made == once, (made, once)
+    assert store.entries == kept and all(store.entries[k] is v for k, v in kept.items())
     eng.model.load_params({n: {k: v.clone() for k, v in d.items()}
                            for n, d in eng.model.params.items()})
     torch.testing.assert_close(eng.run_single(x), first, rtol=0, atol=0)
     assert made == {k: 2 * v for k, v in once.items()}, (made, once)
+    assert sorted(store.entries) == sorted(kept)
 
 
 def test_mid_graph_chain_head_gets_no_step_without_calibration(monkeypatch, caplog):

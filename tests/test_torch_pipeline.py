@@ -197,10 +197,11 @@ def test_kernel_operands_prepared_once(rng, monkeypatch):
 
     pipe = PipelinedEngine(P.build_model("espcn", h=16, w=24), P.EngineOptions(device="cpu"),
                            devices=[CPU] * 4, micro_batch=1)
-    kernel = [(node.name, ctx) for s in pipe.stages for node, _view, ctx in s.steps[0]
-              if ctx.backend == BackendKind.KERNEL]
+    kernel = [(node.name, key) for s in pipe.stages for node, _view, backend, key in s.steps[0]
+              if backend == BackendKind.KERNEL]
     assert [n for n, _ in kernel] == ["conv_1", "conv_2", "conv_3"]
-    assert all(ctx.operands is not None for _, ctx in kernel)
+    assert all(isinstance(pipe.operands.entries[key], conv_igemm.IgemmOperands)
+               for _, key in kernel)
     calls = []
     real = conv_igemm.folded_operands
     monkeypatch.setattr(conv_igemm, "folded_operands",
