@@ -48,7 +48,10 @@ Phases, each of which raises on failure (exit code != 0):
               back to back on the same arrival counters; the YOLO NMS
               kernel at the 416 b8 shapes (8 x 2,535 candidates, the 100
               best) bit for bit against nms_fixed, one launch a call, an
-              IoU threshold of 0.55 as a planted fault
+              IoU threshold of 0.55 as a planted fault; the bf16 instance-norm
+              kernels at StyleTransfer 512 b4's three shapes bit for bit
+              against their plain version, one launch of each a call, eps
+              1e-1 as a planted fault ([timing] rows beside F.instance_norm)
   4. main     ESPCN 2x at 540p, trained weights, batch 8, through
               Engine.from_json at BF16 and at FP32, 5 steps each; every
               step must launch the chain kernel once. MobileNetV2 224
@@ -114,7 +117,8 @@ Phases, each of which raises on failure (exit code != 0):
               and AIDenoise at 1080x1920 b2 (BF16, FP32, INT8 weight-only;
               one chain per step), U-Net 256 b8 (BF16, FP32; three chains and
               one single conv), the five StyleTransfer styles at 512 b4 (FP32,
-              candy also BF16; two single convs), YOLOv3-tiny 256 b8 (FP32,
+              candy also BF16; two single convs, and at BF16 the 15 instance
+              norms on their two kernels), YOLOv3-tiny 256 b8 (FP32,
               BF16; one single conv; head features and detections), each
               against the TORCH forward with its launches held to its plans;
               the JAX package's accuracy gates (denoiser PSNR at 96, style
@@ -903,6 +907,38 @@ def main() -> int:
         nms_rows[kind] = {"bit_equal": equal, "launches": launched, "kept_rows": kept,
                           "planted_fault_seen": sees_fault, "event_ms": ms}
 
+    # StyleTransfer 512 b4's bfloat16 instance norms in two launches
+    # (kernels/instnorm.py) at its three shapes, from a conv-like input (a
+    # per-channel offset): bit for bit against the plain version, which
+    # repeats the kernels' arithmetic; one launch of each kernel a call; an
+    # eps of 1e-1 as a planted fault.
+    from shadernn_tpu_torch.kernels import KERNELS
+    from shadernn_tpu_torch.kernels import instnorm
+
+    in_shapes = {"32ch 512x512": (4, 512, 512, 32), "64ch 256x256": (4, 256, 256, 64),
+                 "128ch 128x128": (4, 128, 128, 128)}
+    in_rows = {}
+    for label, shape in in_shapes.items():
+        g = torch.Generator().manual_seed(24)
+        x = (1.5 * torch.randn(shape, generator=g)
+             + 2.0 * torch.randn(shape[-1], generator=g)).to(dev, bf16)
+        gamma, beta = (torch.randn(shape[-1], generator=g).to(dev) for _ in range(2))
+        for act in ("relu", "linear"):
+            before = launch_counts("kernel")
+            got = instnorm.run(x, gamma, beta, 1e-5, act)
+            after = launch_counts("kernel")
+            launched = {k: after.get(k, 0) - before.get(k, 0) for k in KERNELS["instance_norm"]}
+            want, _ = instnorm.plain(x, gamma, beta, 1e-5, act)
+            planted = instnorm.run(x, gamma, beta, 1e-1, act)
+            torch.cuda.synchronize()
+            equal, sees_fault = torch.equal(got, want), not torch.equal(planted, want)
+            log(f"[kernel] instance norm {label} b4 {act:<6} {'instance_norm':<24} bit-equal to "
+                f"plain {equal}, launches {launched}, eps 1e-1 planted fault seen {sees_fault} "
+                f"{'ok' if equal else 'FAIL'}")
+            assert equal and sees_fault and set(launched.values()) == {1}, (label, act, launched)
+            in_rows[f"{label} {act}"] = {"bit_equal": equal, "launches": launched,
+                                         "planted_fault_seen": sees_fault}
+
     # 4. main path -----------------------------------------------------------
     # Each path runs with every kernel's count set to 0 just before it and
     # read just after: the launches counted since `reset_counts`, by entry
@@ -1071,7 +1107,9 @@ def main() -> int:
                 "fused_invres_block": len(fwd.block_plan),
                 "conv2d_kernel_nhwc": len(fwd.kernel_conv_plan),
                 "fused_matmul": len(fwd.kernel_dense_plan),
-                "nms_fixed": len(fwd.nms_plan)}
+                "nms_fixed": len(fwd.nms_plan),
+                # both of its kernels launch each call
+                "instance_norm": 2 * len(fwd.instnorm_plan)}
         assert got == {k: v * steps for k, v in want.items()}, (got, want, steps)
         return want
 
@@ -1786,6 +1824,26 @@ def main() -> int:
         chain_resnet_rows[pname] = dict(**timing_keys(t), bound_ms=b_ms, bound_by=b_by, **b3)
         log(f"[timing] fused_conv_chain {pname} {label}: {timing_text(t)} bound {b_ms:.5f} ms "
             f"({b_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB{b3_text}) | {card}")
+
+    # The instance-norm kernel at StyleTransfer 512 b4's shapes, with relu;
+    # the library yardstick F.instance_norm on the channels_last NCHW view
+    # (bfloat16 in and out; the port never calls it). Bound: each value read
+    # twice and written once, 3 x 2 bytes.
+    for label, shape in in_shapes.items():
+        g = torch.Generator().manual_seed(25)
+        x = (1.5 * torch.randn(shape, generator=g)
+             + 2.0 * torch.randn(shape[-1], generator=g)).to(dev, bf16)
+        gamma, beta = (torch.randn(shape[-1], generator=g).to(dev) for _ in range(2))
+        xl, gl, bl = x.permute(0, 3, 1, 2), gamma.to(bf16), beta.to(bf16)
+        t = timed({
+            "kernel": lambda: instnorm.run(x, gamma, beta, 1e-5, "relu"),
+            "plain": lambda: instnorm.plain(x, gamma, beta, 1e-5, "relu"),
+            "library": lambda: F.instance_norm(xl, weight=gl, bias=bl, eps=1e-5).relu_(),
+        })
+        b_ms = x.numel() * 6 / peak_bw * 1e3
+        in_rows[f"{label} timing"] = dict(**timing_keys(t), bound_ms=b_ms, bound_by="bytes")
+        log(f"[timing] instance_norm bf16 {label} b4 relu: {timing_text(t)} bound {b_ms:.5f} ms "
+            f"(bytes; {x.numel() * 6 / 1e6:.3f} MB) | {card}")
 
     def block_library(spec, ops, dt):
         """cuDNN yardstick of one block: 1x1, depthwise and 1x1 F.conv2d on
@@ -2561,6 +2619,15 @@ def main() -> int:
         "shape": "8 x 2,535 candidates, the 100 best (YOLOv3-tiny 416 b8)",
         "cases": nms_rows,
     })
+    kernels.append({
+        "name": "instnorm.run",
+        "route": "cuda",
+        "source": "shadernn_tpu_torch/csrc/instance_norm.cu",
+        "replaces": "none: shadernn_tpu/ops/normalize.py InstanceNormalization is plain jnp "
+                    "(the TORCH op's ATen passes on the card)",
+        "shape": "bf16 4x512x512x32, 4x256x256x64, 4x128x128x128 (StyleTransfer 512 b4)",
+        "cases": in_rows,
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2749,8 +2816,10 @@ def zoo_phase(h) -> dict:
         for prec in (FP32, BF16) if style == "candy" else (FP32,):
             eng = engine(zoo.STYLE512_TRAINED[style], prec, 4)
             label = f"styletransfer-{style} 512x512 b4 {prec.value}"
+            # BF16: the 15 instance norms on their kernel, two launches each
             outs, st = drive(label, eng, [{"input": style_x}] * h.STEPS,
-                             {"fused_conv2d_haloed": 2})
+                             {"fused_conv2d_haloed": 2, **({"instance_norm": 30}
+                                                           if prec == BF16 else {})})
             y = np.clip(outs[-1]["head"].float().cpu().numpy(), 0, 1)
             st["psnr_db"], st["identity_psnr_db"] = psnr(y, target), psnr(style_x, target)
             paths[label] = st
@@ -4017,9 +4086,11 @@ def parallel_phase(h) -> dict:
             conv_igemm.run = real
         per_step = mesh.size * len(fwd.kernel_conv_plan)
         nms_per_step = mesh.size * len(fwd.nms_plan)
+        in_per_step = 2 * mesh.size * len(fwd.instnorm_plan)
         assert counts == {k: v * steps for k, v in (("conv2d_kernel_nhwc", per_step),
-                                                    ("nms_fixed", nms_per_step)) if v}, (
-            label, counts, per_step, nms_per_step)
+                                                    ("nms_fixed", nms_per_step),
+                                                    ("instance_norm", in_per_step)) if v}, (
+            label, counts, per_step, nms_per_step, in_per_step)
         errs, ok = {}, True
         for name, w_ in want.items():
             y = ys[-1][name].float()

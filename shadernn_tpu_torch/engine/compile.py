@@ -441,7 +441,10 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
     `block_specs` (head -> the kernel's specs), `single_conv_plan`,
     `kernel_conv_plan` and `kernel_dense_plan` (the nodes on the
     single-conv, implicit-GEMM and fused-matmul kernels), `paths` (head ->
-    kind) and `nms_plan` (the YOLO nodes: one NMS launch each on CUDA)."""
+    kind), `nms_plan` (the YOLO nodes: one NMS launch each on CUDA) and
+    `instnorm_plan` (at bfloat16 activations the InstanceNormalization nodes:
+    one launch of each instance-norm kernel each on CUDA, ops/normalize.py
+    `kernel_route`)."""
     from shadernn_tpu_torch.kernels import conv, conv_igemm
 
     order = graph.toposort()
@@ -536,6 +539,8 @@ def build_forward(graph: Graph, options: EngineOptions) -> Callable[[Params, dic
     forward.kernel_dense_plan = list(kernel_denses)
     forward.paths = {e.nodes[0]: e.kind for e in entries}
     forward.nms_plan = [n for n in forward.paths if graph.nodes[n].op == "YOLO"]
+    forward.instnorm_plan = [n for n in forward.paths if act_dtype == torch.bfloat16
+                             and graph.nodes[n].op == "InstanceNormalization"]
     return forward
 
 

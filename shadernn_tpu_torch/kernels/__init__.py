@@ -35,6 +35,8 @@ KERNELS = {
     "fused_matmul": ("matmul_fused_kernel",),
     # the YOLO head's suppression (ops/yolo.py nms_fixed), in one launch
     "nms_fixed": ("yolo_nms_kernel",),
+    # a bfloat16 InstanceNormalization (ops/normalize.py): both launch each call
+    "instance_norm": ("instance_norm_stats_kernel", "instance_norm_apply_kernel"),
 }
 LAUNCHES = "kernels.launches."
 _COUNTER = {(entry, i): f"{LAUNCHES}{kernel}.{entry}"

@@ -129,8 +129,13 @@ def kernel_lib() -> ctypes.CDLL:
             lib.snn_matmul_fused.restype = I
             lib.snn_yolo_nms.argtypes = [P, P, P, P, P, I, I, I, ctypes.c_float, P]
             lib.snn_yolo_nms.restype = I
+            lib.snn_instance_norm.argtypes = [
+                P, P, P, P, P, P, I, I, I, I, I, I, ctypes.c_float, I, ctypes.c_float, P,
+            ]
+            lib.snn_instance_norm.restype = I
             for name in ("snn_error_string", "snn_conv_single_error", "snn_invres_error",
-                         "snn_conv_igemm_error", "snn_matmul_error", "snn_yolo_nms_error"):
+                         "snn_conv_igemm_error", "snn_matmul_error", "snn_yolo_nms_error",
+                         "snn_instance_norm_error"):
                 getattr(lib, name).argtypes = [I]
                 getattr(lib, name).restype = ctypes.c_char_p
             _lib = lib

@@ -586,6 +586,12 @@ def build_spmd_forward(graph: Graph, options: EngineOptions, mesh: Mesh,
                                 if b == BackendKind.KERNEL and graph.nodes[n].op == "Conv2D"]
     # The YOLO nodes: on CUDA devices one NMS launch each per shard.
     forward.nms_plan = [n.name for n in order if n.op == "YOLO"]
+    # At bfloat16 the InstanceNormalization nodes a shard runs whole (not in
+    # "instnorm" mode, whose statistics are psum'd): on CUDA devices one
+    # launch of each instance-norm kernel each per shard.
+    forward.instnorm_plan = [n.name for n in order if act_dtype == torch.bfloat16
+                             and n.op == "InstanceNormalization"
+                             and plan.nodes[n.name].mode != "instnorm"]
     forward.store = store
     return forward, plan
 

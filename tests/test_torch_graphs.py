@@ -15,7 +15,9 @@ planted on `CompiledModel.__call__` showing through the graph. Through
 512 b4 replayed bit-equal to the eager step, ESPCN b8 (one chain) eager,
 new weights, one NMS launch a step by counter and by profile; the TORCH
 convs' bf16 cuDNN route (ops/conv.py `cudnn_bf16`) counted once per
-captured dispatch, and under FP32 the convs in float32 with TF32 off (on
+captured dispatch, StyleTransfer's 15 instance norms tallied once a node
+on each instance-norm kernel in every call at BF16 and not at FP32, and
+under FP32 the convs in float32 with TF32 off (on
 the CPU: a plan's TORCH convs counted on the route where it is forced). This file
 imports no JAX, so that on the card it runs without the test configuration:
 
@@ -531,6 +533,28 @@ def test_the_bf16_route_counts_once_per_captured_dispatch(card, case):
     torch.cuda.synchronize()
     assert graph_counts() == (1, 3, 1)
     assert per_call == [want, want, 0, 0]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("precision", ["BF16", "FP32"])
+def test_a_style_dispatch_tallies_each_instance_norm_kernel_once_a_node(card, precision):
+    """StyleTransfer 512 b4's 15 instance norms: at BF16 one launch of each
+    of the two kernels a node in every call, the capture's tally added at
+    each replay; at FP32 (the ATen route) none."""
+    from shadernn_tpu_torch.kernels import KERNELS
+
+    eng = style(getattr(P.Precision, precision))
+    want = 15 if precision == "BF16" else 0
+    assert len(eng.model.forward.instnorm_plan) == want
+    per_call = []
+    for x in device_inputs(4, 4, (512, 512), 3, seed=15):
+        before = launch_counts("kernel")
+        eng.dispatch({"input": x})  # eager, capture, replay, replay
+        after = launch_counts("kernel")
+        per_call.append({k: after.get(k, 0) - before.get(k, 0) for k in KERNELS["instance_norm"]})
+    torch.cuda.synchronize()
+    assert graph_counts() == (1, 3, 1)
+    assert per_call == [dict.fromkeys(KERNELS["instance_norm"], want)] * 4
 
 
 @pytest.mark.card

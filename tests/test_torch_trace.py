@@ -327,7 +327,7 @@ def test_the_kernel_table_names_every_kernel_of_the_sources():
     declared = {m for f in csrc.glob("*.cu")
                 for m in re.findall(r"__global__[^;{]*?\b(\w+_kernel)\s*\(", f.read_text())}
     named = {k for ks in KERNELS.values() for k in ks}
-    assert declared == named and len(named) == 11
+    assert declared == named and len(named) == 13
     for k in named:
         assert HAND_WRITTEN.search(f"void {k}<8, 2>(float const*)").group(0) == k
     assert not HAND_WRITTEN.search("void conv_chain_kernel(float const*)")
